@@ -1,0 +1,15 @@
+"""dasmtl_torch — the PyTorch/CUDA port of :mod:`dasmtl` for one NVIDIA H100.
+
+The JAX package ``dasmtl`` stays the reference; this package is held to it
+by the ``tests/test_torch_port_*.py`` parity tests.  It imports ``torch``
+and numpy only — never ``jax`` and no module of ``dasmtl``.
+
+Slice 1 ports the serving path of model A: the eval forward
+(:mod:`dasmtl_torch.models`), the on-device decode tail
+(:mod:`dasmtl_torch.export`), the bucketed executor and the micro-batching
+HTTP server (:mod:`dasmtl_torch.serve`).  The two hand-written Hopper
+kernels of that path live in ``csrc/`` and are built on their first CUDA
+call (:mod:`dasmtl_torch.ops._build`), never at import.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,256 @@
+"""Dynamic micro-batcher: coalesce single-window requests into bucketed
+device batches under a latency deadline, assembled in staging buffers.
+
+Copied from ``dasmtl/serve/batcher.py:44-228`` (``choose_bucket``,
+``BatchPlan``, ``MicroBatcher``) and ``dasmtl/data/staging.py:125-208``
+(``StagingBuffers`` with its ``for_buckets`` layout), without lockdep,
+leasedep and span tracing: plain ``threading`` locks take their place.
+
+The batcher holds an arriving request for at most ``max_wait`` while peers
+accumulate, then flushes everything pending as ONE batch padded to the
+smallest configured **bucket** that fits.  Flush triggers: the pending
+count reaches the largest bucket, the oldest deadline expires, or the
+server is draining.  The class is a synchronous state machine under one
+lock; callers inject ``now``, which makes the deadline logic testable with
+a fake clock.
+
+On CUDA the staging buffers are pinned ``torch`` tensors: the batcher
+writes rows into their numpy views, and the executor copies the tensor to
+the card with ``non_blocking=True``.  A slot is reused only after its batch
+has been collected (the serve loop releases it at collect).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Dict, Hashable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from dasmtl_torch.serve.metrics import ServeMetrics
+from dasmtl_torch.serve.queue import (QueueClosed, Request, RequestQueue,
+                                      ServeResult)
+
+
+def choose_bucket(n: int, buckets: Sequence[int]) -> int:
+    """Smallest configured bucket holding ``n`` rows (buckets sorted
+    ascending; ``n`` never exceeds the largest — the batcher caps takes)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"{n} rows exceed the largest bucket {buckets[-1]}")
+
+
+@dataclasses.dataclass
+class BatchPlan:
+    """One flush: the requests it answers and the padded device batch."""
+
+    requests: List[Request]
+    bucket: int
+
+    @property
+    def n_real(self) -> int:
+        return len(self.requests)
+
+    @property
+    def want_log_probs(self) -> bool:
+        """True when ANY member request asked for log-probs."""
+        return any(r.want_log_probs for r in self.requests)
+
+    def assemble_into(self, buf: np.ndarray) -> np.ndarray:
+        """Write the padded batch into a preallocated ``(bucket, h, w, 1)``
+        host staging array: real rows copied in place, padding rows
+        zeroed."""
+        if buf.shape[0] != self.bucket:
+            raise ValueError(f"staging buffer holds {buf.shape[0]} rows, "
+                             f"plan bucket is {self.bucket}")
+        for j, r in enumerate(self.requests):
+            buf[j, ..., 0] = r.x
+        if len(self.requests) < self.bucket:
+            buf[len(self.requests):] = 0.0
+        return buf
+
+
+@dataclasses.dataclass
+class StagingSlot:
+    """One staging buffer: the (pinned, on CUDA) host tensor and the numpy
+    view of the same memory that the batcher writes into."""
+
+    tensor: torch.Tensor
+    array: np.ndarray
+
+
+class StagingBuffers:
+    """Freelist of preallocated host staging buffers, per bucket.
+
+    ``acquire(key)`` blocks while every buffer of the slot is in flight —
+    with depth = in-flight window + 1 that wait is the correctness
+    backstop, not the steady state.  ``release(slot)`` is keyless."""
+
+    def __init__(self, specs: Dict[Hashable, tuple], *, depth: int = 2,
+                 pin: bool = False):
+        self.depth = max(1, int(depth))
+        self.pin = bool(pin)
+        self._lock = threading.Lock()
+        self._available = threading.Condition(self._lock)
+        self._free: Dict[Hashable, List[StagingSlot]] = {}
+        self._out: Dict[int, Hashable] = {}  # id(slot) -> key
+        self._acquires = 0
+        self._blocked = 0
+        self._peak_outstanding = 0
+        for key, shape in specs.items():
+            self._free[key] = [self._alloc(shape) for _ in range(self.depth)]
+
+    @classmethod
+    def for_buckets(cls, buckets: Sequence[int], input_hw, depth: int, *,
+                    pin: bool = False) -> "StagingBuffers":
+        """The serve layout: one ``(bucket, h, w, 1)`` f32 buffer per
+        configured bucket size, ``depth`` of each; pinned when ``pin``."""
+        h, w = int(input_hw[0]), int(input_hw[1])
+        return cls({int(b): (int(b), h, w, 1) for b in buckets},
+                   depth=depth, pin=pin)
+
+    def _alloc(self, shape) -> StagingSlot:
+        t = torch.zeros(shape, dtype=torch.float32, pin_memory=self.pin)
+        return StagingSlot(tensor=t, array=t.numpy())
+
+    def acquire(self, key: Hashable) -> StagingSlot:
+        with self._available:
+            self._acquires += 1
+            if not self._free[key]:
+                self._blocked += 1
+            while not self._free[key]:
+                self._available.wait()
+            slot = self._free[key].pop()
+            self._out[id(slot)] = key
+            self._peak_outstanding = max(self._peak_outstanding,
+                                         len(self._out))
+            return slot
+
+    def release(self, slot: StagingSlot) -> None:
+        """Return a slot for reuse — only once no device work may still
+        read its memory (the serve loop releases at collect)."""
+        with self._available:
+            key = self._out.pop(id(slot))
+            self._free[key].append(slot)
+            self._available.notify()
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"depth": self.depth, "slots": len(self._free),
+                    "pinned": self.pin, "acquires": self._acquires,
+                    "blocked_acquires": self._blocked,
+                    "outstanding": len(self._out),
+                    "peak_outstanding": self._peak_outstanding}
+
+
+class MicroBatcher:
+    """Thread-safe request admission + flush policy (no threads of its own).
+
+    ``submit`` always returns a request whose future WILL resolve:
+    immediately with a ``shed``/``closed`` refusal, or later with
+    predictions (or a per-request rejection) once a flush dispatches it.
+    """
+
+    def __init__(self, buckets: Sequence[int], max_wait_s: float,
+                 queue_depth: int, watermark: int, clock=time.monotonic,
+                 metrics: Optional[ServeMetrics] = None):
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        if not self.buckets or self.buckets[0] < 1:
+            raise ValueError(f"bad bucket set {buckets!r}")
+        self.max_wait_s = float(max_wait_s)
+        self.clock = clock
+        self.metrics = metrics or ServeMetrics()
+        self._queue = RequestQueue(queue_depth, watermark)
+        self._lock = threading.Lock()
+        self._next_id = 0
+        self._draining = False
+
+    # -- admission -----------------------------------------------------------
+    def submit(self, x: np.ndarray, now: Optional[float] = None,
+               max_wait_s: Optional[float] = None,
+               want_log_probs: bool = False) -> Request:
+        """Admit one window; the returned request's ``future`` resolves to
+        a :class:`ServeResult`.  Refusals (shed / draining) resolve the
+        future before returning."""
+        now = self.clock() if now is None else now
+        wait = self.max_wait_s if max_wait_s is None else float(max_wait_s)
+        self.metrics.observe_submit()
+        with self._lock:
+            req = Request(id=self._next_id, x=x, enqueue_t=now,
+                          deadline_t=now + wait,
+                          want_log_probs=want_log_probs)
+            self._next_id += 1
+            try:
+                admitted = self._queue.offer(req)
+            except QueueClosed:
+                self._refuse(req, "closed",
+                             "server draining — not accepting new work")
+                return req
+            if not admitted:
+                self._refuse(req, "shed",
+                             f"queue at watermark "
+                             f"({self._queue.watermark}) — retry later")
+                return req
+            # Only a size-cap trip or a new earliest deadline (incl. the
+            # first pending request) needs to wake the dispatcher.
+            req.wake_dispatcher = (
+                len(self._queue) >= self.buckets[-1]
+                or self._queue.peek_deadline() >= req.deadline_t)
+        return req
+
+    def _refuse(self, req: Request, error: str, detail: str) -> None:
+        req.resolve(ServeResult(ok=False, request_id=req.id, error=error,
+                                detail=detail))
+        self.metrics.observe_result(error, 0.0)
+
+    # -- flush policy --------------------------------------------------------
+    def take_batch(self, now: Optional[float] = None) -> Optional[BatchPlan]:
+        """The due batch, or None.  Due = size cap reached, oldest deadline
+        expired, or draining with anything pending.  Takes ALL pending
+        requests up to the largest bucket (oldest deadlines first)."""
+        now = self.clock() if now is None else now
+        with self._lock:
+            n = len(self._queue)
+            if n == 0:
+                return None
+            oldest = self._queue.peek_deadline()
+            if not (n >= self.buckets[-1] or self._draining
+                    or oldest <= now):
+                return None
+            reqs = self._queue.pop_oldest(min(n, self.buckets[-1]))
+        plan = BatchPlan(requests=reqs,
+                         bucket=choose_bucket(len(reqs), self.buckets))
+        self.metrics.observe_batch(plan.bucket, plan.n_real)
+        return plan
+
+    def ready_at(self, now: Optional[float] = None) -> Optional[float]:
+        """Earliest time a flush becomes due (<= now means "due already");
+        None while nothing is pending."""
+        now = self.clock() if now is None else now
+        with self._lock:
+            n = len(self._queue)
+            if n == 0:
+                return None
+            if n >= self.buckets[-1] or self._draining:
+                return now
+            return self._queue.peek_deadline()
+
+    # -- lifecycle -----------------------------------------------------------
+    def begin_drain(self) -> None:
+        """Stop admitting; everything already queued flushes immediately."""
+        with self._lock:
+            self._draining = True
+            self._queue.close()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def depth(self) -> int:
+        with self._lock:
+            return len(self._queue)

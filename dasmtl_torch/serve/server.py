@@ -1,0 +1,429 @@
+"""The drainable pipelined server loop + stdlib HTTP front end.
+
+Counterpart of ``dasmtl/serve/server.py`` (``ServeLoop`` :105-233,
+352-518, 534-551, 565+; the HTTP front end :656-849) over
+:class:`~dasmtl_torch.serve.executor.InferExecutor`:
+
+- the **dispatcher** thread pulls due batches from the
+  :class:`~dasmtl_torch.serve.batcher.MicroBatcher`, writes their rows
+  into a per-bucket staging buffer (pinned on CUDA), and calls
+  ``executor.dispatch``, which enqueues the batch on the executor's CUDA
+  stream and returns at once, so batch *i+1* is formed and launched while
+  batch *i* computes;
+- the **collector** thread makes the one host sync
+  (``executor.collect``) and resolves every request's future: predictions
+  for finite rows, a structured ``nonfinite`` rejection for poisoned ones,
+  a structured ``error`` if the executor itself fails.
+
+A semaphore of ``inflight`` slots bounds how many batches may be
+dispatched but not yet collected.  A staging slot goes back to its pool
+only once its batch has been collected, so a non-blocking H2D copy never
+reads a buffer the dispatcher is already rewriting.
+
+Graceful drain: after ``begin_drain`` every accepted request still gets
+its answer and every later submit resolves at once with ``closed``.
+``GET /healthz`` answers as soon as the front end binds; ``GET /readyz``
+is 503 until warmup has run every bucket and again during drain.
+
+Not ported yet (ROADMAP.md): request tracing (``trace_id`` stays null),
+``GET /metrics``, ``/trace``, ``/query``, ``POST /profile`` with the SLO
+profiler, and the blue/green ``/swap``.
+"""
+
+from __future__ import annotations
+
+import json
+import queue as _queue
+import signal
+import sys
+import threading
+import time
+import traceback
+from concurrent.futures import TimeoutError as FuturesTimeoutError
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional, Sequence
+from urllib.parse import urlsplit
+
+import numpy as np
+
+from dasmtl_torch.config import serve_watermark
+from dasmtl_torch.serve.batcher import (BatchPlan, MicroBatcher,
+                                        StagingBuffers)
+from dasmtl_torch.serve.metrics import ServeMetrics
+from dasmtl_torch.serve.queue import ServeResult
+
+#: Decoded event-head label names (index = class id), as the JAX server
+#: and the streaming CSV writer name them.
+EVENT_NAMES = ("striking", "excavating")
+
+#: Dispatcher idle wait when nothing is queued (s) — a notify cuts it
+#: short; this only bounds how long shutdown can lag a lost notify.
+_IDLE_WAIT_S = 0.5
+
+#: Completion-queue end marker: the dispatcher enqueues it AFTER the last
+#: in-flight batch, so the collector drains everything before exiting.
+_SENTINEL = object()
+
+
+def _crash_logged(fn, context: str):
+    """Wrap a thread target so an escaped exception is printed with its
+    context instead of ending the thread silently (a copy of the idea of
+    ``dasmtl/utils/threads.py crash_logged``)."""
+
+    def runner():
+        try:
+            fn()
+        except Exception as exc:  # noqa: BLE001 — the recording wrapper
+            print(f"[thread-crash] {context}: {type(exc).__name__}: {exc}",
+                  file=sys.stderr)
+            traceback.print_exc(file=sys.stderr)
+
+    return runner
+
+
+class ServeLoop:
+    """Queue + micro-batcher + pipelined executor behind one submit()."""
+
+    def __init__(self, executor, *, buckets: Optional[Sequence[int]] = None,
+                 max_wait_s: float = 0.005, queue_depth: int = 256,
+                 watermark: Optional[int] = None, inflight: int = 2,
+                 clock=time.monotonic,
+                 metrics: Optional[ServeMetrics] = None):
+        buckets = tuple(buckets or executor.buckets)
+        self.executor = executor
+        self.metrics = metrics or ServeMetrics()
+        self.clock = clock
+        self.inflight_window = max(1, int(inflight))
+        self.batcher = MicroBatcher(
+            buckets, max_wait_s, queue_depth,
+            serve_watermark(buckets, queue_depth, watermark), clock=clock,
+            metrics=self.metrics)
+        # depth = in-flight window + 1 (one extra for the batch being
+        # formed) keeps acquire effectively non-blocking; slots release at
+        # collect, when the device is done with the host buffer.
+        self._staging = StagingBuffers.for_buckets(
+            buckets, executor.input_hw, depth=self.inflight_window + 1,
+            pin=executor.device.type == "cuda")
+        self._cv = threading.Condition()
+        self._stop = False
+        self._slots = threading.BoundedSemaphore(self.inflight_window)
+        self._completion: "_queue.Queue" = _queue.Queue()
+        self._thread: Optional[threading.Thread] = None
+        self._collector: Optional[threading.Thread] = None
+        self._warmup_s: Optional[float] = None
+        self._inflight = 0  # dispatched-but-uncollected batches (stats)
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> "ServeLoop":
+        if self._thread is not None:
+            raise RuntimeError("ServeLoop.start is once-only")
+        self._warmup_s = self.executor.warmup()
+        self._collector = threading.Thread(
+            target=_crash_logged(self._collect_loop, "serve-collect"),
+            name="dasmtl-torch-serve-collect", daemon=True)
+        self._collector.start()
+        self._thread = threading.Thread(
+            target=_crash_logged(self._dispatch_loop, "serve-dispatch"),
+            name="dasmtl-torch-serve-dispatch", daemon=True)
+        self._thread.start()
+        return self
+
+    def begin_drain(self) -> None:
+        """Refuse new work, flush what is queued.  Non-blocking and
+        signal-safe (flags + notify only) — ``drain`` waits."""
+        self.batcher.begin_drain()
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """``begin_drain`` + wait for both pipeline stages to finish
+        everything already accepted.  True when it drained in time."""
+        self.begin_drain()
+        deadline = None if timeout is None else time.monotonic() + timeout
+        for t in (self._thread, self._collector):
+            if t is None:
+                continue
+            t.join(None if deadline is None
+                   else max(0.0, deadline - time.monotonic()))
+            if t.is_alive():
+                return False
+        return True
+
+    def close(self) -> None:
+        self.drain(timeout=30.0)
+        self.executor.close()
+
+    @property
+    def draining(self) -> bool:
+        return self.batcher.draining
+
+    @property
+    def ready(self) -> bool:
+        """Readiness (vs liveness): warm and not draining."""
+        return self._warmup_s is not None and not self.batcher.draining
+
+    @property
+    def inflight_depth(self) -> int:
+        with self._cv:
+            return self._inflight
+
+    # -- request surface -----------------------------------------------------
+    def submit_async(self, x: np.ndarray, max_wait_s: Optional[float] = None,
+                     want_log_probs: bool = False):
+        """Admit one ``(h, w)`` window; returns a Future[ServeResult].
+        ``want_log_probs`` asks for the window's per-head log-probabilities
+        in the answer."""
+        req = self.batcher.submit(np.asarray(x, np.float32),
+                                  max_wait_s=max_wait_s,
+                                  want_log_probs=want_log_probs)
+        if req.wake_dispatcher:
+            with self._cv:
+                self._cv.notify_all()
+        return req.future
+
+    def submit(self, x: np.ndarray, timeout: Optional[float] = 30.0,
+               max_wait_s: Optional[float] = None,
+               want_log_probs: bool = False) -> ServeResult:
+        return self.submit_async(x, max_wait_s=max_wait_s,
+                                 want_log_probs=want_log_probs
+                                 ).result(timeout)
+
+    # -- stage 1: dispatcher -------------------------------------------------
+    def _dispatch_loop(self) -> None:
+        while True:
+            with self._cv:
+                plan = None
+                while plan is None:
+                    now = self.clock()
+                    plan = self.batcher.take_batch(now)
+                    if plan is not None:
+                        break
+                    if self._stop and self.batcher.depth == 0:
+                        self._completion.put(_SENTINEL)
+                        return
+                    due = self.batcher.ready_at(now)
+                    self._cv.wait(timeout=_IDLE_WAIT_S if due is None
+                                  else max(0.0, due - now))
+            self._launch(plan)
+
+    def _launch(self, plan: BatchPlan) -> None:
+        t_taken = self.clock()
+        # Oldest member's queueing delay — what max_wait tuning controls.
+        self.metrics.observe_stage(
+            "queue_wait", max(0.0, t_taken - plan.requests[0].enqueue_t))
+        self._slots.acquire()  # the bounded in-flight window
+        slot = self._staging.acquire(plan.bucket)
+        t_form = self.clock()
+        try:
+            plan.assemble_into(slot.array)
+            t_formed = self.clock()
+            handle = self.executor.dispatch(slot.tensor)
+        except Exception as exc:  # noqa: BLE001 — must answer the callers
+            self._staging.release(slot)
+            self._slots.release()
+            self._fail_plan(plan, exc)
+            return
+        self.metrics.observe_stage("form", t_formed - t_form)
+        self.metrics.observe_stage("dispatch", handle.dispatch_s)
+        with self._cv:
+            self._inflight += 1
+            self.metrics.observe_inflight(self._inflight)
+        self._completion.put((plan, handle, slot))
+
+    # -- stage 2: collector --------------------------------------------------
+    def _collect_loop(self) -> None:
+        while True:
+            # Bounded get: the collector re-checks every second instead of
+            # parking forever.
+            try:
+                item = self._completion.get(timeout=1.0)
+            except _queue.Empty:
+                continue
+            if item is _SENTINEL:
+                return
+            plan, handle, slot = item
+            t0 = self.clock()
+            try:
+                preds, bad, log_probs = self.executor.collect(
+                    handle, want_log_probs=plan.want_log_probs)
+            except Exception as exc:  # noqa: BLE001 — answer the callers
+                self._fail_plan(plan, exc)
+                continue
+            finally:
+                self._staging.release(slot)
+                self._slots.release()
+                with self._cv:
+                    self._inflight -= 1
+                    self._cv.notify_all()
+            self.metrics.observe_stage("collect", self.clock() - t0)
+            self._resolve_plan(plan, preds, bad, log_probs)
+
+    def _resolve_plan(self, plan: BatchPlan, preds, bad, log_probs) -> None:
+        done = self.clock()
+        observed = []
+        for j, req in enumerate(plan.requests):
+            latency = done - req.enqueue_t
+            if bad[j]:
+                result = ServeResult(
+                    ok=False, request_id=req.id, error="nonfinite",
+                    detail="model outputs for this window hold NaN/Inf — "
+                           "poisoned input or weights",
+                    latency_s=latency, bucket=plan.bucket)
+            else:
+                out = {k: int(v[j]) for k, v in preds.items()}
+                if "event" in out:
+                    out["event_name"] = EVENT_NAMES[out["event"]]
+                lp = None
+                if req.want_log_probs and log_probs is not None:
+                    lp = {k: np.asarray(v[j]).tolist()
+                          for k, v in log_probs.items()}
+                result = ServeResult(
+                    ok=True, request_id=req.id, predictions=out,
+                    latency_s=latency, bucket=plan.bucket, log_probs=lp)
+            req.resolve(result)
+            observed.append((result.outcome, latency))
+        self.metrics.observe_results(observed)
+        self.metrics.observe_stage("resolve", self.clock() - done)
+
+    def _fail_plan(self, plan: BatchPlan, exc: Exception) -> None:
+        detail = f"{type(exc).__name__}: {exc}"
+        for req in plan.requests:
+            result = ServeResult(ok=False, request_id=req.id, error="error",
+                                 detail=detail, bucket=plan.bucket)
+            req.resolve(result)
+            self.metrics.observe_result(result.outcome, result.latency_s)
+
+    # -- reporting -----------------------------------------------------------
+    def stats(self) -> dict:
+        snap = self.metrics.snapshot()
+        snap["queue"] = {"depth": self.batcher.depth,
+                         "draining": self.batcher.draining,
+                         "inflight": self.inflight_depth,
+                         "inflight_window": self.inflight_window}
+        snap["executor"] = self.executor.compile_summary()
+        snap["warmup_s"] = self._warmup_s
+        snap["staging"] = self._staging.stats()
+        return snap
+
+    def healthz(self) -> dict:
+        """Liveness payload (``GET /healthz``) plus the ``ready`` bit that
+        ``GET /readyz`` gates on."""
+        warming = self._warmup_s is None and not self.batcher.draining
+        return {
+            "status": ("draining" if self.batcher.draining
+                       else "warming" if warming else "serving"),
+            "ready": self.ready,
+            "warm": self._warmup_s is not None,
+            "queue_depth": self.batcher.depth,
+            "inflight": self.inflight_depth,
+            "source": self.executor.source,
+            "precision": self.executor.precision,
+        }
+
+
+def install_signal_handlers(loop: ServeLoop,
+                            signals=(signal.SIGTERM, signal.SIGINT),
+                            on_drain=None) -> dict:
+    """SIGTERM/SIGINT -> ``begin_drain`` (idempotent).  Returns the
+    previous handlers so tests can restore them."""
+    prev = {}
+
+    def handler(signum, frame):  # noqa: ARG001 — signal API shape
+        loop.begin_drain()
+        if on_drain is not None:
+            on_drain(signum)
+
+    for s in signals:
+        prev[s] = signal.signal(s, handler)
+    return prev
+
+
+# -- HTTP front end -----------------------------------------------------------
+
+
+def _make_handler(loop: ServeLoop, request_timeout_s: float):
+    """Handler class closed over the loop (BaseHTTPRequestHandler is
+    instantiated per connection, so state rides the class)."""
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *args) -> None:  # quiet by default
+            pass
+
+        def _reply(self, code: int, payload: dict) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self) -> None:  # noqa: N802 — http.server API shape
+            path = urlsplit(self.path).path
+            if path == "/healthz":
+                h = loop.healthz()
+                self._reply(503 if h["status"] == "draining" else 200, h)
+            elif path == "/readyz":
+                h = loop.healthz()
+                self._reply(200 if h["ready"] else 503, h)
+            elif path == "/stats":
+                self._reply(200, loop.stats())
+            else:
+                self._reply(404, {"error": f"unknown path {path}"})
+
+        def do_POST(self) -> None:  # noqa: N802 — http.server API shape
+            if self.path != "/infer":
+                self._reply(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n))
+                x = np.asarray(body["x"], np.float32)
+                want_log_probs = bool(body.get("log_probs", False))
+            except (ValueError, KeyError, TypeError,
+                    json.JSONDecodeError) as exc:
+                self._reply(400, {"ok": False, "error": "bad_request",
+                                  "detail": f"expected JSON "
+                                            f'{{"x": [[...]]}}: {exc}'})
+                return
+            h, w = loop.executor.input_hw
+            if x.shape == (h, w, 1):
+                x = x[..., 0]
+            if x.shape != (h, w):
+                self._reply(400, {
+                    "ok": False, "error": "bad_request",
+                    "detail": f"window must be {h}x{w}, got "
+                              f"{list(x.shape)}"})
+                return
+            try:
+                res = loop.submit(x, timeout=request_timeout_s,
+                                  want_log_probs=want_log_probs)
+            except FuturesTimeoutError:
+                self._reply(504, {"ok": False, "error": "timeout",
+                                  "detail": f"no response within "
+                                            f"{request_timeout_s}s"})
+                return
+            code = {None: 200, "shed": 503, "closed": 503,
+                    "nonfinite": 422}.get(res.error, 500)
+            payload = {
+                "ok": res.ok, "request_id": res.request_id,
+                "predictions": res.predictions, "error": res.error,
+                "detail": res.detail,
+                "latency_ms": round(res.latency_s * 1e3, 3),
+                "bucket": res.bucket, "trace_id": res.trace_id}
+            if res.log_probs is not None:
+                payload["log_probs"] = res.log_probs
+            self._reply(code, payload)
+
+    return Handler
+
+
+def make_http_server(loop: ServeLoop, host: str = "127.0.0.1",
+                     port: int = 0, request_timeout_s: float = 30.0
+                     ) -> ThreadingHTTPServer:
+    """Bind (port 0 = ephemeral; read ``server_address[1]``) but do not
+    serve — callers run ``serve_forever`` and ``shutdown`` themselves."""
+    return ThreadingHTTPServer((host, port),
+                               _make_handler(loop, request_timeout_s))

@@ -1,0 +1,115 @@
+"""The port on the card: each hand-written kernel against its plain
+version, the serve forward against the CPU, the executor's stream path.
+
+Every test is marked ``cuda`` and skips without a CUDA card (decided in a
+fixture, never at import).  The file imports neither JAX nor the JAX
+package, so it runs on the machine with the card:
+
+    python -m pytest tests/test_torch_port_cuda.py -q
+"""
+
+import copy
+
+import pytest
+import torch
+
+from dasmtl_torch.device import set_f32_numerics
+from dasmtl_torch.export import make_serve_infer_fn
+from dasmtl_torch.models.registry import get_model_spec
+from dasmtl_torch.models.weights import init_fresh
+from dasmtl_torch.ops import decode, gating
+from dasmtl_torch.serve.executor import InferExecutor
+
+pytestmark = pytest.mark.cuda
+
+STAGES = [(16, 33, 83), (32, 17, 42), (64, 9, 21), (128, 5, 11)]
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided here, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run this file on the H100")
+    gating.launches.reset()
+    decode.launches.reset()
+    return torch.device("cuda")
+
+
+def _gate_operands(seed, shape, device):
+    g = torch.Generator().manual_seed(seed)
+    logits = 4.0 * torch.randn(shape, generator=g)
+    feats = torch.randn(shape, generator=g)
+    logits.view(-1)[:3] = torch.tensor([-100.0, 100.0, float("nan")])
+    feats.view(-1)[3] = float("nan")
+    return logits.to(device), feats.to(device)
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+def test_gate_kernel_matches_plain(cuda, batch):
+    for shape in STAGES:
+        l, f = _gate_operands(batch, (batch, *shape), cuda)
+        got = gating.gate_apply(l, f)
+        torch.testing.assert_close(got, gating.gate_apply_plain(l, f),
+                                   atol=1e-6, rtol=0, equal_nan=True)
+        assert got.view(-1)[0].item() == 0.0
+        assert got.view(-1)[1].item() == f.view(-1)[1].item()
+    assert gating.launches.value == len(STAGES)
+
+
+def test_gate_kernel_unaligned_tail(cuda):
+    """An offset view (not 16-byte aligned) and a size that is no multiple
+    of 4 take the scalar path."""
+    l, f = _gate_operands(7, (1, 4 * 1001 + 3), cuda)
+    got = gating.gate_apply(l[:, 1:], f[:, 1:])
+    torch.testing.assert_close(got, gating.gate_apply_plain(l[:, 1:],
+                                                            f[:, 1:]),
+                               atol=1e-6, rtol=0, equal_nan=True)
+
+
+def test_decode_kernel_matches_plain(cuda):
+    g = torch.Generator().manual_seed(5)
+    heads = [3.0 * torch.randn(32, 16, generator=g),
+             3.0 * torch.randn(32, 2, generator=g)]
+    heads[0][1, 4] = float("nan")
+    heads[1][2, 0] = float("inf")
+    heads[0][3, 7] = float("-inf")
+    heads[0][5, :] = heads[0][5, 0]  # a tie: the first max wins
+    heads = [h.to(cuda) for h in heads]
+    lp, preds, bad = decode.decode_heads(heads)
+    lp_ref, preds_ref, bad_ref = decode.decode_heads_plain(heads)
+    assert torch.equal(bad, bad_ref) and bad.sum().item() == 3
+    for p, pr in zip(preds, preds_ref):
+        assert p.dtype == torch.int32 and torch.equal(p, pr)
+    for a, r in zip(lp, lp_ref):
+        torch.testing.assert_close(a[~bad_ref], r[~bad_ref], atol=1e-6,
+                                   rtol=0)
+    assert decode.launches.value == 1
+
+
+def test_serve_forward_on_the_card_matches_the_cpu(cuda):
+    set_f32_numerics()
+    spec = get_model_spec("MTL")
+    net = init_fresh(spec.build(), seed=0).eval()
+    x = torch.randn(8, 100, 250, 1, generator=torch.Generator().manual_seed(1))
+    x[3, 0, 0, 0] = float("nan")
+    ref = make_serve_infer_fn(spec, net)(x)
+    out = make_serve_infer_fn(spec, copy.deepcopy(net).to(cuda))(x.to(cuda))
+    assert gating.launches.value == 8 and decode.launches.value == 1
+    assert out["bad_rows"].cpu().tolist() == [j == 3 for j in range(8)]
+    ok = ~ref["bad_rows"]
+    for i, task in enumerate(spec.head_tasks):
+        torch.testing.assert_close(out[f"log_probs_{i}"].cpu()[ok],
+                                   ref[f"log_probs_{i}"][ok],
+                                   atol=5e-4, rtol=1e-4)
+        assert torch.equal(out[task].cpu()[ok], ref[task][ok])
+
+
+def test_executor_dispatches_on_its_own_stream(cuda):
+    ex = InferExecutor.from_fresh_init("MTL", (1, 4), (100, 250), 0, cuda)
+    x = torch.zeros(4, 100, 250, 1).pin_memory()
+    handle = ex.dispatch(x)
+    assert handle.done is not None
+    preds, bad, lp = ex.collect(handle, want_log_probs=True)
+    assert preds["distance"].shape == (4,) and not bad.any()
+    assert lp["log_probs_0"].shape == (4, 16)
+    ex.close()

@@ -1,0 +1,72 @@
+"""Rules the port's tree keeps: it imports nothing of JAX or of the JAX
+package, builds nothing at import, and ``chip_smoke.py`` refuses to report
+a result without a CUDA card or without the package beside it."""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dasmtl")
+
+
+def _port_files():
+    return sorted((ROOT / "dasmtl_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_the_jax_package(path):
+    bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_serve_entry_point_loads_no_jax_and_builds_nothing():
+    code = ("import sys\n"
+            "before = set(sys.modules)\n"
+            "import dasmtl_torch.serve.__main__, dasmtl_torch.serve.server\n"
+            "from dasmtl_torch.ops import _build, decode, gating\n"
+            "bad = sorted(m for m in set(sys.modules) - before\n"
+            f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "print(bad, _build._lib is None)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] True"
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "is_available() is False" in \
+        out.stderr
+
+
+def test_chip_smoke_refuses_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,324 @@
+"""The port's serving slice as a whole, on the CPU: batcher, staging,
+executor, ``ServeLoop``, the HTTP front end and the CLI.
+
+The slice is held to the JAX package: a CPU ``ServeLoop`` over
+``InferExecutor`` at (52, 64) with buckets (1, 2, 4, 8) answers seeded
+windows, every 7th NaN-poisoned, with the same ints (on decisive rows) and
+the same ``bad_rows`` as JAX ``make_serve_infer_fn`` on the same weights.
+"""
+
+import json
+import threading
+import types
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dasmtl.export import make_serve_infer_fn as jax_serve_infer_fn
+from dasmtl.models.registry import get_model_spec as jax_model_spec
+from dasmtl.models.two_level import MTLNet as FlaxMTLNet
+from dasmtl_torch.config import serve_watermark
+from dasmtl_torch.export import make_serve_infer_fn
+from dasmtl_torch.models.registry import get_model_spec
+from dasmtl_torch.serve.__main__ import main as serve_main
+from dasmtl_torch.serve.batcher import (MicroBatcher, StagingBuffers,
+                                        choose_bucket)
+from dasmtl_torch.serve.executor import InferExecutor
+from dasmtl_torch.serve.server import (EVENT_NAMES, ServeLoop,
+                                       make_http_server)
+from tests.test_torch_port_weights import port_model, random_flax_variables
+
+HW = (52, 64)
+BUCKETS = (1, 2, 4, 8)
+CPU = torch.device("cpu")
+
+
+class FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _windows(n, seed=0, poison_every=7):
+    x = np.random.default_rng(seed).normal(size=(n, *HW)).astype(np.float32)
+    if poison_every:
+        x[::poison_every, 5, 7] = np.nan
+    return x
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return random_flax_variables(FlaxMTLNet(), seed=31)
+
+
+@pytest.fixture
+def executor(weights):
+    net = port_model("MTL", weights)
+    return InferExecutor(make_serve_infer_fn(get_model_spec("MTL"), net),
+                         HW, BUCKETS, CPU)
+
+
+@pytest.fixture
+def http_loop(executor):
+    loop = ServeLoop(executor, buckets=BUCKETS, max_wait_s=0.002,
+                     queue_depth=32).start()
+    httpd = make_http_server(loop, port=0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    yield loop, f"http://127.0.0.1:{httpd.server_address[1]}"
+    httpd.shutdown()
+    t.join(timeout=5)
+    httpd.server_close()
+    loop.close()
+
+
+def _call(url, body=None):
+    req = urllib.request.Request(url, data=body,
+                                 method="POST" if body else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+# -- batcher / staging ---------------------------------------------------------
+def test_choose_bucket_and_watermark_rule():
+    assert [choose_bucket(n, BUCKETS) for n in (1, 2, 3, 5, 8)] == \
+        [1, 2, 4, 8, 8]
+    with pytest.raises(ValueError):
+        choose_bucket(9, BUCKETS)
+    assert serve_watermark((1, 2, 4, 8, 16, 32), 256) == 230
+    assert serve_watermark((1, 32), 20) == 32
+    assert serve_watermark((1, 32), 256, watermark=7) == 7
+
+
+def test_batcher_flushes_on_deadline_size_and_drain():
+    clock = FakeClock()
+    b = MicroBatcher(BUCKETS, 0.005, queue_depth=16, watermark=12,
+                     clock=clock)
+    for _ in range(3):
+        b.submit(np.zeros(HW, np.float32))
+    assert b.take_batch() is None and b.ready_at() == pytest.approx(0.005)
+    clock.t = 0.005
+    plan = b.take_batch()
+    assert (plan.n_real, plan.bucket) == (3, 4)
+    for _ in range(9):
+        b.submit(np.zeros(HW, np.float32))
+    assert b.take_batch().n_real == 8  # size cap, before the deadline
+    b.begin_drain()
+    assert b.take_batch().n_real == 1
+    late = b.submit(np.zeros(HW, np.float32))
+    assert late.future.result(0).error == "closed"
+
+
+def test_batcher_sheds_at_watermark():
+    b = MicroBatcher(BUCKETS, 1.0, queue_depth=8, watermark=2,
+                     clock=FakeClock())
+    reqs = [b.submit(np.zeros(HW, np.float32)) for _ in range(3)]
+    assert not reqs[0].future.done()
+    assert reqs[2].future.result(0).error == "shed"
+
+
+def test_staging_buffers_share_memory_and_recycle():
+    s = StagingBuffers.for_buckets(BUCKETS, HW, depth=2)
+    slot = s.acquire(4)
+    assert tuple(slot.tensor.shape) == (4, *HW, 1)
+    assert not slot.tensor.is_pinned()  # pinned only for a CUDA executor
+    slot.array[1, 2, 3, 0] = 5.0
+    assert slot.tensor[1, 2, 3, 0].item() == 5.0
+    s.release(slot)
+    assert s.stats()["outstanding"] == 0 and s.stats()["acquires"] == 1
+
+
+# -- executor ------------------------------------------------------------------
+def test_executor_contract(executor):
+    x = _windows(4)[..., None]
+    with pytest.raises(ValueError, match="not a configured bucket"):
+        executor.dispatch(x[:3])
+    preds, bad, lp = executor.collect(executor.dispatch(x),
+                                      want_log_probs=True)
+    assert sorted(preds) == ["distance", "event"]
+    assert preds["distance"].dtype == np.int32 and bad.dtype == bool
+    assert bad.tolist() == [True, False, False, False]
+    assert lp["log_probs_0"].shape == (4, 16)
+    assert lp["log_probs_1"].shape == (4, 2)
+    preds2, bad2 = executor.run(x)
+    assert executor.collect(executor.dispatch(x))[2] is None
+    np.testing.assert_array_equal(preds2["event"], preds["event"])
+    assert executor.warmup() >= 0.0
+    assert executor.compile_summary()["warm"] is True
+
+
+def test_from_fresh_init_is_seeded():
+    a = InferExecutor.from_fresh_init("MTL", (2,), HW, 5, CPU)
+    b = InferExecutor.from_fresh_init("MTL", (2,), HW, 5, CPU)
+    x = _windows(2, seed=3, poison_every=0)[..., None]
+    pa, pb = a.run(x), b.run(x)
+    for k in pa[0]:
+        np.testing.assert_array_equal(pa[0][k], pb[0][k])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InferExecutor.from_fresh_init("multi_classifier", (1,), HW, 0, CPU)
+
+
+# -- the slice against JAX -------------------------------------------------------
+def test_serve_loop_matches_jax_serve_infer_fn(executor, weights):
+    windows = _windows(21)
+    loop = ServeLoop(executor, buckets=BUCKETS, max_wait_s=0.002,
+                     queue_depth=64, inflight=2).start()
+    futures = [loop.submit_async(w) for w in windows]
+    results = [f.result(60) for f in futures]
+    assert loop.drain(timeout=30)
+    loop.close()
+
+    state = types.SimpleNamespace(apply_fn=FlaxMTLNet().apply,
+                                  params=weights["params"],
+                                  batch_stats=weights["batch_stats"])
+    jax_out = jax.jit(jax_serve_infer_fn(jax_model_spec("MTL"), state))(
+        jnp.asarray(windows[..., None]))
+    want_bad = np.asarray(jax_out["bad_rows"])
+    assert want_bad.tolist() == [j % 7 == 0 for j in range(21)]
+    n_checked = 0
+    for j, res in enumerate(results):
+        assert res.outcome == ("nonfinite" if want_bad[j] else "ok")
+        if want_bad[j]:
+            continue
+        for i, task in enumerate(("distance", "event")):
+            lp = np.sort(np.asarray(jax_out[f"log_probs_{i}"][j]))
+            if lp[-1] - lp[-2] > 1e-3:
+                assert res.predictions[task] == int(jax_out[task][j])
+                n_checked += 1
+        assert res.predictions["event_name"] == \
+            EVENT_NAMES[res.predictions["event"]]
+    assert n_checked >= 24
+    assert loop.stats()["requests"]["answered"] == 21
+
+
+def test_executor_failure_answers_every_caller(executor):
+    def broken(x):
+        raise RuntimeError("planted")
+
+    ex = InferExecutor(broken, HW, BUCKETS, CPU)
+    ex.warmup = lambda: 0.0
+    loop = ServeLoop(ex, buckets=BUCKETS, max_wait_s=0.001).start()
+    res = [loop.submit(w, timeout=10) for w in _windows(2, poison_every=0)]
+    assert [r.error for r in res] == ["error", "error"]
+    assert "planted" in res[0].detail
+    loop.close()
+
+
+def test_drain_resolves_everything_and_refuses_after(executor):
+    loop = ServeLoop(executor, buckets=BUCKETS, max_wait_s=10.0,
+                     queue_depth=64).start()
+    futures = [loop.submit_async(w) for w in _windows(5, poison_every=0)]
+    assert loop.drain(timeout=30)  # flushes despite the 10 s deadline
+    assert [f.result(0).outcome for f in futures] == ["ok"] * 5
+    assert loop.submit(_windows(1)[0], timeout=5).error == "closed"
+    assert not loop.ready
+    loop.close()
+
+
+# -- HTTP ----------------------------------------------------------------------
+def test_http_infer_answers_and_rejects(http_loop):
+    loop, base = http_loop
+    assert _call(f"{base}/healthz")[0] == 200
+    code, h = _call(f"{base}/readyz")
+    assert code == 200 and h["ready"]
+    w = _windows(2, seed=9, poison_every=0)
+    code, out = _call(f"{base}/infer", json.dumps({"x": w[0].tolist()})
+                      .encode())
+    assert code == 200 and out["ok"] and out["trace_id"] is None
+    pred = out["predictions"]
+    assert set(pred) == {"distance", "event", "event_name"}
+    assert pred["event_name"] == EVENT_NAMES[pred["event"]]
+    code, out = _call(f"{base}/infer", json.dumps(
+        {"x": w[1][..., None].tolist(), "log_probs": True}).encode())
+    assert code == 200 and len(out["log_probs"]["log_probs_0"]) == 16
+    poisoned = w[0].copy()
+    poisoned[0, 0] = np.nan
+    code, out = _call(f"{base}/infer",
+                      json.dumps({"x": poisoned.tolist()}).encode())
+    assert code == 422 and out["error"] == "nonfinite"
+    assert _call(f"{base}/infer", b'{"x": [[1.0, 2.0]]}')[0] == 400
+    assert _call(f"{base}/infer", b'{"y": 1}')[0] == 400
+    assert _call(f"{base}/nope")[0] == 404
+    code, stats = _call(f"{base}/stats")
+    assert code == 200 and stats["requests"]["ok"] == 2
+    assert stats["requests"]["nonfinite"] == 1
+    loop.begin_drain()
+    assert _call(f"{base}/healthz")[0] == 503
+    assert _call(f"{base}/readyz")[0] == 503
+    code, out = _call(f"{base}/infer", json.dumps({"x": w[0].tolist()})
+                      .encode())
+    assert code == 503 and out["error"] == "closed"
+
+
+# -- CLI -----------------------------------------------------------------------
+@pytest.mark.parametrize("argv", [
+    ["--model_path", "ckpt"], ["--exported", "a.stablehlo"],
+    ["--registry", "reg"], ["--fresh_init", "--precision", "bf16"],
+    ["--fresh_init", "--model", "multi_classifier"]])
+def test_cli_refuses_what_is_not_ported(argv, capsys):
+    assert serve_main(argv + ["--device", "cpu"]) == 2
+    assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_cli_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve_main(["--fresh_init", "--window", "52x64", "--port", "0"])
+
+
+# -- concurrency ---------------------------------------------------------------
+def test_many_clients_each_get_exactly_one_answer():
+    """More submitting threads than cores, a short switch interval: every
+    request resolves once, and the counters add up."""
+    import sys
+
+    from dasmtl_torch.models.two_level import TwoLevelNet
+    from dasmtl_torch.models.weights import init_fresh
+    from dasmtl_torch.ops import LaunchCounter
+
+    net = init_fresh(TwoLevelNet(first_ch=8), seed=0).eval()
+    ex = InferExecutor(make_serve_infer_fn(get_model_spec("MTL"), net), HW,
+                       BUCKETS, CPU)
+    loop = ServeLoop(ex, buckets=BUCKETS, max_wait_s=0.001,
+                     queue_depth=512).start()
+    windows = _windows(4, poison_every=2)
+    counter = LaunchCounter()
+    answers = [[] for _ in range(16)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def client(k):
+            for i in range(12):
+                counter.add()
+                answers[k].append(loop.submit(windows[(k + i) % 4],
+                                              timeout=60))
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert loop.drain(timeout=30)
+    loop.close()
+    flat = [r for a in answers for r in a]
+    assert counter.value == len(flat) == 16 * 12
+    assert len({r.request_id for r in flat}) == len(flat)
+    assert sorted({r.outcome for r in flat}) == ["nonfinite", "ok"]
+    req = loop.stats()["requests"]
+    assert req["answered"] == req["submitted"] == len(flat)
+    assert req["ok"] == req["nonfinite"] == len(flat) // 2
