@@ -18,21 +18,40 @@ Phases, each fatal on failure (no phase catches its own error):
              every 37th NaN-poisoned; every request answered, the poisoned
              ones with 422, predictions equal to a direct ``executor.run``
              of the same windows, drain clean.  The launch counters are
-             zeroed just before the traffic and read just after it.
+             zeroed just before the traffic and read just after it;
+6. train   — (a) the gate's backward kernel against its plain version at
+             the four stage shapes, batch 1 and 32, then timed like the
+             forward; (b) one full-width batch-32 train step at 100x250 on
+             the card against the same step on the CPU, TF32 off, at the
+             committed tolerances; (c) 8 forward + 8 backward gate
+             launches per train step, 8 + 0 per eval batch; (d) 20 steps
+             on one fixed batch at least halve its loss; (e) ``python -m
+             dasmtl_torch train`` then ``test`` in-process on a synthetic
+             tree (256 files, 192 train / 64 val, batch 32, 3 epochs): the
+             run-dir artifacts, and the test run's ints equal to a direct
+             ``eval_step`` on decisive rows, the counters zeroed just
+             before the train run and read after the test run; (f) device
+             and host-paced ms per train step, examples/s, peak memory.
 
 Then one JSON line lists every kernel of the port, the card's name and
 power limit follow on a line of their own, and the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
-result.  ``--profile`` adds a ``torch.profiler`` breakdown of the batch-32
-forward to the report; ``--out`` writes the full report as JSON.
+result.  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
+forward and of one train step to the report; ``--out`` writes the full
+report as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import io
 import json
+import os
+import re
+import shutil
 import statistics
 import sys
 import threading
@@ -52,6 +71,14 @@ GATE_ATOL = 1e-6  # one f32 rounding of |f| < 8 (expf vs torch.sigmoid)
 DECODE_ATOL = 1e-6  # log-probs of finite rows; ints and bad rows exact
 MODEL_ATOL, MODEL_RTOL = 5e-4, 1e-4  # tests/test_torch_parity.py:76-77
 DECISIVE = 1e-3  # top-2 log-prob margin above which ints must agree
+# The gate backward: a few f32 roundings of values below ~8 in magnitude.
+BWD_ATOL, BWD_RTOL = 1e-6, 1e-5
+# One train step, card against CPU (tests/test_torch_parity.py:286-291).
+LOSS_TOL = 1e-4
+PARAM_ATOL, PARAM_RTOL, PARAM_OUTLIER = 5e-5, 1e-3, 2.5e-3
+BN_ATOL, BN_RTOL = 1e-5, 1e-3
+TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke")
 N_REQUESTS, N_CLIENTS, POISON_EVERY = 512, 8, 37
 
 #: Published HBM bandwidth (B/s) and f32 non-tensor peak (FLOP/s) by card
@@ -349,36 +376,17 @@ def phase_model(profile: bool):
 
 def _profile(fn, xd) -> dict:
     """Device time by kernel name over 20 batch-32 forwards."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    n = 20
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn(xd)  # the profiler's own start-up stays out of the window
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn(xd)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # CPU-side ops; their kernels are listed on their own
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        rows.append({"name": ev.key[:160], "calls": ev.count,
-                     "device_ms_per_forward": dev_us / 1e3 / (n + 1)})
-    rows.sort(key=lambda r: -r["device_ms_per_forward"])
-    busy = sum(r["device_ms_per_forward"] for r in rows)
+    _, rows, wall_ms, launches = _kernel_ms(lambda: fn(xd), 20)
+    busy = sum(r["device_ms"] for r in rows)
     log(f"[profile] {wall_ms:.3f} ms wall per forward under the profiler, "
-        f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
+        f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+        f"{launches:.0f} kernel launches per forward")
     for r in rows[:12]:
-        log(f"[profile]   {r['device_ms_per_forward'] * 1e3:9.2f} us  "
-            f"x{r['calls'] // (n + 1):<3d} {r['name'][:90]}")
+        log(f"[profile]   {r['device_ms'] * 1e3:9.2f} us  "
+            f"x{r['calls']:<3.0f} {r['name'][:90]}")
     return {"wall_ms_per_forward": wall_ms,
-            "device_busy_ms_per_forward": busy, "kernels": rows[:40]}
+            "device_busy_ms_per_forward": busy,
+            "launches_per_forward": launches, "kernels": rows[:40]}
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -492,11 +500,438 @@ def phase_serve():
             "stages": stats["stages"], "warmup_s": stats["warmup_s"]}
 
 
+# -- phase 6 -------------------------------------------------------------------
+def _train_batch(b: int):
+    """A learnable seeded batch: one synthetic window per (distance,
+    event) pair, repeated to ``b`` rows."""
+    from dasmtl_torch.data.synthetic import synthetic_arrays
+
+    x, d, e = synthetic_arrays(n_per_class=1, shape=(H, W), seed=0)
+    idx = np.arange(b) % x.shape[0]
+    return {"x": torch.from_numpy(x[idx]),
+            "distance": torch.from_numpy(d[idx]),
+            "event": torch.from_numpy(e[idx]),
+            "weight": torch.ones(b)}
+
+
+def _new_state(net):
+    from dasmtl_torch.train.optim import coupled_adam
+    from dasmtl_torch.train.state import TrainState
+
+    return TrainState(model=net, optimizer=coupled_adam(net.parameters()))
+
+
+def _check_backward(g):
+    """(a) the backward kernel against its plain version; max abs err."""
+    from dasmtl_torch.ops import gating
+
+    worst = 0.0
+    for b in (1, 32):
+        for shape in GATE_SHAPES:
+            logits, feats = _gate_inputs(g, b, shape)
+            grad = torch.randn((b, *shape), device="cuda", generator=g)
+            got = gating.gate_apply_backward(logits, feats, grad)
+            ref = gating.gate_backward_plain(logits, feats, grad)
+            torch.cuda.synchronize()
+            for name, a, r in zip(("d_logits", "d_features"), got, ref):
+                nan = torch.isnan(r)
+                if not torch.equal(torch.isnan(a), nan):
+                    raise AssertionError(f"gate backward {name} NaN pattern "
+                                         f"differs at {b}x{shape}")
+                diff = (a - r)[~nan].abs()
+                worst = max(worst, diff.max().item())
+                if (diff > BWD_ATOL + BWD_RTOL * r[~nan].abs()).any():
+                    raise AssertionError(
+                        f"gate backward {name} at {b}x{shape}: max abs err "
+                        f"{diff.max().item():.3g} (tol {BWD_ATOL} + "
+                        f"{BWD_RTOL}|ref|)")
+            if got[0].view(-1)[0].item() != 0.0 or \
+                    got[0].view(-1)[1].item() != 0.0:
+                raise AssertionError("gate backward d_logits at l = -100 / "
+                                     "+100 is not exactly 0")
+    log(f"[train] gate backward == plain at batch 1 and 32 x "
+        f"{len(GATE_SHAPES)} shapes: max abs err {worst:.3g} (tol "
+        f"{BWD_ATOL} + {BWD_RTOL}|ref|), d_logits exactly 0 at l = +-100")
+    return worst
+
+
+def _time_backward(g, peaks):
+    """The backward's timing at batch 32, operands rotating through
+    >= 128 MB per stage (HBM, not L2), unit: the 8 launches of a train
+    step (4 stages x 2 tasks)."""
+    from dasmtl_torch.ops import gating
+
+    stages = []
+    for s in GATE_SHAPES:
+        n = 32 * int(np.prod(s))
+        k = max(2, -(-128_000_000 // (20 * n)))
+        sets = []
+        for _ in range(k):
+            logits, feats = _gate_inputs(g, 32, s)
+            sets.append((logits, feats, torch.randn_like(logits)))
+        stages.append({"shape": [32, *s], "elements": n, "sets": sets,
+                       "turn": 0})
+
+    def launch(st, fn):
+        l, f, gr = st["sets"][st["turn"] % len(st["sets"])]
+        st["turn"] += 1
+        fn(l, f, gr)
+
+    def step_gates(fn):
+        def run():
+            for st in stages:
+                launch(st, fn)
+                launch(st, fn)
+        return run
+
+    per_stage = []
+    for st in stages:
+        n = st["elements"]
+        per_stage.append({
+            "shape": st["shape"], "elements": n, "bytes": 20 * n,
+            "ms": device_ms(lambda st=st: launch(
+                st, gating.gate_apply_backward), inner=20),
+            "bound_ms": bound(20 * n, 9 * n, peaks)[0]})
+    nbytes = sum(2 * 20 * st["elements"] for st in stages)
+    flops = sum(2 * 9 * st["elements"] for st in stages)
+    ms = device_ms(step_gates(gating.gate_apply_backward), inner=5)
+    plain_ms = device_ms(step_gates(gating.gate_backward_plain), inner=5)
+    b_ms, b_by = bound(nbytes, flops, peaks)
+    for st in per_stage:
+        log(f"[train] gate backward stage {st['shape']}: "
+            f"{st['ms'] * 1e3:.2f} us (bound {st['bound_ms'] * 1e3:.2f} us)")
+    log(f"[train] gate backward, 8 launches of a batch-32 step: "
+        f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.1f} MB)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "unit": "8 launches, batch 32",
+            "per_stage": per_stage}
+
+
+def _compare_step(spec, step, batch):
+    """(b) one full-width train step on the card against the CPU."""
+    from dasmtl_torch.models.weights import init_fresh
+
+    cpu_state = _new_state(init_fresh(spec.build(), seed=0))
+    gpu_state = _new_state(copy.deepcopy(cpu_state.model).to("cuda"))
+    m_cpu = step(cpu_state, batch, 1e-3)
+    m_gpu = step(gpu_state, {k: v.cuda() for k, v in batch.items()}, 1e-3)
+    loss = [float(m["loss_sum"] / m["count"]) for m in (m_cpu, m_gpu)]
+    if abs(loss[0] - loss[1]) >= LOSS_TOL:
+        raise AssertionError(f"train-step loss: card {loss[1]:.6f}, CPU "
+                             f"{loss[0]:.6f}")
+    want_sd = cpu_state.model.state_dict()
+    worst_p = worst_bn = 0.0
+    outliers = 0
+    for k, v in gpu_state.model.state_dict().items():
+        got, want = v.cpu(), want_sd[k]
+        if not got.is_floating_point():
+            continue
+        err = (got - want).abs()
+        if "running" in k:
+            worst_bn = max(worst_bn, err.max().item())
+            if (err > BN_ATOL + BN_RTOL * want.abs()).any():
+                raise AssertionError(f"BN stat {k}: max abs err "
+                                     f"{err.max().item():.3g}")
+            continue
+        worst_p = max(worst_p, err.max().item())
+        weight = want_sd.get(k[:-len("bias")] + "weight")
+        if k.endswith(".bias") and weight is not None and weight.dim() == 4:
+            # A conv bias feeding a train-mode BatchNorm: its true gradient
+            # is 0, so Adam's step is lr * noise / (|noise| + eps) on each
+            # device; the outlier envelope holds every element.
+            if (err > PARAM_OUTLIER).any():
+                raise AssertionError(f"param {k}: max abs err "
+                                     f"{err.max().item():.3g} > "
+                                     f"{PARAM_OUTLIER}")
+            continue
+        far = err > PARAM_ATOL + PARAM_RTOL * want.abs()
+        outliers += int(far.sum())
+        if int(far.sum()) > max(2, want.numel() // 200) or \
+                (err[far] > PARAM_OUTLIER).any():
+            raise AssertionError(f"param {k}: {int(far.sum())} of "
+                                 f"{want.numel()} outside tolerance, max "
+                                 f"abs err {err.max().item():.3g}")
+    log(f"[train] one batch-32 train step at {H}x{W}, card == CPU: loss "
+        f"{loss[1]:.6f} vs {loss[0]:.6f}; params max abs err {worst_p:.3g} "
+        f"({outliers} in the {PARAM_OUTLIER} outlier tier), BN stats "
+        f"{worst_bn:.3g}")
+    return gpu_state, {"loss_card": loss[1], "loss_cpu": loss[0],
+                       "param_max_abs_err": worst_p,
+                       "param_outliers": outliers,
+                       "bn_max_abs_err": worst_bn}
+
+
+def _entry_points():
+    """(e) the train then test entry points on a synthetic tree; the
+    launch counts of the run, and its checks."""
+    from dasmtl_torch import cli
+    from dasmtl_torch.data.pipeline import eval_batches
+    from dasmtl_torch.data.sources import RamSource
+    from dasmtl_torch.data.splits import build_splits
+    from dasmtl_torch.data.synthetic import make_synthetic_dataset
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.ops import gating
+    from dasmtl_torch.train.checkpoint import restore_weights
+    from dasmtl_torch.train.steps import make_eval_step
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    striking, excavating = make_synthetic_dataset(
+        os.path.join(TRAIN_DIR, "data"), files_per_category=8, seed=0)
+    runs = os.path.join(TRAIN_DIR, "runs")
+    data_s = time.perf_counter() - t0
+    gating.launches.reset()
+    gating.backward_launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # The runs' own console output goes to their console_output.log only.
+    with contextlib.redirect_stdout(io.StringIO()):
+        trained = cli.train_main(["--device", "cuda", "--model", "MTL",
+                                  "--batch_size", "32", "--epoch_num", "3",
+                                  "--log_every_steps", "3",
+                                  "--trainVal_set_striking", striking,
+                                  "--trainVal_set_excavating", excavating,
+                                  "--output_savedir", runs])
+    train_s = time.perf_counter() - t0
+    (run,) = [os.path.join(runs, n) for n in os.listdir(runs)]
+    need = ["console_output.log", "config.json", "train_manifest.csv",
+            "val_manifest.csv", "metrics/metrics.jsonl",
+            "metrics/train_loss.npy", "metrics/val_loss.npy",
+            "metrics/val_acc_distance.npy", "metrics/val_acc_event.npy",
+            "metrics/confusion_matrix_distance.npy"]
+    missing = [n for n in need if not os.path.exists(os.path.join(run, n))]
+    steps = sorted((int(n[5:]) for n in os.listdir(os.path.join(run,
+                                                                "ckpts"))
+                    if n.startswith("step_")))
+    if missing or not steps:
+        raise AssertionError(f"run dir {run} lacks {missing or 'ckpts'}")
+    ckpt = os.path.join(run, "ckpts", f"step_{steps[-1]}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tested = cli.test_main(["--device", "cuda", "--model", "MTL",
+                                "--batch_size", "32", "--model_path", ckpt,
+                                "--test_set_striking", striking,
+                                "--test_set_excavating", excavating,
+                                "--output_savedir", runs])
+    test_s = time.perf_counter() - t0
+    if trained is None or tested is None:
+        raise AssertionError("the train or test entry point gave no result")
+    launches = {"gate": gating.launches.value,
+                "gate_backward": gating.backward_launches.value}
+    peak = torch.cuda.max_memory_allocated()
+    # 192 train / 64 val windows in batches of 32: 6 steps x 3 epochs;
+    # validation at epoch 0 and after the last (2 x 2 batches); the test
+    # pass over all 256 windows (8 batches).
+    n_steps, n_eval = 18, 2 * 2 + 8
+    if steps[-1] != n_steps or launches != {"gate": 8 * (n_steps + n_eval),
+                                            "gate_backward": 8 * n_steps}:
+        raise AssertionError(f"{n_steps} train steps and {n_eval} eval "
+                             f"batches made {launches} gate launches "
+                             f"(last checkpoint step_{steps[-1]})")
+    with open(os.path.join(run, "metrics", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    rates = [r["examples_per_s"] for r in records if r["kind"] == "train"]
+
+    # A direct eval_step of the same windows with the same checkpoint.
+    spec = get_model_spec("MTL")
+    state = restore_weights(_new_state(spec.build().cuda()), ckpt)
+    step = make_eval_step(spec)
+    source = RamSource(build_splits(striking, excavating, is_test=True).val)
+    agree = {t: 0 for t in spec.head_tasks}
+    start = 0
+    for b in eval_batches(source, 32):
+        real = int(b["weight"].sum())
+        placed = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        out = step(state, placed)
+        with torch.inference_mode():
+            lps = state.model(placed["x"])
+        for i, task in enumerate(spec.head_tasks):
+            lp = lps[i].cpu().numpy()[:real]
+            dec = _decisive(lp)
+            mine = out["preds"][task].cpu().numpy()[:real]
+            theirs = tested.predictions[task][start:start + real]
+            if not np.array_equal(mine[dec], theirs[dec]):
+                raise AssertionError(f"test entry point {task} ints differ "
+                                     f"from a direct eval_step")
+            agree[task] += int(dec.sum())
+        start += real
+    log(f"[train] python -m dasmtl_torch train (3 epochs, 192 train / 64 "
+        f"val at batch 32) {train_s:.1f} s, then test {test_s:.1f} s "
+        f"(data {data_s:.1f} s): {launches} gate launches; final val acc "
+        f"distance {trained.reports['distance']['accuracy']:.3f} event "
+        f"{trained.reports['event']['accuracy']:.3f}; test ints == direct "
+        f"eval_step on {agree} decisive rows of 256; examples/s per window "
+        f"{[round(r, 1) for r in rates]}; peak memory {peak / 2**20:.1f} MiB")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return {"launches": launches, "train_s": train_s, "test_s": test_s,
+            "examples_per_s": rates, "peak_memory_bytes": peak,
+            "val_acc": {t: r["accuracy"]
+                        for t, r in trained.reports.items()},
+            "decisive_rows_equal": agree}
+
+
+def phase_train(peaks, profile: bool):
+    from dasmtl_torch.device import set_f32_numerics
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_fresh
+    from dasmtl_torch.ops import gating
+    from dasmtl_torch.train.steps import make_eval_step, make_train_step
+
+    set_f32_numerics()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    bwd_err = _check_backward(g)
+    timing = _time_backward(g, peaks)
+
+    spec = get_model_spec("MTL")
+    step = make_train_step(spec)
+    batch = _train_batch(32)
+    state, parity = _compare_step(spec, step, batch)
+    gpu_batch = {k: v.cuda() for k, v in batch.items()}
+
+    # (c) launches per train step and per eval batch.
+    torch.cuda.synchronize()
+    gating.launches.reset()
+    gating.backward_launches.reset()
+    step(state, gpu_batch, 1e-3)
+    torch.cuda.synchronize()
+    per_step = (gating.launches.value, gating.backward_launches.value)
+    make_eval_step(spec)(state, gpu_batch)
+    torch.cuda.synchronize()
+    per_eval = (gating.launches.value - per_step[0],
+                gating.backward_launches.value - per_step[1])
+    if per_step != (8, 8) or per_eval != (8, 0):
+        raise AssertionError(f"a train step made {per_step} and an eval "
+                             f"batch {per_eval} (forward, backward) gate "
+                             f"launches, not (8, 8) and (8, 0)")
+    log("[train] 8 forward + 8 backward gate launches per train step, "
+        "8 + 0 per eval batch")
+
+    # (d) 20 steps on one fixed batch from a fresh init halve its loss.
+    fit = _new_state(init_fresh(spec.build(), seed=0).cuda())
+    losses = []
+    for _ in range(21):
+        m = step(fit, gpu_batch, 1e-3)
+        losses.append(m["loss_sum"] / m["count"])
+    losses = torch.stack(losses).cpu().tolist()
+    if not losses[20] <= 0.5 * losses[0]:
+        raise AssertionError(f"20 steps on one batch took its loss from "
+                             f"{losses[0]:.4f} to {losses[20]:.4f}, not "
+                             f"below half")
+    log(f"[train] overfit: one fixed batch-32 batch, loss {losses[0]:.4f} "
+        f"-> {losses[20]:.4f} after 20 steps")
+
+    # (f) the train step's times: device time with the launches queued
+    # ahead, and wall time with the host pacing them.  One step per timed
+    # window: its ~1000 launches already fill the launch queue, and more
+    # would leave the host pacing the device inside the window.
+    step_ms = device_ms(lambda: step(fit, gpu_batch, 1e-3), inner=1, reps=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step(fit, gpu_batch, 1e-3)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+    log(f"[train] batch-32 train step at {H}x{W}: {step_ms:.3f} ms device, "
+        f"{wall_ms:.3f} ms wall (device idle "
+        f"{100 * (1 - step_ms / wall_ms):.1f}% of the wall); "
+        f"{32e3 / wall_ms:.1f} examples/s host-paced")
+    report = {"backward": {"max_abs_err": bwd_err, **timing},
+              "parity": parity, "launches_per_step": list(per_step),
+              "launches_per_eval_batch": list(per_eval),
+              "overfit_loss": [losses[0], losses[20]],
+              "step_ms_b32": step_ms, "step_wall_ms_b32": wall_ms}
+    if profile:
+        report["profile"] = _profile_train(step, fit, gpu_batch)
+    report["entry"] = _entry_points()
+    return report
+
+
+#: The name of a host range (``record_function``) on the device timeline.
+HOST_RANGE = re.compile(r"[\w.]+#[\w.]+")
+#: Kernel-name fragments -> the train step's layers, first match wins.
+TRAIN_LAYERS = (("gate backward", ("gate_bwd",)),
+                ("gate forward", ("gate_fwd",)),
+                ("Adam", ("multi_tensor_apply",)),
+                ("BatchNorm", ("batch_norm", "bn_")),
+                ("conv", ("conv", "xmma", "gemm", "fft", "grad", "winograd",
+                          "cudnn")))
+
+
+def _kernel_ms(fn, n: int):
+    """Device ms per ``fn()`` by layer and by kernel over ``n`` calls,
+    the host-paced wall ms per call, and kernel launches per call.  Rows
+    that annotate a host range on the device timeline (``Optimizer.step#
+    Adam.step``) are not kernels and are left out; a kernel's own name may
+    hold a ``#`` (``{lambda()#1}``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # the profiler's own start-up stays out of the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows, layers, launches = [], {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or getattr(
+                ev, "is_user_annotation", False) or \
+                HOST_RANGE.fullmatch(ev.key):
+            continue
+        dev_ms = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0)) / 1e3 / n
+        name = ev.key.lower()
+        layer = next((lay for lay, keys in TRAIN_LAYERS
+                      if any(k in name for k in keys)), "other")
+        layers[layer] = layers.get(layer, 0.0) + dev_ms
+        launches += ev.count
+        rows.append({"name": ev.key[:160], "calls": ev.count / n,
+                     "layer": layer, "device_ms": dev_ms})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return layers, rows, wall_ms, launches / n
+
+
+def _profile_train(step, state, batch) -> dict:
+    """The train step's device time by layer: 10 steps, and 10 train-mode
+    forwards alone, whose convolutions are the step's conv forward (conv
+    backward is the rest of the step's conv time)."""
+    n = 10
+
+    def forward():
+        state.model.train()
+        with torch.no_grad():
+            state.model(batch["x"])
+
+    fwd, _, _, _ = _kernel_ms(forward, n)
+    layers, rows, wall_ms, launches = _kernel_ms(
+        lambda: step(state, batch, 1e-3), n)
+    conv = layers.pop("conv", 0.0)
+    layers["conv forward"] = fwd.get("conv", 0.0)
+    layers["conv backward"] = conv - layers["conv forward"]
+    busy = sum(layers.values())
+    log(f"[profile] train step: {wall_ms:.3f} ms wall under the profiler, "
+        f"{busy:.3f} ms of kernels ({100 * busy / wall_ms:.1f}% of the "
+        f"wall), {launches:.0f} kernel launches per step")
+    for lay, ms in sorted(layers.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {ms * 1e3:9.2f} us  {lay}")
+    for r in rows[:12]:
+        log(f"[profile]   {r['device_ms'] * 1e3:9.2f} us  "
+            f"x{r['calls']:<5.0f} {r['name'][:90]}")
+    return {"wall_ms_per_step": wall_ms, "kernel_ms_per_step": busy,
+            "launches_per_step": launches, "layers_ms": layers,
+            "kernels": rows[:40]}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None, help="write the report here")
     p.add_argument("--profile", action="store_true",
-                   help="add a torch.profiler breakdown of the forward")
+                   help="add torch.profiler breakdowns of the forward and "
+                        "of a train step")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -515,12 +950,22 @@ def main(argv=None) -> int:
     kernels = phase_kernels(peaks)
     model = phase_model(args.profile)
     serve = phase_serve()
+    train = phase_train(peaks, args.profile)
 
+    # Launches: each kernel's count over its path's run, the counters
+    # zeroed just before it — the train-then-test entry points for the
+    # gate, the HTTP serve traffic for the decode tail.
     line = {"kernels": [
         {"name": "gate_apply", "route": "cuda",
          "source": "dasmtl_torch/csrc/gating.cu",
          "replaces": "16944ec^:dasmtl/ops/gating.py:47",
-         "launches": serve["launches"]["gate"], **_timing(kernels["gate"])},
+         "launches": train["entry"]["launches"]["gate"],
+         **_timing(kernels["gate"])},
+        {"name": "gate_apply_backward", "route": "cuda",
+         "source": "dasmtl_torch/csrc/gating.cu",
+         "replaces": "16944ec^:dasmtl/ops/gating.py:36",
+         "launches": train["entry"]["launches"]["gate_backward"],
+         **_timing(train["backward"])},
         {"name": "decode_heads", "route": "cuda",
          "source": "dasmtl_torch/csrc/decode.cu",
          "replaces": "dasmtl/export.py:112",
@@ -530,7 +975,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
             json.dump({"device": device, "build": build, "kernels": kernels,
-                       "model": model, "serve": serve,
+                       "model": model, "serve": serve, "train": train,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

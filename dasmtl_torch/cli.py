@@ -1,0 +1,58 @@
+"""``python -m dasmtl_torch train|test`` — the port's run entry points.
+
+Counterparts of ``dasmtl/cli.py:19-34`` (``train_main`` / ``test_main``)
+and its ``main`` dispatcher (``:235-249``).  ``--device`` is ``cuda`` by
+default and raises without a card, naming ``--device cpu``.  The server
+stays at ``python -m dasmtl_torch.serve``.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Optional
+
+_SUBCOMMANDS = {
+    "train": "train a model",
+    "test": "evaluate a checkpoint (--model_path)",
+}
+
+
+def _run(argv, is_test: bool):
+    """The run's final ``ValidationResult``; ``None`` when the model family
+    is not yet ported (reported on stderr)."""
+    from dasmtl_torch.config import parse_test_args, parse_train_args
+    from dasmtl_torch.main import main_process
+
+    cfg = (parse_test_args if is_test else parse_train_args)(argv)
+    try:
+        return main_process(cfg, is_test=is_test)
+    except NotImplementedError as exc:
+        print(f"dasmtl_torch: {exc}", file=sys.stderr)
+        return None
+
+
+def train_main(argv=None) -> Optional[object]:
+    return _run(list(sys.argv[1:] if argv is None else argv), is_test=False)
+
+
+def test_main(argv=None) -> Optional[object]:
+    return _run(list(sys.argv[1:] if argv is None else argv), is_test=True)
+
+
+def main(argv=None) -> int:
+    """Dispatch ``train`` / ``test`` to the entry points above."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print("usage: python -m dasmtl_torch <command> [args...]\n\n"
+              "commands:")
+        for name, help_text in _SUBCOMMANDS.items():
+            print(f"  {name:<6} {help_text}")
+        print("  (the server: python -m dasmtl_torch.serve)")
+        return 0 if argv else 2
+    cmd = argv.pop(0)
+    if cmd not in _SUBCOMMANDS:
+        print(f"dasmtl_torch: unknown command {cmd!r} (choose from "
+              f"{', '.join(_SUBCOMMANDS)})", file=sys.stderr)
+        return 2
+    result = train_main(argv) if cmd == "train" else test_main(argv)
+    return 2 if result is None else 0

@@ -1,15 +1,25 @@
-"""The constants and serve defaults the port's serving slice reads.
+"""Constants, serve defaults and the train/test ``Config`` of the port.
 
 Own copies of ``dasmtl/config.py`` values (the port imports nothing of
-``dasmtl``): the input geometry and class counts (``:25-39``), the fresh-
-init seed (``Config.seed``, ``:349``) and the serve block
-(``Config.serve_*``, ``:161-174``) with its 90 % watermark rule
-(``Config.serve_watermark_resolved``, ``:544-552``).  Only what the slice
-reads is here — this is not a copy of the whole ``Config``.
+``dasmtl``): the input geometry and class counts (``:25-39``), the seed
+(``Config.seed``, ``:349``), the serve block (``Config.serve_*``,
+``:161-174``) with its 90 % watermark rule (``:544-552``), and the
+train/test fields of ``Config`` (``:47-131``, ``:349-352``) with the
+``decay_at_epoch0`` / ``acc_gate`` rules (``:531-541``).  Only what the
+ported slices read is here — this is not a copy of the whole ``Config``.
+
+:func:`parse_train_args` / :func:`parse_test_args` take the JAX CLI's flag
+spellings (the reference's ``--trainVal_set_*`` included).  A flag of the
+JAX CLI that the port does not carry yet, given anything but its default,
+exits with code 2 and names the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
+import sys
 from typing import Optional, Sequence
 
 # Input sample geometry: 100 fiber channels x 250 time samples.
@@ -19,7 +29,7 @@ INPUT_WIDTH = 250
 NUM_DISTANCE_CLASSES = 16
 NUM_EVENT_CLASSES = 2
 
-#: Seed of ``--fresh_init`` weights (the JAX ``Config.seed`` default).
+#: The JAX ``Config.seed`` default: fresh-init weights and the data shuffle.
 SEED = 1
 
 SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
@@ -28,6 +38,8 @@ SERVE_QUEUE_DEPTH = 256
 SERVE_INFLIGHT = 2
 SERVE_HOST = "127.0.0.1"
 SERVE_PORT = 8321
+
+MODEL_TYPES = ("MTL", "single_event", "single_distance", "multi_classifier")
 
 
 def serve_watermark(buckets: Sequence[int], queue_depth: int,
@@ -38,3 +50,233 @@ def serve_watermark(buckets: Sequence[int], queue_depth: int,
     if watermark is not None:
         return int(watermark)
     return max(max(buckets), int(queue_depth * 0.9))
+
+
+@dataclasses.dataclass
+class Config:
+    """The hyperparameters of a train or test run; defaults reproduce the
+    reference (and the JAX package)."""
+
+    model: str = "MTL"
+    # Training schedule (reference utils.py:133-139, 230-247).
+    batch_size: int = 32
+    epoch_num: int = 40
+    lr: float = 1e-3
+    weight_decay: float = 1e-5
+    lr_decay_factor: float = 1.5
+    lr_decay_every: int = 5
+    lr_decay_at_epoch0: Optional[bool] = None  # None = by model
+    val_every: int = 5
+    ckpt_acc_gate: Optional[float] = None  # None = by model
+    ckpt_every_epochs: int = 5
+    ckpt_max_keep: int = 3
+    # Dataset and splits (reference dataset_preparation.py:118-239).
+    random_state: int = 1
+    fold_index: Optional[int] = None
+    test_rate: float = 0.17647
+    dataset_ram: bool = True
+    trainval_set_striking: str = "./dataset/striking_train"
+    trainval_set_excavating: str = "./dataset/excavating_train"
+    test_set_striking: str = "./dataset/striking_test"
+    test_set_excavating: str = "./dataset/excavating_test"
+    mat_key: str = "data"
+    prefetch_batches: int = 2  # 0 = assemble batches inline
+    noise_snr_db: Optional[float] = None
+    # Device and run outputs.
+    device: str = "cuda"  # cuda | cpu
+    output_savedir: str = "./runs"
+    model_path: Optional[str] = None
+    resume: bool = False
+    seed: int = SEED
+    log_every_steps: int = 100
+
+    def __post_init__(self) -> None:
+        if self.model not in MODEL_TYPES:
+            raise ValueError(f"unknown model {self.model!r}; expected one "
+                             f"of {MODEL_TYPES}")
+        if self.device not in ("cuda", "cpu"):
+            raise ValueError(f"unknown device {self.device!r}; choose cuda "
+                             f"or cpu")
+        if self.fold_index is not None and not 0 <= self.fold_index < 5:
+            raise ValueError(f"fold_index {self.fold_index} outside 0..4")
+        if self.batch_size < 1 or self.log_every_steps < 1 or \
+                self.val_every < 1:
+            raise ValueError("batch_size, log_every_steps and val_every "
+                             "must be >= 1")
+
+    @property
+    def decay_at_epoch0(self) -> bool:
+        """MTL and single-task decay the LR at epoch 0 too (utils.py:
+        245-247); the multi-classifier does not (utils.py:622-625)."""
+        if self.lr_decay_at_epoch0 is not None:
+            return self.lr_decay_at_epoch0
+        return self.model != "multi_classifier"
+
+    @property
+    def acc_gate(self) -> float:
+        """Best-checkpoint gate: 0.98, or 0.95 for the multi-classifier
+        (utils.py:329, 716)."""
+        if self.ckpt_acc_gate is not None:
+            return self.ckpt_acc_gate
+        return 0.95 if self.model == "multi_classifier" else 0.98
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+
+_INPUT_PATHS = "ROADMAP.md queue 1, 'Training input fast paths'"
+_GUARDS = "ROADMAP.md queue 1, 'Guards, sanitizers and the heartbeat'"
+_MULTI = "ROADMAP.md queue 1, 'Model C, multi-device training and CV'"
+
+#: Flags of the JAX train/test CLI the port does not carry yet: their JAX
+#: default and the ROADMAP.md item that brings them.
+NOT_YET_PORTED = {
+    "dp": (-1, _MULTI), "sp": (1, _MULTI), "bn_sync": ("global", _MULTI),
+    "cv_parallel": (False, _MULTI),
+    "compute_dtype": ("float32", "ROADMAP.md queue 1, 'bf16 and int8 "
+                                 "presets'"),
+    "device_data": ("auto", _INPUT_PATHS),
+    "device_data_budget_mb": (1024, _INPUT_PATHS),
+    "steps_per_dispatch": (8, _INPUT_PATHS),
+    "loader_workers": (2, _INPUT_PATHS),
+    "loader_queue_depth": (4, _INPUT_PATHS),
+    "loader_native": ("auto", _INPUT_PATHS),
+    "tracing_guards": (False, _GUARDS), "guard_warmup_steps": (-1, _GUARDS),
+    "guard_transfer": ("disallow", _GUARDS),
+    "guard_nan_check": (False, _GUARDS), "sanitize": (False, _GUARDS),
+    "sanitize_every": (100, _GUARDS), "debug_nans": (False, _GUARDS),
+    "obs_heartbeat_s": (0.0, _GUARDS),
+    "profile_dir": (None, "ROADMAP.md queue 1, 'Observability endpoints "
+                          "and tracing'"),
+}
+#: Prefixes of the JAX CLI's flags that only record the serving and
+#: streaming tiers' geometry in a run's config.json.
+_RECORD_ONLY = ("serve_", "router_", "stream_", "obs_", "conc_", "mem_")
+
+_TRUTHY = frozenset({"1", "true", "yes", "y", "t", "on"})
+_FALSY = frozenset({"0", "false", "no", "n", "f", "off"})
+
+
+class _CompatBoolAction(argparse.Action):
+    """``--flag`` / ``--no-flag`` / ``--flag False`` (the reference's
+    valued form, parsed properly; any other spelling is an error)."""
+
+    def __init__(self, option_strings, dest, default=None, help=None,  # noqa: A002
+                 **kwargs):
+        opts = list(option_strings)
+        opts += ["--no-" + o[2:] for o in option_strings
+                 if o.startswith("--") and not o.startswith("--no-")]
+        super().__init__(opts, dest, nargs="?", const=True,
+                         default=default, metavar="BOOL", help=help)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        if option_string and option_string.startswith("--no-"):
+            value = False
+        elif values is None:
+            value = True
+        elif str(values).strip().lower() in _TRUTHY:
+            value = True
+        elif str(values).strip().lower() in _FALSY:
+            value = False
+        else:
+            parser.error(f"argument {option_string}: invalid boolean "
+                         f"{values!r}")
+        setattr(namespace, self.dest, value)
+
+
+def _add_args(p: argparse.ArgumentParser) -> None:
+    d = Config()
+    p.add_argument("--model", type=str, default=d.model,
+                   help=f"model type: {', '.join(MODEL_TYPES[:3])}")
+    p.add_argument("--device", type=str, default=d.device,
+                   choices=["cuda", "cpu"],
+                   help="cuda (the default; raises without a card) or cpu")
+    p.add_argument("--batch_size", type=int, default=d.batch_size)
+    p.add_argument("--epoch_num", type=int, default=d.epoch_num)
+    p.add_argument("--lr", type=float, default=d.lr)
+    p.add_argument("--weight_decay", type=float, default=d.weight_decay)
+    p.add_argument("--lr_decay_factor", type=float, default=d.lr_decay_factor)
+    p.add_argument("--lr_decay_every", type=int, default=d.lr_decay_every)
+    p.add_argument("--val_every", type=int, default=d.val_every)
+    p.add_argument("--lr_decay_at_epoch0",
+                   action=argparse.BooleanOptionalAction, default=None,
+                   help="decay the LR at epoch 0 too (default: by model)")
+    p.add_argument("--ckpt_acc_gate", type=float, default=None,
+                   help="accuracy gate of the best checkpoint (default "
+                        "0.98)")
+    p.add_argument("--ckpt_every_epochs", type=int,
+                   default=d.ckpt_every_epochs,
+                   help="periodic checkpoint cadence in epochs (0 off)")
+    p.add_argument("--ckpt_max_keep", type=int, default=d.ckpt_max_keep)
+    p.add_argument("--mat_key", type=str, default=d.mat_key,
+                   help=".mat variable name holding the sample matrix")
+    p.add_argument("--log_every_steps", type=int, default=d.log_every_steps)
+    p.add_argument("--random_state", type=int, default=d.random_state)
+    p.add_argument("--fold_index", type=int, default=None,
+                   help="5-fold CV fold; omit for the holdout split")
+    p.add_argument("--test_rate", type=float, default=d.test_rate)
+    p.add_argument("--output_savedir", type=str, default=d.output_savedir)
+    p.add_argument("--model_path", type=str, default=None,
+                   help="port checkpoint directory to restore weights from")
+    p.add_argument("--dataset_ram", action=_CompatBoolAction,
+                   default=d.dataset_ram,
+                   help="preload all .mat files into host RAM")
+    p.add_argument("--trainval_set_striking", "--trainVal_set_striking",
+                   dest="trainval_set_striking", type=str,
+                   default=d.trainval_set_striking)
+    p.add_argument("--trainval_set_excavating", "--trainVal_set_excavating",
+                   dest="trainval_set_excavating", type=str,
+                   default=d.trainval_set_excavating)
+    p.add_argument("--test_set_striking", type=str,
+                   default=d.test_set_striking)
+    p.add_argument("--test_set_excavating", type=str,
+                   default=d.test_set_excavating)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--noise_snr_db", type=float, default=None,
+                   help="opt-in Gaussian noise SNR (dB)")
+    p.add_argument("--prefetch_batches", type=int, default=d.prefetch_batches,
+                   help="batches assembled ahead on one thread (0 inline)")
+    p.add_argument("--resume", action=argparse.BooleanOptionalAction,
+                   default=d.resume)
+    group = p.add_argument_group("not yet ported (exit 2 unless default)")
+    for name, (default, _) in NOT_YET_PORTED.items():
+        if isinstance(default, bool):
+            group.add_argument(f"--{name}", default=argparse.SUPPRESS,
+                               action=argparse.BooleanOptionalAction)
+        else:
+            kind = str if default is None else type(default)
+            group.add_argument(f"--{name}", type=kind,
+                               default=argparse.SUPPRESS)
+
+
+def _parse(argv, description: str) -> Config:
+    p = argparse.ArgumentParser(description=description)
+    _add_args(p)
+    ns, extra = p.parse_known_args(argv)
+    record_only = [a for a in extra
+                   if a.startswith("--") and a[2:].startswith(_RECORD_ONLY)]
+    if record_only:
+        print(f"dasmtl_torch: {record_only[0].split('=')[0]} is not yet "
+              f"ported: the JAX CLI records it in config.json for the "
+              f"serving and streaming tiers (ROADMAP.md queue 1, 'Stream "
+              f"and resident tier' and 'Observability endpoints and "
+              f"tracing'); the port's server takes its own flags, python "
+              f"-m dasmtl_torch.serve --help", file=sys.stderr)
+        raise SystemExit(2)
+    if extra:
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    kw = vars(ns)
+    for name, (default, item) in NOT_YET_PORTED.items():
+        if name in kw and kw.pop(name) != default:
+            print(f"dasmtl_torch: --{name} is not yet ported: {item}",
+                  file=sys.stderr)
+            raise SystemExit(2)
+    return Config(**kw)
+
+
+def parse_train_args(argv=None) -> Config:
+    return _parse(argv, "dasmtl_torch model training (PyTorch, CUDA)")
+
+
+def parse_test_args(argv=None) -> Config:
+    return _parse(argv, "dasmtl_torch model evaluation (PyTorch, CUDA)")

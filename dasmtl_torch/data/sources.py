@@ -1,0 +1,110 @@
+"""Example sources — counterpart of ``dasmtl/data/sources.py``.
+
+``RamSource`` preloads every example (reference ``Datasetram``,
+dataset_preparation.py:252-297), ``DiskSource`` reads ``.mat`` files at
+gather time (reference ``DatasetDisk``, :300-344), ``ArraySource`` wraps
+arrays already in memory.  A source hands out whole batches,
+``gather(indices) -> [N, H, W, 1]`` float32, and keeps its labels in
+``distance`` / ``event`` (int32).  Files are read with scipy; the JAX
+package's optional native reader has no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from dasmtl_torch.data import matio
+from dasmtl_torch.data.splits import Example
+from dasmtl_torch.data.transforms import add_gaussian_snr, to_sample
+
+
+class _SourceBase:
+    distance: np.ndarray  # [N] int32
+    event: np.ndarray  # [N] int32
+
+    def __len__(self) -> int:
+        return self.distance.shape[0]
+
+    def gather(self, indices: np.ndarray,
+               rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        raise NotImplementedError
+
+
+def _load_batch(paths: Sequence[str], key: str,
+                noise_snr_db: Optional[float],
+                rng: Optional[np.random.Generator]) -> np.ndarray:
+    """Same-shaped ``.mat`` files as [N, H, W, 1] float32, with optional
+    SNR noise drawn from ``rng`` file by file."""
+    out = []
+    for path in paths:
+        mat = matio.load_mat(path, (key,))
+        if noise_snr_db is not None:
+            mat = add_gaussian_snr(mat, noise_snr_db, rng)
+        out.append(to_sample(mat))
+    if not out:
+        return np.zeros((0, 0, 0, 1), np.float32)
+    return np.stack(out)
+
+
+def _labels(examples: Sequence[Example]):
+    return (np.array([ex.distance for ex in examples], np.int32),
+            np.array([ex.event for ex in examples], np.int32))
+
+
+class RamSource(_SourceBase):
+    """Eagerly loads every example into one [N, H, W, 1] array; noise, if
+    any, is drawn once here from ``default_rng(noise_seed)``."""
+
+    def __init__(self, examples: Sequence[Example], key: str = "data",
+                 noise_snr_db: Optional[float] = None,
+                 noise_seed: int = 0):
+        self.examples = list(examples)
+        self.noise_seed = noise_seed
+        self.x = _load_batch([ex.path for ex in self.examples], key,
+                             noise_snr_db, np.random.default_rng(noise_seed))
+        self.distance, self.event = _labels(self.examples)
+
+    def gather(self, indices: np.ndarray,
+               rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        return self.x[indices]
+
+
+class DiskSource(_SourceBase):
+    """Loads ``.mat`` files lazily at gather time.  Noise comes from the
+    ``rng`` a caller passes (the training pipeline passes one per batch),
+    else from the source's own sequential generator."""
+
+    def __init__(self, examples: Sequence[Example], key: str = "data",
+                 noise_snr_db: Optional[float] = None, noise_seed: int = 0):
+        self.examples = list(examples)
+        self.key = key
+        self.noise_snr_db = noise_snr_db
+        self.noise_seed = noise_seed
+        self._rng = np.random.default_rng(noise_seed)
+        self.distance, self.event = _labels(self.examples)
+
+    def gather(self, indices: np.ndarray,
+               rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        return _load_batch(
+            [self.examples[i].path for i in np.asarray(indices)],
+            self.key, self.noise_snr_db, rng if rng is not None
+            else self._rng)
+
+
+class ArraySource(_SourceBase):
+    """Wraps already-materialized arrays (tests, synthetic data)."""
+
+    def __init__(self, x: np.ndarray, distance: np.ndarray,
+                 event: np.ndarray):
+        if not x.shape[0] == distance.shape[0] == event.shape[0]:
+            raise ValueError(f"{x.shape[0]} windows for "
+                             f"{distance.shape[0]} / {event.shape[0]} labels")
+        self.x = np.asarray(x, np.float32)
+        self.distance = np.asarray(distance, np.int32)
+        self.event = np.asarray(event, np.int32)
+
+    def gather(self, indices: np.ndarray,
+               rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        return self.x[indices]

@@ -8,9 +8,14 @@ in an attention-mask generator, ``{0,1}`` in an output layer.  That is the
 layout ``dasmtl/models/torch_port.py`` reads, which makes the weight bridge
 (:mod:`dasmtl_torch.models.weights`) a name-for-name map.
 
-Parity notes (pinned by ``tests/test_torch_port_model.py``):
-- BatchNorm: eval mode uses the running stats with eps 1e-5; torch momentum
-  0.1 is Flax momentum 0.9 (it only matters for training).
+Parity notes (pinned by ``tests/test_torch_port_model.py`` and
+``tests/test_torch_port_train.py``):
+- BatchNorm (:class:`BatchNorm2d`): eval mode uses the running stats with
+  eps 1e-5.  Train mode normalizes with the batch statistics and moves the
+  running stats as Flax does, ``running = 0.9·running + 0.1·batch`` with the
+  BIASED batch variance (``dasmtl/models/layers.py:50-52``); torch's own
+  ``nn.BatchNorm2d`` moves ``running_var`` by the Bessel-corrected n/(n−1)
+  variance instead.
 - Only the two convolutions of :class:`AttentionGate` carry a bias.
 - :func:`max_pool_ceil` is ``ceil_mode=True``, which for a 2x2/2 window is
   exactly Flax's ``SAME`` pool with a -inf pad (33x83 -> 17x42).
@@ -28,6 +33,27 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; Flax's running-stat decay 0.9
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode running-stat update is Flax's:
+    the biased batch variance, not torch's n/(n−1) one.  Every row of the
+    batch counts, padded (weight-0) rows included, as in the JAX step.
+    Eval mode and the state-dict names are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # One pass: the op returns the batch mean and 1/sqrt(var + eps)
+        # beside its output, so the update reads no activation again.
+        y, mean, invstd = torch.ops.aten.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = invstd.pow(-2).sub_(self.eps)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class ConvBN(nn.Sequential):
     """Conv2d (no bias unless asked) followed by BatchNorm2d.  Containers
     unpack it (``*ConvBN(...)``) so the conv and the BN sit at the
@@ -38,7 +64,7 @@ class ConvBN(nn.Sequential):
         super().__init__(
             nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding,
                       bias=bias),
-            nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM))
+            BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM))
 
 
 class ResBlock(nn.Module):

@@ -1,9 +1,8 @@
 """Model registry: one spec per ported model family.
 
-Counterpart of ``dasmtl/models/registry.py:26-83`` for the serving slice:
-how to build the module, which task each output head carries, and how to
-decode the heads into per-task predictions.  The loss functions join the
-specs with the training slice.
+Counterpart of ``dasmtl/models/registry.py:26-83``: how to build the
+module, which loss trains it, which task each output head carries, and how
+to decode the heads into per-task predictions.
 """
 
 from __future__ import annotations
@@ -16,12 +15,15 @@ from torch import nn
 
 from dasmtl_torch.config import NUM_DISTANCE_CLASSES, NUM_EVENT_CLASSES
 from dasmtl_torch.models.two_level import MTLNet, SingleTaskNet
+from dasmtl_torch.train import losses
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     name: str
     build: Callable[[], nn.Module]
+    # (outputs, batch) -> (loss, {part: loss}), weighted means.
+    loss_fn: Callable
     # Task heads reported during validation: (task_name, num_classes).
     report_tasks: Tuple[Tuple[str, int], ...]
     # The task each output head decodes to, in head order.
@@ -37,16 +39,20 @@ class ModelSpec:
 
 _REGISTRY = {
     "MTL": ModelSpec(
-        name="MTL", build=MTLNet,
+        name="MTL", build=MTLNet, loss_fn=losses.mtl_loss,
         report_tasks=(("distance", NUM_DISTANCE_CLASSES),
                       ("event", NUM_EVENT_CLASSES)),
         head_tasks=("distance", "event")),
     "single_distance": ModelSpec(
         name="single_distance", build=lambda: SingleTaskNet("distance"),
+        loss_fn=lambda outputs, batch: losses.single_task_loss(
+            outputs, batch, "distance"),
         report_tasks=(("distance", NUM_DISTANCE_CLASSES),),
         head_tasks=("distance",)),
     "single_event": ModelSpec(
         name="single_event", build=lambda: SingleTaskNet("event"),
+        loss_fn=lambda outputs, batch: losses.single_task_loss(
+            outputs, batch, "event"),
         report_tasks=(("event", NUM_EVENT_CLASSES),),
         head_tasks=("event",)),
 }
@@ -54,7 +60,8 @@ _REGISTRY = {
 #: Families of the JAX package this slice does not port yet, with the
 #: ROADMAP.md item that brings each.
 NOT_YET_PORTED = {
-    "multi_classifier": "ROADMAP.md queue 1, 'Model C' (InceptionV3 and "
+    "multi_classifier": "ROADMAP.md queue 1, 'Model C, multi-device "
+                        "training and CV' (InceptionV3 and "
                         "its mixed-label decode)",
 }
 

@@ -37,6 +37,8 @@ _P = ctypes.c_void_p
 #: stream are ``c_void_p`` (a bare int would be cut to 32 bits).
 SIGNATURES = {
     "dasmtl_gate_fwd": (ctypes.c_int, [_P, _P, _P, ctypes.c_int64, _P]),
+    "dasmtl_gate_bwd": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_int64,
+                                       _P]),
     "dasmtl_decode_heads": (ctypes.c_int, [
         _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int64,
         _P, _P, _P, _P, _P, _P]),

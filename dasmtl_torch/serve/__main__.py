@@ -24,7 +24,7 @@ from dasmtl_torch import config as C
 #: Options of ``python -m dasmtl.serve`` this slice does not port yet ->
 #: the ROADMAP.md item that brings each.
 NOT_YET_PORTED = {
-    "model_path": "ROADMAP.md queue 1, 'Trainer and checkpoint' (the JAX "
+    "model_path": "ROADMAP.md queue 1, 'Artifacts and registry' (the JAX "
                   "checkpoints are Orbax files the port cannot read yet)",
     "exported": "ROADMAP.md queue 1, 'Artifacts and registry'",
     "registry": "ROADMAP.md queue 1, 'Artifacts and registry'",

@@ -1,5 +1,6 @@
 """The port on the card: each hand-written kernel against its plain
-version, the serve forward against the CPU, the executor's stream path.
+version, the serve forward and one train step against the CPU, the
+executor's stream path.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -19,6 +20,9 @@ from dasmtl_torch.models.registry import get_model_spec
 from dasmtl_torch.models.weights import init_fresh
 from dasmtl_torch.ops import decode, gating
 from dasmtl_torch.serve.executor import InferExecutor
+from dasmtl_torch.train.optim import coupled_adam
+from dasmtl_torch.train.state import TrainState
+from dasmtl_torch.train.steps import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +35,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run this file on the H100")
     gating.launches.reset()
+    gating.backward_launches.reset()
     decode.launches.reset()
     return torch.device("cuda")
 
@@ -64,6 +69,40 @@ def test_gate_kernel_unaligned_tail(cuda):
     torch.testing.assert_close(got, gating.gate_apply_plain(l[:, 1:],
                                                             f[:, 1:]),
                                atol=1e-6, rtol=0, equal_nan=True)
+
+
+#: The backward's tolerance: a few f32 roundings of values below ~8 in
+#: magnitude (expf against torch.sigmoid, then three products).
+BWD_ATOL, BWD_RTOL = 1e-6, 1e-5
+
+
+def _assert_backward_matches_plain(l, f, g):
+    d_l, d_f = gating.gate_apply_backward(l, f, g)
+    r_l, r_f = gating.gate_backward_plain(l, f, g)
+    for got, want in ((d_l, r_l), (d_f, r_f)):
+        torch.testing.assert_close(got, want, atol=BWD_ATOL, rtol=BWD_RTOL,
+                                   equal_nan=True)
+    return d_l, d_f
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+def test_gate_backward_kernel_matches_plain(cuda, batch):
+    for shape in STAGES:
+        l, f = _gate_operands(batch, (batch, *shape), cuda)
+        g = torch.randn(l.shape, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(batch))
+        d_l, _ = _assert_backward_matches_plain(l, f, g)
+        assert d_l.view(-1)[0].item() == 0.0  # l = -100
+        assert d_l.view(-1)[1].item() == 0.0  # l = +100
+    assert gating.backward_launches.value == len(STAGES)
+
+
+def test_gate_backward_kernel_unaligned_tail_and_strided_grad(cuda):
+    l, f = _gate_operands(8, (1, 4 * 1001 + 3), cuda)
+    g = torch.randn(1, 2 * (4 * 1001 + 3), device=cuda)[:, ::2]
+    assert not g[:, 1:].is_contiguous()
+    _assert_backward_matches_plain(l[:, 1:], f[:, 1:], g[:, 1:])
+    assert gating.backward_launches.value == 1
 
 
 def test_decode_kernel_matches_plain(cuda):
@@ -113,3 +152,52 @@ def test_executor_dispatches_on_its_own_stream(cuda):
     assert preds["distance"].shape == (4,) and not bad.any()
     assert lp["log_probs_0"].shape == (4, 16)
     ex.close()
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One full-width MTL train step at 100x250, batch 8: the card (the
+    gate kernels, TF32 off) against the CPU (the plain versions), at the
+    committed tolerances (tests/test_torch_parity.py:286-291)."""
+    set_f32_numerics()
+    spec = get_model_spec("MTL")
+    g = torch.Generator().manual_seed(2)
+    batch = {"x": torch.randn(8, 100, 250, 1, generator=g),
+             "distance": torch.randint(0, 16, (8,), generator=g,
+                                       dtype=torch.int32),
+             "event": torch.randint(0, 2, (8,), generator=g,
+                                    dtype=torch.int32),
+             "weight": torch.ones(8)}
+    states = []
+    for device in ("cpu", cuda):
+        net = init_fresh(spec.build(), seed=0).to(device)
+        states.append(TrainState(model=net,
+                                 optimizer=coupled_adam(net.parameters())))
+    step = make_train_step(spec)
+    m_cpu = step(states[0], batch, 1e-3)
+    m_gpu = step(states[1], {k: v.to(cuda) for k, v in batch.items()}, 1e-3)
+    assert gating.launches.value == 8
+    assert gating.backward_launches.value == 8
+    loss = [float(m["loss_sum"] / m["count"]) for m in (m_cpu, m_gpu)]
+    assert abs(loss[0] - loss[1]) < 1e-4
+    cpu_sd = states[0].model.state_dict()
+    for k, v in states[1].model.state_dict().items():
+        want, got = cpu_sd[k], v.cpu()
+        if "running" in k:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-3)
+        elif _dead_bias(cpu_sd, k):
+            torch.testing.assert_close(got, want, atol=2.5e-3, rtol=0)
+        elif v.is_floating_point():
+            close = torch.isclose(got, want, atol=5e-5, rtol=1e-3)
+            assert (~close).sum() <= max(2, want.numel() // 200), k
+            torch.testing.assert_close(got[~close], want[~close],
+                                       atol=2.5e-3, rtol=0)
+
+
+def _dead_bias(state_dict, key):
+    """A conv bias that feeds a train-mode BatchNorm (the attention gates'
+    two convs): BN removes any per-channel constant, so its true gradient
+    is 0 and Adam's first step is lr * noise / (|noise| + eps), whose size
+    and sign follow each device's reduction noise.  Such a leaf is held to
+    the outlier envelope alone (every element)."""
+    weight = state_dict.get(key[:-len("bias")] + "weight")
+    return key.endswith(".bias") and weight is not None and weight.dim() == 4

@@ -8,7 +8,8 @@ their wrappers' dispatch rules, the build, and the device rules.
   ``nonfinite_rows``) with NaN and Inf rows planted: ints equal on finite
   rows, ``bad_rows`` equal everywhere.
 - A wrapper takes the plain version only for CPU tensors: any other
-  tensor launches the kernel or raises, also when the build fails.
+  tensor launches the kernel or raises, also when the build fails; a
+  grad-requiring operand reaches the kernel through ``GateFunction``.
 - tests/test_torch_port_cuda.py holds each kernel to its plain version on
   the card.
 """
@@ -129,6 +130,7 @@ def failed_build(monkeypatch, tmp_path):
                                 "error: planted")
 
     monkeypatch.setattr(gating, "require_hopper", lambda t: None)
+    gating.backward_launches.reset()
     monkeypatch.setattr(decode, "require_hopper", lambda t: None)
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
@@ -164,7 +166,8 @@ def test_library_name_follows_the_sources():
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "grad",
                                   "devices"])
-def test_gate_kernel_refuses_what_it_does_not_take(case, failed_build):
+def test_gate_kernel_refuses_what_it_does_not_take(case, failed_build,
+                                                   monkeypatch):
     a = torch.empty(2, 4, 3, 5, device="meta")
     b = torch.empty(2, 4, 3, 5, device="meta")
     if case == "dtype":
@@ -177,11 +180,55 @@ def test_gate_kernel_refuses_what_it_does_not_take(case, failed_build):
         b.requires_grad_(True)
     else:
         b = torch.zeros(2, 4, 3, 5)
+    if case == "grad":
+        # A grad-requiring operand goes through the autograd Function to
+        # the kernel path: its guards pass these operands, so the failed
+        # build is what stops it (no refusal, no plain fallback).
+        entered = []
+        forward = gating.GateFunction.forward
+
+        def spy(ctx, logits, feats):
+            entered.append(ctx)
+            return forward(ctx, logits, feats)
+
+        monkeypatch.setattr(gating.GateFunction, "forward",
+                            staticmethod(spy))
+        with pytest.raises(_build.BuildError, match="planted"):
+            gating.gate_apply(a, b)
+        assert len(entered) == 1
+        with pytest.raises(TypeError, match="float32"):
+            gating.gate_apply(a, b.double())
+        assert len(entered) == 2
+        return
     with pytest.raises((TypeError, ValueError, RuntimeError)) as info:
         gating.gate_apply(a, b)
     assert not isinstance(info.value, _build.BuildError)
-    if case == "grad":
-        assert "training slice" in str(info.value)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "devices",
+                                  "strided_grad"])
+def test_gate_backward_kernel_guards(case, failed_build):
+    """The backward wrapper checks like the forward; only the incoming
+    gradient may be non-contiguous (it is made contiguous first)."""
+    l = torch.empty(2, 4, 3, 5, device="meta")
+    f = torch.empty(2, 4, 3, 5, device="meta")
+    g = torch.empty(2, 4, 3, 5, device="meta")
+    if case == "dtype":
+        g = g.double()
+    elif case == "shape":
+        g = torch.empty(2, 4, 3, 6, device="meta")
+    elif case == "contiguity":
+        f = torch.empty(2, 4, 5, 3, device="meta").transpose(2, 3)
+    elif case == "devices":
+        g = torch.zeros(2, 4, 3, 5)
+    else:
+        g = torch.empty(2, 4, 5, 3, device="meta").transpose(2, 3)
+        with pytest.raises(_build.BuildError, match="planted"):
+            gating.gate_apply_backward(l, f, g)
+        return
+    with pytest.raises((TypeError, ValueError)):
+        gating.gate_apply_backward(l, f, g)
+    assert gating.backward_launches.value == 0
 
 
 @pytest.mark.parametrize("case", ["dtype", "width", "rows", "heads",

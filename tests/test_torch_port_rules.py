@@ -1,6 +1,7 @@
 """Rules the port's tree keeps: it imports nothing of JAX or of the JAX
-package, builds nothing at import, and ``chip_smoke.py`` refuses to report
-a result without a CUDA card or without the package beside it."""
+package (and no sklearn or matplotlib, which the card's machine lacks),
+builds nothing at import, and ``chip_smoke.py`` refuses to report a result
+without a CUDA card or without the package beside it."""
 
 import ast
 import shutil
@@ -38,17 +39,48 @@ def test_no_import_of_jax_or_the_jax_package(path):
 
 
 def test_serve_entry_point_loads_no_jax_and_builds_nothing():
-    code = ("import sys\n"
+    _assert_imports_clean(["dasmtl_torch.serve.__main__",
+                           "dasmtl_torch.serve.server"])
+
+
+#: The run entry points and every module of training and data.
+RUN_MODULES = ["dasmtl_torch.cli", "dasmtl_torch.__main__",
+               "dasmtl_torch.main"] + sorted(
+    f"dasmtl_torch.{p.parent.name}.{p.stem}"
+    for sub in ("train", "data") for p in (ROOT / "dasmtl_torch" / sub)
+    .glob("*.py") if p.stem != "__init__")
+
+
+def test_run_entry_points_load_no_jax_and_build_nothing():
+    assert "dasmtl_torch.train.steps" in RUN_MODULES
+    assert "dasmtl_torch.data.splits" in RUN_MODULES
+    _assert_imports_clean(RUN_MODULES)
+
+
+def _assert_imports_clean(modules):
+    """Importing ``modules`` in a fresh interpreter loads nothing of JAX,
+    the JAX package, sklearn or matplotlib, and builds no kernel."""
+    unwanted = FORBIDDEN + ("sklearn", "matplotlib")
+    code = ("import sys, importlib\n"
             "before = set(sys.modules)\n"
-            "import dasmtl_torch.serve.__main__, dasmtl_torch.serve.server\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
             "from dasmtl_torch.ops import _build, decode, gating\n"
             "bad = sorted(m for m in set(sys.modules) - before\n"
-            f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+            f"             if m.split('.')[0] in {unwanted!r})\n"
             "print(bad, _build._lib is None)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] True"
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_sklearn_or_matplotlib(path):
+    bad = sorted({m for m in _imported_roots(path)
+                  if m in ("sklearn", "matplotlib")})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
 def _run_smoke(cwd):
