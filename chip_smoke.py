@@ -31,7 +31,24 @@ Phases, each fatal on failure (no phase catches its own error):
              run-dir artifacts, and the test run's ints equal to a direct
              ``eval_step`` on decisive rows, the counters zeroed just
              before the train run and read after the test run; (f) device
-             and host-paced ms per train step, examples/s, peak memory.
+             and host-paced ms per train step, examples/s, peak memory;
+7. stream  — (a) the window-gather, ring-append and event_prob_q kernels
+             against their plain versions at the stream path's shapes,
+             then timed; (b) ``python -m dasmtl_torch.stream`` in process
+             over a 1000 x 60000 record at stride 125, batch 256, with
+             phase 6's checkpoint, resident on and off: 4,790 identical
+             rows, ints equal to a CPU run of 256 of its windows on
+             decisive rows, 19 gathers with resident on and 0 off,
+             windows/s, device idle share and kernel ms per dispatch by
+             layer; (c) the live tier of model A at 100x250 (4 fibers x
+             400 channels, chunk 500, ring 16384, 200 paced cycles) on both
+             data planes: every window's ints equal on decisive rows, ring
+             appends = chunks flushed, gathers = dispatches, windows/s,
+             sample-to-event p50/p99, then 20 cycles under the profiler;
+             (d) the oracle soak at the JAX selftest's 64x64 geometry on
+             both planes: the same open/close records, every planted event
+             (but the 2-window blip, which must debounce away) one closed
+             track of its type, event_prob_q launched.
 
 Then one JSON line lists every kernel of the port, the card's name and
 power limit follow on a line of their own, and the last line is
@@ -47,6 +64,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import csv
 import io
 import json
 import os
@@ -763,8 +781,8 @@ def _entry_points():
         f"{trained.reports['event']['accuracy']:.3f}; test ints == direct "
         f"eval_step on {agree} decisive rows of 256; examples/s per window "
         f"{[round(r, 1) for r in rates]}; peak memory {peak / 2**20:.1f} MiB")
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    return {"launches": launches, "train_s": train_s, "test_s": test_s,
+    return {"checkpoint": ckpt, "launches": launches, "train_s": train_s,
+            "test_s": test_s,
             "examples_per_s": rates, "peak_memory_bytes": peak,
             "val_acc": {t: r["accuracy"]
                         for t, r in trained.reports.items()},
@@ -849,8 +867,12 @@ def phase_train(peaks, profile: bool):
 
 #: The name of a host range (``record_function``) on the device timeline.
 HOST_RANGE = re.compile(r"[\w.]+#[\w.]+")
-#: Kernel-name fragments -> the train step's layers, first match wins.
-TRAIN_LAYERS = (("gate backward", ("gate_bwd",)),
+#: Kernel-name fragments -> layers of the train step and the stream path,
+#: first match wins.
+LAYERS = (("window gather", ("window_gather",)),
+          ("ring append", ("ring_append",)),
+          ("decode tail", ("decode_heads", "event_prob_q")),
+          ("gate backward", ("gate_bwd",)),
                 ("gate forward", ("gate_fwd",)),
                 ("Adam", ("multi_tensor_apply",)),
                 ("BatchNorm", ("batch_norm", "bn_")),
@@ -885,7 +907,7 @@ def _kernel_ms(fn, n: int):
         dev_ms = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0)) / 1e3 / n
         name = ev.key.lower()
-        layer = next((lay for lay, keys in TRAIN_LAYERS
+        layer = next((lay for lay, keys in LAYERS
                       if any(k in name for k in keys)), "other")
         layers[layer] = layers.get(layer, 0.0) + dev_ms
         launches += ev.count
@@ -926,6 +948,543 @@ def _profile_train(step, state, batch) -> dict:
             "kernels": rows[:40]}
 
 
+# -- phase 7 -------------------------------------------------------------------
+#: The offline record: a 10-channel-group fiber over one minute at 1 kHz.
+REC_SHAPE = (1000, 60000)
+STRIDE_T = 125
+SWEEP_BATCH = 256
+#: The live model-A cell: 4 fibers x 400 channels (4 tiles) at 100x250.
+LIVE_FIBERS, LIVE_CHANNELS, LIVE_CHUNK, LIVE_RING = 4, 400, 500, 16384
+LIVE_CYCLES, LIVE_BUDGET = 200, 64
+PROFILED_CYCLES = 20
+#: The oracle soak at the JAX selftest's geometry (selftest.py:137-178).
+ORACLE_HW, ORACLE_CHANNELS, ORACLE_STRIDE = (64, 64), 160, 32
+ORACLE_CYCLES, ORACLE_DUR = 140, 512
+#: Where phases 7b-7d run (the CPU only for rehearsing the script).
+DEV = "cuda"
+
+
+def _rotating(sets, fn):
+    """A call of ``fn`` on the next operand set, round robin."""
+    turn = [0]
+
+    def run():
+        fn(*sets[turn[0] % len(sets)])
+        turn[0] += 1
+    return run
+
+
+def _stream_kernels(peaks):
+    """(a) the window gather, ring append and event_prob_q kernels against
+    their plain versions at the stream path's shapes, then timed."""
+    from dasmtl_torch.ops import decode, ring, window
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rec = torch.randn(REC_SHAPE, device="cuda", generator=g)
+    C, T = REC_SHAPE
+
+    def origins(k):
+        o = torch.stack([torch.randint(0, C - H + 1, (k,), device="cuda",
+                                       generator=g),
+                         torch.randint(0, T - W + 1, (k,), device="cuda",
+                                       generator=g)], 1)
+        return o.to(torch.int32)
+
+    for k in (1, 16, 256):
+        o = origins(k)
+        # dynamic_slice's starts: -5 counts from the end, then both clamp.
+        o[0] = torch.tensor([-5, T + 100], device="cuda")
+        if k > 1:
+            o[1] = torch.tensor([C, -1], device="cuda")
+        got = window.window_gather(rec, o, (H, W))
+        torch.cuda.synchronize()
+        if not torch.equal(got, window.window_gather_plain(rec, o, (H, W))):
+            raise AssertionError(f"window gather differs at k={k}")
+        if not torch.equal(got[0, :, :, 0], rec[C - H:C, T - W:T]):
+            raise AssertionError("window gather did not wrap and clamp "
+                                 "as dynamic_slice does")
+    log("[stream] window gather == plain at k = 1, 16, 256 from the "
+        f"{C}x{T} record, clamped origins included: bit-exact")
+
+    ring_err = 0.0
+    for ch, w_c in ((100, 125), (400, 500)):
+        r_k = torch.randn((ch, LIVE_RING), device="cuda", generator=g)
+        r_p, spare = r_k.clone(), torch.empty_like(r_k)
+        for _ in range(200):
+            chunk = torch.randn((ch, w_c), device="cuda", generator=g)
+            spare = ring.ring_append(r_k, chunk, out=spare)
+            r_k, spare = spare, r_k
+            r_p = ring.ring_append_plain(r_p, chunk)
+        torch.cuda.synchronize()
+        if not torch.equal(r_k, r_p):
+            raise AssertionError(f"ring append differs at {ch}x{LIVE_RING}, "
+                                 f"w_c {w_c}")
+    log(f"[stream] ring append == plain over 200 appends at 100x{LIVE_RING} "
+        f"(w_c 125) and 400x{LIVE_RING} (w_c 500): bit-exact")
+
+    q_err = 0
+    for k in (1, 16, 256):
+        lp = torch.log_softmax(
+            4.0 * torch.randn((k, 2), device="cuda", generator=g), -1)
+        d = (decode.event_prob_q(lp) - decode.event_prob_q_plain(lp)).abs()
+        q_err = max(q_err, int(d.max().item()))
+        if q_err > 1:
+            raise AssertionError(f"event_prob_q off by {q_err} at k={k}")
+    log(f"[stream] event_prob_q == plain at k = 1, 16, 256: ints within "
+        f"{q_err} (tol 1)")
+
+    # Timing.  Gather: k = 256 windows per launch (the offline batch),
+    # origins rotating over 8 sets (205 MB of the record); bytes = each
+    # window read once and written once.
+    sets = [(rec, origins(256)) for _ in range(8)]
+    g_bytes = 2 * 256 * H * W * 4
+    gather = {
+        "ms": device_ms(_rotating(sets, lambda r, o: window.window_gather(
+            r, o, (H, W))), inner=10),
+        "plain_ms": device_ms(_rotating(
+            sets, lambda r, o: window.window_gather_plain(r, o, (H, W))),
+            inner=10),
+        "library_ms": None, "max_abs_err": 0.0,
+        "unit": f"1 launch, k=256 at {H}x{W} from {C}x{T}"}
+    gather["bound_ms"], gather["bound_by"] = bound(g_bytes, 0, peaks)
+    del sets
+
+    # Ring append at the live cell's 400 x 16384 ring, w_c 500, rotating
+    # over 5 rings (131 MB); the 100 x 16384 ring is logged beside it.
+    appends = {}
+    for ch, w_c in ((400, 500), (100, 125)):
+        rings = [torch.randn((ch, LIVE_RING), device="cuda", generator=g)
+                 for _ in range(5)]
+        chunk = torch.randn((ch, w_c), device="cuda", generator=g)
+        pairs = [(rings[i], chunk, rings[(i + 1) % 5]) for i in range(5)]
+        nbytes = 2 * ch * LIVE_RING * 4
+        appends[(ch, w_c)] = {
+            "ms": device_ms(_rotating(pairs, ring.ring_append), inner=20),
+            "plain_ms": device_ms(_rotating(
+                pairs, lambda r, c, _o: ring.ring_append_plain(r, c)),
+                inner=20),
+            "library_ms": device_ms(_rotating(
+                pairs, lambda r, c, _o: torch.cat([r[:, c.shape[1]:], c], 1)),
+                inner=20),
+            "max_abs_err": 0.0,
+            "unit": f"1 launch, ring {ch}x{LIVE_RING}, w_c {w_c}"}
+        appends[(ch, w_c)]["bound_ms"], appends[(ch, w_c)]["bound_by"] = \
+            bound(nbytes, 0, peaks)
+        del rings, pairs
+
+    # event_prob_q at k = 16 (the oracle lanes' top rung): 2 floats in,
+    # one int out per row, 2 exp-free compares and one exp.
+    lps = [(torch.log_softmax(torch.randn((16, 2), device="cuda",
+                                          generator=g), -1),)
+           for _ in range(4)]
+    probq = {"ms": device_ms(_rotating(lps, decode.event_prob_q), inner=20),
+             "plain_ms": device_ms(_rotating(lps, decode.event_prob_q_plain),
+                                   inner=20),
+             "library_ms": None, "max_abs_err": float(q_err),
+             "unit": "1 launch, k=16 rows of 2"}
+    probq["bound_ms"], probq["bound_by"] = bound(16 * 12, 16 * 4, peaks)
+    for name, k in (("window gather", gather),
+                    ("ring append 400x16384/500", appends[(400, 500)]),
+                    ("ring append 100x16384/125", appends[(100, 125)]),
+                    ("event_prob_q", probq)):
+        lib = ("" if k["library_ms"] is None
+               else f", torch.cat {k['library_ms'] * 1e3:.2f} us")
+        log(f"[stream] {name}: {k['ms'] * 1e3:.2f} us, plain "
+            f"{k['plain_ms'] * 1e3:.2f} us{lib}, bound "
+            f"{k['bound_ms'] * 1e3:.4f} us ({k['bound_by']})")
+    del rec
+    return {"window_gather": gather, "ring_append": appends[(400, 500)],
+            "ring_append_100": appends[(100, 125)], "event_prob_q": probq}
+
+
+def _launches():
+    from dasmtl_torch.ops import decode, gating, ring, window
+
+    return {"gate": gating.launches.value, "decode": decode.launches.value,
+            "window_gather": window.launches.value,
+            "ring_append": ring.launches.value,
+            "event_prob_q": decode.prob_q_launches.value}
+
+
+def _reset_launches():
+    from dasmtl_torch.ops import decode, gating, ring, window
+
+    for c in (gating.launches, gating.backward_launches, decode.launches,
+              decode.prob_q_launches, window.launches, ring.launches):
+        c.reset()
+
+
+def _offline(ckpt: str):
+    """(b) ``python -m dasmtl_torch.stream`` in process on the record, with
+    the resident path on and off; a CPU run of the same checkpoint on 256
+    windows of the record; windows/s and device idle share of each path."""
+    from dasmtl_torch.data import matio
+    from dasmtl_torch.data.windowing import plan_windows
+    from dasmtl_torch.main import build_state
+    from dasmtl_torch.config import Config
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.stream.__main__ import main as stream_main
+    from dasmtl_torch.stream.offline import EVENT_NAMES, stream_predict
+    from dasmtl_torch.train.checkpoint import restore_weights
+
+    record = np.random.default_rng(0).normal(size=REC_SHAPE).astype(
+        np.float32)
+    path = os.path.join(TRAIN_DIR, "fiber.mat")
+    matio.save_mat(path, record)
+    plan = plan_windows(REC_SHAPE, window=(H, W), stride=(H, STRIDE_T))
+    n = plan.n_windows
+    n_batches = -(-n // SWEEP_BATCH)
+    csvs, launches = {}, {}
+    for mode in ("on", "off"):
+        out = os.path.join(TRAIN_DIR, f"sweep_{mode}.csv")
+        _reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = stream_main(["--device", DEV, "--record", path,
+                              "--model_path", ckpt,
+                              "--stride_time", str(STRIDE_T),
+                              "--batch_size", str(SWEEP_BATCH),
+                              "--resident", mode, "--out", out])
+        torch.cuda.synchronize()
+        launches[mode] = _launches()
+        if rc != 0:
+            raise AssertionError(f"the sweep with --resident {mode} gave {rc}")
+        with open(out, newline="") as f:
+            csvs[mode] = list(csv.DictReader(f))
+    if not len(csvs["on"]) == len(csvs["off"]) == n:
+        raise AssertionError(f"CSV rows {len(csvs['on'])} / "
+                             f"{len(csvs['off'])}, expected {n}")
+    if csvs["on"] != csvs["off"]:
+        raise AssertionError("the resident and host sweeps differ")
+    want = {"on": n_batches, "off": 0}
+    for mode in ("on", "off"):
+        got = launches[mode]
+        if got["window_gather"] != want[mode] or \
+                got["decode"] != n_batches or got["gate"] != 8 * n_batches:
+            raise AssertionError(f"--resident {mode}: launches {got}, "
+                                 f"expected "
+                                 f"{want[mode]} gathers and {n_batches} "
+                                 f"forwards")
+
+    # The CPU: the same checkpoint on 256 windows spread over the record.
+    spec = get_model_spec("MTL")
+    state = build_state(Config(model="MTL", device="cpu"), spec,
+                        torch.device("cpu"))
+    net = restore_weights(state, ckpt).model.eval()
+    idx = np.linspace(0, n - 1, 256).astype(int)
+    xs = np.stack([record[c:c + H, t:t + W] for c, t in
+                   (plan.origin(int(i)) for i in idx)])[..., None]
+    with torch.inference_mode():
+        lps = [lp.numpy() for lp in net(torch.from_numpy(xs))]
+    agree = {}
+    for lp, task, col in zip(lps, spec.head_tasks,
+                             ("pred_distance_m", "pred_event")):
+        dec = _decisive(lp)
+        cpu_ints = lp.argmax(1)
+        card = np.array([int(csvs["on"][i][col]) if task == "distance"
+                         else EVENT_NAMES.index(csvs["on"][i][col])
+                         for i in idx])
+        if not np.array_equal(card[dec], cpu_ints[dec]):
+            raise AssertionError(f"sweep {task} ints differ from the CPU")
+        agree[task] = int(dec.sum())
+
+    # Windows/s of each path (the sweep alone, model restore and the
+    # record's upload included), then its device idle share under the
+    # profiler.
+    rates, idle, layers_ms = {}, {}, {}
+    for mode in ("on", "off"):
+        def sweep(mode=mode):
+            stream_predict(record, ckpt, batch_size=SWEEP_BATCH,
+                           stride=(H, STRIDE_T), resident=mode, device=DEV)
+        sweep()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates[mode] = n / wall
+        layers, _, p_wall, _ = _kernel_ms(sweep, 1)
+        idle[mode] = 1.0 - sum(layers.values()) / p_wall
+        layers_ms[mode] = {k: v / n_batches for k, v in layers.items()}
+    busy = sum(layers_ms["on"].values())
+    log(f"[stream] offline sweep of the {REC_SHAPE[0]}x{REC_SHAPE[1]} record "
+        f"at stride {STRIDE_T}, batch {SWEEP_BATCH}: {n} rows on both paths, "
+        f"identical; launches resident on {launches['on']}, off "
+        f"{launches['off']}; ints == CPU on {agree} decisive rows of 256; "
+        f"windows/s resident {rates['on']:.1f}, host {rates['off']:.1f}; "
+        f"device idle {100 * idle['on']:.1f}% / {100 * idle['off']:.1f}% "
+        f"(under the profiler)")
+    gather_share = layers_ms["on"].get("window gather", 0.0) / busy
+    log(f"[stream] resident sweep, kernel ms per batch-256 dispatch: "
+        f"{busy:.3f} ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            layers_ms["on"].items(), key=lambda kv: -kv[1]))
+        + f"); the gather is {100 * gather_share:.2f}% of it")
+    os.remove(path)
+    return {"rows": n, "batches": n_batches, "launches": launches,
+            "decisive_rows_equal": agree, "windows_per_s": rates,
+            "device_idle_share": idle, "kernel_ms_per_batch": layers_ms}
+
+
+def _live_sources(n, channels):
+    from dasmtl_torch.stream.feed import PlantedEvent, SyntheticSource
+
+    return [SyntheticSource(channels, seed=i, events=(
+        PlantedEvent(4000, 2048, 0, channels // 3),
+        PlantedEvent(12000, 2048, 1, (2 * channels) // 3)))
+        for i in range(n)]
+
+
+def _paced(stream, tenants, cycles, now=None):
+    """``cycles`` of ``run_cycle``, each waiting until every window it
+    submitted resolved, so both data planes see the same windows."""
+    for c in range(cycles):
+        stream.run_cycle(None if now is None else now(c))
+        deadline = time.monotonic() + 30.0
+        while any(t.outstanding for t in tenants):
+            if time.monotonic() > deadline:
+                raise AssertionError("a cycle's windows did not resolve")
+            time.sleep(0.0005)
+
+
+def _record_decodes(tenants):
+    """Wrap each tenant's track book so every resolved window's decode is
+    kept by (fiber, tile, t_origin)."""
+    seen = {}
+    for t in tenants:
+        update = t.book.update
+
+        def spy(tile, d, now, t=t, update=update):
+            seen[(t.name, tile, d.t_origin)] = (d.ok, d.event, d.distance,
+                                                d.event_prob)
+            return update(tile, d, now)
+        t.book.update = spy
+    return seen
+
+
+def _live_run(executor, resident: str):
+    from dasmtl_torch.serve.server import ServeLoop
+    from dasmtl_torch.stream.live import StreamLoop, StreamTenant
+
+    loop = ServeLoop(executor, buckets=BUCKETS, max_wait_s=0.005,
+                     queue_depth=256, inflight=2).start()
+    tenants = [StreamTenant(f"f{i}", src, window=(H, W),
+                            stride_time=STRIDE_T, ring_samples=LIVE_RING,
+                            chunk_samples=LIVE_CHUNK)
+               for i, src in enumerate(_live_sources(LIVE_FIBERS,
+                                                     LIVE_CHANNELS))]
+    stream = StreamLoop(loop, tenants, cycle_budget=LIVE_BUDGET,
+                        max_wait_s=0.005, resident=resident)
+    try:
+        if stream.resident_enabled != (resident == "on"):
+            raise AssertionError(f"resident={resident} did not engage")
+        seen = _record_decodes(tenants)
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        _paced(stream, tenants, LIVE_CYCLES)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        lat = sorted(x for t in tenants for x in t.latencies)
+        out = {"launches": _launches(), "wall_s": wall,
+               "windows": sum(t.resolved for t in tenants),
+               "shed": sum(t.shed for t in tenants),
+               "p50_ms": 1e3 * lat[len(lat) // 2],
+               "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+               "opens": sum(t.book.opens for t in tenants),
+               "closes": sum(t.book.closes for t in tenants)}
+        if resident == "on":
+            out["chunks"] = sum(t.resident.feed.h2d_chunks for t in tenants)
+            out["dispatches"] = sum(t.resident.dispatches for t in tenants)
+        # Where a paced cycle's time goes: more cycles under the profiler,
+        # after the run's counts were read.
+        layers, _, cycle_ms, per_cycle = _kernel_ms(
+            lambda: _paced(stream, tenants, 1), PROFILED_CYCLES)
+        out.update(profiled_cycle_wall_ms=cycle_ms, kernel_ms_per_cycle=layers,
+                   kernel_launches_per_cycle=per_cycle)
+        if not stream.drain(timeout=30.0):
+            raise AssertionError("the live loop did not drain")
+        return seen, out
+    finally:
+        stream.close()
+        loop.close()
+
+
+def _replay(seed: int, cycles: int) -> np.ndarray:
+    """A synthetic fiber's samples as the live run polled them."""
+    src = _live_sources(seed + 1, LIVE_CHANNELS)[seed]
+    return np.concatenate([src.poll(LIVE_CHUNK) for _ in range(cycles)], 1)
+
+
+def _live_model_a():
+    """(c) the live tier of model A at 100x250 on both data planes."""
+    from dasmtl_torch.serve.executor import InferExecutor
+
+    executor = InferExecutor.from_fresh_init("MTL", BUCKETS, (H, W), 0,
+                                             torch.device(DEV))
+    runs = {}
+    seen = {}
+    for mode in ("on", "off"):
+        seen[mode], runs[mode] = _live_run(executor, mode)
+    on, off = runs["on"], runs["off"]
+    if set(seen["on"]) != set(seen["off"]) or on["shed"] or off["shed"]:
+        raise AssertionError(f"the two planes resolved different windows: "
+                             f"{len(seen['on'])} vs {len(seen['off'])}, shed "
+                             f"{on['shed']} / {off['shed']}")
+    lo = on["launches"]
+    if lo["ring_append"] != on["chunks"] or \
+            lo["window_gather"] != on["dispatches"] or \
+            lo["decode"] != on["dispatches"] or lo["event_prob_q"] != 0:
+        raise AssertionError(f"resident launches {lo} for {on['chunks']} "
+                             f"chunks and {on['dispatches']} dispatches")
+    if off["launches"]["window_gather"] or off["launches"]["ring_append"]:
+        raise AssertionError(f"host plane launched {off['launches']}")
+    differ = [k for k in seen["on"] if seen["on"][k] != seen["off"][k]]
+    if any(seen["on"][k][3] != 1.0 for k in seen["on"] if seen["on"][k][0]):
+        raise AssertionError("model A's resident confidence is not 1.0")
+    if differ:
+        # Ints may differ only where the window's top-2 margin is below
+        # DECISIVE: recompute those windows' log-probs from the source.
+        fwd = executor.raw_infer_fn
+        by_fiber = {}
+        for fiber, tile, t0 in differ:
+            by_fiber.setdefault(fiber, []).append((tile, t0))
+        for fiber, keys in by_fiber.items():
+            data = _replay(int(fiber[1:]), LIVE_CYCLES + PROFILED_CYCLES + 1)
+            xs = np.stack([data[100 * tile:100 * tile + H, t0:t0 + W]
+                           for tile, t0 in keys])[..., None]
+            out = fwd(torch.from_numpy(xs).to(DEV))
+            for i, task in enumerate(("distance", "event")):
+                dec = _decisive(out[f"log_probs_{i}"].cpu().numpy())
+                for j, key in enumerate(keys):
+                    a = seen["on"][(fiber, *key)]
+                    b = seen["off"][(fiber, *key)]
+                    if dec[j] and a[1 + (task == "distance")] != \
+                            b[1 + (task == "distance")]:
+                        raise AssertionError(f"{fiber} {key} {task}: "
+                                             f"resident {a}, host {b}")
+    for mode in ("on", "off"):
+        r = runs[mode]
+        r["windows_per_s"] = r["windows"] / r["wall_s"]
+        log(f"[stream] live model A, {LIVE_FIBERS} fibers x {LIVE_CHANNELS} "
+            f"channels, {LIVE_CYCLES} paced cycles, resident {mode}: "
+            f"{r['windows']} windows, {r['windows_per_s']:.1f} windows/s, "
+            f"sample-to-event p50 {r['p50_ms']:.2f} ms p99 "
+            f"{r['p99_ms']:.2f} ms; launches {r['launches']}")
+        busy = sum(r["kernel_ms_per_cycle"].values())
+        log(f"[stream]   under the profiler: "
+            f"{r['profiled_cycle_wall_ms']:.3f} ms wall per paced cycle, "
+            f"{busy:.3f} ms of kernels (device idle "
+            f"{100 * (1 - busy / r['profiled_cycle_wall_ms']):.1f}%), "
+            f"{r['kernel_launches_per_cycle']:.0f} launches: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                r["kernel_ms_per_cycle"].items(), key=lambda kv: -kv[1])))
+    log(f"[stream] live model A: {len(seen['on'])} windows decoded on both "
+        f"planes, {len(differ)} with an int differing (none decisive); "
+        f"ring appends == {on['chunks']} chunks, gathers == "
+        f"{on['dispatches']} dispatches; confidence 1.0 (no "
+        f"log_probs_event)")
+    return {"windows": len(seen["on"]), "differing": len(differ),
+            "resident": runs["on"], "host": runs["off"]}
+
+
+def _oracle_soak(resident: str):
+    from dasmtl_torch.serve.server import ServeLoop
+    from dasmtl_torch.stream.feed import PlantedEvent, SyntheticSource
+    from dasmtl_torch.stream.live import StreamLoop, StreamTenant
+    from dasmtl_torch.stream.selftest import _oracle_pool
+
+    dur = ORACLE_DUR
+    events = {"f0": (PlantedEvent(1216, dur, 0, 72),
+                     PlantedEvent(3200, dur, 1, 128),
+                     PlantedEvent(5216, dur, 0, 100)),
+              "f1": (PlantedEvent(1600, dur, 1, 32),
+                     PlantedEvent(3616, dur, 0, 32),
+                     PlantedEvent(5600, 32, 0, 72))}
+    sources = [SyntheticSource(ORACLE_CHANNELS, seed=0, events=events["f0"]),
+               SyntheticSource(ORACLE_CHANNELS, seed=1, events=events["f1"],
+                               nan_samples=(3800, 3801), nan_channel=40),
+               SyntheticSource(ORACLE_CHANNELS, seed=2)]
+    executor = _oracle_pool(ORACLE_HW, (1, 2, 4, 8), torch.device(DEV))
+    loop = ServeLoop(executor, buckets=(1, 2, 4, 8), max_wait_s=0.002,
+                     queue_depth=256, inflight=2).start()
+    tenants = [StreamTenant(f"f{i}", src, window=ORACLE_HW,
+                            stride_time=ORACLE_STRIDE, stride_channels=48,
+                            ring_samples=4096,
+                            chunk_samples=256 if i == 2 else 64)
+               for i, src in enumerate(sources)]
+    stream = StreamLoop(loop, tenants, cycle_budget=48, max_wait_s=0.002,
+                        resident=resident, clock=lambda: 0.0)
+    try:
+        _reset_launches()
+        _paced(stream, tenants, ORACLE_CYCLES, now=float)
+        launches = _launches()
+        if not stream.drain(timeout=30.0):
+            raise AssertionError("the oracle soak did not drain")
+        records = [{k: v for k, v in r.items() if k != "t"}
+                   for r in stream.events(100_000)]
+        return tenants, events, records, launches
+    finally:
+        stream.close()
+        loop.close()
+
+
+def _live_oracle():
+    """(d) the oracle soak on both planes: same tracks, every planted event
+    one closed track of its type (the 2-window blip debounced away, as in
+    the JAX soak), event_prob_q launched on the resident plane."""
+    out = {}
+    for mode in ("on", "off"):
+        tenants, events, records, launches = _oracle_soak(mode)
+        f0, f1, over = tenants
+        closed = {t.name: sorted(((tr.event, tr.onset_sample, tr.end_sample,
+                                   tuple(sorted(tr.tiles)), tr.n_windows)
+                                  for tr in t.book.closed_tracks),
+                                 key=lambda c: c[1])
+                  for t in tenants}
+        for name, expect in (("f0", events["f0"]), ("f1", events["f1"][:2])):
+            got = closed[name]
+            if [c[0] for c in got] != [e.event for e in expect] or any(
+                    abs(c[1] - e.onset) > 6 * ORACLE_STRIDE
+                    for c, e in zip(got, expect)):
+                raise AssertionError(f"oracle {mode} {name}: closed tracks "
+                                     f"{got}, planted {expect}")
+        if closed["f0"][2][3] != (1, 2) or closed["f2"] or \
+                f1.rejected != 2 or over.shed == 0 or f0.shed or f1.shed:
+            raise AssertionError(f"oracle {mode}: merge {closed['f0']}, "
+                                 f"f2 {closed['f2']}, rejected {f1.rejected},"
+                                 f" shed {[t.shed for t in tenants]}")
+        if mode == "on" and launches["event_prob_q"] == 0:
+            raise AssertionError("the resident oracle made no event_prob_q "
+                                 "launch")
+        out[mode] = {"closed": closed, "records": records,
+                     "launches": launches,
+                     "shed": [t.shed for t in tenants]}
+    if out["on"]["closed"] != out["off"]["closed"]:
+        raise AssertionError(f"oracle tracks differ: {out['on']['closed']} "
+                             f"vs {out['off']['closed']}")
+    opens = [(r["fiber"], r["track_id"], r["kind"], r["onset_sample"])
+             for r in out["on"]["records"] if r["kind"] != "update"]
+    if opens != [(r["fiber"], r["track_id"], r["kind"], r["onset_sample"])
+                 for r in out["off"]["records"] if r["kind"] != "update"]:
+        raise AssertionError("oracle open/close records differ")
+    log(f"[stream] oracle soak at {ORACLE_HW[0]}x{ORACLE_HW[1]}, 3 fibers x "
+        f"{ORACLE_CYCLES} cycles: opens/closes identical on both planes "
+        f"({len(opens)} records), 5 planted events -> 5 closed tracks (the "
+        f"blip debounced, the overlap merged on tiles 1+2), 2 NaN windows "
+        f"rejected; resident launches {out['on']['launches']}")
+    return {"track_records": len(opens), "launches": out["on"]["launches"],
+            "shed": out["on"]["shed"]}
+
+
+def phase_stream(peaks, ckpt: str):
+    kernels = _stream_kernels(peaks)
+    offline = _offline(ckpt)
+    live = _live_model_a()
+    oracle = _live_oracle()
+    return {"kernels": kernels, "offline": offline, "live": live,
+            "oracle": oracle}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None, help="write the report here")
@@ -951,10 +1510,15 @@ def main(argv=None) -> int:
     model = phase_model(args.profile)
     serve = phase_serve()
     train = phase_train(peaks, args.profile)
+    stream = phase_stream(peaks, train["entry"].pop("checkpoint"))
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    sk, offline = stream["kernels"], stream["offline"]
 
     # Launches: each kernel's count over its path's run, the counters
     # zeroed just before it — the train-then-test entry points for the
-    # gate, the HTTP serve traffic for the decode tail.
+    # gate, the HTTP serve traffic for the decode tail, the resident
+    # offline sweep for the gather, the live model-A resident run for the
+    # ring append, the resident oracle soak for event_prob_q.
     line = {"kernels": [
         {"name": "gate_apply", "route": "cuda",
          "source": "dasmtl_torch/csrc/gating.cu",
@@ -971,11 +1535,27 @@ def main(argv=None) -> int:
          "replaces": "dasmtl/export.py:112",
          "launches": serve["launches"]["decode"],
          **_timing(kernels["decode"])},
+        {"name": "window_gather", "route": "cuda",
+         "source": "dasmtl_torch/csrc/window.cu",
+         "replaces": "dasmtl/export.py:137",
+         "launches": offline["launches"]["on"]["window_gather"],
+         **_timing(sk["window_gather"])},
+        {"name": "ring_append", "route": "cuda",
+         "source": "dasmtl_torch/csrc/ring.cu",
+         "replaces": "dasmtl/stream/resident.py:127",
+         "launches": stream["live"]["resident"]["launches"]["ring_append"],
+         **_timing(sk["ring_append"])},
+        {"name": "event_prob_q", "route": "cuda",
+         "source": "dasmtl_torch/csrc/decode.cu",
+         "replaces": "dasmtl/export.py:188",
+         "launches": stream["oracle"]["launches"]["event_prob_q"],
+         **_timing(sk["event_prob_q"])},
     ]}
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
             json.dump({"device": device, "build": build, "kernels": kernels,
                        "model": model, "serve": serve, "train": train,
+                       "stream": stream,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -990,7 +1570,7 @@ def main(argv=None) -> int:
 def _timing(k: dict) -> dict:
     return {"max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None}
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
 
 
 if __name__ == "__main__":

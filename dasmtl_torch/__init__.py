@@ -7,9 +7,12 @@ and numpy only — never ``jax`` and no module of ``dasmtl``.
 Slice 1 ports the serving path of model A: the eval forward
 (:mod:`dasmtl_torch.models`), the on-device decode tail
 (:mod:`dasmtl_torch.export`), the bucketed executor and the micro-batching
-HTTP server (:mod:`dasmtl_torch.serve`).  The two hand-written Hopper
-kernels of that path live in ``csrc/`` and are built on their first CUDA
-call (:mod:`dasmtl_torch.ops._build`), never at import.
+HTTP server (:mod:`dasmtl_torch.serve`).  Slice 2 ports training
+(:mod:`dasmtl_torch.train`, :mod:`dasmtl_torch.data`), slice 3 the stream
+tier (:mod:`dasmtl_torch.stream`: the offline record sweep and the live
+multi-fiber tier, on the host or the resident data plane).  The
+hand-written Hopper kernels live in ``csrc/`` and are built on their first
+CUDA call (:mod:`dasmtl_torch.ops._build`), never at import.
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,8 @@ from typing import Optional
 _SUBCOMMANDS = {
     "train": "train a model",
     "test": "evaluate a checkpoint (--model_path)",
+    "stream": "streaming inference: offline sweep, or 'stream serve' for "
+              "live multi-fiber tracking",
 }
 
 
@@ -39,8 +41,17 @@ def test_main(argv=None) -> Optional[object]:
     return _run(list(sys.argv[1:] if argv is None else argv), is_test=True)
 
 
+def stream_main(argv=None) -> int:
+    """``python -m dasmtl_torch.stream``: ``serve`` first starts the live
+    tier, anything else is the offline record sweep."""
+    from dasmtl_torch.stream.__main__ import main as stream
+
+    return stream(list(sys.argv[1:] if argv is None else argv))
+
+
 def main(argv=None) -> int:
-    """Dispatch ``train`` / ``test`` to the entry points above."""
+    """Dispatch ``train`` / ``test`` / ``stream`` to the entry points
+    above."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m dasmtl_torch <command> [args...]\n\n"
@@ -54,5 +65,7 @@ def main(argv=None) -> int:
         print(f"dasmtl_torch: unknown command {cmd!r} (choose from "
               f"{', '.join(_SUBCOMMANDS)})", file=sys.stderr)
         return 2
+    if cmd == "stream":
+        return stream_main(argv)
     result = train_main(argv) if cmd == "train" else test_main(argv)
     return 2 if result is None else 0

@@ -39,6 +39,22 @@ SERVE_INFLIGHT = 2
 SERVE_HOST = "127.0.0.1"
 SERVE_PORT = 8321
 
+#: The live stream tier's defaults (``Config.stream_*``,
+#: ``dasmtl/config.py:228-270``); 0 strides and chunks mean "the window".
+STREAM_STRIDE_TIME = 0
+STREAM_STRIDE_CHANNELS = 0
+STREAM_RING_SAMPLES = 16384
+STREAM_CHUNK_SAMPLES = 0
+STREAM_CYCLE_BUDGET = 64
+STREAM_POLL_MS = 2.0
+STREAM_OPEN_WINDOWS = 3
+STREAM_CLOSE_WINDOWS = 3
+STREAM_MIN_EVENT_PROB = 0.9
+STREAM_TRACK_MERGE_BINS = 2.0
+STREAM_DISTANCE_EWMA = 0.3
+STREAM_RESIDENT = "auto"
+STREAM_EVENTS_RING = 1024
+
 MODEL_TYPES = ("MTL", "single_event", "single_distance", "multi_classifier")
 
 

@@ -99,3 +99,49 @@ extern "C" int dasmtl_decode_heads(const float* x0, int w0, const float* x1,
                                                              rows, bad);
   return cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// event_prob_q: the resident live path's quantized event confidence.
+//
+// Replaces the tail of make_resident_serve_fn.serve_body
+// (dasmtl/export.py:184-193):
+//   event_prob_q = round(exp(max(log_probs_event, axis=-1)) * 2^20) as int32
+// jnp.round rounds half to even, so this uses rintf (not roundf, which
+// rounds half away from zero), and expf (not the faster __expf) to stay
+// within one rounding of XLA's exp.  A NaN max gives 0.
+//
+// It is its own launch, after the decode tail and not folded into it: the
+// log_probs_event head it reads is produced only by an infer fn that names
+// its heads so (the analytic oracle), which does not go through
+// decode_heads.  Launch-bound at every size it sees (k <= 256 rows of 2
+// classes: 2 KB), so one thread per row is the whole design.
+
+namespace {
+
+__global__ void event_prob_q_kernel(const float* __restrict__ lp, int width,
+                                    int64_t rows, int32_t* __restrict__ out) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* x = lp + r * width;
+  float m = x[0];
+  for (int c = 1; c < width && !isnan(m); ++c) {
+    const float v = x[c];
+    if (isnan(v) || v > m) m = v;
+  }
+  const float q = rintf(expf(m) * 1048576.0f);
+  out[r] = isnan(q) ? 0 : static_cast<int32_t>(q);
+}
+
+}  // namespace
+
+// lp is (rows, width) row-major f32, out (rows,) int32.
+extern "C" int dasmtl_event_prob_q(const float* lp, int width, int64_t rows,
+                                   int32_t* out, void* stream) {
+  if (width < 1 || width > kMaxWidth) return cudaErrorInvalidValue;
+  if (rows <= 0) return cudaSuccess;
+  const int64_t blocks = (rows + kThreads - 1) / kThreads;
+  event_prob_q_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(lp, width, rows,
+                                                             out);
+  return cudaGetLastError();
+}

@@ -7,6 +7,11 @@ forward (``dasmtl/export.py:112-126 make_serve_infer_fn``): the
 ``nonfinite_rows`` (``export.py:90-109``).  On CUDA tensors
 :func:`decode_heads` makes ONE launch of ``csrc/decode.cu`` for all heads;
 on the CPU it takes :func:`decode_heads_plain`.
+
+:func:`event_prob_q` is the resident live path's quantized event
+confidence (``export.py:184-193``), a launch of its own in the same
+source: it reads ``log_probs_event``, a head only an infer fn that names
+its heads so emits (the analytic oracle), never ``decode_heads``.
 """
 
 from __future__ import annotations
@@ -23,8 +28,14 @@ MAX_WIDTH = 32
 #: Most heads one launch covers.
 MAX_HEADS = 2
 
+#: Fixed-point scale of :func:`event_prob_q`: probabilities in units of
+#: 2^-20 (``dasmtl/export.py:134 PROB_Q_SCALE``).
+PROB_Q_SCALE = 1 << 20
+
 #: Kernel launches made by :func:`decode_heads` (never by the plain version).
 launches = LaunchCounter()
+#: Kernel launches made by :func:`event_prob_q`.
+prob_q_launches = LaunchCounter()
 
 Decoded = Tuple[List[torch.Tensor], List[torch.Tensor], torch.Tensor]
 
@@ -97,3 +108,37 @@ def _decode_kernel(heads: List[torch.Tensor]) -> Decoded:
     _build.check_launch(rc, "decode_heads")
     launches.add()
     return log_probs, preds, bad
+
+
+def event_prob_q_plain(log_probs: torch.Tensor) -> torch.Tensor:
+    """``round(exp(max(log_probs, -1)) * 2^20)`` as int32 in plain
+    PyTorch (``torch.round`` rounds half to even, as ``jnp.round``)."""
+    prob = torch.exp(log_probs.max(dim=-1).values)
+    return torch.round(prob * PROB_Q_SCALE).to(torch.int32)
+
+
+def event_prob_q(log_probs: torch.Tensor) -> torch.Tensor:
+    """Per-row quantized confidence of a ``(rows, classes)`` log-prob
+    head; see :func:`event_prob_q_plain`.  A CUDA tensor goes through the
+    kernel (a NaN row gives 0), a CPU tensor through the plain version."""
+    if log_probs.device.type == "cpu":
+        return event_prob_q_plain(log_probs)
+    if log_probs.dtype != torch.float32:
+        raise TypeError(f"event_prob_q: the kernel takes float32, got "
+                        f"{log_probs.dtype}")
+    if log_probs.dim() != 2 or not 1 <= log_probs.shape[1] <= MAX_WIDTH:
+        raise ValueError(f"event_prob_q: expected (rows, 1..{MAX_WIDTH}), "
+                         f"got {tuple(log_probs.shape)}")
+    if not log_probs.is_contiguous():
+        raise ValueError("event_prob_q: the kernel takes a contiguous head")
+    require_hopper(log_probs)
+    rows = log_probs.shape[0]
+    out = torch.empty(rows, dtype=torch.int32, device=log_probs.device)
+    if rows == 0:
+        return out
+    rc = _build.library().dasmtl_event_prob_q(
+        log_probs.data_ptr(), log_probs.shape[1], rows, out.data_ptr(),
+        torch.cuda.current_stream(log_probs.device).cuda_stream)
+    _build.check_launch(rc, "event_prob_q")
+    prob_q_launches.add()
+    return out

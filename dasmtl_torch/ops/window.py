@@ -1,0 +1,85 @@
+"""The window gather of the resident data plane.
+
+Counterpart of the in-graph window slicing of
+``dasmtl/export.py:137-165 make_resident_forward``: ``k`` windows of
+``(h, w)`` cut from a device-resident ``(C, T)`` record or ring at
+``(k, 2)`` int32 ``(channel, time)`` origins, stacked as the model's
+``(k, h, w, 1)`` input.  Starts follow ``lax.dynamic_slice``: a negative
+start counts once from the end of its axis (``start + dim``), then every
+start is clamped into ``[0, dim - size]``.  On CUDA tensors
+:func:`window_gather` makes one launch of ``csrc/window.cu``; on the CPU
+it takes :func:`window_gather_plain`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from dasmtl_torch.device import require_hopper
+from dasmtl_torch.ops import LaunchCounter, _build
+
+#: Kernel launches made by :func:`window_gather` (never by the plain one).
+launches = LaunchCounter()
+
+
+def _check_geometry(rec: torch.Tensor, origins: torch.Tensor,
+                    window: Tuple[int, int]) -> Tuple[int, int]:
+    h, w = int(window[0]), int(window[1])
+    if rec.dim() != 2:
+        raise ValueError(f"window_gather: the record must be (C, T), got "
+                         f"{tuple(rec.shape)}")
+    if origins.dim() != 2 or origins.shape[1] != 2:
+        raise ValueError(f"window_gather: origins must be (k, 2), got "
+                         f"{tuple(origins.shape)}")
+    if not (1 <= h <= rec.shape[0] and 1 <= w <= rec.shape[1]):
+        raise ValueError(f"window_gather: a {h}x{w} window does not fit a "
+                         f"{tuple(rec.shape)} record")
+    return h, w
+
+
+def window_gather_plain(rec: torch.Tensor, origins: torch.Tensor,
+                        window: Tuple[int, int]) -> torch.Tensor:
+    """The plain PyTorch version: wrapped and clamped origins, one
+    advanced-index gather."""
+    h, w = _check_geometry(rec, origins, window)
+    o = origins.to(torch.int64)
+    dims = torch.tensor(rec.shape, device=o.device)
+    o = torch.where(o < 0, o + dims, o)
+    c0 = o[:, 0].clamp(0, rec.shape[0] - h)
+    t0 = o[:, 1].clamp(0, rec.shape[1] - w)
+    rows = c0[:, None] + torch.arange(h, device=rec.device)
+    cols = t0[:, None] + torch.arange(w, device=rec.device)
+    return rec[rows[:, :, None], cols[:, None, :]][..., None]
+
+
+def window_gather(rec: torch.Tensor, origins: torch.Tensor,
+                  window: Tuple[int, int]) -> torch.Tensor:
+    """``(k, h, w, 1)`` windows of ``rec`` at ``origins``; see the module
+    docstring."""
+    if rec.device.type == "cpu" and origins.device.type == "cpu":
+        return window_gather_plain(rec, origins, window)
+    h, w = _check_geometry(rec, origins, window)
+    if rec.device != origins.device:
+        raise ValueError(f"window_gather: record on {rec.device}, origins "
+                         f"on {origins.device}; both must be on one CUDA "
+                         f"device")
+    if rec.dtype != torch.float32 or origins.dtype != torch.int32:
+        raise TypeError(f"window_gather: the kernel takes a float32 record "
+                        f"and int32 origins, got {rec.dtype} and "
+                        f"{origins.dtype}")
+    if not (rec.is_contiguous() and origins.is_contiguous()):
+        raise ValueError("window_gather: the kernel takes a contiguous "
+                         "record and contiguous origins")
+    require_hopper(rec)
+    k = origins.shape[0]
+    out = torch.empty((k, h, w, 1), dtype=torch.float32, device=rec.device)
+    if k == 0:
+        return out
+    rc = _build.library().dasmtl_window_gather(
+        rec.data_ptr(), rec.shape[0], rec.shape[1], origins.data_ptr(), k, h,
+        w, out.data_ptr(), torch.cuda.current_stream(rec.device).cuda_stream)
+    _build.check_launch(rc, "window_gather")
+    launches.add()
+    return out

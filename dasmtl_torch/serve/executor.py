@@ -20,6 +20,11 @@ every bucket once (cuDNN picks its algorithms, the caching allocator
 fills) and the JAX executor's recompile guard has no counterpart.  On the
 CPU the same calls run synchronously.
 
+The resident stream lanes (:func:`dasmtl_torch.stream.resident.
+build_lanes`) read ``raw_infer_fn`` (the forward, which they fuse behind
+the window gather), ``placement``, ``input_dtype`` and ``stream`` (the
+lanes' ring appends and dispatches share the executor's stream).
+
 Not ported yet (ROADMAP.md): the executor pool, the exported-artifact and
 checkpoint constructors, and the reduced-precision presets.
 """
@@ -58,8 +63,9 @@ class InferExecutor:
     def __init__(self, infer_fn, input_hw: Tuple[int, int],
                  buckets: Sequence[int], device: torch.device, *,
                  source: str = "fn"):
-        self._fn = infer_fn
+        self.raw_infer_fn = infer_fn
         self.device = torch.device(device)
+        self.placement = self.device
         self.input_hw = (int(input_hw[0]), int(input_hw[1]))
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.source = source
@@ -69,6 +75,11 @@ class InferExecutor:
                         if self.device.type == "cuda" else None)
         self._warm = False
         self.warmup_s: Optional[float] = None
+
+    @property
+    def stream(self) -> Optional[torch.cuda.Stream]:
+        """The executor's own CUDA stream (None on the CPU)."""
+        return self._stream
 
     @classmethod
     def from_fresh_init(cls, model: str, buckets: Sequence[int],
@@ -104,13 +115,13 @@ class InferExecutor:
         t0 = time.perf_counter()
         xt = torch.as_tensor(x, dtype=torch.float32)
         if self._stream is None:
-            out = self._fn(xt.to(self.device))
+            out = self.raw_infer_fn(xt.to(self.device))
             return InflightBatch(outputs=out, bucket=int(x.shape[0]),
                                  dispatch_s=time.perf_counter() - t0)
         # Work queued on the default stream (weight uploads) comes first.
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
-            out = self._fn(xt.to(self.device, non_blocking=True))
+            out = self.raw_infer_fn(xt.to(self.device, non_blocking=True))
             done = torch.cuda.Event()
             done.record(self._stream)
         return InflightBatch(outputs=out, bucket=int(x.shape[0]), done=done,

@@ -1,0 +1,899 @@
+"""Continuous multi-fiber streaming over the serve data plane.
+
+Counterpart of ``dasmtl/stream/live.py`` (:55-1322) for static tenancy:
+N fibers (each a chunk source, ring, windower and track book) multiplex
+onto ONE :class:`~dasmtl_torch.serve.server.ServeLoop`.
+
+- **Weighted fairness** — each tenant gets a per-cycle submission quota and
+  an outstanding-window budget in proportion to its weight; a fiber over
+  its share sheds its own excess at the gate (``dasmtl_stream_shed_total``)
+  and carries a deadline of ``max_wait_s / weight`` into the serve queue.
+  With ``adapt_weights`` a fiber that keeps shedding backs off
+  multiplicatively and recovers additively toward its base weight.
+- **Two data planes** — the host path cuts every window and submits it to
+  the serve loop (``run_cycle`` / ``_on_result``); the resident path
+  (:mod:`dasmtl_torch.stream.resident`) keeps each fiber's ring on the card
+  and sends ONE fused dispatch per fiber per cycle (``_pump_resident`` /
+  ``_on_resident_batch``), behind the same gate.
+- **Track fusion** — every resolved window feeds the tenant's
+  :class:`~dasmtl_torch.stream.tracks.TrackBook`; rejected windows are
+  neutral.  Records land in a ring (``GET /events``), optionally a JSONL
+  file, and the ``dasmtl_stream_*`` metric families.
+
+Not ported yet (ROADMAP.md queue 1): dynamic tenancy and the fleet worker,
+the soak selftest, alerts and metrics history (``/query``), and the serve
+loop's own ``dasmtl_serve_*`` families, so ``GET /metrics`` renders the
+stream families alone.
+
+``serve_main`` is ``python -m dasmtl_torch.stream serve``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import threading
+import time
+import traceback
+from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import List, Optional, Sequence
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+
+from dasmtl_torch import config as C
+from dasmtl_torch.obs.registry import (DEFAULT_LATENCY_BUCKETS_S,
+                                       MetricsRegistry)
+from dasmtl_torch.stream.feed import FiberFeed
+from dasmtl_torch.stream.tracks import TrackBook, WindowDecode
+from dasmtl_torch.stream.windower import LiveWindower
+
+#: Metric families a stream scrape carries (``live.py:55-70``).
+REQUIRED_STREAM_METRIC_FAMILIES = (
+    "dasmtl_stream_windows_total",
+    "dasmtl_stream_shed_total",
+    "dasmtl_stream_serve_refusals_total",
+    "dasmtl_stream_rejected_total",
+    "dasmtl_stream_ring_overrun_windows_total",
+    "dasmtl_stream_track_opens_total",
+    "dasmtl_stream_track_closes_total",
+    "dasmtl_stream_open_tracks",
+    "dasmtl_stream_tile_occupancy",
+    "dasmtl_stream_sample_to_event_latency_seconds",
+    "dasmtl_stream_resident_h2d_bytes_total",
+    "dasmtl_stream_resident_windows_total",
+    "dasmtl_stream_resident_dispatches_total",
+    "dasmtl_stream_resident_ring_occupancy",
+)
+
+#: Adaptive weights: multiplicative decrease on an interval that shed,
+#: additive recovery toward the base weight on a clean one, floored at a
+#: fraction of base.
+ADAPT_DECREASE = 0.7
+ADAPT_RECOVER = 0.05
+ADAPT_MIN_WEIGHT_FRACTION = 0.25
+
+#: Options of ``dasmtl stream serve`` this slice does not port yet -> the
+#: ROADMAP.md item that brings each.
+NOT_YET_PORTED = {
+    "model_path": "ROADMAP.md queue 1 item 5, 'Artifacts and registry'",
+    "exported": "ROADMAP.md queue 1 item 5, 'Artifacts and registry'",
+    "devices": "ROADMAP.md queue 1 item 4, 'Executor pool'",
+    "precision": "ROADMAP.md queue 1 item 2, 'bf16 and int8 presets'",
+    "fleet_worker": "ROADMAP.md queue 1 item 1, 'the stream tier's "
+                    "remainder' (the fleet and dynamic tenancy)",
+    "selftest": "ROADMAP.md queue 1 item 1, 'the stream tier's "
+                "remainder' (the soak selftest)",
+    "alerts": "ROADMAP.md queue 1 item 6, 'Observability endpoints'",
+    "history": "ROADMAP.md queue 1 item 6, 'Observability endpoints'",
+    "conc_lockdep": "ROADMAP.md queue 1 item 3 (the lint, audit, conc "
+                    "and mem families analyse JAX code and are not ported)",
+    "mem_track": "ROADMAP.md queue 1 item 3 (the lint, audit, conc and "
+                 "mem families analyse JAX code and are not ported)",
+}
+
+
+class StreamMetrics:
+    """The ``dasmtl_stream_*`` families on one registry."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 latency_buckets_s: Optional[Sequence[float]] = None):
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        r = self.registry
+        lab = ("fiber",)
+        self.windows = r.counter(
+            "dasmtl_stream_windows_total",
+            "Windows submitted into the serve loop, per fiber", lab)
+        self.shed = r.counter(
+            "dasmtl_stream_shed_total",
+            "Windows shed at the per-tenant fairness gate (the fiber "
+            "exceeded its own quota/outstanding budget)", lab)
+        self.serve_refusals = r.counter(
+            "dasmtl_stream_serve_refusals_total",
+            "Submitted windows the serve tier refused (shed/closed)", lab)
+        self.rejected = r.counter(
+            "dasmtl_stream_rejected_total",
+            "Submitted windows rejected nonfinite (SAN202) — neutral to "
+            "open tracks", lab)
+        self.overrun = r.counter(
+            "dasmtl_stream_ring_overrun_windows_total",
+            "Windows lost because the feed outpaced the ring buffer", lab)
+        self.track_opens = r.counter(
+            "dasmtl_stream_track_opens_total",
+            "Event tracks opened (hysteresis threshold crossed)", lab)
+        self.track_closes = r.counter(
+            "dasmtl_stream_track_closes_total",
+            "Event tracks closed (close threshold crossed on every "
+            "member tile)", lab)
+        self.open_tracks = r.gauge(
+            "dasmtl_stream_open_tracks", "Tracks currently open", lab)
+        self.tile_occupancy = r.gauge(
+            "dasmtl_stream_tile_occupancy",
+            "Fraction of a fiber's tiles holding an open track", lab)
+        self.latency = r.histogram(
+            "dasmtl_stream_sample_to_event_latency_seconds",
+            "Sample arrival -> track-state update, per resolved window",
+            buckets=tuple(latency_buckets_s or DEFAULT_LATENCY_BUCKETS_S),
+            labelnames=lab)
+        self.resident_h2d_bytes = r.counter(
+            "dasmtl_stream_resident_h2d_bytes_total",
+            "Bytes shipped host->device into the resident ring (one "
+            "transfer per CHUNK — divide by resident_windows_total for "
+            "bytes/window)", lab)
+        self.resident_windows = r.counter(
+            "dasmtl_stream_resident_windows_total",
+            "Windows gathered on the card out of the resident ring", lab)
+        self.resident_dispatches = r.counter(
+            "dasmtl_stream_resident_dispatches_total",
+            "Fused gather+forward+decode dispatches (windows_total / "
+            "dispatches_total = windows per dispatch)", lab)
+        self.resident_ring_occupancy = r.gauge(
+            "dasmtl_stream_resident_ring_occupancy",
+            "Fraction of the on-device ring holding real samples", lab)
+
+
+class StreamTenant:
+    """One fiber: source -> ring -> windower -> (serve) -> track book."""
+
+    def __init__(self, name: str, source, *, window, stride_time: int = 0,
+                 stride_channels: int = 0, ring_samples: int = 16384,
+                 weight: float = 1.0, chunk_samples: int = 0,
+                 open_windows: int = 3, close_windows: int = 3,
+                 min_event_prob: float = 0.9, merge_bins: float = 2.0,
+                 distance_ewma: float = 0.3, n_distance_bins: int = 16,
+                 track_ids=None):
+        if weight <= 0:
+            raise ValueError(f"tenant {name}: weight must be > 0")
+        self.name = name
+        self.source = source
+        self.weight = float(weight)
+        # The configured share; adaptive weighting moves ``weight`` within
+        # [ADAPT_MIN_WEIGHT_FRACTION * base, base].
+        self.base_weight = float(weight)
+        self.feed = FiberFeed(source.channels, ring_samples)
+        self.windower = LiveWindower(self.feed, window,
+                                     stride_time=stride_time,
+                                     stride_channels=stride_channels)
+        self.book = TrackBook(name, self.windower.tile_origins,
+                              int(window[0]),
+                              n_distance_bins=n_distance_bins,
+                              merge_bins=merge_bins,
+                              open_windows=open_windows,
+                              close_windows=close_windows,
+                              min_event_prob=min_event_prob,
+                              distance_ewma=distance_ewma, ids=track_ids)
+        self.chunk_samples = int(chunk_samples) or \
+            self.windower.stride_time
+        # Filled in by StreamLoop from the weights of the whole tenant set.
+        self.quota = 1
+        self.max_outstanding = 4
+        self.deadline_s: Optional[float] = None
+        # The resident lane when the resident data plane is on.
+        self.resident = None
+        # Counters (under the loop lock).
+        self.outstanding = 0
+        self.submitted = 0
+        self.resolved = 0
+        self.shed = 0
+        self.serve_refused = 0
+        self.rejected = 0
+        self.latencies: deque = deque(maxlen=100_000)
+        self._adapt_shed0 = 0
+        self._adapt_sub0 = 0
+        # (now, shed) marks the /stats hot-shard block derives a shed rate
+        # from.
+        self._rate_marks: deque = deque(maxlen=8)
+
+    def p99_latency_s(self) -> float:
+        if not self.latencies:
+            return 0.0
+        xs = sorted(self.latencies)
+        return xs[min(len(xs) - 1, int(0.99 * len(xs)))]
+
+
+class StreamLoop:
+    """Pump N tenants into one serve loop and fuse the answers into
+    tracks.  ``run_cycle`` is the whole steady state, callable directly
+    with an explicit ``now``; ``start`` / ``begin_drain`` / ``drain`` wrap
+    it in a pump thread."""
+
+    def __init__(self, serve, tenants: Sequence[StreamTenant], *,
+                 cycle_budget: int = 64, outstanding_factor: int = 4,
+                 max_wait_s: float = 0.005, clock=time.monotonic,
+                 events_path: Optional[str] = None,
+                 events_ring: int = 1024,
+                 metrics: Optional[StreamMetrics] = None,
+                 resident: str = "off",
+                 resident_max_windows: int = 0,
+                 adapt_weights: bool = False, adapt_every: int = 8):
+        if not tenants:
+            raise ValueError("a stream loop needs at least one tenant")
+        if cycle_budget < len(tenants):
+            raise ValueError(f"cycle_budget {cycle_budget} < "
+                             f"{len(tenants)} tenants — every tenant "
+                             f"needs at least one slot")
+        self.serve = serve
+        self.tenants = list(tenants)
+        self.clock = clock
+        self.max_wait_s = float(max_wait_s)
+        self.cycle_budget = int(cycle_budget)
+        self.outstanding_factor = max(1, int(outstanding_factor))
+        self.metrics = metrics or StreamMetrics()
+        self.adapt_weights = bool(adapt_weights)
+        self.adapt_every = max(1, int(adapt_every))
+        self._apply_weights()
+        self._lock = threading.Lock()
+        # The resident data plane: each tenant's host ring is replaced by
+        # a lane on the card and its cycle submits ONE fused dispatch; the
+        # fairness gate runs on the same budgets before it.
+        self.resident_enabled = False
+        self._collector = None
+        self._lanes: list = []
+        if resident != "off":
+            from dasmtl_torch.stream.resident import (ResidentCollector,
+                                                      build_lanes,
+                                                      resolve_resident_mode)
+
+            pool = getattr(serve, "executor", None)
+            if resolve_resident_mode(resident, pool, self.tenants):
+                self._lanes = build_lanes(pool, self.tenants,
+                                          max_windows=resident_max_windows)
+                for t, lane in zip(self.tenants, self._lanes):
+                    t.resident = lane
+                    t.feed = lane.feed
+                    t.windower = LiveWindower(
+                        lane.feed, t.windower.window,
+                        stride_time=t.windower.stride_time,
+                        stride_channels=t.windower.stride_channels)
+                self._collector = ResidentCollector(self._on_resident_batch)
+                self.resident_enabled = True
+        self._events: deque = deque(maxlen=int(events_ring))
+        self._events_f = open(events_path, "a", encoding="utf-8") \
+            if events_path else None
+        self._pump: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self.cycles = 0
+
+    def _apply_weights(self) -> None:
+        """Quota, outstanding budget and deadline from the current
+        weights."""
+        total_w = sum(t.weight for t in self.tenants)
+        for t in self.tenants:
+            t.quota = max(1, int(self.cycle_budget * t.weight / total_w))
+            t.max_outstanding = t.quota * self.outstanding_factor
+            t.deadline_s = self.max_wait_s / t.weight
+
+    def _adapt_weights(self) -> None:
+        """Shed-rate feedback into the fairness shares."""
+        with self._lock:
+            changed = False
+            for t in self.tenants:
+                d_shed = t.shed - t._adapt_shed0
+                d_sub = t.submitted - t._adapt_sub0
+                t._adapt_shed0, t._adapt_sub0 = t.shed, t.submitted
+                if d_shed + d_sub == 0:
+                    continue  # idle interval: no evidence either way
+                if d_shed > 0:
+                    t.weight = max(
+                        ADAPT_MIN_WEIGHT_FRACTION * t.base_weight,
+                        t.weight * ADAPT_DECREASE)
+                    changed = True
+                elif t.weight < t.base_weight:
+                    t.weight = min(t.base_weight,
+                                   t.weight + ADAPT_RECOVER * t.base_weight)
+                    changed = True
+            if changed:
+                self._apply_weights()
+
+    # -- steady state --------------------------------------------------------
+    def _admit(self, t: StreamTenant, sent_this_cycle: int) -> bool:
+        """The fairness gate for one window (counts it either way)."""
+        with self._lock:
+            over = (sent_this_cycle >= t.quota
+                    or t.outstanding >= t.max_outstanding)
+            if over:
+                t.shed += 1
+            else:
+                t.outstanding += 1
+                t.submitted += 1
+        family = self.metrics.shed if over else self.metrics.windows
+        family.inc(labels=(t.name,))
+        return not over
+
+    def run_cycle(self, now: Optional[float] = None) -> dict:
+        """One pump iteration over every tenant: poll the source, cut
+        windows, gate and submit.  Returns per-cycle counts."""
+        now = self.clock() if now is None else now
+        submitted = shed = 0
+        for t in self.tenants:
+            chunk = t.source.poll(t.chunk_samples)
+            if chunk is not None and chunk.size:
+                t.feed.append(chunk, now=now)
+            if t.resident is not None:
+                s, sh = self._pump_resident(t)
+                submitted += s
+                shed += sh
+                continue
+            sent_this_cycle = 0
+            for wdw in t.windower.cut():
+                if not self._admit(t, sent_this_cycle):
+                    shed += 1
+                    continue
+                sent_this_cycle += 1
+                submitted += 1
+                fut = self.serve.submit_async(wdw.x[..., 0],
+                                              max_wait_s=t.deadline_s,
+                                              want_log_probs=True)
+                fut.add_done_callback(
+                    lambda f, t=t, wdw=wdw: self._on_result(t, wdw, f))
+        with self._lock:  # stats() reads cycles off the HTTP thread
+            self.cycles += 1
+            if self.cycles % self.adapt_every == 0:
+                for t in self.tenants:
+                    t._rate_marks.append((now, t.shed))
+        if self.adapt_weights and self.cycles % self.adapt_every == 0:
+            self._adapt_weights()
+        return {"submitted": submitted, "shed": shed}
+
+    def _pump_resident(self, t: StreamTenant) -> "tuple[int, int]":
+        """The resident cycle for one tenant: cut window metadata only,
+        run the same gate, then book the admitted set as ONE fused
+        dispatch (split by the lane's top rung when the quota outgrows
+        it).  The collector thread resolves it."""
+        admitted, shed = [], 0
+        for wdw in t.windower.cut(pixels=False):
+            if self._admit(t, len(admitted)):
+                admitted.append(wdw)
+            else:
+                shed += 1
+        lane = t.resident
+        for i in range(0, len(admitted), lane.max_rung):
+            group = admitted[i:i + lane.max_rung]
+            self._collector.submit(t, group, lane.dispatch_windows(group))
+        return len(admitted), shed
+
+    def _resolve(self, tenant: StreamTenant, wdw, d: WindowDecode,
+                 now: float) -> None:
+        """One resolved window into the tenant's track book (caller holds
+        the loop lock)."""
+        records = tenant.book.update(wdw.tile, d, now)
+        lat = max(0.0, now - wdw.arrival_s)
+        tenant.latencies.append(lat)
+        self.metrics.latency.observe(lat, (tenant.name,))
+        for rec in records:
+            if rec["kind"] == "open":
+                self.metrics.track_opens.inc(labels=(tenant.name,))
+            elif rec["kind"] == "close":
+                self.metrics.track_closes.inc(labels=(tenant.name,))
+            self._events.append(rec)
+            if self._events_f is not None:
+                self._events_f.write(json.dumps(rec) + "\n")
+        if records and self._events_f is not None:
+            self._events_f.flush()
+
+    def _on_resident_batch(self, tenant: StreamTenant, windows,
+                           preds, bad, prob) -> None:
+        """Resolve one fused dispatch (collector thread), per window:
+        ``bad_rows`` stands in for the serve tier's ``nonfinite`` error
+        and ``event_prob_q`` for the host path's log-prob confidence.
+        ``preds`` None marks a failed dispatch."""
+        now = self.clock()
+        with self._lock:
+            for j, wdw in enumerate(windows):
+                tenant.outstanding -= 1
+                tenant.resolved += 1
+                if preds is None:
+                    tenant.serve_refused += 1
+                    self.metrics.serve_refusals.inc(labels=(tenant.name,))
+                    continue
+                ok = not bool(bad[j])
+                if not ok:
+                    tenant.rejected += 1
+                    self.metrics.rejected.inc(labels=(tenant.name,))
+                event = (int(preds["event"][j])
+                         if ok and "event" in preds else -1)
+                distance = (int(preds["distance"][j])
+                            if ok and "distance" in preds else -1)
+                self._resolve(tenant, wdw, WindowDecode(
+                    t_origin=wdw.t_origin, t_end=wdw.t_end, ok=ok,
+                    event=event, distance=distance,
+                    event_prob=float(prob[j]) if ok else 0.0), now)
+
+    def _on_result(self, tenant: StreamTenant, wdw, fut) -> None:
+        now = self.clock()
+        try:
+            res = fut.result()
+        except Exception:  # noqa: BLE001 — a dropped future stays counted
+            res = None
+        with self._lock:
+            tenant.outstanding -= 1
+            tenant.resolved += 1
+            if res is None:
+                tenant.serve_refused += 1
+                self.metrics.serve_refusals.inc(labels=(tenant.name,))
+                return
+            if res.error == "nonfinite":
+                tenant.rejected += 1
+                self.metrics.rejected.inc(labels=(tenant.name,))
+            elif not res.ok:
+                tenant.serve_refused += 1
+                self.metrics.serve_refusals.inc(labels=(tenant.name,))
+            event = distance = -1
+            prob = 0.0
+            if res.ok:
+                event = int(res.predictions.get("event", -1))
+                distance = int(res.predictions.get("distance", -1))
+                lp = (res.log_probs or {}).get("log_probs_event")
+                prob = float(np.exp(max(lp))) if lp else 1.0
+            self._resolve(tenant, wdw, WindowDecode(
+                t_origin=wdw.t_origin, t_end=wdw.t_end, ok=bool(res.ok),
+                event=event, distance=distance, event_prob=prob), now)
+
+    # -- pump thread ---------------------------------------------------------
+    def start(self, poll_s: float = 0.002) -> "StreamLoop":
+        def pump():
+            try:
+                while not self._stop.is_set():
+                    self.run_cycle()
+                    self._stop.wait(poll_s)
+            except Exception as exc:  # noqa: BLE001 — logged, pump stops
+                print(f"[thread-crash] stream-pump: {type(exc).__name__}: "
+                      f"{exc}", file=sys.stderr)
+                traceback.print_exc(file=sys.stderr)
+                self._stop.set()
+
+        self._pump = threading.Thread(target=pump, daemon=True,
+                                      name="dasmtl-torch-stream-pump")
+        self._pump.start()
+        return self
+
+    def begin_drain(self) -> None:
+        self._stop.set()
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Stop pumping and wait for every submitted window to resolve."""
+        self.begin_drain()
+        if self._pump is not None:
+            self._pump.join(timeout=timeout)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._lock:
+                if all(t.outstanding == 0 for t in self.tenants):
+                    return True
+            time.sleep(0.005)
+        return False
+
+    def close(self) -> None:
+        self.begin_drain()
+        # Detach under the lock, close outside it: late resolutions write
+        # the events file under the lock.
+        with self._lock:
+            collector, self._collector = self._collector, None
+            events_f, self._events_f = self._events_f, None
+        if collector is not None:
+            # The sentinel queues behind any booked dispatches.
+            collector.close()
+        for lane in self._lanes:
+            lane.close()
+        self._lanes = []
+        if events_f is not None:
+            events_f.close()
+        for t in self.tenants:
+            try:
+                t.source.close()
+            except Exception as exc:  # noqa: BLE001 — teardown, recorded
+                print(f"[stream-close] tenant {t.name}: source.close "
+                      f"failed: {type(exc).__name__}: {exc}",
+                      file=sys.stderr)
+
+    # -- views ---------------------------------------------------------------
+    def events(self, n: int = 100,
+               kind: Optional[str] = None) -> List[dict]:
+        with self._lock:
+            recs = list(self._events)
+        if kind:
+            recs = [r for r in recs if r["kind"] == kind]
+        return recs[-int(n):]
+
+    def stats(self) -> dict:
+        with self._lock:
+            tenants = {}
+            hot_fibers = {}
+            hottest, hottest_rate = None, 0.0
+            for t in self.tenants:
+                tenants[t.name] = {
+                    "weight": t.weight, "base_weight": t.base_weight,
+                    "quota": t.quota, "max_outstanding": t.max_outstanding,
+                    "submitted": t.submitted, "resolved": t.resolved,
+                    "outstanding": t.outstanding, "shed": t.shed,
+                    "serve_refused": t.serve_refused,
+                    "rejected": t.rejected,
+                    "ring_overrun_windows": t.windower.overrun_windows,
+                    "next_origin": t.windower.next_origin,
+                    "tiles": t.windower.n_tiles,
+                    "open_tracks": t.book.open_track_count,
+                    "track_opens": t.book.opens,
+                    "track_closes": t.book.closes,
+                    "p99_latency_ms": round(t.p99_latency_s() * 1e3, 3),
+                    **({"resident": {
+                        "device": t.resident.executor.device_name,
+                        "rungs": list(t.resident.executor.rungs),
+                        "windows_dispatched": t.resident.windows_dispatched,
+                        "dispatches": t.resident.dispatches,
+                        "h2d_bytes": t.resident.feed.h2d_bytes,
+                        "h2d_chunks": t.resident.feed.h2d_chunks,
+                    }} if t.resident is not None else {}),
+                }
+                rate = 0.0
+                if len(t._rate_marks) >= 2:
+                    (m0, s0), (m1, s1) = t._rate_marks[0], t._rate_marks[-1]
+                    if m1 > m0:
+                        rate = (s1 - s0) / (m1 - m0)
+                hot_fibers[t.name] = {
+                    "shed_rate_per_s": round(rate, 3), "shed": t.shed,
+                    "weight": round(t.weight, 4),
+                    "base_weight": t.base_weight,
+                    "weight_fraction": round(t.weight / t.base_weight, 4),
+                }
+                if rate > hottest_rate:
+                    hottest, hottest_rate = t.name, rate
+        return {"cycles": self.cycles, "resident": self.resident_enabled,
+                "tenants": tenants, "events_held": len(self._events),
+                "hot_shard": {"hottest": hottest,
+                              "hottest_shed_rate_per_s":
+                                  round(hottest_rate, 3),
+                              "fibers": hot_fibers}}
+
+    def metrics_text(self) -> str:
+        """``GET /metrics``: the ``dasmtl_stream_*`` families, gauges
+        refreshed at scrape time."""
+        with self._lock:
+            for t in self.tenants:
+                labels = (t.name,)
+                self.metrics.open_tracks.set(t.book.open_track_count, labels)
+                self.metrics.tile_occupancy.set(
+                    t.book.open_tile_count / t.windower.n_tiles, labels)
+                self.metrics.overrun.set_total(t.windower.overrun_windows,
+                                               labels)
+                if t.resident is not None:
+                    lane = t.resident
+                    self.metrics.resident_h2d_bytes.set_total(
+                        lane.feed.h2d_bytes, labels)
+                    self.metrics.resident_windows.set_total(
+                        lane.windows_dispatched, labels)
+                    self.metrics.resident_dispatches.set_total(
+                        lane.dispatches, labels)
+                    self.metrics.resident_ring_occupancy.set(
+                        min(lane.feed.total, lane.feed.ring_samples)
+                        / lane.feed.ring_samples, labels)
+        return self.metrics.registry.render()
+
+
+# -- HTTP front end ------------------------------------------------------------
+
+def make_stream_http_server(stream: StreamLoop, host: str = "127.0.0.1",
+                            port: int = 0) -> ThreadingHTTPServer:
+    """``GET /events`` (track records; ``?n=`` and ``?kind=``),
+    ``/healthz``, ``/readyz``, ``/stats`` and ``/metrics``; ``/query``
+    answers 501 until metrics history is ported."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *_a):
+            pass
+
+        def _send(self, code: int, body: bytes,
+                  content_type: str = "application/json") -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _healthz_payload(self) -> dict:
+            payload = stream.serve.healthz()
+            payload["stream"] = {"cycles": stream.cycles,
+                                 "tenants": len(stream.tenants),
+                                 "resident": stream.resident_enabled}
+            return payload
+
+        def do_GET(self):  # noqa: N802 — http.server convention
+            url = urlparse(self.path)
+            try:
+                if url.path == "/events":
+                    q = parse_qs(url.query)
+                    n = int(q.get("n", ["100"])[0])
+                    kind = q.get("kind", [None])[0]
+                    self._send(200, json.dumps(
+                        stream.events(n=n, kind=kind)).encode())
+                elif url.path == "/healthz":
+                    self._send(200, json.dumps(
+                        self._healthz_payload()).encode())
+                elif url.path == "/readyz":
+                    payload = self._healthz_payload()
+                    self._send(200 if payload.get("ready") else 503,
+                               json.dumps(payload).encode())
+                elif url.path == "/stats":
+                    self._send(200, json.dumps(stream.stats()).encode())
+                elif url.path == "/metrics":
+                    self._send(200, stream.metrics_text().encode(),
+                               "text/plain; version=0.0.4")
+                elif url.path == "/query":
+                    self._send(501, json.dumps(
+                        {"error": "not_ported",
+                         "detail": NOT_YET_PORTED["history"]}).encode())
+                else:
+                    self._send(404, json.dumps(
+                        {"error": f"no route {url.path}"}).encode())
+            except Exception as exc:  # noqa: BLE001 — answer, don't die
+                self._send(500, json.dumps(
+                    {"error": f"{type(exc).__name__}: {exc}"}).encode())
+
+    return ThreadingHTTPServer((host, int(port)), Handler)
+
+
+# -- CLI -----------------------------------------------------------------------
+
+def _not_ported(args) -> Optional[str]:
+    """The first option given that this slice does not port yet."""
+    for opt, item in NOT_YET_PORTED.items():
+        value = getattr(args, opt)
+        default = {"devices": 1, "precision": "f32"}.get(opt)
+        if value and value != default:
+            return f"--{opt} is not yet ported: {item}"
+    return None
+
+
+def serve_main(argv=None) -> int:
+    """``python -m dasmtl_torch.stream serve`` — continuous inference over
+    live fibers."""
+    p = argparse.ArgumentParser(
+        prog="python -m dasmtl_torch.stream serve",
+        description="continuous multi-fiber streaming inference: live "
+                    "ingestion -> spatial tiles -> the serve data plane "
+                    "-> event tracks")
+    src = p.add_argument_group("model source (exactly one)")
+    src.add_argument("--fresh_init", action="store_true",
+                     help="seed-deterministic fresh-init weights of --model")
+    src.add_argument("--oracle", action="store_true",
+                     help="the analytic RMS oracle (needs --window with a "
+                          "height divisible by 16)")
+    src.add_argument("--model_path", type=str, default=None,
+                     help="not yet ported")
+    src.add_argument("--exported", type=str, default=None,
+                     help="not yet ported")
+    p.add_argument("--model", type=str, default="MTL")
+    p.add_argument("--window", type=str, default=None, metavar="HxW",
+                   help="window shape, e.g. 100x250 (default: "
+                        f"{C.INPUT_HEIGHT}x{C.INPUT_WIDTH}; also the "
+                        "spatial tile height)")
+    p.add_argument("--buckets", type=str,
+                   default=",".join(str(b) for b in C.SERVE_BUCKETS),
+                   help="batch-shape ladder run at warmup")
+    fib = p.add_argument_group("fibers (at least one source)")
+    fib.add_argument("--synthetic", type=int, default=0, metavar="N",
+                     help="N synthetic demo fibers (deterministic "
+                          "background + planted events)")
+    fib.add_argument("--tail", action="append", default=[],
+                     metavar="PATH",
+                     help="tail a growing raw float32 file (one frame = "
+                          "--channels values); one fiber per flag")
+    fib.add_argument("--connect", action="append", default=[],
+                     metavar="HOST:PORT",
+                     help="TCP source, same framing; one fiber per flag")
+    fib.add_argument("--channels", type=int, default=0,
+                     help="channels per fiber (default: the window height)")
+    fib.add_argument("--weights", type=str, default=None,
+                     help="comma-separated per-fiber weights (default "
+                          "all 1)")
+    fib.add_argument("--fleet_worker", action="store_true",
+                     help="not yet ported")
+    srv = p.add_argument_group("serve loop")
+    srv.add_argument("--max_wait_ms", type=float, default=C.SERVE_MAX_WAIT_MS,
+                     help="micro-batching deadline for weight-1.0 tenants")
+    srv.add_argument("--queue_depth", type=int, default=C.SERVE_QUEUE_DEPTH)
+    srv.add_argument("--inflight", type=int, default=C.SERVE_INFLIGHT)
+    srv.add_argument("--devices", type=int, default=1,
+                     help="only 1 is ported")
+    srv.add_argument("--precision", type=str, default="f32",
+                     choices=["f32", "bf16", "int8"],
+                     help="only f32 is ported")
+    st = p.add_argument_group("stream")
+    st.add_argument("--stride_time", type=int, default=C.STREAM_STRIDE_TIME,
+                    help="temporal stride in samples (0 = window width)")
+    st.add_argument("--stride_channels", type=int,
+                    default=C.STREAM_STRIDE_CHANNELS,
+                    help="spatial tile stride (0 = window height)")
+    st.add_argument("--ring_samples", type=int,
+                    default=C.STREAM_RING_SAMPLES)
+    st.add_argument("--chunk_samples", type=int,
+                    default=C.STREAM_CHUNK_SAMPLES,
+                    help="samples polled per fiber per cycle (0 = one "
+                         "temporal stride)")
+    st.add_argument("--cycle_budget", type=int,
+                    default=C.STREAM_CYCLE_BUDGET,
+                    help="windows all tenants may submit per cycle, split "
+                         "by weight (the fairness gate)")
+    st.add_argument("--resident", type=str, default=C.STREAM_RESIDENT,
+                    choices=["auto", "on", "off"],
+                    help="rings on the card + one fused gather+forward+"
+                         "decode dispatch per fiber per cycle (auto = on "
+                         "CUDA with rings within 1 GiB)")
+    st.add_argument("--resident_max_windows", type=int, default=0,
+                    help="cap of the windows-per-dispatch ladder (0 = the "
+                         "tenant's quota)")
+    st.add_argument("--adapt_weights",
+                    action=argparse.BooleanOptionalAction, default=False,
+                    help="feed each fiber's shed rate back into its weight")
+    st.add_argument("--open_windows", type=int,
+                    default=C.STREAM_OPEN_WINDOWS)
+    st.add_argument("--close_windows", type=int,
+                    default=C.STREAM_CLOSE_WINDOWS)
+    st.add_argument("--min_event_prob", type=float,
+                    default=C.STREAM_MIN_EVENT_PROB)
+    st.add_argument("--track_merge_bins", type=float,
+                    default=C.STREAM_TRACK_MERGE_BINS)
+    st.add_argument("--distance_ewma", type=float,
+                    default=C.STREAM_DISTANCE_EWMA)
+    st.add_argument("--events_path", type=str, default=None,
+                    help="append emitted track records here as JSONL")
+    st.add_argument("--events_ring", type=int, default=C.STREAM_EVENTS_RING)
+    st.add_argument("--poll_ms", type=float, default=C.STREAM_POLL_MS,
+                    help="pump cycle cadence")
+    nyp = p.add_argument_group("not yet ported (exit 2)")
+    nyp.add_argument("--history", type=int, default=0)
+    nyp.add_argument("--alerts", action=argparse.BooleanOptionalAction,
+                     default=False)
+    nyp.add_argument("--conc_lockdep",
+                     action=argparse.BooleanOptionalAction, default=False)
+    nyp.add_argument("--mem_track", action=argparse.BooleanOptionalAction,
+                     default=False)
+    nyp.add_argument("--selftest", action="store_true")
+    p.add_argument("--host", type=str, default=C.SERVE_HOST)
+    p.add_argument("--port", type=int, default=C.SERVE_PORT)
+    p.add_argument("--port_file", type=str, default=None, metavar="PATH")
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"])
+    args = p.parse_args(argv)
+
+    refusal = _not_ported(args)
+    if refusal:
+        print(f"dasmtl_torch.stream serve: {refusal}", file=sys.stderr)
+        return 2
+    if args.fresh_init == args.oracle:
+        p.error("exactly one of --fresh_init / --oracle is required")
+    try:
+        buckets = tuple(int(b) for b in args.buckets.split(",") if b)
+    except ValueError:
+        p.error(f"--buckets must be comma-separated ints, "
+                f"got {args.buckets!r}")
+    from dasmtl_torch.serve.__main__ import _parse_window
+
+    window = _parse_window(p, args.window) if args.window else None
+    if args.oracle and window is None:
+        p.error("--oracle needs an explicit --window HxW")
+    window = window or (C.INPUT_HEIGHT, C.INPUT_WIDTH)
+
+    from dasmtl_torch.device import resolve_device
+    from dasmtl_torch.serve.executor import InferExecutor
+    from dasmtl_torch.serve.server import ServeLoop, install_signal_handlers
+    from dasmtl_torch.stream.feed import (FileTailSource, PlantedEvent,
+                                          SocketSource, SyntheticSource)
+
+    device = resolve_device(args.device)
+    if args.oracle:
+        from dasmtl_torch.stream.selftest import _oracle_pool
+
+        executor = _oracle_pool(window, buckets, device)
+    else:
+        try:
+            executor = InferExecutor.from_fresh_init(args.model, buckets,
+                                                     window, C.SEED, device)
+        except (ValueError, NotImplementedError) as exc:
+            print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
+            return 2
+    channels = args.channels or window[0]
+
+    sources = []
+    for i in range(args.synthetic):
+        # A repeating demo pattern: one event of each type per fiber.
+        sources.append(SyntheticSource(
+            channels, seed=i,
+            events=(PlantedEvent(4000, 2048, 0, channels // 3),
+                    PlantedEvent(12000, 2048, 1, (2 * channels) // 3))))
+    for path in args.tail:
+        sources.append(FileTailSource(path, channels))
+    for spec in args.connect:
+        host, _, port = spec.rpartition(":")
+        sources.append(SocketSource(host or "127.0.0.1", int(port),
+                                    channels))
+    if not sources:
+        p.error("no fibers: pass --synthetic N, --tail PATH or --connect "
+                "HOST:PORT")
+    weights = [1.0] * len(sources)
+    if args.weights:
+        try:
+            weights = [float(x) for x in args.weights.split(",")]
+        except ValueError:
+            p.error(f"--weights must be comma-separated floats, "
+                    f"got {args.weights!r}")
+        if len(weights) != len(sources):
+            p.error(f"--weights names {len(weights)} fibers, "
+                    f"{len(sources)} configured")
+
+    tenants = [StreamTenant(
+        f"f{i}", src, window=window, stride_time=args.stride_time,
+        stride_channels=args.stride_channels,
+        ring_samples=args.ring_samples, weight=wt,
+        chunk_samples=args.chunk_samples,
+        open_windows=args.open_windows, close_windows=args.close_windows,
+        min_event_prob=args.min_event_prob,
+        merge_bins=args.track_merge_bins,
+        distance_ewma=args.distance_ewma)
+        for i, (src, wt) in enumerate(zip(sources, weights))]
+    loop = ServeLoop(executor, buckets=buckets,
+                     max_wait_s=args.max_wait_ms / 1e3,
+                     queue_depth=args.queue_depth, inflight=args.inflight)
+    stream = StreamLoop(loop, tenants, cycle_budget=args.cycle_budget,
+                        max_wait_s=args.max_wait_ms / 1e3,
+                        events_path=args.events_path,
+                        events_ring=args.events_ring,
+                        resident=args.resident,
+                        resident_max_windows=args.resident_max_windows,
+                        adapt_weights=args.adapt_weights)
+    httpd = make_stream_http_server(stream, args.host, args.port)
+    host, port = httpd.server_address[:2]
+    if args.port_file:
+        with open(args.port_file, "w", encoding="utf-8") as f:
+            f.write(f"{port}\n")
+    http_t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_t.start()
+    # Liveness answers while the serve buckets warm; /readyz waits.
+    loop.start()
+    print(f"streaming {len(tenants)} fiber(s) x "
+          f"{tenants[0].windower.n_tiles} tile(s) of {window[0]}x{window[1]}"
+          f" windows into {executor.source} on {device} "
+          f"({'resident' if stream.resident_enabled else 'host'} data "
+          f"plane) on http://{host}:{port} (GET /events, /healthz, "
+          f"/readyz, /stats, /metrics); SIGTERM drains", file=sys.stderr)
+    stop = threading.Event()
+    install_signal_handlers(loop, on_drain=lambda _s: stop.set())
+    stream.start(poll_s=args.poll_ms / 1e3)
+    while not stop.wait(timeout=1.0):
+        pass
+    stream_drained = stream.drain(timeout=30.0)
+    serve_drained = loop.drain(timeout=60.0)
+    httpd.shutdown()
+    http_t.join(timeout=10.0)
+    stream.close()
+    loop.close()
+    stats = stream.stats()
+    total_sub = sum(t["submitted"] for t in stats["tenants"].values())
+    total_shed = sum(t["shed"] for t in stats["tenants"].values())
+    drained = stream_drained and serve_drained
+    print(f"drained={'clean' if drained else 'TIMEOUT'} "
+          f"cycles={stats['cycles']} submitted={total_sub} "
+          f"shed={total_shed}", file=sys.stderr)
+    return 0 if drained else 1

@@ -1,0 +1,270 @@
+"""The offline record sweep — the third CLI surface of the port.
+
+Counterpart of ``dasmtl/stream/offline.py:31-331`` (``stream_predict``,
+``_emit``, ``shard_csv_path``, ``EVENT_NAMES``, ``main``): sweep a long
+``(channels, time)`` record with the window grid of
+:mod:`dasmtl_torch.data.windowing`, run the model over every window and
+write the JAX package's CSV rows
+
+    window_index, channel_origin, time_origin, weight,
+    pred_distance_m, pred_event   (columns present per model head)
+
+Two data paths, one forward (model + the decode-tail kernel):
+
+- **host**: every batch's windows are cut on the host and copied to the
+  card;
+- **resident**: the record goes to the card ONCE; each batch sends only its
+  ``(B, 2)`` int32 origins, and the window-gather kernel
+  (:func:`dasmtl_torch.export.make_resident_forward`, the factory the live
+  lanes share) feeds the forward directly.
+
+The sweep keeps two batches in flight: batch ``i + 1`` is enqueued before
+batch ``i``'s predictions are read back (copied into pinned memory behind a
+CUDA event), so the host cuts and writes rows while the card computes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import sys
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+
+EVENT_NAMES = ("striking", "excavating")
+
+#: Options of ``python -m dasmtl.stream`` this slice does not port yet ->
+#: the ROADMAP.md item that brings each.
+NOT_YET_PORTED = {
+    "exported": "ROADMAP.md queue 1 item 5, 'Artifacts and registry'",
+    "dp": "ROADMAP.md queue 1 item 8, 'Model C, multi-device training and "
+          "CV' (multi-device)",
+    "sanitize": "ROADMAP.md queue 1 item 3, 'Guards, sanitizers and the "
+                "heartbeat'",
+}
+
+
+def _resolve_stride(stride, window):
+    """Per-axis ``None``/0 stride components fall back to the window."""
+    if stride is None:
+        return None
+    return (stride[0] or window[0], stride[1] or window[1])
+
+
+def shard_csv_path(out_csv: str, process_index: int,
+                   process_count: int) -> str:
+    """``<base>.p<i>.csv`` for one process of a sharded sweep, the path
+    itself otherwise."""
+    if process_count <= 1:
+        return out_csv
+    base, ext = os.path.splitext(out_csv)
+    return f"{base}.p{process_index}{ext or '.csv'}"
+
+
+def resolve_offline_resident(mode: str, record_shape, window,
+                             device) -> bool:
+    """``auto`` engages on CUDA whenever the record is at least
+    window-sized (``offline.py:212-215``); on the CPU ``auto`` means off.
+    ``on`` still needs a window-sized record (smaller ones zero-pad on the
+    host path)."""
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown resident mode {mode!r}")
+    fits = record_shape[0] >= window[0] and record_shape[1] >= window[1]
+    return fits and (mode == "on" or (mode == "auto"
+                                      and device.type == "cuda"))
+
+
+def stream_predict(record: np.ndarray, model_path: Optional[str],
+                   model: str = "MTL", batch_size: int = 256,
+                   window: Optional[Tuple[int, int]] = None,
+                   stride: Optional[Tuple[int, int]] = None,
+                   out_csv: Optional[str] = None,
+                   process_index: int = 0, process_count: int = 1,
+                   resident: str = "auto", device: str = "cuda",
+                   seed: Optional[int] = None) -> list:
+    """Run ``model`` (the port checkpoint at ``model_path``, or a fresh
+    init from ``seed`` when None) over every window of ``record`` on
+    ``device``; returns the prediction rows and writes ``out_csv`` when
+    given.  ``resident`` ("auto" | "on" | "off") picks the data path (see
+    :func:`resolve_offline_resident`)."""
+    import torch
+
+    from dasmtl_torch.config import INPUT_HEIGHT, INPUT_WIDTH, SEED, Config
+    from dasmtl_torch.data.windowing import (plan_windows, window_batches,
+                                             window_index_batches)
+    from dasmtl_torch.device import resolve_device, set_f32_numerics
+    from dasmtl_torch.export import make_resident_forward
+    from dasmtl_torch.main import build_state
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.ops.decode import decode_heads
+    from dasmtl_torch.train.checkpoint import restore_weights
+
+    if resident not in ("auto", "on", "off"):
+        raise ValueError(f"unknown resident mode {resident!r}")
+    spec = get_model_spec(model)
+    dev = resolve_device(device)
+    window = tuple(window or (INPUT_HEIGHT, INPUT_WIDTH))
+    cfg = Config(model=model, device=dev.type,
+                 seed=SEED if seed is None else int(seed))
+    state = build_state(cfg, spec, dev)
+    if model_path:
+        restore_weights(state, model_path)
+    net = state.model.eval()
+    if dev.type == "cuda":
+        set_f32_numerics()
+    plan = plan_windows(record.shape, window=window,
+                        stride=_resolve_stride(stride, window))
+
+    def body(xs):
+        with torch.inference_mode():
+            _, preds, _ = decode_heads(net(xs))
+        return dict(zip(spec.head_tasks, preds))
+
+    def to_device(a: np.ndarray):
+        t = torch.from_numpy(a)
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t
+
+    if resolve_offline_resident(resident, record.shape, window, dev):
+        forward = make_resident_forward(body, plan.window)
+        rec = torch.from_numpy(np.ascontiguousarray(record, np.float32))
+        rec = rec.to(dev)
+        batches = window_index_batches(plan, batch_size,
+                                       process_index=process_index,
+                                       process_count=process_count)
+
+        def run(batch):
+            return forward(rec, to_device(batch["origin"]))
+    else:
+        batches = window_batches(record, batch_size, plan=plan,
+                                 process_index=process_index,
+                                 process_count=process_count)
+
+        def run(batch):
+            return body(to_device(batch["x"]))
+
+    return _emit(spec, plan, batches, run, out_csv, process_index,
+                 process_count)
+
+
+def _readback(out: Dict) -> Callable[[], Dict[str, np.ndarray]]:
+    """Enqueue the copy of one batch's int predictions to the host and
+    return the wait for it: pinned, non-blocking copies behind a CUDA
+    event on the card; plain arrays on the CPU."""
+    import torch
+
+    host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+    done = None
+    if any(v.is_cuda for v in out.values()):
+        done = torch.cuda.Event()
+        done.record()
+
+    def wait() -> Dict[str, np.ndarray]:
+        if done is not None:
+            done.synchronize()
+        return {k: v.numpy() for k, v in host.items()}
+
+    return wait
+
+
+def _emit(spec, plan, batches, run, out_csv, process_index,
+          process_count) -> list:
+    """Prediction rows of ``run`` over ``batches`` (padding slots
+    skipped), two batches in flight; writes the CSV shard when asked."""
+    tasks = [t for t, _ in spec.report_tasks]
+    fieldnames = ["window_index", "channel_origin", "time_origin", "weight"]
+    fieldnames += [f for f, t in (("pred_distance_m", "distance"),
+                                  ("pred_event", "event")) if t in tasks]
+    rows = []
+
+    def add_rows(batch, preds):
+        for j, idx in enumerate(batch["index"]):
+            if idx < 0:  # batch padding slot
+                continue
+            c0, t0 = plan.origin(int(idx))
+            row = {"window_index": int(idx), "channel_origin": c0,
+                   "time_origin": t0, "weight": float(batch["weight"][j])}
+            if "distance" in preds:
+                row["pred_distance_m"] = int(preds["distance"][j])
+            if "event" in preds:
+                row["pred_event"] = EVENT_NAMES[int(preds["event"][j])]
+            rows.append(row)
+
+    pending = None
+    for batch in batches:
+        wait = _readback(run(batch))
+        if pending is not None:
+            add_rows(pending[0], pending[1]())
+        pending = (batch, wait)
+    if pending is not None:
+        add_rows(pending[0], pending[1]())
+    if out_csv:
+        out_csv = shard_csv_path(out_csv, process_index, process_count)
+        os.makedirs(os.path.dirname(os.path.abspath(out_csv)), exist_ok=True)
+        with open(out_csv, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=fieldnames)
+            writer.writeheader()  # header even for an empty shard
+            writer.writerows(rows)
+    return rows
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m dasmtl_torch.stream",
+        description="dasmtl_torch streaming inference over a long DAS "
+                    "record")
+    p.add_argument("--record", type=str, required=True,
+                   help=".mat file holding the (channels, time) matrix")
+    p.add_argument("--mat_key", type=str, default="data")
+    p.add_argument("--model", type=str, default="MTL")
+    p.add_argument("--model_path", type=str, default=None,
+                   help="port checkpoint directory (ckpts/step_<n>) to "
+                        "restore weights from")
+    p.add_argument("--exported", type=str, default=None,
+                   help="not yet ported")
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--stride_time", type=int, default=None,
+                   help="time-axis stride in samples (default: window "
+                        "width, non-overlapping)")
+    p.add_argument("--stride_channels", type=int, default=None)
+    p.add_argument("--out", type=str, default=None,
+                   help="output CSV (default: <record>.predictions.csv)")
+    p.add_argument("--resident", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="keep the record on the card and gather windows "
+                        "there (auto = on CUDA)")
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"])
+    p.add_argument("--dp", type=int, default=1, help="not yet ported")
+    p.add_argument("--sanitize", action=argparse.BooleanOptionalAction,
+                   default=False, help="not yet ported")
+    args = p.parse_args(argv)
+    for opt, item in NOT_YET_PORTED.items():
+        value = getattr(args, opt)
+        if value and not (opt == "dp" and value == 1):
+            print(f"dasmtl_torch.stream: --{opt} is not yet ported: {item}",
+                  file=sys.stderr)
+            return 2
+    if not args.model_path:
+        p.error("--model_path is required (a port checkpoint; --exported "
+                "is not yet ported)")
+
+    from dasmtl_torch.data import matio
+    from dasmtl_torch.device import resolve_device
+
+    resolve_device(args.device)  # raises without a card, naming --device cpu
+    record = matio.load_mat(args.record, key_list=(args.mat_key,))
+    stride = None
+    if args.stride_channels or args.stride_time:
+        stride = (args.stride_channels, args.stride_time)
+    out_csv = args.out or (args.record + ".predictions.csv")
+    rows = stream_predict(np.asarray(record), args.model_path,
+                          model=args.model, batch_size=args.batch_size,
+                          stride=stride, out_csv=out_csv,
+                          resident=args.resident, device=args.device)
+    print(f"streamed {len(rows)} windows from {record.shape} record "
+          f"-> {out_csv}")
+    return 0

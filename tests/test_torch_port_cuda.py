@@ -1,6 +1,7 @@
 """The port on the card: each hand-written kernel against its plain
 version, the serve forward and one train step against the CPU, the
-executor's stream path.
+executor's stream path, and the resident stream lane's ordering of ring
+appends against window gathers.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -18,7 +19,7 @@ from dasmtl_torch.device import set_f32_numerics
 from dasmtl_torch.export import make_serve_infer_fn
 from dasmtl_torch.models.registry import get_model_spec
 from dasmtl_torch.models.weights import init_fresh
-from dasmtl_torch.ops import decode, gating
+from dasmtl_torch.ops import decode, gating, ring, window
 from dasmtl_torch.serve.executor import InferExecutor
 from dasmtl_torch.train.optim import coupled_adam
 from dasmtl_torch.train.state import TrainState
@@ -37,6 +38,9 @@ def cuda():
     gating.launches.reset()
     gating.backward_launches.reset()
     decode.launches.reset()
+    decode.prob_q_launches.reset()
+    window.launches.reset()
+    ring.launches.reset()
     return torch.device("cuda")
 
 
@@ -201,3 +205,129 @@ def _dead_bias(state_dict, key):
     the outlier envelope alone (every element)."""
     weight = state_dict.get(key[:-len("bias")] + "weight")
     return key.endswith(".bias") and weight is not None and weight.dim() == 4
+
+
+# -- the stream tier's kernels -------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 16, 256])
+def test_window_gather_kernel_matches_plain(cuda, k):
+    g = torch.Generator().manual_seed(k)
+    rec = torch.randn(300, 2000, generator=g).to(cuda)
+    origins = torch.stack([torch.randint(0, 201, (k,), generator=g),
+                           torch.randint(0, 1751, (k,), generator=g)], 1)
+    # As dynamic_slice: a negative start counts from the end of its axis,
+    # then every start clamps into [0, dim - size].
+    origins[0] = torch.tensor([-7, 5000])
+    origins = origins.to(torch.int32).to(cuda)
+    got = window.window_gather(rec, origins, (100, 250))
+    assert got.shape == (k, 100, 250, 1) and got.is_contiguous()
+    assert torch.equal(got, window.window_gather_plain(rec, origins,
+                                                       (100, 250)))
+    assert torch.equal(got[0, :, :, 0], rec[200:300, 1750:2000])
+    assert window.launches.value == 1
+
+
+def test_window_gather_refuses_what_it_does_not_take(cuda):
+    rec = torch.zeros(200, 600, device=cuda)
+    o = torch.zeros(4, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        window.window_gather(rec.double(), o, (100, 250))
+    with pytest.raises(TypeError):
+        window.window_gather(rec, o.long(), (100, 250))
+    with pytest.raises(ValueError, match="contiguous"):
+        window.window_gather(rec.t().contiguous().t(), o, (100, 250))
+    with pytest.raises(ValueError, match="CUDA"):
+        window.window_gather(rec, o.cpu(), (100, 250))
+    with pytest.raises(ValueError, match="fit"):
+        window.window_gather(rec, o, (300, 250))
+    assert window.launches.value == 0
+
+
+@pytest.mark.parametrize("channels,w_c", [(100, 125), (400, 500)])
+def test_ring_append_kernel_matches_plain(cuda, channels, w_c):
+    g = torch.Generator().manual_seed(channels)
+    ring_k = torch.randn(channels, 16384, generator=g).to(cuda)
+    ring_p = ring_k.clone()
+    spare = torch.empty_like(ring_k)
+    for _ in range(200):
+        chunk = torch.randn(channels, w_c, generator=g).to(cuda)
+        spare = ring.ring_append(ring_k, chunk, out=spare)
+        ring_k, spare = spare, ring_k
+        ring_p = ring.ring_append_plain(ring_p, chunk)
+    assert torch.equal(ring_k, ring_p)
+    assert ring.launches.value == 200
+
+
+def test_ring_append_refuses_what_it_does_not_take(cuda):
+    r = torch.zeros(8, 64, device=cuda)
+    c = torch.zeros(8, 16, device=cuda)
+    with pytest.raises(TypeError):
+        ring.ring_append(r, c.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ring.ring_append(r, torch.zeros(16, 8, device=cuda).t())
+    with pytest.raises(ValueError, match="CUDA"):
+        ring.ring_append(r, c.cpu())
+    with pytest.raises(ValueError, match="second buffer"):
+        ring.ring_append(r, c, out=r)
+    assert ring.launches.value == 0
+
+
+@pytest.mark.parametrize("k", [1, 16, 256])
+def test_event_prob_q_kernel_matches_plain(cuda, k):
+    g = torch.Generator().manual_seed(k)
+    lp = torch.log_softmax(4.0 * torch.randn(k, 2, generator=g), -1)
+    lp = lp.to(cuda)
+    got = decode.event_prob_q(lp)
+    want = decode.event_prob_q_plain(lp)
+    assert got.dtype == torch.int32
+    assert (got - want).abs().max().item() <= 1
+    assert decode.prob_q_launches.value == 1
+    with pytest.raises(TypeError):
+        decode.event_prob_q(lp.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        decode.event_prob_q(torch.zeros(2, 4, device=cuda).t())
+
+
+def test_resident_lane_orders_appends_before_gathers(cuda):
+    """Append and dispatch as fast as the host can, collecting nothing
+    until the end: every decode must equal the oracle on host-gathered
+    windows, so no gather read a ring buffer an append was rewriting."""
+    import numpy as np
+
+    from dasmtl_torch.stream.feed import SyntheticSource
+    from dasmtl_torch.stream.live import StreamTenant
+    from dasmtl_torch.stream.resident import build_lanes
+    from dasmtl_torch.stream.selftest import _oracle_pool
+    from dasmtl_torch.stream.windower import LiveWindower
+
+    pool = _oracle_pool((64, 64), (1, 2, 4, 8), cuda)
+    tenant = StreamTenant("f0", SyntheticSource(64, seed=3), window=(64, 64),
+                          stride_time=16, ring_samples=256, chunk_samples=64)
+    (lane,) = build_lanes(pool, [tenant], max_windows=8)
+    window.launches.reset()
+    ring.launches.reset()
+    rng = np.random.default_rng(0)
+    data = (rng.normal(size=(64, 64 * 400))
+            * rng.uniform(0.5, 8.0, size=(64, 1))).astype(np.float32)
+    windower = LiveWindower(lane.feed, (64, 64), stride_time=16)
+    inflight = []
+    for c0 in range(0, data.shape[1], 64):
+        lane.feed.append(data[:, c0:c0 + 64])
+        cuts = windower.cut(pixels=False)
+        for i in range(0, len(cuts), 8):
+            group = cuts[i:i + 8]
+            inflight.append((group, lane.dispatch_windows(group)))
+    assert ring.launches.value == 400 and window.launches.value == len(
+        inflight)
+    fwd = pool.raw_infer_fn
+    for group, batch in inflight:
+        preds, bad, prob, _ = lane.executor.collect(batch)
+        xs = np.stack([data[:, c.t_origin:c.t_origin + 64] for c in group])
+        want = fwd(torch.from_numpy(xs[..., None]).to(cuda))
+        assert np.array_equal(preds["distance"],
+                              want["distance"].cpu().numpy())
+        assert np.array_equal(preds["event"], want["event"].cpu().numpy())
+        assert not bad.any()
+        q = decode.event_prob_q_plain(want["log_probs_event"]).cpu().numpy()
+        assert np.abs(prob * decode.PROB_Q_SCALE - q).max() <= 1
+    lane.close()

@@ -51,6 +51,15 @@ RUN_MODULES = ["dasmtl_torch.cli", "dasmtl_torch.__main__",
     .glob("*.py") if p.stem != "__init__")
 
 
+def test_stream_entry_points_load_no_jax_and_build_nothing():
+    _assert_imports_clean(["dasmtl_torch.stream",
+                           "dasmtl_torch.stream.__main__",
+                           "dasmtl_torch.stream.live",
+                           "dasmtl_torch.stream.offline",
+                           "dasmtl_torch.stream.resident",
+                           "dasmtl_torch.stream.selftest"])
+
+
 def test_run_entry_points_load_no_jax_and_build_nothing():
     assert "dasmtl_torch.train.steps" in RUN_MODULES
     assert "dasmtl_torch.data.splits" in RUN_MODULES
@@ -65,7 +74,8 @@ def _assert_imports_clean(modules):
             "before = set(sys.modules)\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
-            "from dasmtl_torch.ops import _build, decode, gating\n"
+            "from dasmtl_torch.ops import _build, decode, gating, ring, "
+            "window\n"
             "bad = sorted(m for m in set(sys.modules) - before\n"
             f"             if m.split('.')[0] in {unwanted!r})\n"
             "print(bad, _build._lib is None)\n")
