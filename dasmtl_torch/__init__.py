@@ -10,7 +10,10 @@ Slice 1 ports the serving path of model A: the eval forward
 HTTP server (:mod:`dasmtl_torch.serve`).  Slice 2 ports training
 (:mod:`dasmtl_torch.train`, :mod:`dasmtl_torch.data`), slice 3 the stream
 tier (:mod:`dasmtl_torch.stream`: the offline record sweep and the live
-multi-fiber tier, on the host or the resident data plane).  The
+multi-fiber tier, on the host or the resident data plane), slice 4 model C
+(:mod:`dasmtl_torch.models.inception`) and the bf16 / int8 serving presets
+(:mod:`dasmtl_torch.models.precision`, :mod:`dasmtl_torch.serve.parity`).
+The
 hand-written Hopper kernels live in ``csrc/`` and are built on their first
 CUDA call (:mod:`dasmtl_torch.ops._build`), never at import.
 """

@@ -28,6 +28,8 @@ INPUT_WIDTH = 250
 
 NUM_DISTANCE_CLASSES = 16
 NUM_EVENT_CLASSES = 2
+#: Model C's 32-way mixed label: ``event * 16 + distance``.
+NUM_MIXED_CLASSES = NUM_EVENT_CLASSES * NUM_DISTANCE_CLASSES
 
 #: The JAX ``Config.seed`` default: fresh-init weights and the data shuffle.
 SEED = 1
@@ -36,6 +38,8 @@ SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
 SERVE_MAX_WAIT_MS = 5.0
 SERVE_QUEUE_DEPTH = 256
 SERVE_INFLIGHT = 2
+#: The serving precision preset (``Config.serve_precision``).
+SERVE_PRECISION = "f32"
 SERVE_HOST = "127.0.0.1"
 SERVE_PORT = 8321
 
@@ -149,8 +153,8 @@ _MULTI = "ROADMAP.md queue 1, 'Model C, multi-device training and CV'"
 NOT_YET_PORTED = {
     "dp": (-1, _MULTI), "sp": (1, _MULTI), "bn_sync": ("global", _MULTI),
     "cv_parallel": (False, _MULTI),
-    "compute_dtype": ("float32", "ROADMAP.md queue 1, 'bf16 and int8 "
-                                 "presets'"),
+    "compute_dtype": ("float32", "ROADMAP.md queue 1 item 11, 'Training "
+                                 "under --compute_dtype bfloat16'"),
     "device_data": ("auto", _INPUT_PATHS),
     "device_data_budget_mb": (1024, _INPUT_PATHS),
     "steps_per_dispatch": (8, _INPUT_PATHS),

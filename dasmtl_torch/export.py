@@ -5,22 +5,28 @@ Counterpart of ``dasmtl/export.py:59-195``: ``make_serve_infer_fn``
 data plane's factories ``make_resident_forward`` /
 ``make_resident_serve_fn`` (``:129-195``), without the StableHLO artifact
 container, which stays JAX-only for now (ROADMAP.md, "artifacts and
-registry").
+registry"); and :func:`make_precision_serve_fn`, the counterpart of
+``dasmtl/models/precision.py:302-372``, which serves a model under a
+precision preset.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
 
+from dasmtl_torch.models.precision import (PrecisionMeta, apply_precision,
+                                           check_precision,
+                                           compute_dtype_for, precision_meta)
 from dasmtl_torch.models.registry import ModelSpec
 from dasmtl_torch.ops.decode import PROB_Q_SCALE, decode_heads, event_prob_q
 from dasmtl_torch.ops.window import window_gather
 
-__all__ = ["PROB_Q_SCALE", "make_serve_infer_fn", "nonfinite_rows",
-           "make_resident_forward", "make_resident_serve_fn"]
+__all__ = ["PROB_Q_SCALE", "make_serve_infer_fn", "make_precision_serve_fn",
+           "nonfinite_rows", "make_resident_forward",
+           "make_resident_serve_fn"]
 
 
 def make_serve_infer_fn(spec: ModelSpec, model: nn.Module) -> Callable:
@@ -34,15 +40,45 @@ def make_serve_infer_fn(spec: ModelSpec, model: nn.Module) -> Callable:
 
     def serve_infer(x: torch.Tensor) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            outputs = model(x)
-            log_probs, preds, bad = decode_heads(outputs)
-        out: Dict[str, torch.Tensor] = dict(zip(spec.head_tasks, preds))
-        for i, lp in enumerate(log_probs):
-            out[f"log_probs_{i}"] = lp
-        out["bad_rows"] = bad
-        return out
+            return _decoded(spec, model(x))
 
     return serve_infer
+
+
+def _decoded(spec: ModelSpec, heads) -> Dict[str, torch.Tensor]:
+    """The decode tail's outputs: per-task ints (model C's mixed decode
+    derives distance and event from its one head), ``log_probs_<i>``,
+    ``bad_rows``."""
+    log_probs, preds, bad = decode_heads(heads)
+    out: Dict[str, torch.Tensor] = spec.decode_ints(preds)
+    for i, lp in enumerate(log_probs):
+        out[f"log_probs_{i}"] = lp
+    out["bad_rows"] = bad
+    return out
+
+
+def make_precision_serve_fn(spec: ModelSpec, model: nn.Module,
+                            precision: str
+                            ) -> Tuple[Callable, PrecisionMeta]:
+    """``(serve_infer, meta)`` for ``model`` under ``precision``.  f32
+    returns :func:`make_serve_infer_fn` as it is.  A reduced preset
+    transforms ``model`` in place, once (:func:`~dasmtl_torch.models.
+    precision.apply_precision`); its forward casts the input to bf16 and
+    the heads to f32, then makes the one ``decode_heads`` launch: the
+    decode tail never runs in reduced precision.  Same keys as the f32
+    forward."""
+    meta = precision_meta(model, check_precision(precision))
+    if precision == "f32":
+        return make_serve_infer_fn(spec, model), meta
+    apply_precision(model, precision)
+    dtype = compute_dtype_for(precision)
+
+    def serve_infer(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            heads = [h.float() for h in model(x.to(dtype))]
+            return _decoded(spec, heads)
+
+    return serve_infer, meta
 
 
 def nonfinite_rows(out: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -20,7 +20,8 @@ from dasmtl_torch.data.pipeline import BatchIterator
 from dasmtl_torch.data.sources import DiskSource, RamSource, _SourceBase
 from dasmtl_torch.data.splits import build_splits, export_manifest_csv
 from dasmtl_torch.device import resolve_device, set_f32_numerics
-from dasmtl_torch.models.registry import ModelSpec, get_model_spec
+from dasmtl_torch.models.registry import (ModelSpec, get_model_spec,
+                                          refuse_serve_only)
 from dasmtl_torch.models.weights import init_fresh
 from dasmtl_torch.train.checkpoint import (best_metric_on_disk,
                                            restore_latest_in, restore_weights)
@@ -74,6 +75,7 @@ def build_sources(cfg: Config, is_test: bool,
 
 def main_process(cfg: Config, is_test: bool = False) -> ValidationResult:
     """End-to-end run (train or eval); the final validation result."""
+    refuse_serve_only(cfg.model, "train")  # model C: serving only, for now
     device = resolve_device(cfg.device)  # raises, naming --device cpu
     spec = get_model_spec(cfg.model)
     if is_test and not cfg.model_path:

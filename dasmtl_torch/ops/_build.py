@@ -49,6 +49,8 @@ SIGNATURES = {
         ctypes.c_int, _P, _P]),
     "dasmtl_ring_append": (ctypes.c_int, [
         _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _P, _P]),
+    "dasmtl_int8_dot": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_int64,
+                                       ctypes.c_int, ctypes.c_int, _P]),
     "dasmtl_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

@@ -9,8 +9,14 @@ meanwhile), and SIGTERM drains: in-flight batches finish, new work gets an
 explicit ``closed``, and the ``drained=... answered=... p50=... p99=...``
 line goes to stderr.
 
-The JAX server's other model sources and presets exit with code 2 and
-name the ROADMAP.md item that brings them.
+``--model`` takes every family (model C is ``multi_classifier``) and
+``--precision f32|bf16|int8`` every serving preset (:mod:`dasmtl_torch.
+models.precision`).  ``--parity-check`` runs the precision gate instead of
+serving (``dasmtl/serve/__main__.py:168-238``): the ``--precision`` preset,
+or both reduced presets under ``f32``, against the f32 forward over a
+seeded eval set (52x64 unless ``--window`` says otherwise); exit 0 when
+every preset passes, 1 otherwise.  The JAX server's other model sources
+exit with code 2 and name the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -28,7 +34,6 @@ NOT_YET_PORTED = {
                   "checkpoints are Orbax files the port cannot read yet)",
     "exported": "ROADMAP.md queue 1, 'Artifacts and registry'",
     "registry": "ROADMAP.md queue 1, 'Artifacts and registry'",
-    "precision": "ROADMAP.md queue 1, 'bf16 and int8 presets'",
 }
 
 
@@ -55,7 +60,8 @@ def main(argv=None) -> int:
     src.add_argument("--registry", type=str, default=None,
                      help="not yet ported")
     p.add_argument("--model", type=str, default="MTL",
-                   help="model family: MTL, single_distance, single_event")
+                   help="model family: MTL, single_distance, single_event, "
+                        "multi_classifier")
     p.add_argument("--window", type=str, default=None, metavar="HxW",
                    help="window shape, e.g. 100x250 (default: "
                         f"{C.INPUT_HEIGHT}x{C.INPUT_WIDTH})")
@@ -79,19 +85,31 @@ def main(argv=None) -> int:
     p.add_argument("--inflight", type=int, default=C.SERVE_INFLIGHT,
                    help="pipeline depth: batches dispatched but not yet "
                         "collected")
-    p.add_argument("--precision", type=str, default="f32",
+    p.add_argument("--precision", type=str, default=C.SERVE_PRECISION,
                    choices=["f32", "bf16", "int8"],
-                   help="serving precision preset (only f32 is ported)")
+                   help="serving precision preset")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
+    p.add_argument("--parity-check", action="store_true",
+                   dest="parity_check",
+                   help="run the precision parity gate instead of serving: "
+                        "the --precision preset (both reduced presets "
+                        "under f32) against the f32 forward over a seeded "
+                        "eval set; exit 0/1")
+    p.add_argument("--parity_windows", type=int, default=256,
+                   help="eval-set size for --parity-check")
+    p.add_argument("--parity_out", type=str, default=None, metavar="PATH",
+                   help="also write the parity report section into PATH "
+                        "(not docs/PARITY.md, the JAX package's)")
     args = p.parse_args(argv)
 
     for opt, item in NOT_YET_PORTED.items():
-        value = getattr(args, opt)
-        if value and not (opt == "precision" and value == "f32"):
+        if getattr(args, opt):
             print(f"dasmtl_torch.serve: --{opt} is not yet ported: {item}",
                   file=sys.stderr)
             return 2
+    if args.parity_check:
+        return _parity_check(p, args)
     if not args.fresh_init:
         p.error("--fresh_init is required (the only model source this "
                 "slice ports)")
@@ -112,7 +130,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     try:
         executor = InferExecutor.from_fresh_init(args.model, buckets, window,
-                                                 C.SEED, device)
+                                                 C.SEED, device,
+                                                 args.precision)
     except (ValueError, NotImplementedError) as exc:
         # An unknown or not yet ported model family is an operational
         # error with a named fix, not a traceback.
@@ -133,8 +152,8 @@ def main(argv=None) -> int:
     t = threading.Thread(target=httpd.serve_forever, daemon=True)
     t.start()
     print(f"warming {len(buckets)} bucket(s) {list(buckets)} on "
-          f"{window[0]}x{window[1]} windows (precision f32) on {device}; "
-          f"liveness already up on http://{host}:{port} ...",
+          f"{window[0]}x{window[1]} windows (precision {args.precision}) "
+          f"on {device}; liveness already up on http://{host}:{port} ...",
           file=sys.stderr)
     loop.start()
     print(f"serving {executor.source} on http://{host}:{port} "
@@ -161,6 +180,38 @@ def main(argv=None) -> int:
           f"occupancy={stats['batches']['mean_occupancy']:.2f}",
           file=sys.stderr)
     return 0 if drained else 1
+
+
+def _parity_check(p: argparse.ArgumentParser, args) -> int:
+    """``--parity-check``: gate the reduced presets on fresh-init weights
+    of ``--model``; 0 when every preset passes."""
+    from dasmtl_torch.device import card_label, resolve_device
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.serve.parity import run_parity, write_parity_report
+
+    window = _parse_window(p, args.window) if args.window else (52, 64)
+    resolve_device(args.device)  # raises without a card, naming --device cpu
+    try:
+        get_model_spec(args.model)
+    except ValueError as exc:
+        print(f"dasmtl_torch.serve: {exc}", file=sys.stderr)
+        return 2
+    presets = ([args.precision] if args.precision != "f32"
+               else ["bf16", "int8"])
+    reports = [run_parity(prec, model=args.model, input_hw=window,
+                          n_windows=args.parity_windows,
+                          device=args.device, verbose=True)
+               for prec in presets]
+    if args.parity_out:
+        where = card_label() if args.device == "cuda" else "cpu"
+        write_parity_report(
+            reports, args.parity_out,
+            context={"device": where, "window": f"{window[0]}x{window[1]}",
+                     "eval set": f"{args.parity_windows} seeded windows "
+                                 f"(seed 0, every 17th NaN-poisoned)"})
+        print(f"parity report written to {args.parity_out}",
+              file=sys.stderr)
+    return 0 if all(r.passed for r in reports) else 1
 
 
 if __name__ == "__main__":

@@ -15,9 +15,12 @@ lock; callers inject ``now``, which makes the deadline logic testable with
 a fake clock.
 
 On CUDA the staging buffers are pinned ``torch`` tensors: the batcher
-writes rows into their numpy views, and the executor copies the tensor to
-the card with ``non_blocking=True``.  A slot is reused only after its batch
-has been collected (the serve loop releases it at collect).
+copies rows into them, and the executor copies the tensor to the card with
+``non_blocking=True``.  A slot is reused only after its batch has been
+collected (the serve loop releases it at collect).  The buffers take the
+executor's staging dtype: the reduced precision presets stage bf16, and a
+row's copy rounds to nearest even, as the JAX package's
+``x.astype(bfloat16)`` does.
 """
 
 from __future__ import annotations
@@ -60,15 +63,16 @@ class BatchPlan:
         """True when ANY member request asked for log-probs."""
         return any(r.want_log_probs for r in self.requests)
 
-    def assemble_into(self, buf: np.ndarray) -> np.ndarray:
+    def assemble_into(self, buf: torch.Tensor) -> torch.Tensor:
         """Write the padded batch into a preallocated ``(bucket, h, w, 1)``
-        host staging array: real rows copied in place, padding rows
-        zeroed."""
+        host staging tensor: real rows copied in place (cast to the
+        buffer's dtype), padding rows zeroed."""
         if buf.shape[0] != self.bucket:
             raise ValueError(f"staging buffer holds {buf.shape[0]} rows, "
                              f"plan bucket is {self.bucket}")
         for j, r in enumerate(self.requests):
-            buf[j, ..., 0] = r.x
+            buf[j, ..., 0].copy_(torch.from_numpy(
+                np.asarray(r.x, np.float32)))
         if len(self.requests) < self.bucket:
             buf[len(self.requests):] = 0.0
         return buf
@@ -76,11 +80,9 @@ class BatchPlan:
 
 @dataclasses.dataclass
 class StagingSlot:
-    """One staging buffer: the (pinned, on CUDA) host tensor and the numpy
-    view of the same memory that the batcher writes into."""
+    """One staging buffer: the (pinned, on CUDA) host tensor."""
 
     tensor: torch.Tensor
-    array: np.ndarray
 
 
 class StagingBuffers:
@@ -91,9 +93,10 @@ class StagingBuffers:
     backstop, not the steady state.  ``release(slot)`` is keyless."""
 
     def __init__(self, specs: Dict[Hashable, tuple], *, depth: int = 2,
-                 pin: bool = False):
+                 pin: bool = False, dtype: torch.dtype = torch.float32):
         self.depth = max(1, int(depth))
         self.pin = bool(pin)
+        self.dtype = dtype
         self._lock = threading.Lock()
         self._available = threading.Condition(self._lock)
         self._free: Dict[Hashable, List[StagingSlot]] = {}
@@ -106,16 +109,18 @@ class StagingBuffers:
 
     @classmethod
     def for_buckets(cls, buckets: Sequence[int], input_hw, depth: int, *,
-                    pin: bool = False) -> "StagingBuffers":
-        """The serve layout: one ``(bucket, h, w, 1)`` f32 buffer per
-        configured bucket size, ``depth`` of each; pinned when ``pin``."""
+                    pin: bool = False, dtype: torch.dtype = torch.float32
+                    ) -> "StagingBuffers":
+        """The serve layout: one ``(bucket, h, w, 1)`` buffer of ``dtype``
+        per configured bucket size, ``depth`` of each; pinned when
+        ``pin``."""
         h, w = int(input_hw[0]), int(input_hw[1])
         return cls({int(b): (int(b), h, w, 1) for b in buckets},
-                   depth=depth, pin=pin)
+                   depth=depth, pin=pin, dtype=dtype)
 
     def _alloc(self, shape) -> StagingSlot:
-        t = torch.zeros(shape, dtype=torch.float32, pin_memory=self.pin)
-        return StagingSlot(tensor=t, array=t.numpy())
+        return StagingSlot(tensor=torch.zeros(shape, dtype=self.dtype,
+                                              pin_memory=self.pin))
 
     def acquire(self, key: Hashable) -> StagingSlot:
         with self._available:
@@ -141,7 +146,9 @@ class StagingBuffers:
     def stats(self) -> dict:
         with self._lock:
             return {"depth": self.depth, "slots": len(self._free),
-                    "pinned": self.pin, "acquires": self._acquires,
+                    "pinned": self.pin,
+                    "dtype": str(self.dtype).replace("torch.", ""),
+                    "acquires": self._acquires,
                     "blocked_acquires": self._blocked,
                     "outstanding": len(self._out),
                     "peak_outstanding": self._peak_outstanding}

@@ -25,8 +25,17 @@ build_lanes`) read ``raw_infer_fn`` (the forward, which they fuse behind
 the window gather), ``placement``, ``input_dtype`` and ``stream`` (the
 lanes' ring appends and dispatches share the executor's stream).
 
-Not ported yet (ROADMAP.md): the executor pool, the exported-artifact and
-checkpoint constructors, and the reduced-precision presets.
+Under a reduced precision preset (``bf16``, ``int8``; :mod:`dasmtl_torch.
+models.precision`) the weights are transformed once, at construction, and
+batches are staged and dispatched in bf16; ``precision``, ``input_dtype``
+and ``precision_meta`` say which (JAX ``executor.py:256-258``).
+:meth:`InferExecutor.from_state_dict` serves given weights, the
+counterpart of ``from_checkpoint(model, None, ...)`` (``:141-153``) that
+lets the parity gate build the f32 and the reduced executor from the same
+weights.
+
+Not ported yet (ROADMAP.md): the executor pool and the exported-artifact
+and checkpoint constructors.
 """
 
 from __future__ import annotations
@@ -40,7 +49,8 @@ import numpy as np
 import torch
 
 from dasmtl_torch.device import set_f32_numerics
-from dasmtl_torch.export import make_serve_infer_fn
+from dasmtl_torch.export import make_precision_serve_fn
+from dasmtl_torch.models.precision import check_precision, staging_dtype_for
 from dasmtl_torch.models.registry import get_model_spec
 from dasmtl_torch.models.weights import init_fresh
 
@@ -62,15 +72,18 @@ class InferExecutor:
 
     def __init__(self, infer_fn, input_hw: Tuple[int, int],
                  buckets: Sequence[int], device: torch.device, *,
-                 source: str = "fn"):
+                 source: str = "fn", precision: str = "f32",
+                 precision_meta: Optional[dict] = None):
         self.raw_infer_fn = infer_fn
         self.device = torch.device(device)
         self.placement = self.device
         self.input_hw = (int(input_hw[0]), int(input_hw[1]))
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.source = source
-        self.precision = "f32"
-        self.input_dtype = np.dtype(np.float32)
+        self.precision = check_precision(precision)
+        #: The torch dtype batches are staged and dispatched in.
+        self.input_dtype = staging_dtype_for(precision)
+        self.precision_meta = dict(precision_meta or {})
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._warm = False
@@ -84,36 +97,59 @@ class InferExecutor:
     @classmethod
     def from_fresh_init(cls, model: str, buckets: Sequence[int],
                         input_hw: Tuple[int, int], seed: int,
-                        device: torch.device) -> "InferExecutor":
+                        device: torch.device, precision: str = "f32"
+                        ) -> "InferExecutor":
         """Serve seed-deterministic fresh-init weights (``init_fresh``) —
         the counterpart of ``from_checkpoint(..., model_path=None)``."""
-        spec = get_model_spec(model)
-        net = init_fresh(spec.build(), seed).to(device).eval()
+        net = init_fresh(get_model_spec(model).build(), seed)
+        return cls._serving(model, net, buckets, input_hw, device,
+                            precision, "fresh-init")
+
+    @classmethod
+    def from_state_dict(cls, model: str, state_dict: dict,
+                        buckets: Sequence[int], input_hw: Tuple[int, int],
+                        device: torch.device, precision: str = "f32", *,
+                        source: str = "state-dict") -> "InferExecutor":
+        """Serve the given weights (the port's state dict of ``model``)
+        under ``precision``; the state dict is copied, not changed."""
+        net = get_model_spec(model).build()
+        net.load_state_dict(state_dict, strict=True)
+        return cls._serving(model, net, buckets, input_hw, device,
+                            precision, source)
+
+    @classmethod
+    def _serving(cls, model: str, net: torch.nn.Module, buckets, input_hw,
+                 device, precision: str, source: str) -> "InferExecutor":
+        fn, meta = make_precision_serve_fn(get_model_spec(model), net,
+                                           precision)
+        net.to(device)
         set_f32_numerics()
-        return cls(make_serve_infer_fn(spec, net), input_hw, buckets, device,
-                   source="fresh-init")
+        return cls(fn, input_hw, buckets, device, source=source,
+                   precision=precision, precision_meta=meta.summary())
 
     # -- execution -----------------------------------------------------------
     def warmup(self) -> float:
-        """Run every bucket shape once; returns wall seconds spent."""
+        """Run every bucket shape once, in the staging dtype; returns wall
+        seconds spent."""
         h, w = self.input_hw
         t0 = time.perf_counter()
         for b in self.buckets:
-            self.run(np.zeros((b, h, w, 1), np.float32))
+            self.run(torch.zeros((b, h, w, 1), dtype=self.input_dtype))
         self._warm = True
         self.warmup_s = time.perf_counter() - t0
         return self.warmup_s
 
     def dispatch(self, x: Union[np.ndarray, torch.Tensor]) -> InflightBatch:
-        """Enqueue one ``(bucket, h, w, 1)`` f32 batch and return its
-        device outputs WITHOUT waiting for the computation.  ``x`` is a
-        host array or a (pinned) host tensor; it must stay unchanged until
-        the batch is collected."""
+        """Enqueue one ``(bucket, h, w, 1)`` batch and return its device
+        outputs WITHOUT waiting for the computation.  ``x`` is a host array
+        or a (pinned) host tensor, cast on the host to ``input_dtype``
+        when it is in another (round to nearest even for bf16); it must
+        stay unchanged until the batch is collected."""
         if x.shape[0] not in self.buckets:
             raise ValueError(f"batch of {x.shape[0]} is not a configured "
                              f"bucket {self.buckets}")
         t0 = time.perf_counter()
-        xt = torch.as_tensor(x, dtype=torch.float32)
+        xt = torch.as_tensor(x).to(self.input_dtype)
         if self._stream is None:
             out = self.raw_infer_fn(xt.to(self.device))
             return InflightBatch(outputs=out, bucket=int(x.shape[0]),
@@ -160,7 +196,8 @@ class InferExecutor:
     def compile_summary(self) -> dict:
         return {"buckets": list(self.buckets), "warm": self._warm,
                 "source": self.source, "precision": self.precision,
-                "input_dtype": str(self.input_dtype),
+                "input_dtype": str(self.input_dtype).replace("torch.", ""),
+                "precision_meta": dict(self.precision_meta),
                 "placement": str(self.device),
                 "warmup_s": self.warmup_s}
 

@@ -103,7 +103,7 @@ class ServeLoop:
         # collect, when the device is done with the host buffer.
         self._staging = StagingBuffers.for_buckets(
             buckets, executor.input_hw, depth=self.inflight_window + 1,
-            pin=executor.device.type == "cuda")
+            pin=executor.device.type == "cuda", dtype=executor.input_dtype)
         self._cv = threading.Condition()
         self._stop = False
         self._slots = threading.BoundedSemaphore(self.inflight_window)
@@ -216,7 +216,7 @@ class ServeLoop:
         slot = self._staging.acquire(plan.bucket)
         t_form = self.clock()
         try:
-            plan.assemble_into(slot.array)
+            plan.assemble_into(slot.tensor)
             t_formed = self.clock()
             handle = self.executor.dispatch(slot.tensor)
         except Exception as exc:  # noqa: BLE001 — must answer the callers

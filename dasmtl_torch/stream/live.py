@@ -81,7 +81,8 @@ NOT_YET_PORTED = {
     "model_path": "ROADMAP.md queue 1 item 5, 'Artifacts and registry'",
     "exported": "ROADMAP.md queue 1 item 5, 'Artifacts and registry'",
     "devices": "ROADMAP.md queue 1 item 4, 'Executor pool'",
-    "precision": "ROADMAP.md queue 1 item 2, 'bf16 and int8 presets'",
+    "precision": "ROADMAP.md queue 1 item 10, 'The stream tier's presets "
+                 "and model C' (the resident gather and ring are f32)",
     "fleet_worker": "ROADMAP.md queue 1 item 1, 'the stream tier's "
                     "remainder' (the fleet and dynamic tenancy)",
     "selftest": "ROADMAP.md queue 1 item 1, 'the stream tier's "
@@ -802,6 +803,14 @@ def serve_main(argv=None) -> int:
     from dasmtl_torch.stream.feed import (FileTailSource, PlantedEvent,
                                           SocketSource, SyntheticSource)
 
+    if not args.oracle:
+        from dasmtl_torch.models.registry import refuse_serve_only
+
+        try:
+            refuse_serve_only(args.model, "stream")
+        except NotImplementedError as exc:
+            print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
+            return 2
     device = resolve_device(args.device)
     if args.oracle:
         from dasmtl_torch.stream.selftest import _oracle_pool

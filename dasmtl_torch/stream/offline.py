@@ -97,12 +97,14 @@ def stream_predict(record: np.ndarray, model_path: Optional[str],
     from dasmtl_torch.device import resolve_device, set_f32_numerics
     from dasmtl_torch.export import make_resident_forward
     from dasmtl_torch.main import build_state
-    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.registry import (get_model_spec,
+                                              refuse_serve_only)
     from dasmtl_torch.ops.decode import decode_heads
     from dasmtl_torch.train.checkpoint import restore_weights
 
     if resident not in ("auto", "on", "off"):
         raise ValueError(f"unknown resident mode {resident!r}")
+    refuse_serve_only(model, "stream")
     spec = get_model_spec(model)
     dev = resolve_device(device)
     window = tuple(window or (INPUT_HEIGHT, INPUT_WIDTH))
@@ -248,6 +250,13 @@ def main(argv=None) -> int:
             print(f"dasmtl_torch.stream: --{opt} is not yet ported: {item}",
                   file=sys.stderr)
             return 2
+    from dasmtl_torch.models.registry import refuse_serve_only
+
+    try:
+        refuse_serve_only(args.model, "stream")
+    except NotImplementedError as exc:
+        print(f"dasmtl_torch.stream: {exc}", file=sys.stderr)
+        return 2
     if not args.model_path:
         p.error("--model_path is required (a port checkpoint; --exported "
                 "is not yet ported)")

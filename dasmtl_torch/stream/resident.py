@@ -427,14 +427,17 @@ def build_lanes(pool, tenants, *, max_windows: int = 0) -> List[ResidentLane]:
     stream.  ``max_windows`` caps the rung ladder (0 = the tenant's
     per-cycle quota)."""
     members = _pool_members(pool)
+    if any(ex.input_dtype != torch.float32 for ex in members):
+        raise ValueError("the resident lanes take f32 executors only: "
+                         "ROADMAP.md queue 1 item 10, 'The stream tier's "
+                         "presets and model C'")
     lanes = []
     for i, t in enumerate(tenants):
         ex = members[i % len(members)]
         stream = getattr(ex, "stream", None)
         feed = ResidentFeed(t.feed.channels, t.feed.ring_samples,
                             chunk_samples=t.chunk_samples,
-                            device=ex.placement, dtype=ex.input_dtype,
-                            stream=stream)
+                            device=ex.placement, stream=stream)
         executor = ResidentExecutor(
             ex.raw_infer_fn, ex.input_hw, int(max_windows) or int(t.quota),
             device=ex.placement, name=f"{t.name}@{i % len(members)}",

@@ -1,7 +1,9 @@
 """The port on the card: each hand-written kernel against its plain
 version, the serve forward and one train step against the CPU, the
-executor's stream path, and the resident stream lane's ordering of ring
-appends against window gathers.
+executor's stream path, the resident stream lane's ordering of ring
+appends against window gathers, and the precision presets (the int8_dot
+kernel bit for bit, model C's int8 forward against the CPU, model A's
+launch counts under every preset).
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -15,11 +17,13 @@ import copy
 import pytest
 import torch
 
+import numpy as np
+
 from dasmtl_torch.device import set_f32_numerics
-from dasmtl_torch.export import make_serve_infer_fn
+from dasmtl_torch.export import make_precision_serve_fn, make_serve_infer_fn
 from dasmtl_torch.models.registry import get_model_spec
-from dasmtl_torch.models.weights import init_fresh
-from dasmtl_torch.ops import decode, gating, ring, window
+from dasmtl_torch.models.weights import init_fresh, init_scaled
+from dasmtl_torch.ops import decode, gating, int8, ring, window
 from dasmtl_torch.serve.executor import InferExecutor
 from dasmtl_torch.train.optim import coupled_adam
 from dasmtl_torch.train.state import TrainState
@@ -41,6 +45,7 @@ def cuda():
     decode.prob_q_launches.reset()
     window.launches.reset()
     ring.launches.reset()
+    int8.launches.reset()
     return torch.device("cuda")
 
 
@@ -129,6 +134,20 @@ def test_decode_kernel_matches_plain(cuda):
     assert decode.launches.value == 1
 
 
+def test_decode_kernel_takes_one_32_wide_head(cuda):
+    """Model C's decode: one head at the kernel's full width."""
+    g = torch.Generator().manual_seed(6)
+    head = 50.0 * torch.randn(32, 32, generator=g)
+    head[4, 31] = float("nan")
+    lp, preds, bad = decode.decode_heads([head.to(cuda)])
+    lp_ref, preds_ref, bad_ref = decode.decode_heads_plain([head])
+    assert torch.equal(bad.cpu(), bad_ref) and bad_ref.sum().item() == 1
+    assert torch.equal(preds[0].cpu(), preds_ref[0])
+    torch.testing.assert_close(lp[0].cpu()[~bad_ref], lp_ref[0][~bad_ref],
+                               atol=1e-5, rtol=1e-6)
+    assert decode.launches.value == 1
+
+
 def test_serve_forward_on_the_card_matches_the_cpu(cuda):
     set_f32_numerics()
     spec = get_model_spec("MTL")
@@ -207,7 +226,7 @@ def _dead_bias(state_dict, key):
     return key.endswith(".bias") and weight is not None and weight.dim() == 4
 
 
-# -- the stream tier's kernels -------------------------------------------------
+# -- the stream tier's kernels ------------------------------------------------
 
 @pytest.mark.parametrize("k", [1, 16, 256])
 def test_window_gather_kernel_matches_plain(cuda, k):
@@ -331,3 +350,110 @@ def test_resident_lane_orders_appends_before_gathers(cuda):
         q = decode.event_prob_q_plain(want["log_probs_event"]).cpu().numpy()
         assert np.abs(prob * decode.PROB_Q_SCALE - q).max() <= 1
     lane.close()
+
+
+# -- the precision presets ----------------------------------------------------
+def _int8_operands(seed, rows, k=2048, n=32):
+    """Activations at mixed scales with an all-NaN row, a row holding one
+    NaN, rows holding +Inf and -Inf, and an all-zero row; int8 weights,
+    scales and a bias."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, k, generator=g) * torch.rand(rows, 1, generator=g)
+    x *= 100.0
+    x[0] = float("nan")
+    if rows > 1:
+        x[1, k // 2] = float("nan")
+        x[2 % rows, 1] = float("inf")
+        x[3 % rows, 0] = float("-inf")
+        x[4 % rows] = 0.0
+    q = torch.randint(-127, 128, (n, k), generator=g).to(torch.int8)
+    scale = torch.rand(n, generator=g) * 1e-2 + 1e-4
+    bias = torch.randn(n, generator=g)
+    return x, q, scale, bias
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_int8_dot_kernel_matches_plain_bit_for_bit(cuda, rows):
+    ops = [t.to(cuda) for t in _int8_operands(rows, rows)]
+    got = int8.int8_dot(*ops)
+    want = int8.int8_dot_plain(*ops)
+    assert got.dtype == torch.float32 and got.shape == (rows, 32)
+    assert torch.equal(got.cpu().view(torch.int32),
+                       want.cpu().view(torch.int32))
+    assert torch.equal(got[0], ops[3])  # an all-NaN row is the bias
+    assert int8.launches.value == 1
+
+
+def test_int8_dot_kernel_scalar_path_and_no_bias(cuda):
+    """K % 4 != 0 takes the scalar loop; no bias adds nothing."""
+    x, q, scale, _ = (t.to(cuda) for t in _int8_operands(9, 6, k=37, n=5))
+    got = int8.int8_dot(x, q, scale)
+    assert torch.equal(got.cpu().view(torch.int32),
+                       int8.int8_dot_plain(x, q, scale).cpu()
+                       .view(torch.int32))
+
+
+def test_int8_dot_refuses_what_it_does_not_take(cuda):
+    x, q, scale, bias = (t.to(cuda) for t in _int8_operands(3, 4))
+    with pytest.raises(TypeError):
+        int8.int8_dot(x.double(), q, scale, bias)
+    with pytest.raises(ValueError):
+        int8.int8_dot(x[:, :100], q, scale, bias)
+    with pytest.raises(ValueError):
+        int8.int8_dot(x.t().contiguous().t(), q, scale, bias)
+    with pytest.raises(ValueError):
+        int8.int8_dot(x, q, scale, bias.cpu())
+    assert int8.launches.value == 0
+
+
+def test_model_c_int8_forward_on_the_card_matches_the_cpu(cuda):
+    """Well-conditioned seeded weights (model C's fresh init has logits
+    near 1e5, where the two devices' bf16 roundings differ by thousands):
+    ints equal on rows decisive at the int8 tolerance, log-probs within
+    0.10, bad_rows equal; one int8_dot and one decode launch."""
+    spec = get_model_spec("multi_classifier")
+    net = init_scaled(spec.build(), 0)
+    card_net = copy.deepcopy(net)
+    x = torch.randn(4, 100, 250, 1, generator=torch.Generator().manual_seed(2))
+    x[1, 5, 5, 0] = float("nan")
+    ref = make_precision_serve_fn(spec, net, "int8")[0](x)
+    fn, meta = make_precision_serve_fn(spec, card_net, "int8")
+    card_net.to(cuda)
+    out = fn(x.to(cuda))
+    assert (int8.launches.value, decode.launches.value) == (1, 1)
+    assert meta.n_dense_native == 1
+    assert torch.equal(out["bad_rows"].cpu(), ref["bad_rows"])
+    assert not ref["bad_rows"].any()  # a NaN window stays finite (int8)
+    lp, lp_ref = out["log_probs_0"].cpu(), ref["log_probs_0"]
+    assert (lp - lp_ref).abs().max().item() <= 0.10
+    top2 = lp_ref.topk(2, dim=1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 0.20
+    for task in ("mixed", "distance", "event"):
+        assert torch.equal(out[task].cpu()[decisive], ref[task][decisive])
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_model_a_launches_under_every_preset(cuda, precision):
+    """BatchNorm returns f32 under every preset, so model A's gate and
+    decode kernels stay the f32 ones: 8 + 1 launches, no int8_dot."""
+    set_f32_numerics()
+    spec = get_model_spec("MTL")
+    fn, _ = make_precision_serve_fn(spec, init_fresh(spec.build(), 0)
+                                    .to(cuda), precision)
+    out = fn(torch.zeros(2, 100, 250, 1, device=cuda))
+    assert (gating.launches.value, decode.launches.value,
+            int8.launches.value) == (8, 1, 0)
+    assert out["log_probs_0"].dtype == torch.float32
+    assert np.isfinite(out["log_probs_0"].cpu().numpy()).all()
+
+
+def test_quantization_is_the_same_on_the_card(cuda):
+    """``amax / 127`` is a true division on the card too (PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal)."""
+    from dasmtl_torch.models.precision import quantize_kernel
+
+    w = torch.randn(512, 2048, generator=torch.Generator().manual_seed(4))
+    q, scale = quantize_kernel(w)
+    qc, sc = quantize_kernel(w.to(cuda))
+    assert torch.equal(qc.cpu(), q)
+    assert torch.equal(sc.cpu().view(torch.int32), scale.view(torch.int32))

@@ -40,7 +40,10 @@ def test_no_import_of_jax_or_the_jax_package(path):
 
 def test_serve_entry_point_loads_no_jax_and_builds_nothing():
     _assert_imports_clean(["dasmtl_torch.serve.__main__",
-                           "dasmtl_torch.serve.server"])
+                           "dasmtl_torch.serve.server",
+                           "dasmtl_torch.serve.parity",
+                           "dasmtl_torch.models.precision",
+                           "dasmtl_torch.models.inception"])
 
 
 #: The run entry points and every module of training and data.
@@ -74,8 +77,8 @@ def _assert_imports_clean(modules):
             "before = set(sys.modules)\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
-            "from dasmtl_torch.ops import _build, decode, gating, ring, "
-            "window\n"
+            "from dasmtl_torch.ops import _build, decode, gating, int8, "
+            "ring, window\n"
             "bad = sorted(m for m in set(sys.modules) - before\n"
             f"             if m.split('.')[0] in {unwanted!r})\n"
             "print(bad, _build._lib is None)\n")

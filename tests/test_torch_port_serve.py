@@ -26,9 +26,10 @@ from dasmtl_torch.config import serve_watermark
 from dasmtl_torch.export import make_serve_infer_fn
 from dasmtl_torch.models.registry import get_model_spec
 from dasmtl_torch.serve.__main__ import main as serve_main
-from dasmtl_torch.serve.batcher import (MicroBatcher, StagingBuffers,
-                                        choose_bucket)
+from dasmtl_torch.serve.batcher import (BatchPlan, MicroBatcher,
+                                        StagingBuffers, choose_bucket)
 from dasmtl_torch.serve.executor import InferExecutor
+from dasmtl_torch.serve.queue import Request
 from dasmtl_torch.serve.server import (EVENT_NAMES, ServeLoop,
                                        make_http_server)
 from tests.test_torch_port_weights import port_model, random_flax_variables
@@ -132,8 +133,13 @@ def test_staging_buffers_share_memory_and_recycle():
     slot = s.acquire(4)
     assert tuple(slot.tensor.shape) == (4, *HW, 1)
     assert not slot.tensor.is_pinned()  # pinned only for a CUDA executor
-    slot.array[1, 2, 3, 0] = 5.0
-    assert slot.tensor[1, 2, 3, 0].item() == 5.0
+    plan = BatchPlan(requests=[Request(id=0, x=np.full(HW, 5.0, np.float32),
+                                       enqueue_t=0.0, deadline_t=0.0)],
+                     bucket=4)
+    slot.tensor.fill_(7.0)
+    assert plan.assemble_into(slot.tensor) is slot.tensor
+    assert slot.tensor[0, 2, 3, 0].item() == 5.0
+    assert not slot.tensor[1:].any()
     s.release(slot)
     assert s.stats()["outstanding"] == 0 and s.stats()["acquires"] == 1
 
@@ -164,8 +170,8 @@ def test_from_fresh_init_is_seeded():
     pa, pb = a.run(x), b.run(x)
     for k in pa[0]:
         np.testing.assert_array_equal(pa[0][k], pb[0][k])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferExecutor.from_fresh_init("multi_classifier", (1,), HW, 0, CPU)
+    with pytest.raises(ValueError, match="unknown model"):
+        InferExecutor.from_fresh_init("model_d", (1,), HW, 0, CPU)
 
 
 # -- the slice against JAX -------------------------------------------------------
@@ -263,8 +269,8 @@ def test_http_infer_answers_and_rejects(http_loop):
 # -- CLI -----------------------------------------------------------------------
 @pytest.mark.parametrize("argv", [
     ["--model_path", "ckpt"], ["--exported", "a.stablehlo"],
-    ["--registry", "reg"], ["--fresh_init", "--precision", "bf16"],
-    ["--fresh_init", "--model", "multi_classifier"]])
+    ["--registry", "reg"], ["--parity-check", "--model_path", "ckpt"],
+    ["--fresh_init", "--model", "multi_classifier", "--exported", "a"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert serve_main(argv + ["--device", "cpu"]) == 2
     assert "ROADMAP.md" in capsys.readouterr().err

@@ -394,8 +394,8 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
     (["--model_path", "ckpt"], "item 5"),
     (["--exported", "a.stablehlo"], "item 5"),
     (["--devices", "2"], "item 4"),
-    (["--precision", "bf16"], "item 2"),
-    (["--precision", "int8"], "item 2"),
+    (["--precision", "bf16"], "item 10"),
+    (["--precision", "int8"], "item 10"),
     (["--fleet_worker"], "item 1"),
     (["--selftest"], "item 1"),
     (["--alerts"], "item 6"),
@@ -408,6 +408,18 @@ def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys):
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and item in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["stream", "serve", "--synthetic", "1", "--fresh_init"],
+    ["stream", "--record", "r.mat", "--model_path", "ckpt"]])
+def test_stream_refuses_model_c(argv, capsys):
+    """Model C serves, but its stream tier is a later slice: both stream
+    entry points exit 2 naming the item."""
+    assert cli.main(argv + ["--model", "multi_classifier", "--device",
+                            "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "model C" in err and "item 10" in err
 
 
 def test_stream_fleet_and_cuda_without_a_card(capsys):

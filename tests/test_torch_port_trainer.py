@@ -317,4 +317,8 @@ def test_unported_model_family_exits_2(tmp_path, capsys):
                      "multi_classifier", "--output_savedir",
                      str(tmp_path)]) == 2
     assert "Model C" in capsys.readouterr().err
+    assert cli.main(["test", "--device", "cpu", "--model",
+                     "multi_classifier", "--model_path", "ckpt",
+                     "--output_savedir", str(tmp_path)]) == 2
+    assert "item 8" in capsys.readouterr().err
     assert cli.main(["nope"]) == 2 and cli.main([]) == 2
