@@ -73,7 +73,31 @@ Phases, each fatal on failure (no phase catches its own error):
              as the reference does, and 422 under bf16), int8_dot launches
              = batches; (g) kernel, event-timed and host-paced ms of a
              batch-32 forward for models A and C under f32, bf16 and int8,
-             with launches per forward.
+             with launches per forward;
+9. dp      — (a) the leaf_digest kernel (``digest_vector``) bit for bit
+             against its plain version over f32, bf16, f16, int8, uint8,
+             int32, int64 and bool at sizes 0, 1, 3, 4097 and 2^20+3 (NaN,
+             -0.0, +-Inf planted) in one launch, against JAX's committed
+             known answers, and over model A's whole train state in one
+             launch; timed over that state (one launch, the plain version,
+             one launch per leaf), with torch.sum's answer on uint32 words;
+             (b) ``python -m dasmtl_torch train --dp 2 --bn_sync
+             per_replica --sanitize --sanitize_every 1 --tracing_guards
+             --obs_heartbeat_s 1`` in process on a synthetic tree, batch 32
+             per replica, both ranks on this card: SAN201 every step and
+             clean, leaf_digest launches = checks x ranks (the ranks'
+             counts, fresh processes, read from the run's summary), no
+             post-warmup compile, heartbeat records with MFU; one dp2
+             ``global`` step held against a dp1 step on the concatenated
+             batch and one dp2 ``per_replica`` step against the same two
+             ranks on the CPU, at the one-step tolerances; (c) ``python -m
+             dasmtl_torch.sanitize --self-test``: the NaN blamed on the
+             poisoned convolution, grad_desync and the forked seed caught
+             by SAN201; (d) MTL-f32-dp1 and MTL-f32-dp2 twice each with
+             identical chains and tree digests; (e) what sanitizing costs a
+             batch-32 step: a SAN201 check, the snapshot, the sanitized
+             against the plain step wall, the heartbeat, and a dp 2 step
+             under the default ``--bn_sync global``.
 
 Then one JSON line lists every kernel of the port, the card's name and
 power limit follow on a line of their own, and the last line is
@@ -124,25 +148,17 @@ TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build", "chip_smoke")
 N_REQUESTS, N_CLIENTS, POISON_EVERY = 512, 8, 37
 
-#: Published HBM bandwidth (B/s), f32 non-tensor peak (FLOP/s) and dense
-#: int8 tensor-core peak (OP/s) by card (NVIDIA data sheets); the first
-#: key found in the card's name wins.
-CARD_PEAKS = (("H100 PCIe", 2.0e12, 51e12, 1513e12),
-              ("H100 NVL", 3.9e12, 60e12, 1671e12),
-              ("H200", 4.8e12, 67e12, 1979e12),
-              ("H100", 3.35e12, 67e12, 1979e12),
-              ("H800", 3.35e12, 67e12, 1979e12))
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
 def card_peaks(name: str):
-    for key, bw, f32, i8 in CARD_PEAKS:
-        if key in name:
-            return bw, f32, i8
-    raise RuntimeError(f"no published peaks for {name!r}")
+    from dasmtl_torch.device import card_peaks as published
+
+    peaks = published(name)
+    if peaks is None:
+        raise RuntimeError(f"no published peaks for {name!r}")
+    return peaks
 
 
 def bound(nbytes: float, flops: float, peaks, int8_ops: float = 0.0
@@ -1918,6 +1934,487 @@ def phase_precision(peaks):
             "serve": serve, "times": times}
 
 
+# -- phase 9 ------------------------------------------------------------------
+#: Ranks of the data-parallel path; both share the card when there is one.
+DP_RANKS = 2
+DP_DIR = os.path.join(TRAIN_DIR, "dp")
+DIGEST_SIZES = (0, 1, 3, 4097, 2 ** 20 + 3)
+DIGEST_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8,
+                 torch.uint8, torch.int32, torch.int64, torch.bool)
+
+
+def _digest_operands():
+    """Every dtype of the 9a grid at every size, on the CPU: floats with
+    NaN, -0.0 and +-Inf planted, integers with negatives."""
+    g = torch.Generator().manual_seed(9)
+    out = []
+    for dt in DIGEST_DTYPES:
+        for n in DIGEST_SIZES:
+            x = torch.randn(n, generator=g) * 300.0
+            x[:4] = torch.tensor([float("nan"), -0.0, float("inf"),
+                                  float("-inf")])[:min(n, 4)]
+            if not dt.is_floating_point:
+                x = torch.nan_to_num(x, nan=-7.0, posinf=1e9, neginf=-1e9)
+            out.append(x.to(dt))
+    return out
+
+
+def _model_a_state(device):
+    """Model A at full width after one batch-32 train step at 100x250
+    (Adam's moments and counters exist), seed 0."""
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_fresh
+    from dasmtl_torch.train.steps import make_train_step
+
+    spec = get_model_spec("MTL")
+    state = _new_state(init_fresh(spec.build(), seed=0).to(device))
+    make_train_step(spec)(state, {k: v.to(device) for k, v in
+                                  _train_batch(32).items()}, 1e-3)
+    return state
+
+
+def _digest_kernel(peaks):
+    """(a) digest_vector on the card bit for bit against its plain version
+    and the known answers; model A's train state in one launch; timed."""
+    from dasmtl_torch.analysis.sanitize.divergence import state_arrays
+    from dasmtl_torch.analysis.sanitize.fingerprint import named_leaves
+    from dasmtl_torch.ops import digest
+
+    ops = _digest_operands()
+    before = digest.launches.value
+    got = digest.digest_vector([t.cuda() for t in ops])
+    if digest.launches.value - before != 1:
+        raise AssertionError("digest_vector made more than one launch")
+    if not torch.equal(got.cpu(), digest.digest_vector_plain(ops)):
+        raise AssertionError("digest_vector differs from plain on the "
+                             "dtype x size grid")
+    for name, a in digest.known_answer_inputs().items():
+        t = digest.known_answer_tensor(name, a).cuda()
+        if int(digest.as_uint32(digest.digest_vector([t]))[0]) != \
+                digest.KNOWN_ANSWERS[name]:
+            raise AssertionError(f"digest_vector != JAX's known answer "
+                                 f"for {name}")
+    state = _model_a_state("cuda")
+    named = named_leaves(state_arrays(state))
+    leaves = [t for _, t in named if t.device.type == "cuda"]
+    before = digest.launches.value
+    got = digest.digest_vector(leaves)
+    torch.cuda.synchronize()
+    if digest.launches.value - before != 1 or not torch.equal(
+            got.cpu(), digest.digest_vector_plain([t.cpu() for t in leaves])):
+        raise AssertionError("model A's state: digest_vector is not one "
+                             "launch equal to the plain version")
+    words = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves) + \
+        4 * len(leaves)
+    log(f"[dp] digest_vector == plain bit for bit on {len(ops)} operands "
+        f"({len(DIGEST_DTYPES)} dtypes x sizes {DIGEST_SIZES}, NaN / -0.0 "
+        f"/ +-Inf), == JAX's {len(digest.KNOWN_ANSWERS)} known answers; "
+        f"model A's state: {len(named)} leaves, {len(leaves)} on the card "
+        f"({words:,} elements, {nbytes / 1e6:.2f} MB) in one launch")
+    # Timing: copies of the state's card leaves rotating through >= 128 MB.
+    sets = [([t.clone() for t in leaves],)
+            for _ in range(max(2, -(-128_000_000 // nbytes)))]
+    k = {"ms": device_ms(_rotating(sets, digest.digest_vector), inner=20),
+         "plain_ms": device_ms(_rotating(sets, digest.digest_vector_plain),
+                               inner=2, reps=10),
+         "max_abs_err": 0.0, "library_ms": None, "leaves": len(leaves),
+         "words": words, "bytes": nbytes,
+         "unit": f"1 launch, model A's train state ({len(leaves)} leaves)"}
+    k["per_leaf_ms"] = device_ms(_rotating(
+        sets, lambda ls: [digest.digest_vector([t]) for t in ls]),
+        inner=1, reps=10)
+    k["bound_ms"], k["bound_by"] = bound(nbytes, 0.0, peaks)
+    # No single PyTorch call computes the weighted digest; what torch.sum
+    # does with uint32 words on the card is recorded beside it.
+    u = torch.full((1 << 20,), 0xFFFFFFFF, dtype=torch.uint32,
+                   device="cuda")
+    try:
+        s = torch.sum(u)
+        k["uint32_sum"] = f"{s.dtype}, {int(s.cpu().to(torch.int64))}" \
+            f" for 2^20 x 0xFFFFFFFF"
+    except RuntimeError as exc:
+        k["uint32_sum"] = f"refused: {str(exc).splitlines()[0]}"
+    del sets
+    log(f"[dp] leaf_digest over model A's state: {k['ms'] * 1e3:.2f} us per "
+        f"launch, plain {k['plain_ms'] * 1e3:.1f} us, one launch per leaf "
+        f"{k['per_leaf_ms'] * 1e3:.1f} us, bound {k['bound_ms'] * 1e3:.2f} us "
+        f"({k['bound_by']}); torch.sum over uint32: {k['uint32_sum']}")
+    return k
+
+
+def _dp_train():
+    """(b) ``python -m dasmtl_torch train --dp 2 --bn_sync per_replica
+    --sanitize --sanitize_every 1 --tracing_guards --obs_heartbeat_s 1`` on
+    a synthetic tree, batch 32 per replica; the ranks' summaries."""
+    from dasmtl_torch import cli
+    from dasmtl_torch.data.synthetic import make_synthetic_dataset
+    from dasmtl_torch.obs.heartbeat import parse_heartbeat
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    striking, excavating = make_synthetic_dataset(
+        os.path.join(DP_DIR, "data"), files_per_category=6, shape=(H, W),
+        seed=0)
+    runs = os.path.join(DP_DIR, "runs")
+    t0 = time.perf_counter()
+    # The ranks print to the process's own stdout: quiet it for the run.
+    saved = os.dup(1)
+    null = os.open(os.devnull, os.O_WRONLY)
+    os.dup2(null, 1)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = cli.train_main([
+                "--device", DEV, "--model", "MTL", "--dp", str(DP_RANKS),
+                "--bn_sync", "per_replica", "--sanitize",
+                "--sanitize_every", "1", "--tracing_guards",
+                "--obs_heartbeat_s", "1", "--batch_size", "32",
+                "--epoch_num", "3", "--log_every_steps", "1",
+                "--trainVal_set_striking", striking,
+                "--trainVal_set_excavating", excavating,
+                "--output_savedir", runs])
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+        os.close(null)
+    wall = time.perf_counter() - t0
+    if result is None:
+        raise AssertionError("the dp train entry point gave no result")
+    (run,) = [os.path.join(runs, n) for n in os.listdir(runs)]
+    with open(os.path.join(run, "metrics", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = sum(r["kind"] == "train" for r in records)
+    (summary,) = [r for r in records if r["kind"] == "summary"]
+    ranks = summary["ranks"]
+    with open(os.path.join(run, "metrics", "heartbeat.jsonl")) as f:
+        beats = [parse_heartbeat(line) for line in f]
+    checks = [r["divergence"]["checks"] for r in ranks]
+    digests = sum(r["launches"]["leaf_digest"] for r in ranks)
+    if len(ranks) != DP_RANKS or steps < 3 or any(c < steps for c in checks):
+        raise AssertionError(f"{steps} steps over {len(ranks)} ranks made "
+                             f"{checks} SAN201 checks")
+    if digests != sum(checks) and DEV == "cuda":  # the CPU: plain versions
+        raise AssertionError(f"{digests} leaf_digest launches for "
+                             f"{sum(checks)} checks over the ranks")
+    if any(r["guards"]["post_warmup_compiles"] for r in ranks):
+        raise AssertionError(f"post-warmup compiles: {ranks}")
+    if not beats or any(b["mfu"] is None for b in beats):
+        raise AssertionError(f"heartbeat records without MFU: {beats}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    log(f"[dp] python -m dasmtl_torch train --dp {DP_RANKS} --bn_sync "
+        f"per_replica --sanitize --sanitize_every 1 --tracing_guards "
+        f"--obs_heartbeat_s 1: {steps} steps in {wall:.1f} s, SAN201 "
+        f"checks {checks} clean, leaf_digest launches {digests} = checks x "
+        f"ranks, post-warmup compiles 0, {len(beats)} heartbeat records "
+        f"(MFU {[b['mfu'] for b in beats]}, step_wall_ms "
+        f"{[b['step_wall_ms'] for b in beats]}); launches {launches}")
+    return {"steps": steps, "wall_s": wall, "checks": checks,
+            "launches": launches, "heartbeat": beats, "ranks": ranks}
+
+
+def _dp_step_rank(world, sd, batch, bn_sync, device):
+    """One data-parallel step of model A from ``sd`` on this rank's shard
+    of the global numpy ``batch``: the new state dict and the metrics."""
+    from dasmtl_torch.device import set_f32_numerics
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.parallel.dist import shard_batch
+    from dasmtl_torch.train.steps import make_train_step
+
+    if device == "cuda":
+        set_f32_numerics()
+    spec = get_model_spec("MTL")
+    net = spec.build()
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    state = _new_state(net.to(device))
+    shard = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+             for k, v in shard_batch(batch, world).items()}
+    m = make_train_step(spec, world=world, bn_sync=bn_sync)(state, shard,
+                                                            1e-3)
+    return ({k: v.cpu().numpy() for k, v in state.model.state_dict().items()},
+            {k: float(v) for k, v in m.items()})
+
+
+def _held(tag, got, want, loss_got, loss_want):
+    """Two state dicts (and losses) at the one-step tolerances; the
+    worst errors."""
+    if abs(loss_got - loss_want) >= LOSS_TOL:
+        raise AssertionError(f"{tag}: loss {loss_got:.6f} vs {loss_want:.6f}")
+    worst_p = worst_bn = 0.0
+    outliers = 0
+    for k, w in want.items():
+        if not np.issubdtype(w.dtype, np.floating):
+            if not np.array_equal(got[k], w):
+                raise AssertionError(f"{tag}: {k} differs")
+            continue
+        err = np.abs(got[k] - w)
+        if "running" in k:
+            worst_bn = max(worst_bn, float(err.max()))
+            if (err > BN_ATOL + BN_RTOL * np.abs(w)).any():
+                raise AssertionError(f"{tag}: BN stat {k} max abs err "
+                                     f"{err.max():.3g}")
+            continue
+        worst_p = max(worst_p, float(err.max()))
+        wk = want.get(k[:-len("bias")] + "weight")
+        if k.endswith(".bias") and wk is not None and wk.ndim == 4:
+            if (err > PARAM_OUTLIER).any():  # zero true gradient: Adam noise
+                raise AssertionError(f"{tag}: {k} max abs err {err.max()}")
+            continue
+        far = err > PARAM_ATOL + PARAM_RTOL * np.abs(w)
+        outliers += int(far.sum())
+        if int(far.sum()) > max(2, w.size // 200) or \
+                (err[far] > PARAM_OUTLIER).any():
+            raise AssertionError(f"{tag}: param {k}: {int(far.sum())} of "
+                                 f"{w.size} outside tolerance")
+    return {"param_max_abs_err": worst_p, "bn_max_abs_err": worst_bn,
+            "param_outliers": outliers}
+
+
+def _dp_parity():
+    """(b) the dp2 global step on the card against a dp1 step on the
+    concatenated batch; the dp2 per_replica step on the card against the
+    same two-rank step on the CPU."""
+    from dasmtl_torch.device import set_f32_numerics
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_fresh
+    from dasmtl_torch.ops import _build
+    from dasmtl_torch.parallel.dist import launch
+    from dasmtl_torch.train.steps import make_train_step
+
+    if DEV == "cuda":
+        set_f32_numerics()
+        _build.build()
+    spec = get_model_spec("MTL")
+    sd = {k: v.numpy() for k, v in
+          init_fresh(spec.build(), seed=0).state_dict().items()}
+    rng = np.random.default_rng(5)
+    batch = {k: v.numpy() for k, v in _train_batch(64).items()}
+    batch["x"] = batch["x"] + 0.1 * rng.normal(size=batch["x"].shape)\
+        .astype(np.float32)
+    batch["weight"][60:] = 0.0  # padding in the second shard
+    work = os.path.join(DP_DIR, "parity")
+    ref = _new_state(spec.build().to(DEV))
+    ref.model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               sd.items()})
+    m = make_train_step(spec)(ref, {k: torch.from_numpy(v).to(DEV)
+                                    for k, v in batch.items()}, 1e-3)
+    want = {k: v.cpu().numpy() for k, v in ref.model.state_dict().items()}
+    out = {}
+    (g0, gm), (g1, _) = launch(_dp_step_rank, DP_RANKS,
+                               (sd, batch, "global", DEV), workdir=work,
+                               device=DEV, timeout=600)
+    out["global_vs_dp1"] = _held("dp2 global vs dp1", g0, want,
+                                 gm["loss_sum"] / gm["count"],
+                                 float(m["loss_sum"] / m["count"]))
+    (c0, cm), _ = launch(_dp_step_rank, DP_RANKS,
+                         (sd, batch, "per_replica", DEV), workdir=work,
+                         device=DEV, timeout=600)
+    (p0, pm), _ = launch(_dp_step_rank, DP_RANKS,
+                         (sd, batch, "per_replica", "cpu"), workdir=work,
+                         device="cpu", timeout=900)
+    out["per_replica_card_vs_cpu"] = _held(
+        "dp2 per_replica card vs CPU", c0, p0, cm["loss_sum"] / cm["count"],
+        pm["loss_sum"] / pm["count"])
+    same = all(np.array_equal(g0[k], g1[k]) for k in g0)
+    if not same:
+        raise AssertionError("the two ranks of the global step differ")
+    log(f"[dp] one dp2 step at {H}x{W}, 32 rows per replica (4 padded): "
+        f"global on the card == dp1 on the 64-row batch "
+        f"{out['global_vs_dp1']}; per_replica card == CPU "
+        f"{out['per_replica_card_vs_cpu']}; ranks bit-identical")
+    return out
+
+
+def _self_test():
+    """(c) ``python -m dasmtl_torch.sanitize --self-test`` on the card."""
+    from dasmtl_torch.analysis.sanitize import runner
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = runner.main(["--self-test", "--device", DEV])
+    out = buf.getvalue()
+    need = ("SAN202 caught injected NaN: SAN202: checkify tripped at "
+            "self-test step: nan generated by module resblock1.left.0",
+            "SAN201 caught grad_desync", "SAN201 caught prng_fork")
+    if rc != 0 or not all(n in out for n in need):
+        raise AssertionError(f"the self-test on the card: rc {rc}\n{out}")
+    log(f"[dp] python -m dasmtl_torch.sanitize --self-test on the card: all "
+        f"3 faults caught in {time.perf_counter() - t0:.1f} s")
+    return {"seconds": time.perf_counter() - t0,
+            "lines": [line for line in out.splitlines() if "caught" in line]}
+
+
+def _determinism():
+    """(d) MTL-f32-dp1 and MTL-f32-dp2 twice each: identical chains and
+    tree digests."""
+    from dasmtl_torch.analysis.sanitize.determinism import (SanitizeCell,
+                                                            run_cell)
+
+    out = {}
+    for dp in (1, 2):
+        cell = SanitizeCell("MTL", dp=dp, hw=(H, W))
+        runs = [run_cell(cell, device=DEV) for _ in range(2)]
+        for report, findings in runs:
+            if findings:
+                raise AssertionError(f"{cell.name}: {findings}")
+        a, b = runs[0][0], runs[1][0]
+        if a.digests != b.digests:
+            raise AssertionError(f"{cell.name} is not deterministic: "
+                                 f"{a.digests} vs {b.digests}")
+        out[cell.name] = {"chain": a.digests["metrics_chain"],
+                          "final_loss": a.metrics["final_loss"]}
+    log(f"[dp] determinism: {', '.join(out)} twice each at {H}x{W}, batch "
+        f"8, 4 steps: identical chains and tree digests")
+    return out
+
+
+def _median_ms(fn, reps: int = 15) -> float:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _cost_rank(world):
+    """(e) one rank's costs at batch 32 per replica: a SAN201 check, the
+    plain and the sanitized step wall, the snapshot, the heartbeat, and a
+    step under the default ``--bn_sync global``."""
+    from dasmtl_torch.analysis.sanitize.checks import StepSanitizer
+    from dasmtl_torch.analysis.sanitize.divergence import DivergenceMonitor
+    from dasmtl_torch.device import set_f32_numerics
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_fresh
+    from dasmtl_torch.obs.heartbeat import Heartbeat, step_flops
+    from dasmtl_torch.train.steps import make_train_step
+
+    set_f32_numerics()
+    spec = get_model_spec("MTL")
+    state = _new_state(init_fresh(spec.build(), seed=0).cuda())
+    batch = {k: v.cuda() for k, v in _train_batch(32).items()}
+    step = make_train_step(spec, world=world, bn_sync="per_replica")
+    monitor = DivergenceMonitor(world, every=1)
+    san = StepSanitizer(spec, world=world)
+    for _ in range(3):
+        step(state, batch, 1e-3)
+
+    def sanitized():
+        san.snapshot(state)
+        m = step(state, batch, 1e-3)
+        san.after_step(state, batch, 1e-3, m)
+        monitor.maybe_check(state)
+
+    from dasmtl_torch.analysis.sanitize.divergence import state_arrays
+    from dasmtl_torch.analysis.sanitize.fingerprint import named_leaves
+    from dasmtl_torch.ops import digest
+
+    out = {"check_ms": _median_ms(lambda: monitor.check(state)),
+           "check_local_ms": _median_ms(lambda: digest.digest_vector(
+               [t for _, t in named_leaves(state_arrays(state))]).cpu()),
+           "snapshot_ms": _median_ms(lambda: san.snapshot(state)),
+           "plain_step_ms": _median_ms(lambda: step(state, batch, 1e-3)),
+           "sanitized_step_ms": _median_ms(sanitized),
+           "plain_step_ms_again": _median_ms(lambda: step(state, batch,
+                                                          1e-3))}
+    # Where a dp step's wall goes with both ranks on one card: the gloo
+    # all-reduce of the gradient buffer alone, a local step with the other
+    # rank idle, and local steps of both ranks at once (no collective).
+    import torch.distributed as dist
+
+    from dasmtl_torch.parallel.dist import all_reduce_
+
+    flat = torch.zeros(sum(p.numel() for p in state.model.parameters()))
+    out["allreduce_ms"] = _median_ms(lambda: all_reduce_(flat))
+    local = make_train_step(spec)
+    for r in range(world.size):
+        if world.rank == r:
+            out[f"solo_step_ms_rank{r}"] = _median_ms(
+                lambda: local(state, batch, 1e-3))
+        dist.barrier()
+    out["both_local_step_ms"] = _median_ms(lambda: local(state, batch, 1e-3))
+    t0 = time.perf_counter()
+    flops = step_flops(spec, state.model, batch)
+    out["flop_count_ms"] = (time.perf_counter() - t0) * 1e3
+    beat = Heartbeat(every_s=1e-9, out_path=None, batch_size=64,
+                     flops_fn=lambda: flops * world.size, peak_flops=67e12,
+                     printer=lambda _: None)
+    beat.observe(epoch=0, step=0, samples=64, elapsed_s=0.1)
+    beat.cost_s = 0.0
+    for i in range(20):
+        beat.observe(epoch=0, step=i, samples=64, elapsed_s=0.1)
+    out["heartbeat_emit_ms"] = beat.cost_s / 20 * 1e3
+    out["flops_per_step"] = flops * world.size
+    # The default --bn_sync of a dp run: every BatchNorm's forward and
+    # backward all-reduce through the host.  Timed last: it leaves the
+    # BatchNorms synchronized, which a one-rank step would wait on.
+    global_step = make_train_step(spec, world=world, bn_sync="global")
+    global_step(state, batch, 1e-3)
+    out["global_step_ms"] = _median_ms(lambda: global_step(state, batch,
+                                                           1e-3), reps=7)
+    return out
+
+
+def _costs():
+    """(e) what sanitizing costs a batch-32 model-A step, dp 1 and dp 2."""
+    from dasmtl_torch.analysis.sanitize.checks import StepSanitizer
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_fresh
+    from dasmtl_torch.parallel.dist import launch
+    from dasmtl_torch.train.steps import make_train_step
+
+    spec = get_model_spec("MTL")
+    state = _new_state(init_fresh(spec.build(), seed=0).cuda())
+    batch = {k: v.cuda() for k, v in _train_batch(32).items()}
+    step = make_train_step(spec)
+    san = StepSanitizer(spec)
+    for _ in range(3):
+        step(state, batch, 1e-3)
+
+    def sanitized():
+        san.snapshot(state)
+        san.after_step(state, batch, 1e-3, step(state, batch, 1e-3))
+
+    dp1 = {"plain_step_ms": _median_ms(lambda: step(state, batch, 1e-3)),
+           "sanitized_step_ms": _median_ms(sanitized),
+           "snapshot_ms": _median_ms(lambda: san.snapshot(state))}
+    dp2 = launch(_cost_rank, DP_RANKS, (), workdir=os.path.join(DP_DIR,
+                                                                "costs"),
+                 device="cuda", timeout=600)[0]
+    log(f"[dp] batch-32 model-A step wall, dp 1: plain "
+        f"{dp1['plain_step_ms']:.2f} ms, sanitized "
+        f"{dp1['sanitized_step_ms']:.2f} ms (snapshot "
+        f"{dp1['snapshot_ms']:.3f} ms); dp 2 on one card (rank 0): plain "
+        f"{dp2['plain_step_ms']:.2f} / {dp2['plain_step_ms_again']:.2f} ms, "
+        f"--bn_sync global {dp2['global_step_ms']:.2f} ms, "
+        f"sanitized with SAN201 every step {dp2['sanitized_step_ms']:.2f} "
+        f"ms, one SAN201 check {dp2['check_ms']:.3f} ms (its local part "
+        f"{dp2['check_local_ms']:.3f} ms), snapshot "
+        f"{dp2['snapshot_ms']:.3f} ms; the gradient all-reduce alone "
+        f"{dp2['allreduce_ms']:.2f} ms, a local step with the other rank "
+        f"idle {dp2['solo_step_ms_rank0']:.2f} ms, both ranks' local steps "
+        f"at once {dp2['both_local_step_ms']:.2f} ms; heartbeat emission "
+        f"{dp2['heartbeat_emit_ms']:.3f} ms, its one-time FLOP count "
+        f"{dp2['flop_count_ms']:.1f} ms ({dp2['flops_per_step']:.4g} FLOP "
+        f"per global step)")
+    return {"dp1": dp1, "dp2_rank0": dp2}
+
+
+def phase_dp(peaks):
+    kernel = _digest_kernel(peaks)
+    train = _dp_train()
+    parity = _dp_parity()
+    selftest = _self_test()
+    det = _determinism()
+    costs = _costs()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return {"leaf_digest": kernel, "train": train, "parity": parity,
+            "self_test": selftest, "determinism": det, "costs": costs}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None, help="write the report here")
@@ -1946,6 +2443,7 @@ def main(argv=None) -> int:
     stream = phase_stream(peaks, train["entry"].pop("checkpoint"))
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     precision = phase_precision(peaks)
+    dp = phase_dp(peaks)
     sk, offline = stream["kernels"], stream["offline"]
 
     # Launches: each kernel's count over its path's run, the counters
@@ -1990,12 +2488,17 @@ def main(argv=None) -> int:
          "replaces": "dasmtl/models/precision.py:116",
          "launches": precision["serve"]["C int8"]["launches"]["int8_dot"],
          **_timing(precision["int8_dot"])},
+        {"name": "leaf_digest", "route": "cuda",
+         "source": "dasmtl_torch/csrc/digest.cu",
+         "replaces": "dasmtl/analysis/sanitize/fingerprint.py:62",
+         "launches": dp["train"]["launches"]["leaf_digest"],
+         **_timing(dp["leaf_digest"])},
     ]}
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
             json.dump({"device": device, "build": build, "kernels": kernels,
                        "model": model, "serve": serve, "train": train,
-                       "stream": stream, "precision": precision,
+                       "stream": stream, "precision": precision, "dp": dp,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

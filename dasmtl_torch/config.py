@@ -109,6 +109,20 @@ class Config:
     resume: bool = False
     seed: int = SEED
     log_every_steps: int = 100
+    # Data parallelism (``dasmtl/config.py:104-118``): ranks (-1 = every
+    # visible card), and the BatchNorm semantics across them.
+    dp: int = -1
+    bn_sync: str = "global"  # global | per_replica
+    # Run-time guards and sanitizers (``:136-150``), the heartbeat
+    # (``:298``) and NaN debugging (``:351``).
+    tracing_guards: bool = False
+    guard_warmup_steps: int = -1  # -1 = the whole first epoch
+    guard_transfer: str = "disallow"  # off | log | disallow
+    guard_nan_check: bool = False
+    sanitize: bool = False
+    sanitize_every: int = 100  # replica-fingerprint cadence (steps)
+    debug_nans: bool = False
+    obs_heartbeat_s: float = 0.0
 
     def __post_init__(self) -> None:
         if self.model not in MODEL_TYPES:
@@ -123,6 +137,18 @@ class Config:
                 self.val_every < 1:
             raise ValueError("batch_size, log_every_steps and val_every "
                              "must be >= 1")
+        if self.dp != -1 and self.dp < 1:
+            raise ValueError(f"dp must be -1 (every visible card) or >= 1, "
+                             f"got {self.dp}")
+        if self.bn_sync not in ("global", "per_replica"):
+            raise ValueError(f"unknown bn_sync {self.bn_sync!r}")
+        if self.guard_transfer not in ("off", "log", "disallow"):
+            raise ValueError(
+                f"unknown guard_transfer {self.guard_transfer!r}")
+        if self.sanitize_every < 1:
+            raise ValueError("sanitize_every must be >= 1")
+        if self.obs_heartbeat_s < 0:
+            raise ValueError("obs_heartbeat_s must be >= 0 (0 = off)")
 
     @property
     def decay_at_epoch0(self) -> bool:
@@ -145,14 +171,12 @@ class Config:
 
 
 _INPUT_PATHS = "ROADMAP.md queue 1, 'Training input fast paths'"
-_GUARDS = "ROADMAP.md queue 1, 'Guards, sanitizers and the heartbeat'"
 _MULTI = "ROADMAP.md queue 1, 'Model C, multi-device training and CV'"
 
 #: Flags of the JAX train/test CLI the port does not carry yet: their JAX
 #: default and the ROADMAP.md item that brings them.
 NOT_YET_PORTED = {
-    "dp": (-1, _MULTI), "sp": (1, _MULTI), "bn_sync": ("global", _MULTI),
-    "cv_parallel": (False, _MULTI),
+    "sp": (1, _MULTI), "cv_parallel": (False, _MULTI),
     "compute_dtype": ("float32", "ROADMAP.md queue 1 item 11, 'Training "
                                  "under --compute_dtype bfloat16'"),
     "device_data": ("auto", _INPUT_PATHS),
@@ -161,11 +185,6 @@ NOT_YET_PORTED = {
     "loader_workers": (2, _INPUT_PATHS),
     "loader_queue_depth": (4, _INPUT_PATHS),
     "loader_native": ("auto", _INPUT_PATHS),
-    "tracing_guards": (False, _GUARDS), "guard_warmup_steps": (-1, _GUARDS),
-    "guard_transfer": ("disallow", _GUARDS),
-    "guard_nan_check": (False, _GUARDS), "sanitize": (False, _GUARDS),
-    "sanitize_every": (100, _GUARDS), "debug_nans": (False, _GUARDS),
-    "obs_heartbeat_s": (0.0, _GUARDS),
     "profile_dir": (None, "ROADMAP.md queue 1, 'Observability endpoints "
                           "and tracing'"),
 }
@@ -258,6 +277,39 @@ def _add_args(p: argparse.ArgumentParser) -> None:
                    help="batches assembled ahead on one thread (0 inline)")
     p.add_argument("--resume", action=argparse.BooleanOptionalAction,
                    default=d.resume)
+    p.add_argument("--dp", type=int, default=d.dp,
+                   help="data-parallel ranks (-1 = every visible card); "
+                        "ranks beyond the cards share them")
+    p.add_argument("--bn_sync", type=str, default=d.bn_sync,
+                   choices=["global", "per_replica"],
+                   help="BatchNorm under dp: global batch statistics, or "
+                        "each replica its own (the reference's per-GPU BN)")
+    p.add_argument("--tracing_guards", action=argparse.BooleanOptionalAction,
+                   default=d.tracing_guards,
+                   help="after a warmup, flag synchronizing calls in the "
+                        "step and fail on run-time compiles")
+    p.add_argument("--guard_warmup_steps", type=int,
+                   default=d.guard_warmup_steps,
+                   help="steps before the guards arm (-1 = first epoch)")
+    p.add_argument("--guard_transfer", type=str, default=d.guard_transfer,
+                   choices=["off", "log", "disallow"])
+    p.add_argument("--guard_nan_check", action=argparse.BooleanOptionalAction,
+                   default=d.guard_nan_check,
+                   help="check every module's output for NaN/Inf after "
+                        "each guarded step")
+    p.add_argument("--sanitize", action=argparse.BooleanOptionalAction,
+                   default=d.sanitize,
+                   help="per-step NaN/Inf probe with replay blame (SAN202) "
+                        "and replica fingerprints under dp (SAN201)")
+    p.add_argument("--sanitize_every", type=int, default=d.sanitize_every,
+                   help="steps between replica fingerprint checks")
+    p.add_argument("--debug_nans", action=argparse.BooleanOptionalAction,
+                   default=d.debug_nans,
+                   help="anomaly mode and per-module NaN/Inf checks for "
+                        "the whole run")
+    p.add_argument("--obs_heartbeat_s", type=float,
+                   default=d.obs_heartbeat_s,
+                   help="heartbeat cadence in seconds (0 = off)")
     group = p.add_argument_group("not yet ported (exit 2 unless default)")
     for name, (default, _) in NOT_YET_PORTED.items():
         if isinstance(default, bool):

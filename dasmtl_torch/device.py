@@ -9,12 +9,31 @@ port never carries on quietly on the CPU.
 from __future__ import annotations
 
 import subprocess
+from typing import Optional, Tuple
 
 import torch
 
 #: The only compute capability the hand-written kernels are built for
 #: (``sm_90a``: H100 / H200).
 HOPPER = (9, 0)
+
+#: Published HBM bandwidth (B/s), f32 non-tensor peak (FLOP/s) and dense
+#: int8 tensor-core peak (OP/s) by card (NVIDIA data sheets); the first
+#: key found in the card's name wins.
+CARD_PEAKS = (("H100 PCIe", 2.0e12, 51e12, 1513e12),
+              ("H100 NVL", 3.9e12, 60e12, 1671e12),
+              ("H200", 4.8e12, 67e12, 1979e12),
+              ("H100", 3.35e12, 67e12, 1979e12),
+              ("H800", 3.35e12, 67e12, 1979e12))
+
+
+def card_peaks(name: str) -> Optional[Tuple[float, float, float]]:
+    """``(bytes/s, f32 FLOP/s, int8 OP/s)`` of a card by its name, or None
+    for a card with no published peak here."""
+    for key, bw, f32, i8 in CARD_PEAKS:
+        if key in name:
+            return bw, f32, i8
+    return None
 
 
 def resolve_device(name: str) -> torch.device:

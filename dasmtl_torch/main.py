@@ -2,14 +2,21 @@
 
     Config -> (model spec, device, data sources, TrainState) -> Trainer
 
-without the JAX package's mesh, parallel CV, profiler or plots (ROADMAP.md
-names the items that bring them).  A run makes a timestamped run dir with
-``console_output.log``, ``config.json``, the train/val manifests,
-``metrics/`` and ``ckpts/``.
+without the JAX package's spatial axis, parallel CV, profiler or plots
+(ROADMAP.md names the items that bring them).  A run makes a timestamped
+run dir with ``console_output.log``, ``config.json``, the train/val
+manifests, ``metrics/`` and ``ckpts/``.
+
+``--dp N`` (N > 1) runs N data-parallel ranks
+(:func:`dasmtl_torch.parallel.dist.launch`): this process makes the run
+dir and builds the kernel library once, then each rank runs the same
+:func:`run` on its shard of every global batch; rank 0 writes the run
+dir, and its final validation result is returned here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional, Tuple
 
@@ -23,6 +30,7 @@ from dasmtl_torch.device import resolve_device, set_f32_numerics
 from dasmtl_torch.models.registry import (ModelSpec, get_model_spec,
                                           refuse_serve_only)
 from dasmtl_torch.models.weights import init_fresh
+from dasmtl_torch.parallel.dist import World, launch, resolve_dp
 from dasmtl_torch.train.checkpoint import (best_metric_on_disk,
                                            restore_latest_in, restore_weights)
 from dasmtl_torch.train.loop import Trainer, ValidationResult
@@ -77,19 +85,48 @@ def main_process(cfg: Config, is_test: bool = False) -> ValidationResult:
     """End-to-end run (train or eval); the final validation result."""
     refuse_serve_only(cfg.model, "train")  # model C: serving only, for now
     device = resolve_device(cfg.device)  # raises, naming --device cpu
-    spec = get_model_spec(cfg.model)
     if is_test and not cfg.model_path:
         raise ValueError("test mode requires --model_path (a checkpoint "
                          "directory to evaluate)")
+    dp = resolve_dp(cfg.dp, cfg.device)
+    run_dir = make_run_dir(cfg.output_savedir, cfg.model, is_test)
+    if dp == 1:
+        return run(cfg, is_test, run_dir)
+    if device.type == "cuda":
+        from dasmtl_torch.ops import _build
+
+        _build.build()  # once here, not in every rank
+    return launch(_rank_run, dp, (cfg, is_test, run_dir), workdir=run_dir,
+                  device=cfg.device)[0]
+
+
+def _rank_run(world: World, cfg: Config, is_test: bool,
+              run_dir: str) -> ValidationResult:
+    return run(cfg, is_test, run_dir, world)
+
+
+def run(cfg: Config, is_test: bool, run_dir: str,
+        world: Optional[World] = None) -> ValidationResult:
+    """One process's run in ``run_dir``: the whole run, or one rank's part
+    of a data-parallel one."""
+    device = resolve_device(cfg.device)
+    spec = get_model_spec(cfg.model)
     if device.type == "cuda":
         set_f32_numerics()  # TF32 would break the parity tolerances
-    run_dir = make_run_dir(cfg.output_savedir, cfg.model, is_test)
-    with Logger(os.path.join(run_dir, "console_output.log")):
+    main = world is None or world.is_main
+    log = Logger(os.path.join(run_dir, "console_output.log")) if main \
+        else contextlib.nullcontext()
+    with log:
         name = (torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "cpu")
         print(f"device: {device} ({name})")
-        with open(os.path.join(run_dir, "config.json"), "w") as f:
-            f.write(cfg.to_json())
+        if world is not None:
+            print(f"data parallel: {world.size} ranks (gloo), bn_sync="
+                  f"{cfg.bn_sync}, global batch "
+                  f"{cfg.batch_size * world.size}")
+        if main:
+            with open(os.path.join(run_dir, "config.json"), "w") as f:
+                f.write(cfg.to_json())
         state = build_state(cfg, spec, device)
         n_params = sum(p.numel() for p in state.model.parameters())
         print(f"model={cfg.model} params={n_params:,}")
@@ -97,12 +134,14 @@ def main_process(cfg: Config, is_test: bool = False) -> ValidationResult:
             state = restore_weights(state, cfg.model_path)
             print(f"restored weights from {cfg.model_path}")
 
-        train_source, val_source = build_sources(cfg, is_test,
-                                                 manifest_dir=run_dir)
+        train_source, val_source = build_sources(
+            cfg, is_test, manifest_dir=run_dir if main else None)
         print(f"examples: train={len(train_source)} val={len(val_source)}")
-        train_iter = BatchIterator(train_source, cfg.batch_size,
+        dp = world.size if world is not None else 1
+        train_iter = BatchIterator(train_source, cfg.batch_size * dp,
                                    seed=cfg.seed)
-        trainer = Trainer(cfg, spec, state, train_iter, val_source, run_dir)
+        trainer = Trainer(cfg, spec, state, train_iter, val_source, run_dir,
+                          world=world)
         if cfg.resume and not is_test:
             resumed = restore_latest_in(trainer.state, cfg.output_savedir,
                                         model=cfg.model)

@@ -37,11 +37,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode running-stat update is Flax's:
     the biased batch variance, not torch's n/(n−1) one.  Every row of the
     batch counts, padded (weight-0) rows included, as in the JAX step.
-    Eval mode and the state-dict names are ``nn.BatchNorm2d``'s."""
+    Eval mode and the state-dict names are ``nn.BatchNorm2d``'s.
+
+    With ``sync`` set (:func:`sync_batchnorm`, ``--bn_sync global`` under
+    data parallelism) train mode normalizes over the GLOBAL batch, as the
+    JAX step under GSPMD does: ``(Σx, Σx², n)`` are summed over the ranks
+    in one collective whose backward sums the two gradient sums, and the
+    variance is Flax's fast one, ``max(E[x²] − E[x]², 0)``."""
+
+    #: Normalize over every rank's batch (train mode only).
+    sync = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.sync:
+            return self._forward_synced(x)
         # One pass: the op returns the batch mean and 1/sqrt(var + eps)
         # beside its output, so the update reads no activation again.
         y, mean, invstd = torch.ops.aten.native_batch_norm(
@@ -52,6 +63,34 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _forward_synced(self, x: torch.Tensor) -> torch.Tensor:
+        from dasmtl_torch.parallel.dist import all_reduce_sum
+
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c)
+        total = all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)),
+                                          (x * x).sum(dim=(0, 2, 3)),
+                                          count]))
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = torch.clamp(total[c:2 * c] / n - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[None, :, None, None]) * mul[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def sync_batchnorm(model: nn.Module, on: bool = True) -> nn.Module:
+    """Set (or clear) ``sync`` on every :class:`BatchNorm2d` of ``model``."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync = on
+    return model
 
 
 class ConvBN(nn.Sequential):

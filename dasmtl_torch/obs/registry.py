@@ -238,3 +238,12 @@ class MetricsRegistry:
         for metric in self.families():
             lines.extend(metric.render())
         return "\n".join(lines) + ("\n" if lines else "")
+
+
+_DEFAULT = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-wide registry (``dasmtl/obs/registry.py``
+    ``default_registry``): where the train-time guards publish."""
+    return _DEFAULT

@@ -30,3 +30,17 @@ class LaunchCounter:
     def value(self) -> int:
         with self._lock:
             return self._n
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count in this process, by kernel name."""
+    from dasmtl_torch.ops import decode, digest, gating, int8, ring, window
+
+    return {"gate_apply": gating.launches.value,
+            "gate_apply_backward": gating.backward_launches.value,
+            "decode_heads": decode.launches.value,
+            "event_prob_q": decode.prob_q_launches.value,
+            "window_gather": window.launches.value,
+            "ring_append": ring.launches.value,
+            "int8_dot": int8.launches.value,
+            "leaf_digest": digest.launches.value}

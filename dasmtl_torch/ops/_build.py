@@ -51,6 +51,8 @@ SIGNATURES = {
         _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _P, _P]),
     "dasmtl_int8_dot": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_int64,
                                        ctypes.c_int, ctypes.c_int, _P]),
+    "dasmtl_leaf_digest": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int64,
+                                          _P, _P]),
     "dasmtl_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -61,10 +63,18 @@ class BuildError(RuntimeError):
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: nvcc builds this process ran: the port's run-time compiles, which the
+#: step guards count (eager PyTorch compiles nothing per shape).
+_compiles = 0
 #: nvcc's ``-Xptxas -v`` report and the build seconds of the last build
 #: this process ran (empty / 0.0 when the library was already on disk).
 build_log = ""
 build_seconds = 0.0
+
+
+def compiles() -> int:
+    """How many kernel-library builds this process has run."""
+    return _compiles
 
 
 def _sources():
@@ -93,7 +103,7 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the library unless it is already on disk; its path."""
-    global build_log, build_seconds
+    global build_log, build_seconds, _compiles
     out = library_path()
     if out.exists():
         return out
@@ -129,6 +139,7 @@ def build() -> Path:
         shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     build_log = "\n".join(logs)
+    _compiles += 1
     return out
 
 

@@ -18,6 +18,20 @@ reference's semantics:
 - SIGTERM stops at the next step boundary and writes a full-state
   checkpoint that ``--resume`` continues from.
 
+Under data parallelism (a ``world`` of ``dp`` ranks, one Trainer per rank)
+the loop reads the global batch (``batch_size·dp``) and keeps its rank's
+contiguous shard, validates over the global batch with every rank's
+predictions gathered, and rank 0 alone writes logs, metric lines,
+checkpoints and the heartbeat; a SIGTERM seen by any rank stops all of
+them after the same step (``DataParallelStep.stop_agreed``).
+
+``fit`` arms, as ``dasmtl/train/loop.py:160-175, 470-520, 720-745`` do:
+the SAN202 sanitizer and the SAN201 replica monitor (``--sanitize``), the
+step guards (``--tracing_guards``), NaN watching (``--guard_nan_check``,
+``--debug_nans``) and the heartbeat (``--obs_heartbeat_s``).  It ends with
+one ``{"kind": "summary"}`` record in ``metrics.jsonl``: every rank's
+kernel launches and the guards' and sanitizers' summaries.
+
 The host pipeline assembles batch ``i+1`` on one prefetch thread while step
 ``i`` runs; on the card each batch is copied host→device from pinned memory
 with ``non_blocking=True`` on the loop's stream.  Step metrics accumulate as
@@ -31,15 +45,25 @@ import json
 import os
 import signal
 import time
-from typing import Any, Dict, List
+from contextlib import ExitStack, nullcontext
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from dasmtl_torch.analysis.guards import StepGuards
+from dasmtl_torch.analysis.sanitize.checks import NanWatch, StepSanitizer
+from dasmtl_torch.analysis.sanitize.divergence import DivergenceMonitor
+from dasmtl_torch.analysis.sanitize.fingerprint import (nonfinite_any,
+                                                        nonfinite_leaves)
 from dasmtl_torch.config import Config
 from dasmtl_torch.data.pipeline import BatchIterator, eval_batches, prefetch
 from dasmtl_torch.data.sources import _SourceBase
 from dasmtl_torch.models.registry import ModelSpec
+from dasmtl_torch.obs.heartbeat import (Heartbeat, resolve_peak_flops,
+                                        step_flops)
+from dasmtl_torch.ops import launch_counts
+from dasmtl_torch.parallel.dist import all_gather_object, shard_batch
 from dasmtl_torch.train import metrics as host_metrics
 from dasmtl_torch.train.checkpoint import CheckpointManager
 from dasmtl_torch.train.optim import stepped_lr
@@ -52,15 +76,18 @@ class MetricLines:
     reference's ``trainLossLine`` / ``testAccLine``, utils.py:299-304,
     392-396)."""
 
-    def __init__(self, out_dir: str):
+    def __init__(self, out_dir: str, write: bool = True):
         self.out_dir = out_dir
-        os.makedirs(out_dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(out_dir, exist_ok=True)
         self._lines: Dict[str, List[float]] = {}
 
     def append(self, name: str, value: float) -> None:
         self._lines.setdefault(name, []).append(float(value))
-        np.save(os.path.join(self.out_dir, f"{name}.npy"),
-                np.asarray(self._lines[name], np.float64))
+        if self.write:
+            np.save(os.path.join(self.out_dir, f"{name}.npy"),
+                    np.asarray(self._lines[name], np.float64))
 
 
 @dataclasses.dataclass
@@ -95,18 +122,36 @@ class Trainer:
 
     def __init__(self, cfg: Config, spec: ModelSpec, state: TrainState,
                  train_iter: BatchIterator, val_source: _SourceBase,
-                 run_dir: str):
+                 run_dir: str, world=None):
         self.cfg = cfg
         self.spec = spec
         self.state = state
         self.train_iter = train_iter
         self.val_source = val_source
         self.run_dir = run_dir
-        self.train_step = make_train_step(spec)
+        self.world = world if world is not None and world.size > 1 else None
+        self.main = self.world is None or self.world.is_main
+        self.dp = self.world.size if self.world else 1
+        # train_iter yields GLOBAL batches (batch_size·dp); validation too.
+        self.eval_batch_size = cfg.batch_size * self.dp
+        self.train_step = make_train_step(spec, world=self.world,
+                                          bn_sync=cfg.bn_sync)
         self.eval_step = make_eval_step(spec)
         self.metrics_dir = os.path.join(run_dir, "metrics")
-        self.lines = MetricLines(self.metrics_dir)
+        self.lines = MetricLines(self.metrics_dir, write=self.main)
         self.ckpt = CheckpointManager(run_dir, max_keep=cfg.ckpt_max_keep)
+        self._sanitizer = (StepSanitizer(spec, world=self.world)
+                           if cfg.sanitize else None)
+        # Inert (every call a no-op) without ranks to compare.
+        self._divergence = (DivergenceMonitor(self.world,
+                                              every=cfg.sanitize_every)
+                            if cfg.sanitize else None)
+        self.guards: Optional[StepGuards] = None
+        self._nan_watch: Optional[NanWatch] = None
+        self._heartbeat: Optional[Heartbeat] = None
+        self._hb_h2d_s = 0.0  # cumulative seconds spent in _place
+        self._first_batch: Optional[Dict[str, torch.Tensor]] = None
+        self._stop_local = False
         self.jsonl_path = os.path.join(self.metrics_dir, "metrics.jsonl")
         # The reference gates on distance accuracy when the model predicts
         # distance (utils.py:329), else on its own task (utils.py:517).
@@ -117,28 +162,42 @@ class Trainer:
 
     def request_preempt(self) -> None:
         """Ask the running ``fit`` to stop at the next step boundary and
-        write a full-state checkpoint (the SIGTERM handler's action)."""
-        self._preempted = True
+        write a full-state checkpoint (the SIGTERM handler's action).
+        Under data parallelism the ranks agree on the step in the step's
+        all-reduce."""
+        self._stop_local = True
+        if self.world is None:
+            self._preempted = True
 
     # -- helpers -------------------------------------------------------------
     def _pin(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """Host batch -> torch tensors, page-locked when the model is on the
-        card (runs on the prefetch thread)."""
-        out = {k: torch.from_numpy(v) for k, v in batch.items()}
+        """Host batch -> this rank's shard as torch tensors, page-locked
+        when the model is on the card (runs on the prefetch thread)."""
+        batch = shard_batch(batch, self.world)
+        out = {k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in batch.items()}
         if self.state.device.type == "cuda":
             out = {k: v.pin_memory() for k, v in out.items()}
         return out
 
     def _place(self, batch: Dict[str, torch.Tensor]
                ) -> Dict[str, torch.Tensor]:
+        """Queue the batch's copy to the card (timed for the heartbeat's
+        ``h2d_ms``: enqueue time, the copy itself is asynchronous)."""
+        t0 = time.perf_counter()
         device = self.state.device
-        return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+        placed = {k: v.to(device, non_blocking=True)
+                  for k, v in batch.items()}
+        self._hb_h2d_s += time.perf_counter() - t0
+        return placed
 
     def _host_batches(self, batches):
         return prefetch(batches, depth=self.cfg.prefetch_batches,
                         place_fn=self._pin)
 
     def _log_jsonl(self, record: Dict[str, Any]) -> None:
+        if not self.main:
+            return
         with open(self.jsonl_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -154,7 +213,7 @@ class Trainer:
         labels: Dict[str, List[np.ndarray]] = {"distance": [], "event": []}
         sums: Dict[str, float] = {}
         for host in self._host_batches(eval_batches(
-                self.val_source, self.cfg.batch_size)):
+                self.val_source, self.eval_batch_size)):
             out = self.eval_step(self.state, self._place(host))
             for k in labels:
                 labels[k].append(host[k].numpy())
@@ -164,6 +223,9 @@ class Trainer:
             for k, v in out.items():
                 if k == "count" or k.startswith("loss_sum"):
                     sums[k] = sums.get(k, 0.0) + float(v)
+        if self.world is not None:
+            all_preds, all_weight, labels, sums = _gather_eval(
+                all_preds, all_weight, labels, sums)
 
         count = max(sums.get("count", 0.0), 1.0)
         weight = np.concatenate(all_weight)
@@ -185,9 +247,10 @@ class Trainer:
             if task == "distance":
                 rep["mae_m"] = host_metrics.distance_mae(y_true[task], y_pred)
             reports[task] = rep
-            np.save(os.path.join(self.metrics_dir,
-                                 f"confusion_matrix_{task}.npy"),
-                    rep["confusion_matrix"])
+            if self.main:
+                np.save(os.path.join(self.metrics_dir,
+                                     f"confusion_matrix_{task}.npy"),
+                        rep["confusion_matrix"])
             self.lines.append(f"val_acc_{task}", rep["accuracy"])
             print(f"[val epoch {epoch}] task={task} "
                   f"acc={rep['accuracy']:.4f} "
@@ -230,11 +293,30 @@ class Trainer:
         try:
             cur = next(batches, None)
             placed = self._place(cur) if cur is not None else None
+            if self._heartbeat is not None and self._first_batch is None:
+                self._first_batch = placed  # for the heartbeat's FLOPs
             while placed is not None:
                 i += 1
-                step_metrics = self.train_step(self.state, placed, lr)
-                nxt = next(batches, None)
+                if self._sanitizer is not None:
+                    self._sanitizer.snapshot(self.state)
+                if self._nan_watch is not None:
+                    self._nan_watch.reset()
+                if self.world is not None:
+                    self.train_step.stop_request = self._stop_local
+                with self._step_guard():
+                    step_metrics = self.train_step(self.state, placed, lr)
+                if self.world is not None:
+                    self._preempted = self.train_step.stop_agreed
+                done, nxt = placed, next(batches, None)
                 placed = self._place(nxt) if nxt is not None else None
+                # Outside the guarded body: these reads wait for the step.
+                where = f"epoch {epoch} step {i}"
+                if self._nan_watch is not None:
+                    self._check_nans(where)
+                if self._sanitizer is not None:
+                    self._sanitizer.after_step(self.state, done, lr,
+                                               step_metrics, context=where)
+                    self._divergence.maybe_check(self.state, context=where)
                 for k, v in step_metrics.items():
                     window[k] = window[k] + v if k in window else v
                 if (i + 1) % cfg.log_every_steps == 0:
@@ -281,13 +363,114 @@ class Trainer:
         msg += f" ({rec['examples_per_s']:.1f} ex/s)"
         print(msg)
         self._log_jsonl(rec)
+        if self._heartbeat is not None:
+            # Fed here because the window was just read back: the
+            # heartbeat adds no device sync of its own.
+            self._heartbeat.observe(epoch=epoch, step=step_in_epoch,
+                                    samples=n, elapsed_s=elapsed)
+
+    # -- guards, sanitizers, heartbeat -----------------------------------------
+    def _step_guard(self):
+        return self.guards.step() if self.guards is not None \
+            else nullcontext()
+
+    def _check_nans(self, where: str) -> None:
+        """``--guard_nan_check`` / ``--debug_nans``: every module output of
+        the step and the new parameters must be finite."""
+        bad = self._nan_watch.first_nonfinite()
+        params = dict(self.state.model.named_parameters())
+        if bad is None and not nonfinite_any(params):
+            return
+        what = (f"module {bad}" if bad is not None
+                else f"the update of {nonfinite_leaves(params)}")
+        raise FloatingPointError(f"NaN/Inf check at {where}: non-finite "
+                                 f"output of {what}")
+
+    def _arm_guards(self) -> None:
+        cfg = self.cfg
+        # Warmup -1 = one full epoch: the first pass builds the kernels.
+        steps = -(-len(self.train_iter.source) // self.train_iter.batch_size)
+        warmup = (cfg.guard_warmup_steps if cfg.guard_warmup_steps >= 0
+                  else steps)
+        self.guards = StepGuards(warmup_steps=warmup,
+                                 transfer=cfg.guard_transfer,
+                                 nan_check=cfg.guard_nan_check,
+                                 device=self.state.device)
+        print(f"[guards] armed: warmup={warmup} steps, "
+              f"transfer={cfg.guard_transfer}, "
+              f"nan_check={cfg.guard_nan_check}")
+
+    def _global_step_flops(self) -> float:
+        """FLOPs of ONE global train step: one rank's forward and backward
+        on its shard, times the ranks."""
+        if self._first_batch is None:
+            raise RuntimeError("no batch seen yet")
+        return step_flops(self.spec, self.state.model,
+                          self._first_batch) * self.dp
+
+    def _arm_heartbeat(self) -> None:
+        device = self.state.device
+        cards = min(self.dp, torch.cuda.device_count()) \
+            if device.type == "cuda" else 1
+        peak, peak_source = resolve_peak_flops(device, cards)
+        self._heartbeat = Heartbeat(
+            every_s=self.cfg.obs_heartbeat_s,
+            out_path=os.path.join(self.metrics_dir, "heartbeat.jsonl"),
+            batch_size=self.train_iter.batch_size,
+            flops_fn=self._global_step_flops,
+            peak_flops=peak, peak_source=peak_source,
+            h2d_fn=lambda: self._hb_h2d_s,
+            recompile_fn=lambda: (self.guards.post_warmup_compiles
+                                  if self.guards is not None else 0))
+        print(f"[heartbeat] armed: every {self.cfg.obs_heartbeat_s:g}s -> "
+              f"{self._heartbeat.out_path} (MFU vs peak {peak:.3g} "
+              f"FLOP/s, {peak_source})")
+
+    def run_summary(self) -> Dict[str, Any]:
+        """This rank's kernel launches and guard / sanitizer summaries."""
+        return {
+            "rank": self.world.rank if self.world else 0,
+            "launches": launch_counts(),
+            "guards": self.guards.summary() if self.guards else None,
+            "sanitize": (self._sanitizer.summary()
+                         if self._sanitizer else None),
+            "divergence": (self._divergence.summary()
+                           if self._divergence else None),
+            "heartbeat": ({"emitted": self._heartbeat.emitted,
+                           "cost_s": self._heartbeat.cost_s}
+                          if self._heartbeat else None),
+        }
+
+    def _log_summary(self) -> None:
+        ranks = [self.run_summary()]
+        if self.world is not None:
+            ranks = all_gather_object(ranks[0])
+        if self.guards is not None:
+            print(f"[guards] clean run: {self.guards.summary()}")
+        if self._sanitizer is not None:
+            print(f"[sanitize] clean run: {self._sanitizer.summary()} | "
+                  f"divergence {self._divergence.summary()}")
+        self._log_jsonl({"kind": "summary", "ranks": ranks})
 
     def fit(self) -> List[ValidationResult]:
         """Epochs ``state.epoch .. epoch_num-1`` with periodic validation,
         then a final validation pass and checkpoint."""
         cfg = self.cfg
         results: List[ValidationResult] = []
-        self._preempted = False
+        self._preempted = self._stop_local = False
+        if cfg.tracing_guards:
+            self._arm_guards()
+        if cfg.guard_nan_check or cfg.debug_nans:
+            self._nan_watch = NanWatch(self.state.model)
+        if cfg.obs_heartbeat_s > 0 and self.main and \
+                self._heartbeat is None:
+            self._arm_heartbeat()
+        if self._sanitizer is not None:
+            div = self._divergence.summary()
+            print("[sanitize] armed: per-step non-finite probe + replay "
+                  "blame on failure; replica fingerprints "
+                  + (f"every {div['every']} steps over dp={div['dp']}"
+                     if div["active"] else "inactive (no dp ranks)"))
         handler_installed = False
         prev_handler = None
         try:
@@ -297,36 +480,54 @@ class Trainer:
         except ValueError:
             pass  # not the main thread (embedded use): no handler
         try:
-            for epoch in range(self.state.epoch, cfg.epoch_num):
-                lr = stepped_lr(epoch, base_lr=cfg.lr,
-                                factor=cfg.lr_decay_factor,
-                                every=cfg.lr_decay_every,
-                                decay_at_epoch0=cfg.decay_at_epoch0)
-                if epoch % cfg.val_every == 0:
-                    results.append(self._validate_and_checkpoint(epoch))
-                print(f"[epoch {epoch}] lr={lr:.6g}")
-                self._train_epoch(epoch, lr)
-                if self._preempted:
-                    path = self.ckpt.save(self.state)
-                    print(f"[preempt] SIGTERM: saved full state at epoch "
-                          f"{epoch} -> {path}; resume with --resume")
-                    return results
-                if cfg.ckpt_every_epochs and (
-                        epoch + 1) % cfg.ckpt_every_epochs == 0:
-                    self.ckpt.save(self.state)
+            with ExitStack() as run_ctx:
+                if self.guards is not None:
+                    run_ctx.enter_context(self.guards)
+                if cfg.debug_nans:
+                    run_ctx.enter_context(torch.autograd.detect_anomaly(
+                        check_nan=True))
+                for epoch in range(self.state.epoch, cfg.epoch_num):
+                    lr = stepped_lr(epoch, base_lr=cfg.lr,
+                                    factor=cfg.lr_decay_factor,
+                                    every=cfg.lr_decay_every,
+                                    decay_at_epoch0=cfg.decay_at_epoch0)
+                    if epoch % cfg.val_every == 0:
+                        results.append(self._validate_and_checkpoint(epoch))
+                    print(f"[epoch {epoch}] lr={lr:.6g}")
+                    self._train_epoch(epoch, lr)
+                    if self._preempted:
+                        path = self._save()
+                        print(f"[preempt] SIGTERM: saved full state at "
+                              f"epoch {epoch} -> {path}; resume with "
+                              f"--resume")
+                        return results
+                    if cfg.ckpt_every_epochs and (
+                            epoch + 1) % cfg.ckpt_every_epochs == 0:
+                        self._save()
         finally:
+            if self._heartbeat is not None:
+                # A run shorter than the cadence still leaves one line.
+                self._heartbeat.finish(epoch=self.state.epoch, step=-1)
+            if self._nan_watch is not None:
+                self._nan_watch.remove()
+                self._nan_watch = None
             if handler_installed:
                 signal.signal(signal.SIGTERM,
                               prev_handler if prev_handler is not None
                               else signal.SIG_DFL)
         results.append(self._validate_and_checkpoint(cfg.epoch_num))
-        self.ckpt.save(self.state)
+        self._save()
+        self._log_summary()
         return results
+
+    def _save(self) -> Optional[str]:
+        """A full-state checkpoint (rank 0 only under data parallelism)."""
+        return self.ckpt.save(self.state) if self.main else None
 
     def _validate_and_checkpoint(self, epoch: int) -> ValidationResult:
         result = self.validate(epoch)
         acc = result.primary_accuracy
-        if acc >= self.cfg.acc_gate:
+        if acc >= self.cfg.acc_gate and self.main:
             path = self.ckpt.save_best(self.state, acc)
             if path:
                 print(f"[ckpt] best {self.primary_task} acc={acc:.5f} "
@@ -336,3 +537,20 @@ class Trainer:
     def test(self) -> ValidationResult:
         """Eval entry: exactly one validation pass."""
         return self.validate(self.state.epoch)
+
+
+def _gather_eval(preds: Dict[str, List[np.ndarray]], weight: List[np.ndarray],
+                 labels: Dict[str, List[np.ndarray]], sums: Dict[str, float]):
+    """Every rank's shard of every validation batch, put back in global
+    batch order (batch ``j`` is the concatenation of the ranks' ``j``-th
+    shards, as ``shard_batch`` cut it), and the loss sums added."""
+    parts = all_gather_object((preds, weight, labels, sums))
+
+    def join(lists):
+        return [np.concatenate(shards) for shards in zip(*lists)]
+
+    g_preds = {t: join([p[0][t] for p in parts]) for t in preds}
+    g_weight = join([p[1] for p in parts])
+    g_labels = {k: join([p[2][k] for p in parts]) for k in labels}
+    g_sums = {k: sum(p[3][k] for p in parts) for k in sums}
+    return g_preds, g_weight, g_labels, g_sums

@@ -1,9 +1,11 @@
 """The port on the card: each hand-written kernel against its plain
 version, the serve forward and one train step against the CPU, the
 executor's stream path, the resident stream lane's ordering of ring
-appends against window gathers, and the precision presets (the int8_dot
+appends against window gathers, the precision presets (the int8_dot
 kernel bit for bit, model C's int8 forward against the CPU, model A's
-launch counts under every preset).
+launch counts under every preset), and the leaf digest (one launch, bit
+for bit against its plain version and JAX's known answers) with a
+two-rank data-parallel step on the card against the CPU.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -22,6 +24,7 @@ import numpy as np
 from dasmtl_torch.device import set_f32_numerics
 from dasmtl_torch.export import make_precision_serve_fn, make_serve_infer_fn
 from dasmtl_torch.models.registry import get_model_spec
+from dasmtl_torch.models.two_level import TwoLevelNet
 from dasmtl_torch.models.weights import init_fresh, init_scaled
 from dasmtl_torch.ops import decode, gating, int8, ring, window
 from dasmtl_torch.serve.executor import InferExecutor
@@ -457,3 +460,95 @@ def test_quantization_is_the_same_on_the_card(cuda):
     qc, sc = quantize_kernel(w.to(cuda))
     assert torch.equal(qc.cpu(), q)
     assert torch.equal(sc.cpu().view(torch.int32), scale.view(torch.int32))
+
+
+# -- the leaf digest and the data-parallel step --------------------------------
+def _digest_grid():
+    g = torch.Generator().manual_seed(11)
+    out = []
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.int8,
+               torch.uint8, torch.int32, torch.int64, torch.bool):
+        for n in (0, 1, 3, 4097, 2 ** 20 + 3):
+            x = torch.randn(n, generator=g) * 300.0
+            x[:4] = torch.tensor([float("nan"), -0.0, float("inf"),
+                                  float("-inf")])[:min(n, 4)]
+            if not dt.is_floating_point:
+                x = torch.nan_to_num(x, nan=-3.0, posinf=1e9, neginf=-1e9)
+            out.append(x.to(dt))
+    return out
+
+
+def test_digest_vector_matches_plain_and_known_answers(cuda):
+    from dasmtl_torch.ops import digest
+
+    digest.launches.reset()
+    leaves = _digest_grid()
+    got = digest.digest_vector([t.to(cuda) for t in leaves])
+    assert got.device.type == "cuda" and digest.launches.value == 1
+    assert torch.equal(got.cpu(), digest.digest_vector_plain(leaves))
+    mixed = digest.digest_vector([leaves[3].to(cuda), leaves[8],
+                                  leaves[13].to(cuda)])
+    assert mixed.device.type == "cpu"
+    assert torch.equal(mixed, digest.digest_vector_plain(
+        [leaves[3], leaves[8], leaves[13]]))
+    for name, a in digest.known_answer_inputs().items():
+        t = digest.known_answer_tensor(name, a).to(cuda)
+        assert int(digest.as_uint32(digest.digest_vector([t]))[0]) == \
+            digest.KNOWN_ANSWERS[name], name
+    with pytest.raises(ValueError, match="contiguous"):
+        digest.digest_vector([torch.zeros(4, 4, device=cuda).t()])
+
+
+def test_dp2_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Two ranks on this card, one per_replica step of a narrow net: the
+    same step on the CPU at the one-step tolerances, ranks identical."""
+    from dasmtl_torch.parallel.dist import launch
+    import torch_port_ranks
+
+    set_f32_numerics()
+    net = init_fresh(TwoLevelNet(first_ch=4), seed=3)
+    sd = {k: v.numpy() for k, v in net.state_dict().items()}
+    rng = np.random.default_rng(4)
+    batch = {"x": rng.normal(size=(8, 52, 64, 1)).astype(np.float32),
+             "distance": rng.integers(0, 16, 8).astype(np.int32),
+             "event": rng.integers(0, 2, 8).astype(np.int32),
+             "weight": (np.arange(8) < 7).astype(np.float32)}
+    args = (sd, [batch], [1e-3], "MTL", "per_replica",
+            ("distance", "event"))
+    card = launch(torch_port_ranks.steps, 2, args + (4, "cuda"),
+                  workdir=str(tmp_path), device="cuda", timeout=300)
+    host = launch(torch_port_ranks.steps, 2, args,
+                  workdir=str(tmp_path), timeout=300)
+    (sd0, m0), (sd1, _) = card
+    want = host[0][0]
+    for k in sd0:
+        np.testing.assert_array_equal(sd0[k], sd1[k], err_msg=k)
+        if not np.issubdtype(sd0[k].dtype, np.floating):
+            np.testing.assert_array_equal(sd0[k], want[k], err_msg=k)
+        elif "running" in k:  # tests/test_torch_parity.py:291
+            np.testing.assert_allclose(sd0[k], want[k], atol=1e-5,
+                                       rtol=1e-3, err_msg=k)
+        else:  # :289, the 2.5e-3 tier for Adam's first-step sign noise
+            err = np.abs(sd0[k] - want[k])
+            far = err > 5e-5 + 1e-3 * np.abs(want[k])
+            conv_bias = k.endswith(".bias") and \
+                want.get(k[:-4] + "weight", np.zeros(0)).ndim == 4
+            assert conv_bias or far.sum() <= max(2, far.size // 200), k
+            assert (err <= 2.5e-3).all(), k
+    assert abs(m0[0]["loss_sum"] / m0[0]["count"] - host[0][1][0]["loss_sum"]
+               / host[0][1][0]["count"]) < 1e-4
+
+
+def test_heartbeat_peak_of_an_unlisted_card_is_measured_on_it(cuda,
+                                                              monkeypatch):
+    import dasmtl_torch.device as device_mod
+    from dasmtl_torch.obs import heartbeat
+
+    name = torch.cuda.get_device_name(cuda)
+    peak, source = heartbeat.resolve_peak_flops(cuda)
+    assert source == f"spec-f32:{name}x1"
+    monkeypatch.setattr(device_mod, "card_peaks", lambda _name: None)
+    measured, source = heartbeat.resolve_peak_flops(cuda, n_cards=2)
+    assert source == f"measured-matmul:{name}x2"
+    # A card's f32 matmul rate, not the host's: above any CPU's 1e12.
+    assert measured / 2 > 1e12 and measured / 2 < 2 * peak

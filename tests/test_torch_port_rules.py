@@ -69,6 +69,21 @@ def test_run_entry_points_load_no_jax_and_build_nothing():
     _assert_imports_clean(RUN_MODULES)
 
 
+#: The guards, the sanitizers, data parallelism and the heartbeat.
+ANALYSIS_MODULES = ["dasmtl_torch.sanitize",
+                    "dasmtl_torch.analysis.guards",
+                    "dasmtl_torch.obs.heartbeat",
+                    "dasmtl_torch.parallel.dist"] + sorted(
+    f"dasmtl_torch.analysis.sanitize.{p.stem}"
+    for p in (ROOT / "dasmtl_torch" / "analysis" / "sanitize").glob("*.py")
+    if p.stem != "__init__")
+
+
+def test_sanitizer_and_dp_entry_points_load_no_jax_and_build_nothing():
+    assert "dasmtl_torch.analysis.sanitize.divergence" in ANALYSIS_MODULES
+    _assert_imports_clean(ANALYSIS_MODULES)
+
+
 def _assert_imports_clean(modules):
     """Importing ``modules`` in a fresh interpreter loads nothing of JAX,
     the JAX package, sklearn or matplotlib, and builds no kernel."""
@@ -77,8 +92,8 @@ def _assert_imports_clean(modules):
             "before = set(sys.modules)\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
-            "from dasmtl_torch.ops import _build, decode, gating, int8, "
-            "ring, window\n"
+            "from dasmtl_torch.ops import _build, decode, digest, gating, "
+            "int8, ring, window\n"
             "bad = sorted(m for m in set(sys.modules) - before\n"
             f"             if m.split('.')[0] in {unwanted!r})\n"
             "print(bad, _build._lib is None)\n")

@@ -282,9 +282,10 @@ def test_device_cuda_without_a_card_names_device_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--dp", "2"], ["--sp", "2"], ["--bn_sync", "per_replica"],
+    ["--steps_per_dispatch", "4"], ["--sp", "2"], ["--loader_native", "on"],
     ["--device_data", "on"], ["--cv_parallel"],
-    ["--compute_dtype", "bfloat16"], ["--sanitize"], ["--tracing_guards"],
+    ["--compute_dtype", "bfloat16"], ["--device_data_budget_mb", "64"],
+    ["--loader_queue_depth", "8"],
     ["--loader_workers", "4"], ["--profile_dir", "/x"],
     ["--serve_buckets", "1,2"]])
 def test_flags_not_yet_ported_exit_2_naming_their_item(argv, capsys):
