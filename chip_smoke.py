@@ -94,10 +94,26 @@ Phases, each fatal on failure (no phase catches its own error):
              dasmtl_torch.sanitize --self-test``: the NaN blamed on the
              poisoned convolution, grad_desync and the forked seed caught
              by SAN201; (d) MTL-f32-dp1 and MTL-f32-dp2 twice each with
-             identical chains and tree digests; (e) what sanitizing costs a
+             identical chains and tree digests, held to the committed
+             determinism baseline; (e) what sanitizing costs a
              batch-32 step: a SAN201 check, the snapshot, the sanitized
              against the plain step wall, the heartbeat, and a dp 2 step
-             under the default ``--bn_sync global``.
+             under the default ``--bn_sync global``;
+10. resident — (a) the batch_gather kernel bit for bit against its plain
+             version (B = 1, 7, 32 at 100x250 and B = 32 at 7x13, -0.0 and
+             NaN on padded rows), then timed with the library sequence
+             (index_select x 3 + mul_); (b) ``python -m dasmtl_torch
+             train`` on a synthetic tree (192 train / 64 val, batch 32, 3
+             epochs, the LR / 1.5 every epoch, ``--tracing_guards``) with
+             ``--device_data on`` and ``off``, in process under
+             deterministic algorithms: the same val ints and confusion
+             matrices, final states within the one-step tolerances, 8 + 8
+             gate launches and 1 gather per step and per resident eval
+             batch, 0 gathers with ``off``, 0 post-warmup compiles; (c)
+             each run's checkpoint resumed for a 4th epoch on the other
+             path; (d) 4,096 in-memory windows, 2 epochs at batch 32, K = 8,
+             on both paths: examples/s, wall and device ms per step,
+             launches per step, device idle share, peak memory.
 
 Then one JSON line lists every kernel of the port, the card's name and
 power limit follow on a line of their own, and the last line is
@@ -2247,11 +2263,15 @@ def _self_test():
 
 def _determinism():
     """(d) MTL-f32-dp1 and MTL-f32-dp2 twice each: identical chains and
-    tree digests."""
-    from dasmtl_torch.analysis.sanitize.determinism import (SanitizeCell,
-                                                            run_cell)
+    tree digests, held to the committed baseline (SAN203; the digests when
+    its card / torch / CUDA stamp is this run's, the float metrics
+    always)."""
+    from dasmtl_torch.analysis.sanitize.determinism import (
+        SanitizeCell, check_reports, generated_with, load_baseline, run_cell,
+        versions_match)
 
     out = {}
+    reports = []
     for dp in (1, 2):
         cell = SanitizeCell("MTL", dp=dp, hw=(H, W))
         runs = [run_cell(cell, device=DEV) for _ in range(2)]
@@ -2264,8 +2284,19 @@ def _determinism():
                                  f"{a.digests} vs {b.digests}")
         out[cell.name] = {"chain": a.digests["metrics_chain"],
                           "final_loss": a.metrics["final_loss"]}
-    log(f"[dp] determinism: {', '.join(out)} twice each at {H}x{W}, batch "
-        f"8, 4 steps: identical chains and tree digests")
+        reports.append(a)
+    baseline = load_baseline()
+    same = versions_match(baseline, generated_with(DEV))
+    drift = check_reports(reports, baseline, compare_digests=same)
+    if drift:
+        raise AssertionError(f"the committed determinism baseline: {drift}")
+    out["baseline"] = {"stamp": baseline["generated_with"],
+                       "digests_compared": same}
+    held = "digests and metrics" if same else \
+        f"float metrics only: stamp {baseline['generated_with']}"
+    log(f"[dp] determinism: {', '.join(c.name for c in reports)} twice "
+        f"each at {H}x{W}, batch 8, 4 steps: identical chains and tree "
+        f"digests; the committed baseline holds ({held})")
     return out
 
 
@@ -2415,6 +2446,340 @@ def phase_dp(peaks):
             "self_test": selftest, "determinism": det, "costs": costs}
 
 
+# -- phase 10 -----------------------------------------------------------------
+RESIDENT_DIR = os.path.join(TRAIN_DIR, "resident")
+#: The timing cell: an in-memory set of 4,096 windows (410 MB resident).
+TIMING_N, TIMING_EPOCHS, TIMING_K = 4096, 2, 8
+
+
+def _gather_kernel(peaks):
+    """(a) the batch gather against its plain version bit for bit (B = 1,
+    7, 32 at 100x250 and B = 32 at 7x13, padded rows of a negative row
+    and a NaN at the padding index), then timed."""
+    from dasmtl_torch.ops import batch_gather as bg
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def operands(n, hw, b):
+        x = torch.randn((n, *hw, 1), device="cuda", generator=g)
+        x[0] = -x[0].abs() - 1.0
+        x[0].view(-1)[5] = float("nan")
+        d = torch.randint(0, 16, (n,), device="cuda", generator=g,
+                          dtype=torch.int32)
+        e = torch.randint(0, 2, (n,), device="cuda", generator=g,
+                          dtype=torch.int32)
+        idx = torch.randint(0, n, (b,), device="cuda", generator=g,
+                            dtype=torch.int32)
+        w = torch.ones(b, device="cuda")
+        if b > 1:
+            idx[-2:] = 0
+            w[-2:] = 0.0
+        return x, d, e, idx, w
+
+    for b, hw in ((1, (H, W)), (7, (H, W)), (32, (H, W)), (32, (7, 13))):
+        ops = operands(64, hw, b)
+        before = bg.launches.value
+        got = bg.batch_gather(*ops)
+        want = bg.batch_gather_plain(*ops)
+        torch.cuda.synchronize()
+        if bg.launches.value - before != 1:
+            raise AssertionError("batch_gather made more than one launch")
+        if not (torch.equal(got[0].view(torch.int32),
+                            want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])
+                and torch.equal(got[2], want[2])):
+            raise AssertionError(f"batch_gather != plain at B={b}, {hw}")
+        if b > 1 and not (torch.signbit(got[0][-2:]).any()
+                          and int(torch.isnan(got[0][-2:]).sum()) == 2):
+            raise AssertionError("batch_gather lost -0.0 or NaN on padding")
+    log("[resident] batch_gather == plain bit for bit at B = 1, 7, 32 x "
+        f"{H}x{W} and B = 32 x 7x13 (scalar path), -0.0 and NaN kept on "
+        "padded rows")
+    # Timing at the main path's shape: B = 32 rows of a 4,096-window set
+    # (410 MB, beyond L2), a fresh index row per call.
+    b, n = 32, TIMING_N
+    x = torch.randn((n, H, W, 1), device="cuda", generator=g)
+    d = torch.randint(0, 16, (n,), device="cuda", generator=g,
+                      dtype=torch.int32)
+    e = torch.randint(0, 2, (n,), device="cuda", generator=g,
+                      dtype=torch.int32)
+    sets = [(x, d, e, torch.randperm(n, device="cuda", generator=g)[:b]
+             .to(torch.int32), torch.ones(b, device="cuda"))
+            for _ in range(n // b)]
+
+    def library(x, d, e, idx, w):
+        out = torch.index_select(x, 0, idx)
+        out.mul_(w.view(-1, 1, 1, 1))
+        return out, torch.index_select(d, 0, idx), torch.index_select(e, 0,
+                                                                      idx)
+
+    k = {"ms": device_ms(_rotating(sets, bg.batch_gather), inner=20),
+         "plain_ms": device_ms(_rotating(sets, bg.batch_gather_plain),
+                               inner=20),
+         "library_ms": device_ms(_rotating(sets, library), inner=20),
+         "max_abs_err": 0.0, "unit": f"1 launch, B = {b} at {H}x{W}"}
+    nbytes = 2 * b * H * W * 4 + b * 4 * 2 + b * 4 * 4
+    k["bytes"] = nbytes
+    k["bound_ms"], k["bound_by"] = bound(nbytes, b * H * W, peaks)
+    del sets, x
+    log(f"[resident] batch_gather B = {b} at {H}x{W}: {k['ms'] * 1e3:.2f} "
+        f"us, plain {k['plain_ms'] * 1e3:.2f} us, library (index_select x 3 "
+        f"+ mul_) {k['library_ms'] * 1e3:.2f} us, bound "
+        f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}, {nbytes / 1e6:.2f} "
+        f"MB)")
+    return k
+
+
+def _state_diff(got: dict, want: dict) -> dict:
+    """Two model state dicts held to the one-step tolerances
+    (tests/test_torch_parity.py:286-291); the largest |delta| of each
+    kind."""
+    worst_p = worst_bn = 0.0
+    for key, v in got.items():
+        a, b = v.detach().cpu(), want[key].detach().cpu()
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{key} differs")
+            continue
+        err = (a - b).abs()
+        if "running" in key:
+            worst_bn = max(worst_bn, err.max().item())
+            if (err > BN_ATOL + BN_RTOL * b.abs()).any():
+                raise AssertionError(f"BN stat {key}: max abs err "
+                                     f"{err.max().item():.3g}")
+            continue
+        worst_p = max(worst_p, err.max().item())
+        far = err > PARAM_ATOL + PARAM_RTOL * b.abs()
+        if int(far.sum()) > max(2, b.numel() // 200) or \
+                (err[far] > PARAM_OUTLIER).any():
+            raise AssertionError(f"param {key}: {int(far.sum())} of "
+                                 f"{b.numel()} outside tolerance, max abs "
+                                 f"err {err.max().item():.3g}")
+    return {"param_max_abs_diff": worst_p, "bn_max_abs_diff": worst_bn}
+
+
+def _final_state(run_dir: str, step: int) -> dict:
+    return torch.load(os.path.join(run_dir, "ckpts", f"step_{step}",
+                                   "state.pt"), map_location="cpu",
+                      weights_only=True)["model"]
+
+
+def _cli_train(argv, savedir):
+    """``python -m dasmtl_torch train`` in process under deterministic
+    algorithms; (result, run dir, kernel launches, summary record)."""
+    from dasmtl_torch import cli
+    from dasmtl_torch.analysis.sanitize.determinism import deterministic
+    from dasmtl_torch.ops import launch_counters
+
+    for c in launch_counters().values():
+        c.reset()
+    before = set(os.listdir(savedir)) if os.path.isdir(savedir) else set()
+    t0 = time.perf_counter()
+    with deterministic("cuda"), contextlib.redirect_stdout(io.StringIO()):
+        result = cli.train_main(argv + ["--output_savedir", savedir])
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = {n: c.value for n, c in launch_counters().items()}
+    (run,) = [os.path.join(savedir, n) for n in os.listdir(savedir)
+              if n not in before]
+    with open(os.path.join(run, "metrics", "metrics.jsonl")) as f:
+        summary = [json.loads(line) for line in f][-1]
+    with open(os.path.join(run, "console_output.log")) as f:
+        console = f.read()
+    if result is None or summary.get("kind") != "summary":
+        raise AssertionError(f"train {argv} gave no result or summary")
+    return result, run, counts, summary, console, seconds
+
+
+def _both_paths():
+    """(b) the same run on both paths, (c) resume across them."""
+    from dasmtl_torch.data.synthetic import make_synthetic_dataset
+
+    shutil.rmtree(RESIDENT_DIR, ignore_errors=True)
+    striking, excavating = make_synthetic_dataset(
+        os.path.join(RESIDENT_DIR, "data"), files_per_category=8, seed=0)
+    # --lr_decay_every 1: the LR changes at every epoch, so the graph
+    # captured in epoch 0 must read epochs 1 and 2's LR.
+    base = ["--device", "cuda", "--model", "MTL", "--batch_size", "32",
+            "--log_every_steps", "3", "--val_every", "1",
+            "--lr_decay_at_epoch0", "--lr_decay_every", "1",
+            "--tracing_guards", "--trainVal_set_striking", striking,
+            "--trainVal_set_excavating", excavating]
+    runs = {}
+    for mode in ("on", "off"):
+        runs[mode] = _cli_train(base + ["--epoch_num", "3", "--device_data",
+                                        mode],
+                                os.path.join(RESIDENT_DIR, mode))
+    # 192 train / 64 val windows at batch 32: 6 steps x 3 epochs;
+    # validation at epochs 0, 1, 2 and after the last, 2 batches each.
+    n_steps, n_eval = 18, 8
+    want = {"on": (8 * (n_steps + n_eval), 8 * n_steps, n_steps + n_eval),
+            "off": (8 * (n_steps + n_eval), 8 * n_steps, 0)}
+    report = {}
+    for mode, (result, run, counts, summary, console, seconds) in \
+            runs.items():
+        got = (counts["gate_apply"], counts["gate_apply_backward"],
+               counts["batch_gather"])
+        if got != want[mode]:
+            raise AssertionError(f"device_data {mode}: (gate, gate "
+                                 f"backward, batch_gather) launches {got}, "
+                                 f"not {want[mode]}")
+        guards = summary["ranks"][0]["guards"]
+        if guards["post_warmup_compiles"] != 0:
+            raise AssertionError(f"device_data {mode}: {guards}")
+        resident = "[device-data] training set resident on device: n=192" \
+            in console
+        if resident != (mode == "on"):
+            raise AssertionError(f"device_data {mode}: resident line "
+                                 f"{'missing' if mode == 'on' else 'printed'}")
+        report[mode] = {"launches": dict(zip(
+            ("gate_apply", "gate_apply_backward", "batch_gather"), got)),
+            "guards": guards, "seconds": seconds}
+    on, off = runs["on"][0], runs["off"][0]
+    for task in on.predictions:
+        if not np.array_equal(on.predictions[task], off.predictions[task]):
+            raise AssertionError(f"{task} ints differ between the paths")
+        if not np.array_equal(on.reports[task]["confusion_matrix"],
+                              off.reports[task]["confusion_matrix"]):
+            raise AssertionError(f"{task} confusion matrices differ")
+    diff = _state_diff(_final_state(runs["on"][1], n_steps),
+                       _final_state(runs["off"][1], n_steps))
+    report["state_diff"] = diff
+    log(f"[resident] train 3 epochs (192 / 64 at batch 32, LR / 1.5 every "
+        f"epoch, deterministic algorithms) on both paths: ints and val "
+        f"confusion matrices identical; final params max |delta| "
+        f"{diff['param_max_abs_diff']:.3g}, BN stats "
+        f"{diff['bn_max_abs_diff']:.3g}; launches on "
+        f"{report['on']['launches']}, off {report['off']['launches']}; 0 "
+        f"post-warmup compiles; "
+        f"{report['on']['seconds']:.1f} s on, {report['off']['seconds']:.1f}"
+        f" s off")
+
+    # (c) each run's checkpoint resumed for a 4th epoch on the other path.
+    resumed = {}
+    for mode, other in (("on", "off"), ("off", "on")):
+        result, run, counts, summary, console, _ = _cli_train(
+            base + ["--epoch_num", "4", "--resume", "--device_data", other],
+            os.path.join(RESIDENT_DIR, mode))
+        if "resumed at epoch 3" not in console:
+            raise AssertionError(f"the {mode} run's checkpoint did not "
+                                 f"resume under device_data {other}")
+        if counts["batch_gather"] != (6 + 2 * 2 if other == "on" else 0):
+            raise AssertionError(f"resume under {other}: "
+                                 f"{counts['batch_gather']} gathers")
+        resumed[mode] = _final_state(run, n_steps + 6)
+    report["resume_diff"] = _state_diff(resumed["on"], resumed["off"])
+    log(f"[resident] resume across paths: the resident run's step_18 "
+        f"trained epoch 3 under device_data off and the host run's under "
+        f"on; the two step_24 states max |delta| params "
+        f"{report['resume_diff']['param_max_abs_diff']:.3g}, BN "
+        f"{report['resume_diff']['bn_max_abs_diff']:.3g}")
+    return report
+
+
+def _timing_cell():
+    """(d) 4,096 in-memory windows, 2 epochs at batch 32, K = 8, on both
+    paths: examples/s, wall and device ms per step, launches per step,
+    device idle share, peak memory."""
+    from dasmtl_torch.config import Config
+    from dasmtl_torch.data.pipeline import BatchIterator
+    from dasmtl_torch.data.sources import ArraySource
+    from dasmtl_torch.main import build_state
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.ops import batch_gather as bg
+    from dasmtl_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((TIMING_N, H, W, 1), dtype=np.float32)
+    train = ArraySource(x, rng.integers(0, 16, TIMING_N).astype(np.int32),
+                        rng.integers(0, 2, TIMING_N).astype(np.int32))
+    val = ArraySource(x[:64], train.distance[:64], train.event[:64])
+    spec = get_model_spec("MTL")
+    steps = -(-TIMING_N // 32)
+    out = {}
+    for mode in ("on", "off"):
+        cfg = Config(device="cuda", model="MTL", batch_size=32,
+                     epoch_num=TIMING_EPOCHS, log_every_steps=steps,
+                     val_every=100, ckpt_every_epochs=0,
+                     steps_per_dispatch=TIMING_K, device_data=mode)
+        run_dir = os.path.join(RESIDENT_DIR, f"timing_{mode}")
+        os.makedirs(run_dir, exist_ok=True)
+        tr = Trainer(cfg, spec, build_state(cfg, spec, torch.device("cuda")),
+                     BatchIterator(train, 32, seed=cfg.seed), val, run_dir)
+        bg.launches.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        epoch_s = []
+        with contextlib.redirect_stdout(io.StringIO()):
+            for epoch in range(TIMING_EPOCHS):
+                t0 = time.perf_counter()
+                tr._train_epoch(epoch, 1e-3)
+                torch.cuda.synchronize()
+                epoch_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        gathers = bg.launches.value
+        if gathers != (TIMING_EPOCHS * steps if mode == "on" else 0) or \
+                (tr._device_data is not None) != (mode == "on"):
+            raise AssertionError(f"timing {mode}: {gathers} gathers")
+        # Device time of one dispatch of K steps: a replay on the
+        # resident path, K eager steps on the host path, timed with
+        # events (launches queued ahead) and by the profiler.
+        if mode == "on":
+            idx, w = tr._scan_step.plan(*tr.train_iter.epoch_index_plan(0))
+
+            def dispatch():
+                tr._scan_step(tr.state, idx[:TIMING_K], w[:TIMING_K], 1e-3)
+        else:
+            host = next(tr.train_iter.epoch(0))
+            batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+
+            def dispatch():
+                for _ in range(TIMING_K):
+                    tr.train_step(tr.state, batch, 1e-3)
+        event_ms = device_ms(dispatch, inner=1, reps=5) / TIMING_K
+        layers, _, prof_wall, launches = _kernel_ms(dispatch, 2)
+        kernel_ms = sum(layers.values()) / TIMING_K
+        wall_ms = epoch_s[-1] / steps * 1e3
+        # A replay is one launch queued ahead, so events time the device;
+        # K eager steps (~10k launches) overrun the launch queue and the
+        # host paces them, so there the profiler's kernel sum is the
+        # device time.
+        dev_ms = event_ms if mode == "on" else kernel_ms
+        out[mode] = {
+            "epoch_s": epoch_s, "examples_per_s": TIMING_N / epoch_s[-1],
+            "wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
+            "event_ms_per_step": event_ms,
+            "profiled_kernel_ms_per_step": kernel_ms,
+            "launches_per_step": launches / TIMING_K,
+            "device_idle_share": 1.0 - dev_ms / wall_ms,
+            "peak_memory_bytes": peak, "batch_gather_launches": gathers}
+        del tr
+        torch.cuda.empty_cache()
+    for mode, r in out.items():
+        log(f"[resident] timing, device_data {mode}: {r['examples_per_s']:.1f}"
+            f" examples/s, {r['wall_ms_per_step']:.3f} ms wall / "
+            f"{r['device_ms_per_step']:.3f} ms device per step (events "
+            f"{r['event_ms_per_step']:.3f}, profiler kernels "
+            f"{r['profiled_kernel_ms_per_step']:.3f}), "
+            f"{r['launches_per_step']:.0f} "
+            f"launches per step, device idle "
+            f"{100 * r['device_idle_share']:.1f}%, peak memory "
+            f"{r['peak_memory_bytes'] / 2**20:.1f} MiB; epochs "
+            f"{[round(t, 2) for t in r['epoch_s']]} s")
+    return out
+
+
+def phase_resident(peaks):
+    from dasmtl_torch.device import set_f32_numerics
+
+    set_f32_numerics()
+    kernel = _gather_kernel(peaks)
+    both = _both_paths()
+    timing = _timing_cell()
+    shutil.rmtree(RESIDENT_DIR, ignore_errors=True)
+    return {"batch_gather": kernel, "both": both, "timing": timing}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None, help="write the report here")
@@ -2444,6 +2809,7 @@ def main(argv=None) -> int:
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     precision = phase_precision(peaks)
     dp = phase_dp(peaks)
+    resident = phase_resident(peaks)
     sk, offline = stream["kernels"], stream["offline"]
 
     # Launches: each kernel's count over its path's run, the counters
@@ -2451,7 +2817,8 @@ def main(argv=None) -> int:
     # gate, the HTTP serve traffic for the decode tail, the resident
     # offline sweep for the gather, the live model-A resident run for the
     # ring append, the resident oracle soak for event_prob_q, the model-C
-    # int8 HTTP run for int8_dot.
+    # int8 HTTP run for int8_dot, the dp run for leaf_digest, phase 10's
+    # resident train run for batch_gather.
     line = {"kernels": [
         {"name": "gate_apply", "route": "cuda",
          "source": "dasmtl_torch/csrc/gating.cu",
@@ -2493,12 +2860,18 @@ def main(argv=None) -> int:
          "replaces": "dasmtl/analysis/sanitize/fingerprint.py:62",
          "launches": dp["train"]["launches"]["leaf_digest"],
          **_timing(dp["leaf_digest"])},
+        {"name": "batch_gather", "route": "cuda",
+         "source": "dasmtl_torch/csrc/batch_gather.cu",
+         "replaces": "dasmtl/train/steps.py:200",
+         "launches": resident["both"]["on"]["launches"]["batch_gather"],
+         **_timing(resident["batch_gather"])},
     ]}
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
             json.dump({"device": device, "build": build, "kernels": kernels,
                        "model": model, "serve": serve, "train": train,
                        "stream": stream, "precision": precision, "dp": dp,
+                       "resident": resident,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

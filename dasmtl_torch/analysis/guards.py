@@ -12,9 +12,12 @@ Counterpart of ``dasmtl/analysis/guards.py:86-201`` (``StepGuards``):
   data-parallel collectives go through the host).  The guard is inert on
   the CPU and under anomaly mode, whose NaN checks synchronize.
 - **Compile counter.**  What the port compiles at run time is the kernel
-  library (:mod:`dasmtl_torch.ops._build`); eager PyTorch compiles nothing
-  per shape, so a sound run reads ``post_warmup_compiles`` 0.  A build
-  inside a post-warmup step raises :class:`RecompileError`.
+  library (:mod:`dasmtl_torch.ops._build`) and, on the device-resident
+  path, one CUDA graph per dispatch length (the counterpart of an XLA
+  compile of a scan program); eager PyTorch compiles nothing per shape, so
+  a sound run reads ``post_warmup_compiles`` 0.  A build or capture inside
+  a post-warmup step raises :class:`RecompileError`.  One fused dispatch
+  of ``n`` steps is guarded as ``n`` steps (:meth:`StepGuards.step`).
 - **NaN check** (``nan_check``): the Trainer watches every module's output
   and the new parameters, read once after each guarded step
   (:class:`~dasmtl_torch.analysis.sanitize.checks.NanWatch`).
@@ -139,16 +142,16 @@ class StepGuards:
         return TRANSFER_MODES[self.transfer]
 
     @contextmanager
-    def step(self):
-        """Guard one step.  Builds are synchronous with the call that needs
-        them, so the counter around the body attributes every compile to
-        its step."""
+    def step(self, n: int = 1):
+        """Guard one step, or one fused dispatch of ``n`` steps.  Builds
+        and captures are synchronous with the call that needs them, so the
+        counter around the body attributes every compile to its step."""
         if not self._entered:
             raise RuntimeError("StepGuards.step() outside the run context "
                                "- use `with guards:` around the epoch loop")
         armed = self._steps_seen >= self.warmup_steps
         index = self._steps_seen
-        self._steps_seen += 1
+        self._steps_seen += max(n, 1)
         before = _build.compiles()
         mode = self.sync_mode() if armed else 0
         if mode:
@@ -169,7 +172,8 @@ class StepGuards:
                 raise RecompileError(
                     f"step {index}: {delta} run-time compilation(s) "
                     f"after a {self.warmup_steps}-step warmup - something "
-                    f"in the step builds a kernel library per step")
+                    f"in the step builds a kernel library or captures a "
+                    f"graph per step")
 
     @property
     def compiles(self) -> int:

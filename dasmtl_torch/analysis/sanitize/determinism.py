@@ -19,20 +19,27 @@ non-finite probe (SAN202).  On the card a cell runs with
 break bit-exact chains.
 
 The cell names are JAX's.  bf16 cells (ROADMAP.md queue 1 item 11) and
-``multi_classifier`` cells (item 8) are not ported.  A committed baseline
-(``--check-baseline`` / ``--update-baseline``) is not ported either: port
-digests depend on the device and the host's kernels, so a baseline needs
-its own gating (ROADMAP.md queue 1 item 12).
+``multi_classifier`` cells (item 8) are not ported.
+
+The committed baseline (``--check-baseline`` / ``--update-baseline``,
+``dasmtl/analysis/sanitize/determinism.py:246-310``) is the port's own,
+:data:`DEFAULT_BASELINE_PATH` beside this module, never the JAX package's
+``artifacts/`` file.  Port digests depend on the card and the kernels
+torch and CUDA bring, so it is stamped with the card's name, the torch
+version and the CUDA version (:func:`generated_with`); under another stamp
+the exact digests are skipped with a note and only the float metrics gate,
+as JAX does across jax / jaxlib versions.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import shutil
 import tempfile
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from dasmtl_torch.analysis.sanitize.common import SanitizeFinding
 
@@ -47,8 +54,16 @@ NOT_PORTED = {
     "multi_classifier": "ROADMAP.md queue 1 item 8, 'Model C, "
                         "multi-device training and CV' (model C's loss)",
 }
-BASELINE_ITEM = ("ROADMAP.md queue 1 item 12, 'A determinism baseline for "
-                 "the port'")
+#: The port's committed baseline.
+DEFAULT_BASELINE_PATH = os.path.join(os.path.dirname(os.path.abspath(
+    __file__)), "determinism_baseline.json")
+
+#: Relative tolerance per float metric: the gate when digests cannot gate
+#: (a stamp mismatch) and a second line of defence when they can.
+DEFAULT_TOLERANCES: Dict[str, float] = {
+    "final_loss": 1e-4,
+    "final_count": 0.0,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +144,12 @@ class CellReport:
     steps: int
     digests: Dict[str, str]
     metrics: Dict[str, float]
+
+    def to_baseline_entry(self) -> dict:
+        return {"n_devices": self.n_devices,
+                "compute_dtype": self.compute_dtype, "steps": self.steps,
+                "digests": dict(self.digests),
+                "metrics": {k: float(v) for k, v in self.metrics.items()}}
 
 
 def synthetic_batch(rng, n: int, hw: Tuple[int, int]) -> dict:
@@ -262,3 +283,103 @@ def run_cell(cell: SanitizeCell, device: str = "cuda", timeout: float = 900.0
                       device=device, timeout=timeout)[0]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+# -- baseline ----------------------------------------------------------------
+_BASELINE_COMMENT = ("Determinism fingerprints of the port for python -m "
+                     "dasmtl_torch.sanitize --check-baseline; regenerate "
+                     "with --update-baseline on the card it gates.")
+
+
+def generated_with(device: str = "cuda") -> Dict[str, str]:
+    """The baseline's stamp: the card's name (``cpu`` for a CPU run), the
+    torch version and the CUDA version torch was built with."""
+    import torch
+
+    card = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    return {"card": card, "torch": torch.__version__,
+            "cuda": str(torch.version.cuda)}
+
+
+def load_baseline(path: str = DEFAULT_BASELINE_PATH) -> Optional[dict]:
+    if not os.path.exists(path):
+        return None
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def update_baseline(reports: Iterable[CellReport],
+                    path: str = DEFAULT_BASELINE_PATH,
+                    stamp: Optional[Dict[str, str]] = None) -> dict:
+    """Merge measured fingerprints into the baseline: the run cells are
+    overwritten, other cells and hand-edited tolerances kept."""
+    existing = load_baseline(path) or {}
+    tolerances = dict(DEFAULT_TOLERANCES)
+    tolerances.update(existing.get("tolerances", {}))
+    targets = dict(existing.get("targets", {}))
+    targets.update({r.name: r.to_baseline_entry() for r in reports})
+    out = {"comment": existing.get("comment", _BASELINE_COMMENT),
+           "generated_with": stamp or existing.get("generated_with", {}),
+           "tolerances": tolerances, "targets": targets}
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(out, f, indent=2, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, path)
+    return out
+
+
+def versions_match(baseline: Optional[dict], current: Dict[str, str]) -> bool:
+    """Digests compare only under the stamp they were taken with."""
+    if baseline is None:
+        return False
+    gen = baseline.get("generated_with", {})
+    return all(gen.get(k) == v for k, v in current.items())
+
+
+def check_reports(reports: Iterable[CellReport], baseline: Optional[dict],
+                  baseline_path: str = DEFAULT_BASELINE_PATH,
+                  compare_digests: bool = True) -> List[SanitizeFinding]:
+    """SAN203 findings of ``reports`` against ``baseline``: a missing
+    baseline or cell, a drifted digest (when ``compare_digests``), a float
+    metric beyond its relative tolerance."""
+    if baseline is None:
+        return [SanitizeFinding(
+            "SAN203", "error", "<baseline>",
+            f"no determinism baseline at {baseline_path!r} — generate one "
+            f"with python -m dasmtl_torch.sanitize --update-baseline on the "
+            f"card and commit it")]
+    findings: List[SanitizeFinding] = []
+    tolerances = dict(DEFAULT_TOLERANCES)
+    tolerances.update(baseline.get("tolerances", {}))
+    targets = baseline.get("targets", {})
+    for report in reports:
+        entry = targets.get(report.name)
+        if entry is None:
+            findings.append(SanitizeFinding(
+                "SAN203", "error", report.name,
+                f"cell has no baseline entry in {baseline_path!r} — run "
+                f"--update-baseline and commit the diff"))
+            continue
+        if compare_digests:
+            for key, old in sorted(entry.get("digests", {}).items()):
+                new = report.digests.get(key)
+                if new is not None and new != old:
+                    findings.append(SanitizeFinding(
+                        "SAN203", "error", report.name,
+                        f"{key} digest drift: {new[:16]}… vs baseline "
+                        f"{old[:16]}… — the seeded trajectory changed bit "
+                        f"for bit; find the nondeterminism (or justify the "
+                        f"change and --update-baseline)"))
+        for key, old in sorted(entry.get("metrics", {}).items()):
+            new = report.metrics.get(key)
+            if new is None:
+                continue
+            tol = tolerances.get(key, 0.0)
+            dev = abs(new - old) / max(abs(old), 1.0)
+            if dev > tol:
+                findings.append(SanitizeFinding(
+                    "SAN203", "error", report.name,
+                    f"{key} {new:.6g} vs baseline {old:.6g} ({dev:.2%} > "
+                    f"{tol:.0%} tolerance)"))
+    return findings

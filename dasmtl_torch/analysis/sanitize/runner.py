@@ -9,13 +9,16 @@
   backbone convolution, disabled gradient sync, a forked replica seed) and
   check that its sanitizer catches it; a fault that goes uncaught fails
   the run;
-- ``--list-cells``: the matrix and the presets.
+- ``--list-cells``: the matrix and the presets;
+- ``--update-baseline`` / ``--check-baseline``: write the run cells'
+  fingerprints into the port's committed baseline, or gate them against
+  it (SAN203; stamped by card, torch and CUDA, see
+  :mod:`~dasmtl_torch.analysis.sanitize.determinism`).
 
 The JAX runner pins a CPU backend with virtual devices; the port runs on
 ``--device cuda`` (the default, raising without a card) or ``--device
 cpu``, and its ``dp`` cells run as ``dp`` ranks, which share the card when
-there is one.  bf16 and ``multi_classifier`` cells named with ``--cells``,
-and the committed baseline (``--check-baseline``, ``--update-baseline``),
+there is one.  bf16 and ``multi_classifier`` cells named with ``--cells``
 exit 2 naming their ROADMAP.md item; in a preset those cells are skipped
 with a note naming it.
 """
@@ -34,9 +37,9 @@ from dasmtl_torch.analysis.sanitize.common import (CheckifyFailure,
                                                    ReplicaDivergenceError,
                                                    SanitizeError,
                                                    SanitizeFinding)
-from dasmtl_torch.analysis.sanitize.determinism import (BASELINE_ITEM,
-                                                        CellReport,
-                                                        resolve_cells)
+from dasmtl_torch.analysis.sanitize.determinism import (
+    DEFAULT_BASELINE_PATH, CellReport, check_reports, generated_with,
+    load_baseline, resolve_cells, update_baseline, versions_match)
 
 #: The self-test's geometry and per-replica batch: model A at full width
 #: on a small window, so the whole matrix takes seconds.
@@ -220,9 +223,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--cells", type=str, default=None,
                     help="comma-separated cell names (overrides --preset)")
     ap.add_argument("--check-baseline", action="store_true",
-                    help=f"not ported: {BASELINE_ITEM}")
+                    help="compare the fingerprints against the committed "
+                         "baseline and fail on drift")
     ap.add_argument("--update-baseline", action="store_true",
-                    help=f"not ported: {BASELINE_ITEM}")
+                    help="rewrite the baseline entries of the run cells "
+                         "(tolerances and other cells are kept)")
+    ap.add_argument("--baseline", type=str, default=DEFAULT_BASELINE_PATH)
     ap.add_argument("--self-test", action="store_true",
                     help="plant each fault and check its sanitizer "
                          "catches it")
@@ -244,10 +250,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         for name, cells in sorted(PRESETS.items()):
             print(f"preset {name}: {', '.join(c.name for c in cells)}")
         return 0
-    if args.check_baseline or args.update_baseline:
-        print(f"dasmtl_torch.sanitize: the committed determinism baseline "
-              f"is not ported: {BASELINE_ITEM}", file=sys.stderr)
-        return 2
     from dasmtl_torch.device import resolve_device
 
     resolve_device(args.device)  # raises without a card, naming --device
@@ -279,6 +281,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2  # asked for by name
     cells = [c for c in cells if not c.not_ported]
     reports, findings = run_cells(cells, device=args.device)
+    if args.update_baseline:
+        update_baseline(reports, args.baseline,
+                        stamp=generated_with(args.device))
+        print(f"baseline written: {args.baseline} ({len(reports)} "
+              f"cell(s))", file=sys.stderr)
+    elif args.check_baseline:
+        baseline = load_baseline(args.baseline)
+        stamp = generated_with(args.device)
+        same = versions_match(baseline, stamp)
+        if baseline is not None and not same:
+            print(f"sanitize: baseline generated under "
+                  f"{baseline.get('generated_with')} but running {stamp} — "
+                  f"exact-digest checks skipped (float metrics still "
+                  f"gate); --update-baseline on this card after justifying "
+                  f"the change", file=sys.stderr)
+        findings = list(findings) + check_reports(
+            reports, baseline, baseline_path=args.baseline,
+            compare_digests=same)
     if args.format == "json":
         print(json.dumps({
             "reports": [dataclasses.asdict(r) for r in reports],

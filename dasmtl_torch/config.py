@@ -100,7 +100,13 @@ class Config:
     test_set_striking: str = "./dataset/striking_test"
     test_set_excavating: str = "./dataset/excavating_test"
     mat_key: str = "data"
-    prefetch_batches: int = 2  # 0 = assemble batches inline
+    prefetch_batches: int = 2  # 0 = assemble batches inline (eval)
+    # The staged training loader (``dasmtl/config.py:82-96``):
+    # ``loader_workers`` threads assemble batches into page-locked staging
+    # slots behind a queue of ``loader_queue_depth``, in epoch order at any
+    # worker count; 0 assembles inline.
+    loader_workers: int = 2
+    loader_queue_depth: int = 4
     noise_snr_db: Optional[float] = None
     # Device and run outputs.
     device: str = "cuda"  # cuda | cpu
@@ -113,6 +119,12 @@ class Config:
     # visible card), and the BatchNorm semantics across them.
     dp: int = -1
     bn_sync: str = "global"  # global | per_replica
+    # The device-resident training set (``:112-121``): ``auto`` keeps a RAM
+    # source within the budget on the card and replays
+    # ``steps_per_dispatch`` fused steps per CUDA graph; the CPU declines.
+    device_data: str = "auto"  # auto | on | off
+    device_data_budget_mb: int = 1024
+    steps_per_dispatch: int = 8
     # Run-time guards and sanitizers (``:136-150``), the heartbeat
     # (``:298``) and NaN debugging (``:351``).
     tracing_guards: bool = False
@@ -149,6 +161,16 @@ class Config:
             raise ValueError("sanitize_every must be >= 1")
         if self.obs_heartbeat_s < 0:
             raise ValueError("obs_heartbeat_s must be >= 0 (0 = off)")
+        # ``dasmtl/config.py:365-374``.
+        if self.device_data not in ("auto", "on", "off"):
+            raise ValueError(f"unknown device_data {self.device_data!r}")
+        if self.steps_per_dispatch < 1:
+            raise ValueError("steps_per_dispatch must be >= 1")
+        if self.loader_workers < 0:
+            raise ValueError("loader_workers must be >= 0 (0 = synchronous "
+                             "inline assembly)")
+        if self.loader_queue_depth < 1:
+            raise ValueError("loader_queue_depth must be >= 1")
 
     @property
     def decay_at_epoch0(self) -> bool:
@@ -170,8 +192,8 @@ class Config:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
 
-_INPUT_PATHS = "ROADMAP.md queue 1, 'Training input fast paths'"
-_MULTI = "ROADMAP.md queue 1, 'Model C, multi-device training and CV'"
+_MULTI = ("ROADMAP.md queue 1 item 8, 'Model C, multi-device training and "
+          "CV'")
 
 #: Flags of the JAX train/test CLI the port does not carry yet: their JAX
 #: default and the ROADMAP.md item that brings them.
@@ -179,18 +201,18 @@ NOT_YET_PORTED = {
     "sp": (1, _MULTI), "cv_parallel": (False, _MULTI),
     "compute_dtype": ("float32", "ROADMAP.md queue 1 item 11, 'Training "
                                  "under --compute_dtype bfloat16'"),
-    "device_data": ("auto", _INPUT_PATHS),
-    "device_data_budget_mb": (1024, _INPUT_PATHS),
-    "steps_per_dispatch": (8, _INPUT_PATHS),
-    "loader_workers": (2, _INPUT_PATHS),
-    "loader_queue_depth": (4, _INPUT_PATHS),
-    "loader_native": ("auto", _INPUT_PATHS),
-    "profile_dir": (None, "ROADMAP.md queue 1, 'Observability endpoints "
-                          "and tracing'"),
+    "loader_native": ("auto", "ROADMAP.md queue 1 item 15, 'The native "
+                              "MAT reader'"),
+    "profile_dir": (None, "ROADMAP.md queue 1 item 6, 'Observability "
+                          "endpoints and tracing'"),
 }
 #: Prefixes of the JAX CLI's flags that only record the serving and
 #: streaming tiers' geometry in a run's config.json.
 _RECORD_ONLY = ("serve_", "router_", "stream_", "obs_", "conc_", "mem_")
+#: Where those recording flags come from.
+_RECORD_ITEMS = ("ROADMAP.md queue 1 item 1, 'The stream tier's remainder', "
+                 "item 6, 'Observability endpoints and tracing' and item "
+                 "13, 'The serving router tier'")
 
 _TRUTHY = frozenset({"1", "true", "yes", "y", "t", "on"})
 _FALSY = frozenset({"0", "false", "no", "n", "f", "off"})
@@ -274,7 +296,26 @@ def _add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--noise_snr_db", type=float, default=None,
                    help="opt-in Gaussian noise SNR (dB)")
     p.add_argument("--prefetch_batches", type=int, default=d.prefetch_batches,
-                   help="batches assembled ahead on one thread (0 inline)")
+                   help="eval batches assembled ahead on one thread (0 "
+                        "inline)")
+    p.add_argument("--loader_workers", type=int, default=d.loader_workers,
+                   help="training-batch assembly threads (0 = inline)")
+    p.add_argument("--loader_queue_depth", type=int,
+                   default=d.loader_queue_depth,
+                   help="assembled training batches kept ready")
+    p.add_argument("--device_data", type=str, default=d.device_data,
+                   choices=["auto", "on", "off"],
+                   help="keep the training set on the card and replay "
+                        "steps_per_dispatch steps per CUDA graph (auto: on "
+                        "a card, for a RAM source within the budget)")
+    p.add_argument("--device_data_budget_mb", type=int,
+                   default=d.device_data_budget_mb,
+                   help="card memory the resident train + val sets may "
+                        "take")
+    p.add_argument("--steps_per_dispatch", type=int,
+                   default=d.steps_per_dispatch,
+                   help="fused train steps per dispatch on the resident "
+                        "path")
     p.add_argument("--resume", action=argparse.BooleanOptionalAction,
                    default=d.resume)
     p.add_argument("--dp", type=int, default=d.dp,
@@ -330,10 +371,9 @@ def _parse(argv, description: str) -> Config:
     if record_only:
         print(f"dasmtl_torch: {record_only[0].split('=')[0]} is not yet "
               f"ported: the JAX CLI records it in config.json for the "
-              f"serving and streaming tiers (ROADMAP.md queue 1, 'Stream "
-              f"and resident tier' and 'Observability endpoints and "
-              f"tracing'); the port's server takes its own flags, python "
-              f"-m dasmtl_torch.serve --help", file=sys.stderr)
+              f"serving and streaming tiers ({_RECORD_ITEMS}); the port's "
+              f"server takes its own flags, python -m dasmtl_torch.serve "
+              f"--help", file=sys.stderr)
         raise SystemExit(2)
     if extra:
         p.error(f"unrecognized arguments: {' '.join(extra)}")

@@ -15,18 +15,27 @@ permutation, and with SNR noise the ``seq``-th batch of epoch ``e`` draws
 from ``default_rng(SeedSequence([noise_seed, e, seq]))`` — the JAX
 package's ``BatchIterator.epoch_staged`` (``pipeline.py:359-386``), so the
 two pipelines give the same batches.  :func:`prefetch` assembles the next
-batch on one background thread while the current step runs.
+batch on one background thread while the current step runs (validation);
+training runs :meth:`BatchIterator.epoch_staged`, ``loader_workers``
+threads of :func:`worker_pool` filling the page-locked slots of a
+:class:`BatchAssembler` (``pipeline.py:108-197, 237-318``, without the
+lockdep wrapper), and the device-resident path takes the epoch as an index
+plan (:meth:`BatchIterator.epoch_index_plan`, ``:388-405``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 from dasmtl_torch.data.sources import _SourceBase
+from dasmtl_torch.data.staging import StagingBuffers
 
 Batch = Dict[str, np.ndarray]
 
@@ -64,6 +73,147 @@ def _make_batch(source: _SourceBase, idx: np.ndarray, batch_size: int,
          "weight": np.ones((idx.shape[0],), np.float32)}, batch_size)
 
 
+def worker_pool(items: Iterator, work_fn: Callable, *, workers: int = 2,
+                depth: int = 4, name: str = "dasmtl_torch-loader"
+                ) -> Iterator:
+    """Order-preserving parallel map: ``workers`` threads apply ``work_fn``
+    to the items; results come out in INPUT order whatever order they
+    finish in, so a fixed seed gives the same stream at any worker count.
+    At most ``max(depth, workers)`` items are in flight; ``workers <= 0``
+    maps inline; an exception while producing item ``k`` re-raises at
+    position ``k``; abandoning the iterator stops and joins every
+    worker."""
+    if workers <= 0:
+        for item in items:
+            yield work_fn(item)
+        return
+    depth = max(int(depth), int(workers))
+    it = iter(items)
+    cond = threading.Condition()
+    state = {"next_in": 0, "next_out": 0, "exhausted": False, "stop": False}
+    results: Dict[int, Tuple[str, Any]] = {}
+
+    def worker():
+        while True:
+            with cond:
+                while (not state["stop"] and not state["exhausted"] and
+                       state["next_in"] - state["next_out"] >= depth):
+                    cond.wait()
+                if state["stop"] or state["exhausted"]:
+                    return
+                seq = state["next_in"]
+                try:
+                    item = next(it)
+                except StopIteration:
+                    state["exhausted"] = True
+                    cond.notify_all()
+                    return
+                except BaseException as exc:  # the iterator itself failed
+                    state["next_in"] += 1
+                    results[seq] = ("err", exc)
+                    state["exhausted"] = True
+                    cond.notify_all()
+                    return
+                state["next_in"] += 1
+            try:
+                out = ("ok", work_fn(item))
+            except BaseException as exc:  # re-raised at position seq
+                out = ("err", exc)
+            with cond:
+                results[seq] = out
+                cond.notify_all()
+
+    threads = [threading.Thread(target=worker, daemon=True,
+                                name=f"{name}-{i}") for i in range(workers)]
+    for t in threads:
+        t.start()
+    try:
+        while True:
+            with cond:
+                seq = state["next_out"]
+                while seq not in results and not (
+                        state["exhausted"] and seq >= state["next_in"]):
+                    cond.wait()
+                if seq not in results:
+                    break  # exhausted and drained
+                kind, value = results.pop(seq)
+                state["next_out"] = seq + 1
+                cond.notify_all()  # frees one in-flight ticket
+            if kind == "err":
+                raise value
+            yield value
+    finally:
+        with cond:
+            state["stop"] = True
+            cond.notify_all()
+        for t in threads:
+            t.join(timeout=5.0)
+
+
+@dataclasses.dataclass
+class StagedBatch:
+    """One assembled batch (``data``: CPU tensors, a staging slot's or,
+    for the shape-learning first batch, fresh ones) and its slot lease.
+    The consumer calls :meth:`release` once it no longer reads the host
+    copy, passing what it placed on the device."""
+
+    data: Dict[str, torch.Tensor]
+    _staging: Optional[StagingBuffers] = None
+
+    def release(self, placed: Optional[Dict[str, torch.Tensor]] = None
+                ) -> None:
+        if self._staging is None:
+            return  # unstaged (shape-learning) batch: nothing leased
+        staging, self._staging = self._staging, None
+        staging.release(self.data, placed)
+
+
+class BatchAssembler:
+    """Builds fixed-shape batches from a source into preallocated staging
+    slots (page-locked with ``pin``) instead of a per-batch stack.  The
+    first batch goes through the allocating path to learn the window
+    shape (a lazy :class:`DiskSource` knows it after one decode); later
+    ones are written in place through ``gather_into``.  Thread-safe, for
+    :func:`worker_pool`'s workers; ``rng`` (per batch, from ``(noise_seed,
+    epoch, seq)``) keeps SNR noise the same at any worker count."""
+
+    def __init__(self, source: _SourceBase, batch_size: int, *,
+                 depth: int = 4, pin: bool = False):
+        self.source = source
+        self.batch_size = int(batch_size)
+        self.staging = StagingBuffers(depth=depth, pin=pin)
+        self.noise_seed = int(getattr(source, "noise_seed", 0) or 0)
+        self._slot = ("train_batch", self.batch_size)
+        self._lock = threading.Lock()
+
+    def assemble(self, idx: np.ndarray,
+                 rng: Optional[np.random.Generator] = None) -> StagedBatch:
+        idx = np.asarray(idx)
+        n = idx.shape[0]
+        if not self.staging.has_slot(self._slot):
+            # One worker learns the shape; the lock spans the decode and
+            # the slot's registration, so no second unstaged batch.
+            with self._lock:
+                if not self.staging.has_slot(self._slot):
+                    batch = _make_batch(self.source, idx, self.batch_size,
+                                        rng)
+                    self.staging.add_slot(
+                        self._slot,
+                        {k: (v.shape, v.dtype) for k, v in batch.items()})
+                    return StagedBatch({k: torch.from_numpy(v)
+                                        for k, v in batch.items()})
+        buf = self.staging.acquire(self._slot)
+        view = {k: v.numpy() for k, v in buf.items()}
+        self.source.gather_into(idx, view["x"], rng=rng)
+        np.take(self.source.distance, idx, axis=0, out=view["distance"][:n])
+        np.take(self.source.event, idx, axis=0, out=view["event"][:n])
+        view["weight"][:n] = 1.0
+        if n < self.batch_size:  # zero the (reused) padding rows
+            for k, v in view.items():
+                v[n:] = _PAD_FILL.get(k, 0)
+        return StagedBatch(buf, self.staging)
+
+
 class BatchIterator:
     """Shuffled, epoch-addressable train batches with static shapes; any
     epoch's order is reproducible on its own, which makes exact resume
@@ -75,17 +225,64 @@ class BatchIterator:
         self.batch_size = batch_size
         self.seed = seed
 
+    def steps_per_epoch(self) -> int:
+        return math.ceil(len(self.source) / self.batch_size)
+
+    def _epoch_order(self, epoch_idx: int) -> np.ndarray:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch_idx])).permutation(
+                len(self.source))
+
+    def _noise_rng(self, noise_seed: int, epoch_idx: int,
+                   seq: int) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([noise_seed, epoch_idx, seq]))
+
     def epoch(self, epoch_idx: int) -> Iterator[Batch]:
         n = len(self.source)
-        order = np.random.default_rng(
-            np.random.SeedSequence([self.seed, epoch_idx])).permutation(n)
+        order = self._epoch_order(epoch_idx)
         noise_seed = int(getattr(self.source, "noise_seed", 0) or 0)
         for seq, start in enumerate(range(0, n, self.batch_size)):
-            rng = np.random.default_rng(
-                np.random.SeedSequence([noise_seed, epoch_idx, seq]))
             yield _make_batch(self.source, order[start:start +
                                                  self.batch_size],
-                              self.batch_size, rng)
+                              self.batch_size,
+                              self._noise_rng(noise_seed, epoch_idx, seq))
+
+    def epoch_staged(self, epoch_idx: int, assembler: BatchAssembler, *,
+                     workers: int = 2, depth: int = 4
+                     ) -> Iterator[StagedBatch]:
+        """The epoch through ``workers`` assembly threads and
+        ``assembler``'s staging slots, in exactly :meth:`epoch`'s order
+        and with its noise draws.  The consumer releases each
+        :class:`StagedBatch` once its copy is placed."""
+        order = self._epoch_order(epoch_idx)
+        n = len(self.source)
+
+        def tasks():
+            for seq, start in enumerate(range(0, n, self.batch_size)):
+                yield seq, order[start:start + self.batch_size]
+
+        def work(task):
+            seq, idx = task
+            return assembler.assemble(idx, rng=self._noise_rng(
+                assembler.noise_seed, epoch_idx, seq))
+
+        return worker_pool(tasks(), work, workers=workers, depth=depth)
+
+    def epoch_index_plan(self, epoch_idx: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """The epoch as ``(idx [S, B] int32, weight [S, B] float32)``:
+        :meth:`epoch`'s batches (the same permutation), the ragged last
+        one padded with index 0 at weight 0."""
+        order = self._epoch_order(epoch_idx)
+        steps = self.steps_per_epoch()
+        idx = np.zeros((steps, self.batch_size), np.int32)
+        weight = np.zeros((steps, self.batch_size), np.float32)
+        for s in range(steps):
+            chunk = order[s * self.batch_size:(s + 1) * self.batch_size]
+            idx[s, :chunk.shape[0]] = chunk
+            weight[s, :chunk.shape[0]] = 1.0
+        return idx, weight
 
 
 def eval_batches(source: _SourceBase, batch_size: int) -> Iterator[Batch]:

@@ -4,9 +4,12 @@
 dataset_preparation.py:252-297), ``DiskSource`` reads ``.mat`` files at
 gather time (reference ``DatasetDisk``, :300-344), ``ArraySource`` wraps
 arrays already in memory.  A source hands out whole batches,
-``gather(indices) -> [N, H, W, 1]`` float32, and keeps its labels in
-``distance`` / ``event`` (int32).  Files are read with scipy; the JAX
-package's optional native reader has no counterpart here.
+``gather(indices) -> [N, H, W, 1]`` float32, or writes them into a
+preallocated buffer, ``gather_into(indices, out)`` (the staged loader's
+allocation-free path, ``sources.py:44-54, 122-126, 151-157, 171-176``),
+and keeps its labels in ``distance`` / ``event`` (int32).  Files are read
+with scipy; the JAX package's optional native reader is ROADMAP.md queue 1
+item 15.
 """
 
 from __future__ import annotations
@@ -31,21 +34,40 @@ class _SourceBase:
                rng: Optional[np.random.Generator] = None) -> np.ndarray:
         raise NotImplementedError
 
+    def gather_into(self, indices: np.ndarray, out: np.ndarray,
+                    rng: Optional[np.random.Generator] = None) -> None:
+        """Write ``len(indices)`` examples into ``out[:n]`` (a
+        preallocated ``[>=n, H, W, 1]`` buffer)."""
+        n = np.asarray(indices).shape[0]
+        out[:n] = self.gather(indices, rng=rng)
+
 
 def _load_batch(paths: Sequence[str], key: str,
                 noise_snr_db: Optional[float],
-                rng: Optional[np.random.Generator]) -> np.ndarray:
+                rng: Optional[np.random.Generator],
+                out: Optional[np.ndarray] = None) -> np.ndarray:
     """Same-shaped ``.mat`` files as [N, H, W, 1] float32, with optional
-    SNR noise drawn from ``rng`` file by file."""
-    out = []
-    for path in paths:
+    SNR noise drawn from ``rng`` file by file; decoded straight into
+    ``out[:N]`` when given."""
+    rows = []
+    for i, path in enumerate(paths):
         mat = matio.load_mat(path, (key,))
         if noise_snr_db is not None:
             mat = add_gaussian_snr(mat, noise_snr_db, rng)
-        out.append(to_sample(mat))
-    if not out:
+        if out is not None:
+            out[i] = to_sample(mat)
+        else:
+            rows.append(to_sample(mat))
+    if out is not None:
+        return out
+    if not rows:
         return np.zeros((0, 0, 0, 1), np.float32)
-    return np.stack(out)
+    return np.stack(rows)
+
+
+def _take_into(x: np.ndarray, indices: np.ndarray, out: np.ndarray) -> None:
+    idx = np.asarray(indices)
+    np.take(x, idx, axis=0, out=out[:idx.shape[0]])
 
 
 def _labels(examples: Sequence[Example]):
@@ -70,6 +92,10 @@ class RamSource(_SourceBase):
                rng: Optional[np.random.Generator] = None) -> np.ndarray:
         return self.x[indices]
 
+    def gather_into(self, indices: np.ndarray, out: np.ndarray,
+                    rng: Optional[np.random.Generator] = None) -> None:
+        _take_into(self.x, indices, out)
+
 
 class DiskSource(_SourceBase):
     """Loads ``.mat`` files lazily at gather time.  Noise comes from the
@@ -92,6 +118,12 @@ class DiskSource(_SourceBase):
             self.key, self.noise_snr_db, rng if rng is not None
             else self._rng)
 
+    def gather_into(self, indices: np.ndarray, out: np.ndarray,
+                    rng: Optional[np.random.Generator] = None) -> None:
+        _load_batch([self.examples[i].path for i in np.asarray(indices)],
+                    self.key, self.noise_snr_db,
+                    rng if rng is not None else self._rng, out=out)
+
 
 class ArraySource(_SourceBase):
     """Wraps already-materialized arrays (tests, synthetic data)."""
@@ -108,3 +140,7 @@ class ArraySource(_SourceBase):
     def gather(self, indices: np.ndarray,
                rng: Optional[np.random.Generator] = None) -> np.ndarray:
         return self.x[indices]
+
+    def gather_into(self, indices: np.ndarray, out: np.ndarray,
+                    rng: Optional[np.random.Generator] = None) -> None:
+        _take_into(self.x, indices, out)

@@ -20,8 +20,9 @@ cards in use.  Without a published rate (the CPU, a card the table lacks)
 the peak is a dense-matmul rate measured on that device
 (:func:`measured_peak_flops`), so MFU reads as a share of its achievable
 matmul rate.  ``mfu`` is clamped into ``(0, 1]``;
-``mfu_raw`` keeps the ratio.  ``loader_blocked_acquires`` is 0 until the
-staged loader is ported (ROADMAP.md queue 1 item 7).
+``mfu_raw`` keeps the ratio.  ``loader_blocked_acquires`` is the staged
+loader's blocked staging acquires over the interval (``stall_fn``; 0 on
+the device-resident path, which stages nothing).
 """
 
 from __future__ import annotations

@@ -18,9 +18,9 @@ class LaunchCounter:
         self._lock = threading.Lock()
         self._n = 0
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -32,15 +32,22 @@ class LaunchCounter:
             return self._n
 
 
+def launch_counters() -> dict:
+    """Every kernel's :class:`LaunchCounter`, by kernel name."""
+    from dasmtl_torch.ops import (batch_gather, decode, digest, gating, int8,
+                                  ring, window)
+
+    return {"gate_apply": gating.launches,
+            "gate_apply_backward": gating.backward_launches,
+            "decode_heads": decode.launches,
+            "event_prob_q": decode.prob_q_launches,
+            "window_gather": window.launches,
+            "ring_append": ring.launches,
+            "int8_dot": int8.launches,
+            "leaf_digest": digest.launches,
+            "batch_gather": batch_gather.launches}
+
+
 def launch_counts() -> dict:
     """Every kernel's launch count in this process, by kernel name."""
-    from dasmtl_torch.ops import decode, digest, gating, int8, ring, window
-
-    return {"gate_apply": gating.launches.value,
-            "gate_apply_backward": gating.backward_launches.value,
-            "decode_heads": decode.launches.value,
-            "event_prob_q": decode.prob_q_launches.value,
-            "window_gather": window.launches.value,
-            "ring_append": ring.launches.value,
-            "int8_dot": int8.launches.value,
-            "leaf_digest": digest.launches.value}
+    return {name: c.value for name, c in launch_counters().items()}

@@ -53,6 +53,9 @@ SIGNATURES = {
                                        ctypes.c_int, ctypes.c_int, _P]),
     "dasmtl_leaf_digest": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int64,
                                           _P, _P]),
+    "dasmtl_batch_gather": (ctypes.c_int, [
+        _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P, _P, ctypes.c_int,
+        _P, _P, _P, _P]),
     "dasmtl_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -63,9 +66,12 @@ class BuildError(RuntimeError):
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-#: nvcc builds this process ran: the port's run-time compiles, which the
-#: step guards count (eager PyTorch compiles nothing per shape).
+#: nvcc builds this process ran, and CUDA graphs it captured: the port's
+#: run-time compiles, which the step guards count (eager PyTorch compiles
+#: nothing per shape; a graph capture is the counterpart of an XLA
+#: compile of a scan program).
 _compiles = 0
+_captures = 0
 #: nvcc's ``-Xptxas -v`` report and the build seconds of the last build
 #: this process ran (empty / 0.0 when the library was already on disk).
 build_log = ""
@@ -73,8 +79,16 @@ build_seconds = 0.0
 
 
 def compiles() -> int:
-    """How many kernel-library builds this process has run."""
-    return _compiles
+    """How many kernel-library builds and CUDA-graph captures this process
+    has run."""
+    return _compiles + _captures
+
+
+def note_capture() -> None:
+    """Count one CUDA-graph capture as a run-time compile."""
+    global _captures
+    with _lock:
+        _captures += 1
 
 
 def _sources():

@@ -16,7 +16,8 @@ serving (``dasmtl/serve/__main__.py:168-238``): the ``--precision`` preset,
 or both reduced presets under ``f32``, against the f32 forward over a
 seeded eval set (52x64 unless ``--window`` says otherwise); exit 0 when
 every preset passes, 1 otherwise.  The JAX server's other model sources
-exit with code 2 and name the ROADMAP.md item that brings them.
+exit with code 2 and name the ROADMAP.md item that brings them, and so do
+the JAX server's flags this slice does not carry (:data:`JAX_ONLY_FLAGS`).
 """
 
 from __future__ import annotations
@@ -29,12 +30,38 @@ from dasmtl_torch import config as C
 
 #: Options of ``python -m dasmtl.serve`` this slice does not port yet ->
 #: the ROADMAP.md item that brings each.
+_ARTIFACTS = "ROADMAP.md queue 1 item 5, 'Artifacts and registry'"
+_POOL = "ROADMAP.md queue 1 item 4, 'Executor pool'"
+_OBS = "ROADMAP.md queue 1 item 6, 'Observability endpoints and tracing'"
+_ANALYSIS = ("ROADMAP.md queue 1 item 3 (the lint, audit, conc and mem "
+             "families analyse JAX code and are not ported)")
 NOT_YET_PORTED = {
-    "model_path": "ROADMAP.md queue 1, 'Artifacts and registry' (the JAX "
-                  "checkpoints are Orbax files the port cannot read yet)",
-    "exported": "ROADMAP.md queue 1, 'Artifacts and registry'",
-    "registry": "ROADMAP.md queue 1, 'Artifacts and registry'",
+    "model_path": f"{_ARTIFACTS} (the JAX checkpoints are Orbax files the "
+                  f"port cannot read yet)",
+    "exported": _ARTIFACTS,
+    "registry": _ARTIFACTS,
 }
+#: Flags of ``python -m dasmtl.serve`` the port's parser does not declare,
+#: by name prefix (``history`` is ``--history`` and ``--history_interval_s``)
+#: -> the ROADMAP.md item that brings them.
+JAX_ONLY_FLAGS = (
+    ("devices", _POOL), ("shard_largest", _POOL),
+    ("shard_multihost", _POOL),
+    ("registry_version", _ARTIFACTS),
+    ("trace_ring", _OBS), ("latency_buckets_ms", _OBS),
+    ("profile_", _OBS), ("history", _OBS),
+    ("conc_", _ANALYSIS), ("mem_", _ANALYSIS),
+    ("selftest", f"{_POOL} (the serving soak, serve/selftest.py)"),
+)
+
+
+def _jax_only_item(arg: str):
+    """The ROADMAP.md item of a JAX-only flag, or None."""
+    if not arg.startswith("--"):
+        return None
+    name = arg[2:].split("=")[0]
+    return next((item for flag, item in JAX_ONLY_FLAGS
+                 if name.startswith(flag)), None)
 
 
 def _parse_window(p: argparse.ArgumentParser, text: str):
@@ -101,7 +128,15 @@ def main(argv=None) -> int:
     p.add_argument("--parity_out", type=str, default=None, metavar="PATH",
                    help="also write the parity report section into PATH "
                         "(not docs/PARITY.md, the JAX package's)")
-    args = p.parse_args(argv)
+    args, extra = p.parse_known_args(argv)
+    for arg in extra:
+        item = _jax_only_item(arg)
+        if item is not None:
+            print(f"dasmtl_torch.serve: {arg.split('=')[0]} is not yet "
+                  f"ported: {item}", file=sys.stderr)
+            return 2
+    if extra:
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
 
     for opt, item in NOT_YET_PORTED.items():
         if getattr(args, opt):

@@ -14,6 +14,11 @@ the model's state dict (parameters and BatchNorm stats), the Adam state,
 ``step``, ``epoch`` and the generator seed.  Each save is written into a
 temporary directory and renamed into place, so a crash mid-save never
 leaves a half-written checkpoint under a final name.
+
+Adam's form follows the device a payload is restored to, not the one it
+was saved from (:func:`load_optimizer`): a card run's capturable Adam (its
+``step`` counters and LR card tensors) restores into a CPU run's plain
+Adam and the other way round.
 """
 
 from __future__ import annotations
@@ -65,9 +70,34 @@ def _steps(ckpt_root: str):
                   (_STEP_RE.match(n) for n in os.listdir(ckpt_root)) if m)
 
 
+def load_optimizer(optimizer: torch.optim.Optimizer,
+                   saved: Dict[str, Any]) -> None:
+    """Load an optimizer state dict saved on either device into
+    ``optimizer`` keeping ITS form: whether it is capturable, and its LR
+    tensor (filled in place, so a CUDA graph that reads it stays valid) or
+    float.  ``step`` entries move with the form: float32 on the
+    parameter's device when capturable, CPU scalars otherwise."""
+    live = [(g["lr"], g.get("capturable", False))
+            for g in optimizer.param_groups]
+    saved = dict(saved)
+    saved["param_groups"] = [
+        {**g, "lr": float(g["lr"]), "capturable": cap}
+        for g, (_, cap) in zip(saved["param_groups"], live)]
+    optimizer.load_state_dict(saved)
+    for group, (lr, cap) in zip(optimizer.param_groups, live):
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(group["lr"])
+            group["lr"] = lr
+        if not cap:
+            for p in group["params"]:
+                st = optimizer.state.get(p, {})
+                if isinstance(st.get("step"), torch.Tensor):
+                    st["step"] = st["step"].to("cpu", torch.float32)
+
+
 def _restore_full(state: TrainState, payload: Dict[str, Any]) -> TrainState:
     state.model.load_state_dict(payload["model"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    load_optimizer(state.optimizer, payload["optimizer"])
     state.step = int(payload["step"])
     state.epoch = int(payload["epoch"])
     state.seed = int(payload["seed"])

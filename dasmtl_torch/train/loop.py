@@ -32,10 +32,28 @@ step guards (``--tracing_guards``), NaN watching (``--guard_nan_check``,
 one ``{"kind": "summary"}`` record in ``metrics.jsonl``: every rank's
 kernel launches and the guards' and sanitizers' summaries.
 
-The host pipeline assembles batch ``i+1`` on one prefetch thread while step
-``i`` runs; on the card each batch is copied host→device from pinned memory
-with ``non_blocking=True`` on the loop's stream.  Step metrics accumulate as
-device tensors and reach the host once per window.
+The host pipeline (``dasmtl/train/loop.py:591-660``) assembles batches on
+``loader_workers`` threads into page-locked staging slots
+(:meth:`BatchIterator.epoch_staged`); batch ``i+1`` is copied to the card
+(``non_blocking``) right after step ``i`` is queued, and each slot goes
+back once its copy has completed.  Step metrics accumulate as device
+tensors and reach the host once per window.
+
+The device-resident path (``loop.py:392-443, 514-575``) keeps the whole
+training set on the card and runs ``steps_per_dispatch`` fused steps per
+replay of a CUDA graph (:class:`~dasmtl_torch.train.steps.ScanTrainStep`),
+the batch gather included; validation gathers from a resident copy of the
+validation set likewise (``:255-316``), the two under one budget.  Metric
+windows flush at dispatch boundaries, and a preemption stops at one.
+``device_data`` ``auto`` takes the path on a card for a RAM source within
+the budget; ``on`` forces it (on the CPU too); ``off`` never.  It declines
+-- with a once-per-run notice under ``on``, silently under ``auto`` -- for
+``bn_sync`` other than ``global``, ``--sanitize``, more than one rank, a
+lazy source with per-gather noise and a source over the budget, as JAX
+does, and for two reasons of the port's own: NaN watching
+(``--guard_nan_check``, ``--debug_nans``) is forward hooks, which run at a
+graph's capture but never at its replay; and model C's training is
+ROADMAP.md queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -57,8 +75,12 @@ from dasmtl_torch.analysis.sanitize.divergence import DivergenceMonitor
 from dasmtl_torch.analysis.sanitize.fingerprint import (nonfinite_any,
                                                         nonfinite_leaves)
 from dasmtl_torch.config import Config
-from dasmtl_torch.data.pipeline import BatchIterator, eval_batches, prefetch
+from dasmtl_torch.data.device import (DeviceDataset, resident_bytes,
+                                      unwrap_source)
+from dasmtl_torch.data.pipeline import (BatchAssembler, BatchIterator,
+                                        eval_batches, prefetch)
 from dasmtl_torch.data.sources import _SourceBase
+from dasmtl_torch.data.staging import aligned_zeros
 from dasmtl_torch.models.registry import ModelSpec
 from dasmtl_torch.obs.heartbeat import (Heartbeat, resolve_peak_flops,
                                         step_flops)
@@ -68,7 +90,55 @@ from dasmtl_torch.train import metrics as host_metrics
 from dasmtl_torch.train.checkpoint import CheckpointManager
 from dasmtl_torch.train.optim import stepped_lr
 from dasmtl_torch.train.state import TrainState
-from dasmtl_torch.train.steps import make_eval_step, make_train_step
+from dasmtl_torch.train.steps import (ScanTrainStep, make_eval_step,
+                                      make_gather_eval_step, make_train_step)
+
+
+def resident_eval_outputs(gather_eval_step, state, data,
+                          indices: np.ndarray, distance: np.ndarray,
+                          event: np.ndarray, batch_size: int):
+    """Evaluate rows ``indices`` of a resident dataset: yields
+    ``(labels_batch, out)`` per padded batch, ``out`` on the host and
+    trimmed back to the real rows (``dasmtl/train/loop.py:67-88``)."""
+    pin = data.device.type == "cuda"
+    n = indices.shape[0]
+    for start in range(0, n, batch_size):
+        chunk = np.asarray(indices[start:start + batch_size])
+        k = chunk.shape[0]
+        idx = aligned_zeros((batch_size,), np.int32, pin=pin)
+        idx[:k] = torch.from_numpy(chunk.astype(np.int32))
+        weight = aligned_zeros((batch_size,), np.float32, pin=pin)
+        weight[:k] = 1.0
+        out = _host_eval(gather_eval_step(
+            state, data, idx.to(data.device, non_blocking=True),
+            weight.to(data.device, non_blocking=True)))
+        out["preds"] = {t: p[:k] for t, p in out["preds"].items()}
+        out["weight"] = out["weight"][:k]
+        yield ({"distance": distance[start:start + k],
+                "event": event[start:start + k]}, out)
+
+
+def _host_eval(out: Dict[str, Any]) -> Dict[str, Any]:
+    """An eval step's output on the host: numpy predictions and weight,
+    float sums."""
+    return {"preds": {t: p.cpu().numpy() for t, p in out["preds"].items()},
+            "weight": out["weight"].cpu().numpy(),
+            **{k: float(v) for k, v in out.items()
+               if k == "count" or k.startswith("loss_sum")}}
+
+
+def dispatch_len(want: int, steps_per_epoch: int) -> int:
+    """Steps per dispatch on the resident path
+    (``dasmtl/train/loop.py:90-100``).  A ragged epoch tail
+    (``steps % want != 0``) would capture a second graph; a divisor of
+    the epoch's steps that is at least half the requested size is used
+    instead."""
+    want = max(1, want)
+    steps = steps_per_epoch
+    if steps <= 0 or steps % want == 0:
+        return min(want, max(steps, 1))
+    best = max((d for d in range(1, want + 1) if steps % d == 0), default=1)
+    return best if best >= (want + 1) // 2 else want
 
 
 class MetricLines:
@@ -151,6 +221,15 @@ class Trainer:
         self._heartbeat: Optional[Heartbeat] = None
         self._hb_h2d_s = 0.0  # cumulative seconds spent in _place
         self._first_batch: Optional[Dict[str, torch.Tensor]] = None
+        self._assembler: Optional[BatchAssembler] = None
+        # The device-resident path: the train and val sets on the card,
+        # the scan step, and whether a forced-on decline was announced.
+        self._device_data: Optional[DeviceDataset] = None
+        self._scan_step: Optional[ScanTrainStep] = None
+        self._device_data_noticed = False
+        self._val_device: Optional[DeviceDataset] = None
+        self._gather_eval_step = None
+        self._val_device_noticed = False
         self._stop_local = False
         self.jsonl_path = os.path.join(self.metrics_dir, "metrics.jsonl")
         # The reference gates on distance accuracy when the model predicts
@@ -171,9 +250,8 @@ class Trainer:
 
     # -- helpers -------------------------------------------------------------
     def _pin(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """Host batch -> this rank's shard as torch tensors, page-locked
-        when the model is on the card (runs on the prefetch thread)."""
-        batch = shard_batch(batch, self.world)
+        """Host eval batch -> torch tensors, page-locked when the model is
+        on the card (runs on the prefetch thread)."""
         out = {k: torch.from_numpy(np.ascontiguousarray(v))
                for k, v in batch.items()}
         if self.state.device.type == "cuda":
@@ -182,18 +260,37 @@ class Trainer:
 
     def _place(self, batch: Dict[str, torch.Tensor]
                ) -> Dict[str, torch.Tensor]:
-        """Queue the batch's copy to the card (timed for the heartbeat's
-        ``h2d_ms``: enqueue time, the copy itself is asynchronous)."""
+        """Queue this rank's shard of the batch's copy to the card (timed
+        for the heartbeat's ``h2d_ms``: enqueue time, the copy itself is
+        asynchronous)."""
         t0 = time.perf_counter()
         device = self.state.device
         placed = {k: v.to(device, non_blocking=True)
-                  for k, v in batch.items()}
+                  for k, v in shard_batch(batch, self.world).items()}
         self._hb_h2d_s += time.perf_counter() - t0
         return placed
 
-    def _host_batches(self, batches):
-        return prefetch(batches, depth=self.cfg.prefetch_batches,
-                        place_fn=self._pin)
+    def _get_assembler(self) -> BatchAssembler:
+        """The staged-batch assembler, kept across epochs so the staging
+        freelist is allocated once per run; its depth covers the worker
+        pool's queue and two slots whose copies may still be queued."""
+        if self._assembler is None:
+            cfg = self.cfg
+            depth = max(cfg.loader_queue_depth, cfg.loader_workers, 1) + 2
+            self._assembler = BatchAssembler(
+                self.train_iter.source, self.train_iter.batch_size,
+                depth=depth, pin=self.state.device.type == "cuda")
+        return self._assembler
+
+    def _take(self, staged) -> Optional[Dict[str, torch.Tensor]]:
+        """Place a staged batch and give its slot back at once: on the
+        card the slot rejoins the freelist when its queued copy completes,
+        on the CPU the placed tensors are the slot's and it is retired."""
+        if staged is None:
+            return None
+        placed = self._place(staged.data)
+        staged.release(placed)
+        return placed
 
     def _log_jsonl(self, record: Dict[str, Any]) -> None:
         if not self.main:
@@ -202,6 +299,64 @@ class Trainer:
             f.write(json.dumps(record) + "\n")
 
     # -- validation ----------------------------------------------------------
+    def _use_device_val(self) -> bool:
+        """Resident validation (``dasmtl/train/loop.py:255-300``): never
+        under ``off`` or with ranks; ``auto`` declines on the CPU; the
+        val set must be RAM-backed, and the train and val sets together
+        within the one budget."""
+        cfg = self.cfg
+        if cfg.device_data == "off" or self.world is not None:
+            return False
+        if self._val_device is not None:
+            return True
+        if cfg.device_data == "auto" and self.state.device.type == "cpu":
+            return False
+
+        def declined(reason: str) -> bool:
+            if cfg.device_data == "on" and not self._val_device_noticed:
+                self._val_device_noticed = True
+                print(f"[device-data] validation stays on the host "
+                      f"pipeline ({reason})")
+            return False
+
+        nbytes = resident_bytes(self.val_source)
+        if nbytes is None:
+            return declined("lazy val source")
+        if self._device_data is not None:
+            train_bytes = self._device_data.nbytes
+        else:
+            known = resident_bytes(self.train_iter.source)
+            if known is None and cfg.device_data == "on":
+                return declined("train-set residency size unknown")
+            train_bytes = known or 0
+        if nbytes + train_bytes > cfg.device_data_budget_mb * 2**20:
+            return declined("train + val sets exceed device_data_budget_mb")
+        return True
+
+    def _eval_outputs(self):
+        """``(labels_batch, out)`` per eval batch, ``out`` on the host:
+        from the resident path (trimmed to the real rows) or the host
+        pipeline (padded rows kept; consumers mask by ``weight > 0``)."""
+        if self._use_device_val():
+            if self._val_device is None:
+                self._val_device = DeviceDataset(self.val_source,
+                                                 self.state.device)
+                self._gather_eval_step = make_gather_eval_step(self.spec)
+            yield from resident_eval_outputs(
+                self._gather_eval_step, self.state, self._val_device,
+                np.arange(len(self.val_source)), self.val_source.distance,
+                self.val_source.event, self.eval_batch_size)
+            return
+        for host in prefetch(eval_batches(self.val_source,
+                                          self.eval_batch_size),
+                             depth=self.cfg.prefetch_batches,
+                             place_fn=self._pin):
+            out = self.eval_step(self.state, self._place(host))
+            labels = shard_batch({k: host[k].numpy()
+                                  for k in ("distance", "event")},
+                                 self.world)
+            yield labels, _host_eval(out)
+
     def validate(self, epoch: int) -> ValidationResult:
         """One full pass over the validation source; host-side metrics per
         task head (reference utils.py:253-322)."""
@@ -212,17 +367,15 @@ class Trainer:
         all_weight: List[np.ndarray] = []
         labels: Dict[str, List[np.ndarray]] = {"distance": [], "event": []}
         sums: Dict[str, float] = {}
-        for host in self._host_batches(eval_batches(
-                self.val_source, self.eval_batch_size)):
-            out = self.eval_step(self.state, self._place(host))
+        for batch_labels, out in self._eval_outputs():
             for k in labels:
-                labels[k].append(host[k].numpy())
+                labels[k].append(batch_labels[k])
             for task, preds in out["preds"].items():
-                all_preds.setdefault(task, []).append(preds.cpu().numpy())
-            all_weight.append(out["weight"].cpu().numpy())
+                all_preds.setdefault(task, []).append(preds)
+            all_weight.append(out["weight"])
             for k, v in out.items():
                 if k == "count" or k.startswith("loss_sum"):
-                    sums[k] = sums.get(k, 0.0) + float(v)
+                    sums[k] = sums.get(k, 0.0) + v
         if self.world is not None:
             all_preds, all_weight, labels, sums = _gather_eval(
                 all_preds, all_weight, labels, sums)
@@ -281,18 +434,126 @@ class Trainer:
                                 predictions=predictions)
 
     # -- training ------------------------------------------------------------
+    def _use_device_data(self) -> bool:
+        """Whether this epoch takes the device-resident path (the module
+        docstring lists the declines; ``dasmtl/train/loop.py:392-443``)."""
+        cfg = self.cfg
+        if cfg.device_data == "off":
+            return False
+        if self._device_data is not None:
+            return True
+
+        def declined(reason: str) -> bool:
+            # Forced-on declines are announced once per run; "auto"
+            # declines silently.
+            if cfg.device_data == "on" and not self._device_data_noticed:
+                self._device_data_noticed = True
+                print(f"[device-data] disabled: {reason}")
+            return False
+
+        if cfg.bn_sync != "global":
+            return declined("bn_sync=per_replica keeps the per-rank host "
+                            "pipeline")
+        if cfg.sanitize:
+            return declined("sanitize mode keeps the per-step path for its "
+                            "snapshot and replay blame")
+        if self.world is not None:
+            return declined("multi-process run keeps the per-rank input "
+                            "pipeline")
+        source = unwrap_source(self.train_iter.source)
+        if getattr(source, "noise_snr_db", None) is not None and \
+                getattr(source, "x", None) is None:
+            # One up-front gather would freeze a single noise draw.
+            return declined("lazy source with per-gather noise "
+                            "(noise_snr_db) — the host pipeline redraws it")
+        if cfg.guard_nan_check or cfg.debug_nans:
+            return declined("--guard_nan_check / --debug_nans watch module "
+                            "outputs with forward hooks, which run when a "
+                            "CUDA graph is captured, never when it replays")
+        if self.spec.name == "multi_classifier":
+            return declined("model C's training is ROADMAP.md queue 1 item "
+                            "8, 'Model C, multi-device training and CV'")
+        if cfg.device_data == "auto" and self.state.device.type == "cpu":
+            return False
+        nbytes = resident_bytes(self.train_iter.source)
+        budget = cfg.device_data_budget_mb * 2**20
+        if nbytes is not None and nbytes > budget:
+            return declined(f"the training set's {nbytes / 2**20:.1f} MiB "
+                            f"exceed device_data_budget_mb "
+                            f"({cfg.device_data_budget_mb})")
+        if nbytes is None and cfg.device_data == "auto":
+            return False  # a lazy source: "on" forces the load
+        return True
+
+    def _dispatch_k(self) -> int:
+        return dispatch_len(self.cfg.steps_per_dispatch,
+                            self.train_iter.steps_per_epoch())
+
+    def _train_epoch_device(self, epoch: int, lr: float) -> None:
+        """One epoch on the device-resident path: the same index plan and
+        step body as :meth:`_train_epoch`, ``_dispatch_k()`` fused steps
+        per dispatch; windows flush on dispatch boundaries (the cadence is
+        ``log_every_steps`` rounded up to a dispatch)."""
+        if self._device_data is None:
+            self._device_data = DeviceDataset(self.train_iter.source,
+                                              self.state.device)
+            self._scan_step = ScanTrainStep(self.spec, self._device_data,
+                                            self.train_iter.batch_size)
+            print(f"[device-data] training set resident on device: "
+                  f"n={self._device_data.n}, "
+                  f"{self._device_data.nbytes / 2**20:.1f} MiB, "
+                  f"{self._dispatch_k()} steps/dispatch")
+        if self._heartbeat is not None and self._first_batch is None:
+            # No host batch exists here: the FLOP count takes the batch
+            # shapes from the resident data.
+            b, data = self.train_iter.batch_size, self._device_data
+            self._first_batch = {
+                "x": data.x.new_zeros((b,) + tuple(data.x.shape[1:])),
+                "distance": data.distance.new_zeros((b,)),
+                "event": data.event.new_zeros((b,)),
+                "weight": data.x.new_ones((b,))}
+        idx, weight = self._scan_step.plan(
+            *self.train_iter.epoch_index_plan(epoch))
+        steps = idx.shape[0]
+        dispatch_k = self._dispatch_k()
+        window: Dict[str, torch.Tensor] = {}
+        t0 = time.perf_counter()
+        done = last_flush = 0
+        while done < steps and not self._preempted:
+            k = min(dispatch_k, steps - done)
+            with self._step_guard(k):
+                stacked = self._scan_step(self.state, idx[done:done + k],
+                                          weight[done:done + k], lr)
+            for key, v in stacked.items():
+                v = v.sum()
+                window[key] = window[key] + v if key in window else v
+            done += k
+            if done - last_flush >= self.cfg.log_every_steps:
+                self._flush_window(epoch, done - 1, window, t0)
+                window = {}
+                last_flush = done
+                t0 = time.perf_counter()
+        if window:
+            self._flush_window(epoch, done - 1, window, t0)
+        if not self._preempted:
+            self.state.epoch += 1
+
     def _train_epoch(self, epoch: int, lr: float) -> None:
-        """One epoch on the host pipeline: batch ``i+1`` is assembled and
-        pinned on the prefetch thread and its copy queued right after step
-        ``i`` is, so neither waits for the other."""
+        """One epoch: the device-resident path when it is taken, else the
+        staged host pipeline (``dasmtl/train/loop.py:591-660``): batch
+        ``i+1``'s copy is queued right after step ``i`` is."""
+        if self._use_device_data():
+            self._train_epoch_device(epoch, lr)
+            return
         cfg = self.cfg
         window: Dict[str, torch.Tensor] = {}
         t0 = time.perf_counter()
         i = -1
-        batches = self._host_batches(self.train_iter.epoch(epoch))
+        stream = self.train_iter.epoch_staged(
+            epoch, self._get_assembler(), workers=cfg.loader_workers,
+            depth=cfg.loader_queue_depth)
         try:
-            cur = next(batches, None)
-            placed = self._place(cur) if cur is not None else None
+            placed = self._take(next(stream, None))
             if self._heartbeat is not None and self._first_batch is None:
                 self._first_batch = placed  # for the heartbeat's FLOPs
             while placed is not None:
@@ -307,16 +568,16 @@ class Trainer:
                     step_metrics = self.train_step(self.state, placed, lr)
                 if self.world is not None:
                     self._preempted = self.train_step.stop_agreed
-                done, nxt = placed, next(batches, None)
-                placed = self._place(nxt) if nxt is not None else None
+                nxt = self._take(next(stream, None))
                 # Outside the guarded body: these reads wait for the step.
                 where = f"epoch {epoch} step {i}"
                 if self._nan_watch is not None:
                     self._check_nans(where)
                 if self._sanitizer is not None:
-                    self._sanitizer.after_step(self.state, done, lr,
+                    self._sanitizer.after_step(self.state, placed, lr,
                                                step_metrics, context=where)
                     self._divergence.maybe_check(self.state, context=where)
+                placed = nxt
                 for k, v in step_metrics.items():
                     window[k] = window[k] + v if k in window else v
                 if (i + 1) % cfg.log_every_steps == 0:
@@ -326,7 +587,7 @@ class Trainer:
                 if self._preempted:
                     break
         finally:
-            batches.close()
+            stream.close()  # stops and joins the worker pool
         if window:
             self._flush_window(epoch, i, window, t0)
         if not self._preempted:
@@ -370,8 +631,10 @@ class Trainer:
                                     samples=n, elapsed_s=elapsed)
 
     # -- guards, sanitizers, heartbeat -----------------------------------------
-    def _step_guard(self):
-        return self.guards.step() if self.guards is not None \
+    def _step_guard(self, n: int = 1):
+        """The guard of one step, or of one dispatch of ``n`` fused steps
+        (``dasmtl/train/loop.py:449-453``)."""
+        return self.guards.step(n) if self.guards is not None \
             else nullcontext()
 
     def _check_nans(self, where: str) -> None:
@@ -419,6 +682,9 @@ class Trainer:
             batch_size=self.train_iter.batch_size,
             flops_fn=self._global_step_flops,
             peak_flops=peak, peak_source=peak_source,
+            stall_fn=lambda: (self._assembler.staging.stats()
+                              ["blocked_acquires"]
+                              if self._assembler is not None else 0),
             h2d_fn=lambda: self._hb_h2d_s,
             recompile_fn=lambda: (self.guards.post_warmup_compiles
                                   if self.guards is not None else 0))

@@ -22,15 +22,25 @@ batch instead (:func:`dasmtl_torch.models.layers.sync_batchnorm`), so its
 running stats agree on every rank without a sync.  The sanitizers' fault
 ``grad_desync``, read when the step is built, skips the gradient and stat
 sums (``:298-336``).
+
+On the device-resident path :class:`ScanTrainStep` is ``make_scan_train_
+step`` (``:175-216``): K full train steps per dispatch, each gathering its
+batch from the training set on the card (the ``batch_gather`` kernel), as
+ONE replay of a CUDA graph, the port's counterpart of a jitted
+``lax.scan``.  :func:`make_gather_eval_step` (``:408-425``) is its eager
+eval twin.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dasmtl_torch.models.registry import ModelSpec
+from dasmtl_torch.ops import _build, launch_counters
+from dasmtl_torch.ops.batch_gather import batch_gather, check_plan
 from dasmtl_torch.train.optim import set_lr
 from dasmtl_torch.train.state import TrainState
 
@@ -179,6 +189,19 @@ class DataParallelStep:
         return {k: summed[i] for i, k in enumerate(keys)}
 
 
+def _eval_body(spec: ModelSpec, state: TrainState,
+               batch: Batch) -> Dict[str, Any]:
+    state.model.eval()
+    with torch.inference_mode():
+        outputs = state.model(batch["x"])
+        loss, parts = spec.loss_fn(outputs, batch)
+        weight = batch["weight"]
+        n = weight.sum()
+        return {"preds": spec.decode(outputs), "weight": weight,
+                "count": n, "loss_sum": loss * n,
+                **{f"loss_sum_{k}": v * n for k, v in parts.items()}}
+
+
 def make_eval_step(spec: ModelSpec
                    ) -> Callable[[TrainState, Batch], Dict[str, Any]]:
     """``eval_step(state, batch) -> out`` with per-example predictions
@@ -186,14 +209,177 @@ def make_eval_step(spec: ModelSpec
     ``loss_sum``, ``loss_sum_<part>``), all device tensors."""
 
     def eval_step(state: TrainState, batch: Batch) -> Dict[str, Any]:
-        state.model.eval()
-        with torch.inference_mode():
-            outputs = state.model(batch["x"])
-            loss, parts = spec.loss_fn(outputs, batch)
-            weight = batch["weight"]
-            n = weight.sum()
-            return {"preds": spec.decode(outputs), "weight": weight,
-                    "count": n, "loss_sum": loss * n,
-                    **{f"loss_sum_{k}": v * n for k, v in parts.items()}}
+        return _eval_body(spec, state, batch)
 
     return eval_step
+
+
+def make_gather_eval_step(spec: ModelSpec):
+    """``eval_gather(state, data, idx, weight) -> out``: the eval step on a
+    batch gathered from a :class:`~dasmtl_torch.data.device.DeviceDataset`
+    (one ``batch_gather`` launch on the card), ``idx`` / ``weight`` (B,)
+    int32 / float32 on the data's device."""
+
+    def eval_gather(state: TrainState, data, idx: torch.Tensor,
+                    weight: torch.Tensor) -> Dict[str, Any]:
+        x, d, e = batch_gather(data.x, data.distance, data.event, idx,
+                               weight)
+        return _eval_body(spec, state, {"x": x, "distance": d, "event": e,
+                                        "weight": weight})
+
+    return eval_gather
+
+
+class _Graph:
+    """One captured dispatch of ``k`` steps: its static plan and metric
+    buffers, and the kernel launches it holds (added at every replay)."""
+
+    def __init__(self, graph, idx, weight, metrics, launches):
+        self.graph, self.idx, self.weight, self.metrics = (graph, idx,
+                                                           weight, metrics)
+        self.launches = launches
+
+
+class ScanTrainStep:
+    """``make_scan_train_step`` (``dasmtl/train/steps.py:175-216``): ``k``
+    full train steps per dispatch over a training set resident on the
+    data's device, each gather -> forward -> the spec's loss -> backward
+    -> Adam -> BatchNorm update.
+
+    :meth:`plan` checks and stages an epoch's ``(S, B)`` index and weight
+    plan (page-locked on the card); ``step(state, idx, weight, lr)`` runs
+    a ``(k, B)`` slice of it and returns the per-step metric sums stacked
+    ``(k,)`` under the train step's keys.
+
+    On the card the step owns static buffers (the gathered batch, and per
+    dispatch length ``k`` a ``(k, B)`` index plan, a ``(k, B)`` weight plan
+    and a ``(k, n_metrics)`` metric stack) and one CUDA graph per ``k``,
+    all graphs in one memory pool:
+
+    - the run's FIRST dispatch runs eagerly on a side stream: the warmup
+      the capture needs (Adam's moments, cuBLAS / cuDNN handles) is a real
+      dispatch of the run, so no step is added; its ``k``'s graph is
+      captured right after it (capture itself runs nothing);
+    - a later dispatch of a new ``k`` (a ragged epoch tail) captures its
+      graph and replays it at once; each capture counts as a run-time
+      compile for the step guards;
+    - a dispatch copies its plan slice into the static buffers
+      (``non_blocking``) and replays; Adam reads the LR card tensor that
+      ``set_lr`` fills, so an LR change reaches the graph;
+    - kernel launch counters count at capture only, so the capture's
+      counts are taken back and added at every replay.
+
+    On the CPU the same ``k`` steps run eagerly (no graph: only the CPU
+    was asked for), through the plain gather.
+    """
+
+    def __init__(self, spec: ModelSpec, data, batch_size: int):
+        self.spec = spec
+        self.data = data
+        self.batch_size = int(batch_size)
+        dev = data.device
+        self.on_card = dev.type == "cuda"
+        b = self.batch_size
+        self._out = (torch.empty((b,) + tuple(data.x.shape[1:]),
+                                 dtype=torch.float32, device=dev),
+                     torch.empty((b,), dtype=torch.int32, device=dev),
+                     torch.empty((b,), dtype=torch.int32, device=dev))
+        self.keys: Optional[List[str]] = None
+        self._graphs: Dict[int, _Graph] = {}
+        self._warm = False
+        self.captures = 0
+        if self.on_card:
+            self._stream = torch.cuda.Stream(dev)
+            self._pool = torch.cuda.graph_pool_handle()
+
+    def plan(self, idx: np.ndarray, weight: np.ndarray
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """An epoch's plan, checked (every index in ``[0, N)``) and staged
+        as CPU tensors, page-locked for the card."""
+        check_plan(idx, self.data.n)
+        out = (torch.from_numpy(np.ascontiguousarray(idx, np.int32)),
+               torch.from_numpy(np.ascontiguousarray(weight, np.float32)))
+        return tuple(t.pin_memory() for t in out) if self.on_card else out
+
+    def _body(self, state: TrainState, idx: torch.Tensor,
+              weight: torch.Tensor) -> torch.Tensor:
+        """One train step on the gathered batch; its metrics stacked in
+        ``self.keys`` order."""
+        model, opt = state.model, state.optimizer
+        x, d, e = batch_gather(self.data.x, self.data.distance,
+                               self.data.event, idx, weight, out=self._out)
+        batch = {"x": x, "distance": d, "event": e, "weight": weight}
+        outputs = model(x)
+        loss, parts = self.spec.loss_fn(outputs, batch)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        metrics = _step_metrics(self.spec, outputs, batch, loss, parts)
+        if self.keys is None:
+            self.keys = sorted(metrics)
+        return torch.stack([metrics[k].float() for k in self.keys])
+
+    def _eager(self, state, idx, weight) -> torch.Tensor:
+        return torch.stack([self._body(state, idx[i], weight[i])
+                            for i in range(idx.shape[0])])
+
+    def _capture(self, state: TrainState, k: int) -> _Graph:
+        from dasmtl_torch.analysis.guards import declared_sync
+
+        dev = self.data.device
+        g = _Graph(torch.cuda.CUDAGraph(),
+                   torch.zeros((k, self.batch_size), dtype=torch.int32,
+                               device=dev),
+                   torch.zeros((k, self.batch_size), dtype=torch.float32,
+                               device=dev),
+                   torch.zeros((k, len(self.keys)), dtype=torch.float32,
+                               device=dev), {})
+        counters = launch_counters()
+        before = {n: c.value for n, c in counters.items()}
+        # Capture synchronizes the device: a declared sync.
+        with declared_sync(), torch.cuda.graph(
+                g.graph, pool=self._pool, stream=self._stream,
+                capture_error_mode="thread_local"):
+            for i in range(k):
+                g.metrics[i].copy_(self._body(state, g.idx[i], g.weight[i]))
+        for name, c in counters.items():
+            n = c.value - before[name]
+            if n:
+                c.add(-n)  # the capture launched nothing
+                g.launches[c] = n
+        self._graphs[k] = g
+        self.captures += 1
+        _build.note_capture()
+        return g
+
+    def __call__(self, state: TrainState, idx: torch.Tensor,
+                 weight: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
+        k = idx.shape[0]
+        state.model.train()
+        set_lr(state.optimizer, lr)
+        if not self.on_card:
+            stacked = self._eager(state, idx, weight)
+        elif not self._warm:
+            dev = self.data.device
+            plan = (idx.to(dev, non_blocking=True),
+                    weight.to(dev, non_blocking=True))
+            main = torch.cuda.current_stream(dev)
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                stacked = self._eager(state, *plan)
+            main.wait_stream(self._stream)
+            stacked.record_stream(main)
+            self._warm = True
+            # Captured now, in the run's first dispatch (inside a one-epoch
+            # guard warmup), as JAX compiles its scan at the first call.
+            self._capture(state, k)
+        else:
+            g = self._graphs.get(k) or self._capture(state, k)
+            g.idx.copy_(idx, non_blocking=True)
+            g.weight.copy_(weight, non_blocking=True)
+            g.graph.replay()
+            for c, n in g.launches.items():
+                c.add(n)
+            stacked = g.metrics.clone()
+        state.step += k
+        return {key: stacked[:, i] for i, key in enumerate(self.keys)}

@@ -5,7 +5,10 @@ appends against window gathers, the precision presets (the int8_dot
 kernel bit for bit, model C's int8 forward against the CPU, model A's
 launch counts under every preset), and the leaf digest (one launch, bit
 for bit against its plain version and JAX's known answers) with a
-two-rank data-parallel step on the card against the CPU.
+two-rank data-parallel step on the card against the CPU; the batch gather
+bit for bit against its plain version, the resident scan step's CUDA-graph
+replays against the same steps run eagerly (an LR change and a ragged tail
+included), and a staging slot held back until its queued copy completes.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -26,7 +29,7 @@ from dasmtl_torch.export import make_precision_serve_fn, make_serve_infer_fn
 from dasmtl_torch.models.registry import get_model_spec
 from dasmtl_torch.models.two_level import TwoLevelNet
 from dasmtl_torch.models.weights import init_fresh, init_scaled
-from dasmtl_torch.ops import decode, gating, int8, ring, window
+from dasmtl_torch.ops import batch_gather, decode, gating, int8, ring, window
 from dasmtl_torch.serve.executor import InferExecutor
 from dasmtl_torch.train.optim import coupled_adam
 from dasmtl_torch.train.state import TrainState
@@ -49,6 +52,7 @@ def cuda():
     window.launches.reset()
     ring.launches.reset()
     int8.launches.reset()
+    batch_gather.launches.reset()
     return torch.device("cuda")
 
 
@@ -552,3 +556,124 @@ def test_heartbeat_peak_of_an_unlisted_card_is_measured_on_it(cuda,
     assert source == f"measured-matmul:{name}x2"
     # A card's f32 matmul rate, not the host's: above any CPU's 1e12.
     assert measured / 2 > 1e12 and measured / 2 < 2 * peak
+
+
+# -- the device-resident path ---------------------------------------------------
+def _gather_operands(device, n, hw, b, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, *hw, 1), generator=g)
+    x[0] = -x[0].abs() - 1.0  # padded rows read row 0: -0.0 after * 0
+    x[0].view(-1)[5] = float("nan")  # and a NaN at the padding index
+    d = torch.randint(0, 16, (n,), generator=g, dtype=torch.int32)
+    e = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    idx = torch.randint(0, n, (b,), generator=g, dtype=torch.int32)
+    w = torch.ones(b)
+    if b > 1:
+        idx[-2:] = 0
+        w[-2:] = 0.0
+    return [t.to(device) for t in (x, d, e, idx, w)]
+
+
+@pytest.mark.parametrize("b, hw", [(1, (100, 250)), (7, (100, 250)),
+                                   (32, (100, 250)), (32, (7, 13))])
+def test_batch_gather_kernel_matches_plain_bit_for_bit(cuda, b, hw):
+    ops = _gather_operands(cuda, 40, hw, b, seed=b)
+    got = batch_gather.batch_gather(*ops)
+    want = batch_gather.batch_gather_plain(*ops)
+    torch.cuda.synchronize()
+    assert batch_gather.launches.value == 1
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    if b > 1:
+        assert torch.signbit(got[0][-2:]).any()  # -0.0 kept
+        assert torch.isnan(got[0][-2:]).sum() == 2  # NaN kept
+
+
+def test_batch_gather_refuses_what_it_does_not_take(cuda):
+    x, d, e, idx, w = _gather_operands(cuda, 8, (4, 8), 4, seed=3)
+    with pytest.raises(TypeError):
+        batch_gather.batch_gather(x.double(), d, e, idx, w)
+    with pytest.raises(TypeError):
+        batch_gather.batch_gather(x, d, e, idx.long(), w)
+    with pytest.raises(ValueError):
+        batch_gather.batch_gather(x.transpose(1, 2), d, e, idx, w)
+    with pytest.raises(ValueError):
+        batch_gather.batch_gather(x, d, e, idx.cpu(), w)
+    assert batch_gather.launches.value == 0
+
+
+def test_scan_step_graph_replays_match_eager_steps(cuda):
+    """Model A at 52x64, batch 8, 38 windows (5 steps, the last ragged)
+    in dispatches of 2, 2 and 1, the LR changed before the second: the
+    graph path (eager warmup, 2 captures, 3 replays) against the same 5
+    steps run eagerly on the card, both under deterministic algorithms
+    (cuDNN's default backward convolutions sum with atomics), bit for bit;
+    8 + 8 gate launches and 1 gather per step."""
+    from dasmtl_torch.analysis.sanitize.determinism import deterministic
+    from dasmtl_torch.data.device import DeviceDataset
+    from dasmtl_torch.data.pipeline import BatchIterator
+    from dasmtl_torch.data.sources import ArraySource
+    from dasmtl_torch.train.steps import ScanTrainStep
+
+    set_f32_numerics()
+    spec = get_model_spec("MTL")
+    g = torch.Generator().manual_seed(5)
+    src = ArraySource(torch.randn(38, 52, 64, 1, generator=g).numpy(),
+                      torch.randint(0, 16, (38,), generator=g).numpy(),
+                      torch.randint(0, 2, (38,), generator=g).numpy())
+    idx, w = BatchIterator(src, 8, seed=1).epoch_index_plan(0)
+    data = DeviceDataset(src, cuda)
+    states = []
+    for _ in range(2):
+        net = init_fresh(spec.build(), seed=0).to(cuda)
+        states.append(TrainState(model=net,
+                                 optimizer=coupled_adam(net.parameters())))
+    cuts, lrs = ((0, 2), (2, 4), (4, 5)), (1e-3, 1e-3 / 1.5, 1e-3 / 1.5)
+    with deterministic("cuda"):
+        scan = ScanTrainStep(spec, data, 8)
+        p_idx, p_w = scan.plan(idx, w)
+        graph_metrics = [scan(states[0], p_idx[a:b], p_w[a:b], lr)
+                         for (a, b), lr in zip(cuts, lrs)]
+        torch.cuda.synchronize()
+        assert scan.captures == 2
+        assert gating.launches.value == gating.backward_launches.value == 40
+        assert batch_gather.launches.value == 5
+        step = make_train_step(spec)
+        eager_metrics = []
+        for s in range(5):
+            i, ws = (torch.from_numpy(a[s]).to(cuda) for a in (idx, w))
+            x, d, e = batch_gather.batch_gather_plain(
+                data.x, data.distance, data.event, i, ws)
+            eager_metrics.append(step(states[1], {
+                "x": x, "distance": d, "event": e, "weight": ws},
+                lrs[0] if s < 2 else lrs[1]))
+    assert states[0].step == states[1].step == 5
+    flat = {k: torch.cat([m[k] for m in graph_metrics]).cpu()
+            for k in graph_metrics[0]}
+    for s, m in enumerate(eager_metrics):
+        for k, v in m.items():
+            assert float(flat[k][s]) == float(v), (s, k)
+    want = states[1].model.state_dict()
+    for k, v in states[0].model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+
+
+def test_staging_slot_waits_for_its_queued_copy(cuda):
+    """A page-locked slot released while its copy is still queued is not
+    handed out again until the copy completes."""
+    from dasmtl_torch.data.staging import StagingBuffers
+
+    staging = StagingBuffers({"s": {"x": ((1 << 20,), np.float32)}},
+                             depth=1, pin=True)
+    buf = staging.acquire("s")
+    assert buf["x"].is_pinned()
+    buf["x"].fill_(1.0)
+    torch.cuda._sleep(200_000_000)  # the copy below waits behind this
+    placed = {"x": buf["x"].to(cuda, non_blocking=True)}
+    staging.release(buf, placed)
+    assert staging.stats()["copies_in_flight"] == 1
+    again = staging.acquire("s")  # blocks until the copy has run
+    assert again is buf and staging.stats()["blocked_acquires"] == 1
+    again["x"].fill_(2.0)
+    torch.cuda.synchronize()
+    assert bool((placed["x"] == 1.0).all())

@@ -15,8 +15,11 @@ counterpart, on the CPU.
   ``--compute_dtype bfloat16``.
 - ``python -m dasmtl_torch.sanitize``: the self-test catches all three
   faults (two gloo ranks); determinism cells repeat bit for bit, dp1 and
-  dp2; JAX's cell names, presets and synthetic draws; unported cells and
-  the baseline exit 2.
+  dp2; JAX's cell names, presets and synthetic draws; unported cells exit
+  2.  The port's baseline (``--update-baseline`` / ``--check-baseline``):
+  a round trip in a temporary file, a planted digest drift that fires
+  SAN203, and a stamp mismatch that skips the digests but keeps the float
+  gate, JAX's semantics.
 - ``python -m dasmtl_torch train --dp 2 --sanitize ...`` end to end in
   both BatchNorm modes: SAN201 every step, no post-warmup compile, the
   heartbeat's records with MFU, one summary per rank.
@@ -263,11 +266,73 @@ def test_cells_presets_and_batches_are_jax_s(capsys):
     for argv, item in ((["--cells", "MTL-bf16-dp2", "--device", "cpu"],
                         "item 11"),
                        (["--cells", "multi_classifier-f32-dp1", "--device",
-                         "cpu"], "item 8"),
-                       (["--check-baseline"], "item 12"),
-                       (["--update-baseline"], "item 12")):
+                         "cpu"], "item 8")):
         assert runner.main(argv) == 2
         assert item in capsys.readouterr().err
+
+
+# -- the determinism baseline (SAN203's gate) ----------------------------------
+def _report(name="MTL-f32-dp1", chain="c" * 64, loss=3.25):
+    return determinism.CellReport(
+        name=name, n_devices=1, compute_dtype="float32", steps=4,
+        digests={"metrics_chain": chain, "params": "p" * 64,
+                 "batch_stats": "b" * 64, "opt_state": "o" * 64},
+        metrics={"final_loss": loss, "final_count": 8.0})
+
+
+@pytest.fixture
+def fake_cells(monkeypatch):
+    """``runner.run_cells`` answering from a list the test sets, so the
+    CLI's baseline flow runs without training."""
+    reports = [_report()]
+    monkeypatch.setattr(runner, "run_cells",
+                        lambda cells, device="cuda": (list(reports), []))
+    return reports
+
+
+def test_baseline_update_then_check_round_trip(tmp_path, fake_cells,
+                                               capsys):
+    path = str(tmp_path / "baseline.json")
+    argv = ["--cells", "MTL-f32-dp1", "--device", "cpu", "--baseline", path]
+    assert runner.main(argv + ["--check-baseline"]) == 1  # no baseline yet
+    assert "SAN203" in capsys.readouterr().out
+    assert runner.main(argv + ["--update-baseline"]) == 0
+    with open(path) as f:
+        written = json.load(f)
+    assert written["generated_with"] == determinism.generated_with("cpu")
+    assert set(written["generated_with"]) == {"card", "torch", "cuda"}
+    assert written["targets"]["MTL-f32-dp1"]["digests"]["params"] == \
+        "p" * 64
+    assert written["tolerances"] == determinism.DEFAULT_TOLERANCES
+    assert runner.main(argv + ["--check-baseline"]) == 0
+    assert determinism.DEFAULT_BASELINE_PATH.startswith(
+        os.path.dirname(determinism.__file__))
+
+
+def test_baseline_digest_drift_fires_san203(tmp_path, fake_cells, capsys):
+    path = str(tmp_path / "baseline.json")
+    argv = ["--cells", "MTL-f32-dp1", "--device", "cpu", "--baseline", path]
+    assert runner.main(argv + ["--update-baseline"]) == 0
+    fake_cells[0] = _report(chain="d" * 64)
+    assert runner.main(argv + ["--check-baseline"]) == 1
+    out = capsys.readouterr().out
+    assert "SAN203" in out and "metrics_chain digest drift" in out
+
+
+def test_baseline_stamp_mismatch_skips_digests(tmp_path, fake_cells,
+                                               capsys):
+    path = str(tmp_path / "baseline.json")
+    determinism.update_baseline(
+        [_report()], path, stamp={"card": "NVIDIA H100 80GB HBM3",
+                                  "torch": "0.0", "cuda": "0.0"})
+    argv = ["--cells", "MTL-f32-dp1", "--device", "cpu", "--baseline", path,
+            "--check-baseline"]
+    fake_cells[0] = _report(chain="d" * 64)  # digests differ...
+    assert runner.main(argv) == 0  # ...but are not compared
+    assert "exact-digest checks skipped" in capsys.readouterr().err
+    fake_cells[0] = _report(chain="d" * 64, loss=3.5)  # the float gate
+    assert runner.main(argv) == 1
+    assert "final_loss" in capsys.readouterr().out
 
 
 # -- python -m dasmtl_torch train --dp 2 --sanitize -------------------------------

@@ -276,6 +276,26 @@ def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert "ROADMAP.md" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("argv, item", [
+    (["--devices", "2"], "item 4"), (["--shard_largest"], "item 4"),
+    (["--shard_multihost"], "item 4"),
+    (["--registry_version", "v1"], "item 5"),
+    (["--trace_ring", "64"], "item 6"),
+    (["--latency_buckets_ms=1,5"], "item 6"),
+    (["--profile_dir", "/p"], "item 6"),
+    (["--history_interval_s", "5"], "item 6"),
+    (["--conc_lockdep"], "item 3"), (["--mem_track"], "item 3"),
+    (["--selftest_requests", "8"], "item 4")],
+    ids=["devices", "shard_largest", "shard_multihost", "registry_version",
+         "trace_ring", "latency_buckets_ms", "profile", "history", "conc",
+         "mem", "selftest"])
+def test_cli_jax_only_flags_exit_2_naming_their_item(argv, item, capsys):
+    assert serve_main(["--fresh_init"] + argv + ["--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert f"ROADMAP.md queue 1 {item}" in err and "not yet ported" in err
+    assert argv[0].split("=")[0] in err
+
+
 def test_cli_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")

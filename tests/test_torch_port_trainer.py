@@ -281,18 +281,37 @@ def test_device_cuda_without_a_card_names_device_cpu(tmp_path):
     assert not os.listdir(tmp_path)  # no run dir for a refused run
 
 
-@pytest.mark.parametrize("argv", [
-    ["--steps_per_dispatch", "4"], ["--sp", "2"], ["--loader_native", "on"],
-    ["--device_data", "on"], ["--cv_parallel"],
-    ["--compute_dtype", "bfloat16"], ["--device_data_budget_mb", "64"],
-    ["--loader_queue_depth", "8"],
-    ["--loader_workers", "4"], ["--profile_dir", "/x"],
-    ["--serve_buckets", "1,2"]])
-def test_flags_not_yet_ported_exit_2_naming_their_item(argv, capsys):
+@pytest.mark.parametrize("argv, item", [
+    (["--sp", "2"], "item 8, 'Model C, multi-device training and CV'"),
+    (["--loader_native", "on"], "item 15, 'The native MAT reader'"),
+    (["--cv_parallel"], "item 8, 'Model C, multi-device training and CV'"),
+    (["--compute_dtype", "bfloat16"], "item 11"),
+    (["--profile_dir", "/x"], "item 6, 'Observability endpoints and "
+                              "tracing'"),
+    (["--serve_buckets", "1,2"], "item 1, 'The stream tier's remainder', "
+                                 "item 6, 'Observability endpoints and "
+                                 "tracing' and item 13, 'The serving "
+                                 "router tier'")])
+def test_flags_not_yet_ported_exit_2_naming_their_item(argv, item, capsys):
     with pytest.raises(SystemExit) as info:
         parse_train_args(argv)
     assert info.value.code == 2
-    assert "ROADMAP.md queue 1" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "ROADMAP.md queue 1" in err and item in err
+
+
+@pytest.mark.parametrize("argv, field", [
+    (["--steps_per_dispatch", "4"], "steps_per_dispatch"),
+    (["--device_data", "on"], "device_data"),
+    (["--device_data_budget_mb", "64"], "device_data_budget_mb"),
+    (["--loader_queue_depth", "8"], "loader_queue_depth"),
+    (["--loader_workers", "4"], "loader_workers")])
+def test_input_path_flags_parse_to_jax_s_value(argv, field):
+    ours = parse_train_args(argv + ["--device", "cpu"])
+    want = jax_parse_train_args(argv + ["--device", "cpu"])
+    assert getattr(ours, field) == getattr(want, field)
+    assert getattr(parse_train_args([]), field) == \
+        getattr(jax_parse_train_args([]), field)
 
 
 def test_flags_at_their_defaults_are_accepted_and_spelled_as_jax():
