@@ -8,11 +8,16 @@ Phases, each fatal on failure (no phase catches its own error):
              capability (9, 0) required;
 2. build   — nvcc builds ``dasmtl_torch/csrc/*.cu`` into one library;
 3. kernels — each hand-written kernel against its plain PyTorch version
-             on the card at the main path's shapes, then timed with CUDA
-             events (kernel, plain version, and the card's bound);
+             on the card at the main path's shapes (the paired T = 2 gate
+             bit-equal to its T = 1 launches), then timed with CUDA
+             events (kernel, plain version, and the card's bound): the
+             gate's 8 T = 1 launches of a train forward and 4 T = 2
+             launches of an eval forward at batch 32, 16 and 1, per stage,
+             the parent commit's kernel in turns with ``--parent``;
 4. model   — the full-width MTL serve forward at batch 32 on the card
-             against the same module on the CPU, TF32 off; exactly 8 gate
-             launches and 1 decode launch per forward;
+             against the same module on the CPU, TF32 off; exactly 4 gate
+             launches (both tasks of a stage in one) and 1 decode launch
+             per forward;
 5. serve   — ``ServeLoop`` + HTTP on 127.0.0.1 at 100x250, buckets
              1..32, fresh init (seed 0); 8 clients send 512 requests,
              every 37th NaN-poisoned; every request answered, the poisoned
@@ -24,8 +29,8 @@ Phases, each fatal on failure (no phase catches its own error):
              forward; (b) one full-width batch-32 train step at 100x250 on
              the card against the same step on the CPU, TF32 off, at the
              committed tolerances; (c) 8 forward + 8 backward gate
-             launches per train step, 8 + 0 per eval batch; (d) 20 steps
-             on one fixed batch at least halve its loss; (e) ``python -m
+             launches per train step, 4 paired + 0 per eval batch; (d)
+             20 steps on one fixed batch at least halve its loss; (e) ``python -m
              dasmtl_torch train`` then ``test`` in-process on a synthetic
              tree (256 files, 192 train / 64 val, batch 32, 3 epochs): the
              run-dir artifacts, and the test run's ints equal to a direct
@@ -33,8 +38,11 @@ Phases, each fatal on failure (no phase catches its own error):
              before the train run and read after the test run; (f) device
              and host-paced ms per train step, examples/s, peak memory;
 7. stream  — (a) the window-gather, ring-append and event_prob_q kernels
-             against their plain versions at the stream path's shapes,
-             then timed; (b) ``python -m dasmtl_torch.stream`` in process
+             against their plain versions at the stream path's shapes
+             (the gather's rows branch at k = 1, its bulk branch at 16
+             and 256, its scalar branch on a T % 4 != 0 and an offset
+             record), then timed (the gather at k = 256, 16 and 1, the
+             parent's kernel in turns with ``--parent``); (b) ``python -m dasmtl_torch.stream`` in process
              over a 1000 x 60000 record at stride 125, batch 256, with
              phase 6's checkpoint, resident on and off: 4,790 identical
              rows, ints equal to a CPU run of 256 of its windows on
@@ -108,8 +116,8 @@ Phases, each fatal on failure (no phase catches its own error):
              ``--device_data on`` and ``off``, in process under
              deterministic algorithms: the same val ints and confusion
              matrices, final states within the one-step tolerances, 8 + 8
-             gate launches and 1 gather per step and per resident eval
-             batch, 0 gathers with ``off``, 0 post-warmup compiles; (c)
+             gate launches per step, 4 paired + 0 per eval batch, 1 gather
+             per step and per resident eval batch, 0 gathers with ``off``, 0 post-warmup compiles; (c)
              each run's checkpoint resumed for a 4th epoch on the other
              path; (d) 4,096 in-memory windows, 2 epochs at batch 32, K = 8,
              on both paths: examples/s, wall and device ms per step,
@@ -119,7 +127,9 @@ Then one JSON line lists every kernel of the port, the card's name and
 power limit follow on a line of their own, and the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
-result.  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
+result.  ``--parent DIR`` names a ``git archive`` of the parent commit's
+tree; its gate and window-gather kernels are then built and timed in
+turns with this tree's (phases 3 and 7a).  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
 forward, of one train step and of each preset's forward to the report;
 ``--out`` writes the full report as JSON.
 """
@@ -130,6 +140,7 @@ import argparse
 import contextlib
 import copy
 import csv
+import functools
 import io
 import json
 import os
@@ -260,32 +271,224 @@ def _gate_inputs(g, b, shape):
     return logits, feats
 
 
+#: A ``git archive`` of the parent commit's tree (``--parent``): its gate
+#: and window-gather kernels are timed in turns with this tree's.
+PARENT = None
+
+
+@functools.lru_cache(maxsize=1)
+def _parent_kernels():
+    """The parent commit's gate forward and window gather, built with this
+    tree's nvcc flags from ``PARENT/dasmtl_torch/csrc`` and called through
+    their own C signatures; None without ``--parent``."""
+    import ctypes
+    import subprocess
+
+    from dasmtl_torch.ops import _build
+
+    if PARENT is None:
+        return None
+    csrc = os.path.join(PARENT, "dasmtl_torch", "csrc")
+    out = os.path.join(TRAIN_DIR, "parent")
+    os.makedirs(out, exist_ok=True)
+    nvcc = _build._nvcc()
+    procs = [(src, subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-c", os.path.join(csrc, src), "-o",
+         os.path.join(out, src + ".o")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+        for src in ("gating.cu", "window.cu")]
+    for src, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"the parent's {src} does not build:\n{err}")
+    lib_path = os.path.join(out, "libparent.so")
+    subprocess.run([nvcc, "-shared", "-o", lib_path,
+                    *(os.path.join(out, s + ".o") for s, _ in procs)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(lib_path)
+    P = ctypes.c_void_p
+    lib.dasmtl_gate_fwd.restype = ctypes.c_int
+    lib.dasmtl_gate_fwd.argtypes = [P, P, P, ctypes.c_int64, P]
+    lib.dasmtl_window_gather.restype = ctypes.c_int
+    lib.dasmtl_window_gather.argtypes = [
+        P, ctypes.c_int64, ctypes.c_int64, P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, P, P]
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def gate(l, f):
+        o = torch.empty_like(l)
+        if lib.dasmtl_gate_fwd(l.data_ptr(), f.data_ptr(), o.data_ptr(),
+                               o.numel(), stream()):
+            raise RuntimeError("the parent's gate launch failed")
+        return o
+
+    def gather(rec, origins, hw):
+        k = origins.shape[0]
+        o = torch.empty((k, *hw, 1), device=rec.device)
+        if lib.dasmtl_window_gather(
+                rec.data_ptr(), rec.shape[0], rec.shape[1],
+                origins.data_ptr(), k, hw[0], hw[1], o.data_ptr(), stream()):
+            raise RuntimeError("the parent's window gather launch failed")
+        return o
+
+    log(f"[parent] built the gate and window gather of {PARENT}")
+    return {"gate": gate, "window_gather": gather}
+
+
+def _in_turns(fns: dict, order) -> dict:
+    """``device_ms`` of each named callable, timed in ``order`` (e.g.
+    parent, new, new, parent): every name's times, in turn order."""
+    times = {name: [] for name in fns}
+    for name in order:
+        if name in fns:
+            times[name].append(fns[name]())
+    return times
+
+
+def _gate_sets(g, b):
+    """Per stage, operand sets (two logits and the features) rotating over
+    >= 128 MB, so that every launch finds its operands outside the 50 MB
+    L2, as after the convolution that feeds it."""
+    stages = []
+    for s in GATE_SHAPES:
+        n = b * int(np.prod(s))
+        k = max(2, -(-128_000_000 // (8 * n)))
+        sets = []
+        for _ in range(k):
+            l0, f = _gate_inputs(g, b, s)
+            l1, _ = _gate_inputs(g, b, s)
+            sets.append((l0, l1, f))
+        stages.append({"shape": [b, *s], "elements": n, "sets": sets,
+                       "turn": 0})
+    return stages
+
+
+def _next_set(st):
+    st["turn"] += 1
+    return st["sets"][st["turn"] % len(st["sets"])]
+
+
+def _gate_units(stages, gating, parent):
+    """The gate units of one forward at this batch, as callables: the 8
+    T = 1 launches of a train forward (this tree's kernel, the plain
+    version, the parent's kernel) and the 4 T = 2 launches of an eval
+    forward (the kernel and the plain version).  Every launch takes the
+    next operand set."""
+    def t1(fn):
+        def run():
+            for st in stages:
+                for _ in range(2):
+                    l, _, f = _next_set(st)
+                    fn(l, f)
+        return run
+
+    def t2(fn):
+        def run():
+            for st in stages:
+                l0, l1, f = _next_set(st)
+                fn((l0, l1), f)
+        return run
+
+    units = {"t1": t1(gating.gate_apply), "t1_plain": t1(gating.gate_apply_plain),
+             "t2": t2(gating.gate_apply_multi),
+             "t2_plain": t2(gating.gate_apply_multi_plain)}
+    if parent is not None:
+        units["parent"] = t1(parent["gate"])
+    return units
+
+
+def _time_gates(stages, gating, parent, peaks):
+    """Per-stage and per-forward gate times at one batch size."""
+    per_stage = []
+    for st in stages:
+        n = st["elements"]
+
+        def single(fn, st=st):
+            def run():
+                l, _, f = _next_set(st)
+                fn(l, f)
+            return run
+
+        def paired(st=st):
+            l0, l1, f = _next_set(st)
+            gating.gate_apply_multi((l0, l1), f)
+
+        fns = {"t1": single(gating.gate_apply), "t2": paired}
+        if parent is not None:
+            fns["parent"] = single(parent["gate"])
+        turns = _in_turns({k: (lambda fn=fn: device_ms(fn, inner=20))
+                           for k, fn in fns.items()},
+                          ("parent", "t1", "t2", "t2", "t1", "parent"))
+        per_stage.append({
+            "shape": st["shape"], "elements": n,
+            "t1_ms": statistics.mean(turns["t1"]),
+            "t1_bound_ms": bound(12 * n, 4 * n, peaks)[0],
+            "t2_ms": statistics.mean(turns["t2"]),
+            "t2_bound_ms": bound(20 * n, 8 * n, peaks)[0],
+            "parent_ms": (statistics.mean(turns["parent"])
+                          if parent is not None else None)})
+    units = _gate_units(stages, gating, parent)
+    turns = _in_turns({k: (lambda fn=fn: device_ms(fn, inner=5))
+                       for k, fn in units.items()},
+                      ("parent", "t1", "t2", "t1_plain", "t2_plain", "t2",
+                       "t1", "parent"))
+    ms = {k: statistics.mean(v) for k, v in turns.items()}
+    n_all = sum(st["elements"] for st in stages)
+    t1_bound, t1_by = bound(24 * n_all, 8 * n_all, peaks)
+    t2_bound, t2_by = bound(20 * n_all, 8 * n_all, peaks)
+    return {
+        "t1": {"ms": ms["t1"], "plain_ms": ms["t1_plain"],
+               "bound_ms": t1_bound, "bound_by": t1_by,
+               "turns_ms": turns["t1"]},
+        "t2": {"ms": ms["t2"], "plain_ms": ms["t2_plain"],
+               "bound_ms": t2_bound, "bound_by": t2_by,
+               "turns_ms": turns["t2"]},
+        "parent": ({"ms": ms["parent"], "turns_ms": turns["parent"]}
+                   if parent is not None else None),
+        "per_stage": per_stage}
+
+
 def phase_kernels(peaks):
     from dasmtl_torch.ops import decode, gating
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    # Correctness at the main path's shapes, batch 1 and 32.
+    # Correctness at the main path's shapes: T = 1 at batch 1 and 32; T = 2
+    # at batch 1, 16 and 32, bit-equal to the T = 1 kernel's outputs.
     gate_err = 0.0
-    for b in (1, 32):
+    for b in (1, 16, 32):
         for shape in GATE_SHAPES:
             logits, feats = _gate_inputs(g, b, shape)
-            out = gating.gate_apply(logits, feats)
-            ref = gating.gate_apply_plain(logits, feats)
+            logits1, _ = _gate_inputs(g, b, shape)
+            singles = [gating.gate_apply(l, feats)
+                       for l in (logits, logits1)]
+            paired = gating.gate_apply_multi((logits, logits1), feats)
+            refs = gating.gate_apply_multi_plain((logits, logits1), feats)
             torch.cuda.synchronize()
-            nan = torch.isnan(ref)
-            if not torch.equal(torch.isnan(out), nan):
-                raise AssertionError(f"gate NaN pattern differs at {b}x"
-                                     f"{shape}")
-            err = (out - ref)[~nan].abs().max().item()
-            gate_err = max(gate_err, err)
-            if err > GATE_ATOL:
-                raise AssertionError(f"gate at {b}x{shape}: max abs err "
-                                     f"{err:.3g} > {GATE_ATOL}")
-            if out.view(-1)[0].item() != 0.0 or \
-                    out.view(-1)[1].item() != feats.view(-1)[1].item():
-                raise AssertionError("gate at l=-100 / l=+100 is not 0 / f")
-    log(f"[kernels] gate == plain at batch 1 and 32 x {len(GATE_SHAPES)} "
-        f"shapes: max abs err {gate_err:.3g} (tol {GATE_ATOL})")
+            for out, single, ref, l in zip(paired, singles, refs,
+                                           (logits, logits1)):
+                for got in (single, out):
+                    nan = torch.isnan(ref)
+                    if not torch.equal(torch.isnan(got), nan):
+                        raise AssertionError(f"gate NaN pattern differs at "
+                                             f"{b}x{shape}")
+                    err = (got - ref)[~nan].abs().max().item()
+                    gate_err = max(gate_err, err)
+                    if err > GATE_ATOL:
+                        raise AssertionError(f"gate at {b}x{shape}: max abs "
+                                             f"err {err:.3g} > {GATE_ATOL}")
+                    if got.view(-1)[0].item() != 0.0 or \
+                            got.view(-1)[1].item() != feats.view(-1)[1].item():
+                        raise AssertionError("gate at l=-100 / l=+100 is not "
+                                             "0 / f")
+                if not torch.equal(out.view(torch.int32),
+                                   single.view(torch.int32)):
+                    raise AssertionError(f"the T = 2 gate differs from T = 1 "
+                                         f"at {b}x{shape}")
+    log(f"[kernels] gate == plain (T = 1 at batch 1 and 32, T = 2 at 1, 16 "
+        f"and 32) x {len(GATE_SHAPES)} shapes: max abs err {gate_err:.3g} "
+        f"(tol {GATE_ATOL}); T = 2 bit-equal to T = 1")
 
     dec_err = 0.0
     heads_b32 = None
@@ -316,44 +519,36 @@ def phase_kernels(peaks):
     log(f"[kernels] decode == plain at B=1 and 32 (NaN/Inf rows planted): "
         f"ints and bad_rows exact, log-prob max abs err {dec_err:.3g}")
 
-    # Timing at batch 32 (the largest bucket).  Each stage rotates over
-    # enough input sets (>= 128 MB) that every launch finds its operands
-    # outside the 50 MB L2, as after the convolution that feeds it.  The
-    # gate's unit is one forward's 8 launches (4 stages x 2 tasks).
-    stages = []
-    for s in GATE_SHAPES:
-        n = 32 * int(np.prod(s))
-        k = max(2, -(-128_000_000 // (8 * n)))
-        stages.append({"shape": [32, *s], "elements": n,
-                       "sets": [_gate_inputs(g, 32, s) for _ in range(k)],
-                       "turn": 0})
-
-    def launch(st, fn):
-        l, f = st["sets"][st["turn"] % len(st["sets"])]
-        st["turn"] += 1
-        fn(l, f)
-
-    def forward_gates(fn):
-        def run():
-            for st in stages:
-                launch(st, fn)
-                launch(st, fn)
-        return run
-
-    per_stage = []
-    for st in stages:
-        n = st["elements"]
-        per_stage.append({
-            "shape": st["shape"], "elements": n, "bytes": 12 * n,
-            "ms": device_ms(lambda st=st: launch(st, gating.gate_apply),
-                            inner=20),
-            "bound_ms": bound(12 * n, 4 * n, peaks)[0]})
-    gate_bytes = sum(2 * 12 * st["elements"] for st in stages)
-    gate_flops = sum(2 * 4 * st["elements"] for st in stages)
-    gate_ms = device_ms(forward_gates(gating.gate_apply), inner=5)
-    gate_plain_ms = device_ms(forward_gates(gating.gate_apply_plain), inner=5)
-    gate_bound, gate_by = bound(gate_bytes, gate_flops, peaks)
-    del stages
+    # Timing at batch 32 (the largest bucket), 16 (the live forward) and
+    # 1, the parent's kernel in turns when given: the 8 T = 1 launches of a
+    # train forward (24 B per element of a stage) and the 4 T = 2 launches
+    # of an eval forward (20 B), each over rotating operand sets.
+    parent = _parent_kernels()
+    gates = {}
+    for b in (32, 16, 1):
+        stages = _gate_sets(g, b)
+        gates[b] = _time_gates(stages, gating, parent, peaks)
+        del stages
+        for st in gates[b]["per_stage"]:
+            par = ("" if st["parent_ms"] is None
+                   else f", parent {st['parent_ms'] * 1e3:.2f} us")
+            log(f"[kernels] gate stage {st['shape']}: T=1 "
+                f"{st['t1_ms'] * 1e3:.2f} us (bound "
+                f"{st['t1_bound_ms'] * 1e3:.2f}){par}; T=2 "
+                f"{st['t2_ms'] * 1e3:.2f} us (bound "
+                f"{st['t2_bound_ms'] * 1e3:.2f})")
+        t1, t2, par = gates[b]["t1"], gates[b]["t2"], gates[b]["parent"]
+        log(f"[kernels] gate, batch {b}: 4 T=2 launches (eval forward) "
+            f"{t2['ms'] * 1e3:.2f} us, plain {t2['plain_ms'] * 1e3:.2f} us, "
+            f"bound {t2['bound_ms'] * 1e3:.2f} us; 8 T=1 launches (train "
+            f"forward) {t1['ms'] * 1e3:.2f} us, plain "
+            f"{t1['plain_ms'] * 1e3:.2f} us, bound "
+            f"{t1['bound_ms'] * 1e3:.2f} us"
+            + ("" if par is None else
+               f"; parent's 8 launches {par['ms'] * 1e3:.2f} us (turns "
+               f"{[round(t * 1e3, 2) for t in par['turns_ms']]}, this "
+               f"tree's T=1 {[round(t * 1e3, 2) for t in t1['turns_ms']]},"
+               f" T=2 {[round(t * 1e3, 2) for t in t2['turns_ms']]})"))
 
     rows = 32
     widths = [h.shape[1] for h in heads_b32]
@@ -363,20 +558,20 @@ def phase_kernels(peaks):
     dec_plain_ms = device_ms(lambda: decode.decode_heads_plain(heads_b32),
                              inner=20)
     dec_bound, dec_by = bound(dec_bytes, dec_flops, peaks)
-    for st in per_stage:
-        log(f"[kernels] gate stage {st['shape']}: {st['ms'] * 1e3:.2f} us "
-            f"(bound {st['bound_ms'] * 1e3:.2f} us)")
-    log(f"[kernels] gate, 8 launches of a batch-32 forward: "
-        f"{gate_ms * 1e3:.2f} us, plain {gate_plain_ms * 1e3:.2f} us, "
-        f"bound {gate_bound * 1e3:.2f} us ({gate_by})")
     log(f"[kernels] decode, B=32 x heads {widths}: {dec_ms * 1e3:.2f} us, "
         f"plain {dec_plain_ms * 1e3:.2f} us, bound {dec_bound * 1e3:.4f} us "
         f"({dec_by})")
+    t1, t2 = gates[32]["t1"], gates[32]["t2"]
     return {
-        "gate": {"max_abs_err": gate_err, "ms": gate_ms,
-                 "plain_ms": gate_plain_ms, "bound_ms": gate_bound,
-                 "bound_by": gate_by, "unit": "8 launches, batch 32",
-                 "per_stage": per_stage},
+        "gate": {"max_abs_err": gate_err, "ms": t2["ms"],
+                 "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
+                 "bound_by": t2["bound_by"],
+                 "unit": "4 T=2 launches of a batch-32 eval forward",
+                 "train_unit": {
+                     "unit": "8 T=1 launches of a batch-32 train forward",
+                     "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+                     "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"]},
+                 "batches": gates},
         "decode": {"max_abs_err": dec_err, "ms": dec_ms,
                    "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
                    "bound_by": dec_by, "unit": "1 launch, B=32, heads 16+2"},
@@ -413,10 +608,11 @@ def phase_model(profile: bool):
     for _ in range(n_fwd):
         out = fn(xd)
     torch.cuda.synchronize()
-    if (gating.launches.value, decode.launches.value) != (8 * n_fwd, n_fwd):
+    # 4 paired gate launches (both tasks of a stage in one) per forward.
+    if (gating.launches.value, decode.launches.value) != (4 * n_fwd, n_fwd):
         raise AssertionError(f"{n_fwd} forwards made {gating.launches.value}"
                              f" gate and {decode.launches.value} decode "
-                             f"launches, not {8 * n_fwd} and {n_fwd}")
+                             f"launches, not {4 * n_fwd} and {n_fwd}")
     bad = out["bad_rows"].cpu().numpy()
     if bad.tolist() != ref["bad_rows"].numpy().tolist() or \
             bad.tolist() != [j == 5 for j in range(32)]:
@@ -444,7 +640,7 @@ def phase_model(profile: bool):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 20 * 1e3
     log(f"[model] MTL serve forward, batch 32 at {H}x{W}: card == CPU "
-        f"(max abs err {worst:.3g}, tol {MODEL_ATOL}/{MODEL_RTOL}); 8 gate "
+        f"(max abs err {worst:.3g}, tol {MODEL_ATOL}/{MODEL_RTOL}); 4 gate "
         f"+ 1 decode launches per forward; row 5 (NaN) alone rejected; "
         f"{fwd_ms:.3f} ms device, {wall_ms:.3f} ms wall per forward (device "
         f"idle {100 * (1 - fwd_ms / wall_ms):.1f}% of the wall)")
@@ -597,7 +793,7 @@ def phase_serve():
 
     executor = InferExecutor.from_fresh_init("MTL", BUCKETS, (H, W), 0,
                                              torch.device("cuda", 0))
-    r = _http_serve(executor, {"gate": 8, "decode": 1}, DECISIVE,
+    r = _http_serve(executor, {"gate": 4, "decode": 1}, DECISIVE,
                     nan_rejected=True)
     log(f"[serve] {N_REQUESTS} HTTP requests from {N_CLIENTS} clients at "
         f"{H}x{W}: answered {r['ok']} ok + {r['nonfinite']} nonfinite (422);"
@@ -832,10 +1028,11 @@ def _entry_points():
     peak = torch.cuda.max_memory_allocated()
     # 192 train / 64 val windows in batches of 32: 6 steps x 3 epochs;
     # validation at epoch 0 and after the last (2 x 2 batches); the test
-    # pass over all 256 windows (8 batches).
+    # pass over all 256 windows (8 batches).  A train step launches 8 T = 1
+    # gates, an eval batch 4 paired ones.
     n_steps, n_eval = 18, 2 * 2 + 8
-    if steps[-1] != n_steps or launches != {"gate": 8 * (n_steps + n_eval),
-                                            "gate_backward": 8 * n_steps}:
+    if steps[-1] != n_steps or launches != {
+            "gate": 8 * n_steps + 4 * n_eval, "gate_backward": 8 * n_steps}:
         raise AssertionError(f"{n_steps} train steps and {n_eval} eval "
                              f"batches made {launches} gate launches "
                              f"(last checkpoint step_{steps[-1]})")
@@ -910,12 +1107,12 @@ def phase_train(peaks, profile: bool):
     torch.cuda.synchronize()
     per_eval = (gating.launches.value - per_step[0],
                 gating.backward_launches.value - per_step[1])
-    if per_step != (8, 8) or per_eval != (8, 0):
+    if per_step != (8, 8) or per_eval != (4, 0):
         raise AssertionError(f"a train step made {per_step} and an eval "
                              f"batch {per_eval} (forward, backward) gate "
-                             f"launches, not (8, 8) and (8, 0)")
+                             f"launches, not (8, 8) and (4, 0)")
     log("[train] 8 forward + 8 backward gate launches per train step, "
-        "8 + 0 per eval batch")
+        "4 paired + 0 per eval batch")
 
     # (d) 20 steps on one fixed batch from a fresh init halve its loss.
     fit = _new_state(init_fresh(spec.build(), seed=0).cuda())
@@ -1088,6 +1285,8 @@ def _stream_kernels(peaks):
         o[0] = torch.tensor([-5, T + 100], device="cuda")
         if k > 1:
             o[1] = torch.tensor([C, -1], device="cuda")
+        if k > 2:
+            o[2] = torch.tensor([C - H, T - W], device="cuda")  # t0 = T - w
         got = window.window_gather(rec, o, (H, W))
         torch.cuda.synchronize()
         if not torch.equal(got, window.window_gather_plain(rec, o, (H, W))):
@@ -1095,9 +1294,30 @@ def _stream_kernels(peaks):
         if not torch.equal(got[0, :, :, 0], rec[C - H:C, T - W:T]):
             raise AssertionError("window gather did not wrap and clamp "
                                  "as dynamic_slice does")
-    log("[stream] window gather == plain at k = 1, 16, 256 from the "
-        f"{C}x{T} record, clamped origins included: bit-exact")
-
+    # The scalar branch: a (C, T - 1) view of the same storage (T % 4 != 0)
+    # and a view at a storage offset (not 16-byte aligned).
+    odd = rec.view(-1)[:C * (T - 1)].view(C, T - 1)
+    shifted = rec.view(-1)[1:1 + (C - 1) * T].view(C - 1, T)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {k: window.gather_plan(T, rec.data_ptr(), H, W, k, sms).branch
+             for k in (1, 16, 256)}
+    if plans != {1: "rows", 16: "bulk", 256: "bulk"}:
+        raise AssertionError(f"the gather's branches by k: {plans}")
+    for name, r in (("T % 4 != 0", odd), ("offset base", shifted)):
+        if window.gather_plan(r.shape[1], r.data_ptr(), H, W, 16,
+                              sms).branch != "scalar":
+            raise AssertionError(f"{name} should take the scalar branch")
+        for k in (1, 16, 256):
+            o = origins(k)
+            o[0] = torch.tensor([-1, -1], device="cuda")
+            got = window.window_gather(r, o, (H, W))
+            if not torch.equal(got, window.window_gather_plain(r, o, (H, W))):
+                raise AssertionError(f"window gather's scalar branch differs "
+                                     f"({name}, k={k})")
+    log("[stream] window gather == plain at k = 1 (rows branch), 16 and 256 "
+        f"(bulk branch) from the {C}x{T} record, clamped origins and t0 = "
+        f"T - w included, and on a {C}x{T - 1} and an offset view (scalar "
+        f"branch at k = 16 and 256): bit-exact")
     ring_err = 0.0
     for ch, w_c in ((100, 125), (400, 500)):
         r_k = torch.randn((ch, LIVE_RING), device="cuda", generator=g)
@@ -1125,21 +1345,54 @@ def _stream_kernels(peaks):
     log(f"[stream] event_prob_q == plain at k = 1, 16, 256: ints within "
         f"{q_err} (tol 1)")
 
-    # Timing.  Gather: k = 256 windows per launch (the offline batch),
-    # origins rotating over 8 sets (205 MB of the record); bytes = each
-    # window read once and written once.
-    sets = [(rec, origins(256)) for _ in range(8)]
-    g_bytes = 2 * 256 * H * W * 4
-    gather = {
-        "ms": device_ms(_rotating(sets, lambda r, o: window.window_gather(
+    # Timing.  Gather: k = 256 windows per launch (the offline batch), 16
+    # (the live tier's dispatch) and 1, origins rotating over 8 sets (k =
+    # 256: 205 MB of the record); bytes = each window read once and
+    # written once.  The parent's kernel in turns, when given.
+    parent = _parent_kernels()
+    gathers = {}
+    for k in (256, 16, 1):
+        sets = [(rec, origins(k)) for _ in range(8)]
+        fns = {"new": _rotating(sets, lambda r, o: window.window_gather(
+                   r, o, (H, W))),
+               "plain": _rotating(sets, lambda r, o: window.window_gather_plain(
+                   r, o, (H, W)))}
+        if parent is not None:
+            fns["parent"] = _rotating(
+                sets, lambda r, o: parent["window_gather"](r, o, (H, W)))
+        turns = _in_turns({n: (lambda fn=fn: device_ms(fn, inner=10))
+                           for n, fn in fns.items()},
+                          ("parent", "new", "plain", "new", "parent"))
+        gathers[k] = {
+            "ms": statistics.mean(turns["new"]),
+            "plain_ms": turns["plain"][0], "library_ms": None,
+            "max_abs_err": 0.0, "turns_ms": turns["new"],
+            "parent_ms": (statistics.mean(turns["parent"])
+                          if parent is not None else None),
+            "parent_turns_ms": turns.get("parent"),
+            "unit": f"1 launch, k={k} at {H}x{W} from {C}x{T}"}
+        gathers[k]["bound_ms"], gathers[k]["bound_by"] = bound(
+            2 * k * H * W * 4, 0, peaks)
+        del sets
+    odd_sets = [(odd, origins(256)) for _ in range(8)]
+    gathers["scalar"] = {
+        "ms": device_ms(_rotating(odd_sets, lambda r, o: window.window_gather(
             r, o, (H, W))), inner=10),
-        "plain_ms": device_ms(_rotating(
-            sets, lambda r, o: window.window_gather_plain(r, o, (H, W))),
-            inner=10),
-        "library_ms": None, "max_abs_err": 0.0,
-        "unit": f"1 launch, k=256 at {H}x{W} from {C}x{T}"}
-    gather["bound_ms"], gather["bound_by"] = bound(g_bytes, 0, peaks)
-    del sets
+        "unit": f"1 launch, k=256 at {H}x{W} from {C}x{T - 1} (scalar "
+                f"branch)"}
+    gathers["scalar"]["bound_ms"] = gathers[256]["bound_ms"]
+    del odd_sets
+    for k, gk in gathers.items():
+        par = ("" if gk.get("parent_ms") is None
+               else f", parent {gk['parent_ms'] * 1e3:.2f} us (turns "
+                    f"{[round(t * 1e3, 2) for t in gk['parent_turns_ms']]}, "
+                    f"this tree's "
+                    f"{[round(t * 1e3, 2) for t in gk['turns_ms']]})")
+        plain = ("" if "plain_ms" not in gk
+                 else f", plain {gk['plain_ms'] * 1e3:.2f} us")
+        log(f"[stream] window gather, {gk['unit']}: {gk['ms'] * 1e3:.2f} us"
+            f"{plain}, bound {gk['bound_ms'] * 1e3:.4f} us{par}")
+    gather = dict(gathers[256], sizes=gathers)
 
     # Ring append at the live cell's 400 x 16384 ring, w_c 500, rotating
     # over 5 rings (131 MB); the 100 x 16384 ring is logged beside it.
@@ -1175,8 +1428,7 @@ def _stream_kernels(peaks):
              "library_ms": None, "max_abs_err": float(q_err),
              "unit": "1 launch, k=16 rows of 2"}
     probq["bound_ms"], probq["bound_by"] = bound(16 * 12, 16 * 4, peaks)
-    for name, k in (("window gather", gather),
-                    ("ring append 400x16384/500", appends[(400, 500)]),
+    for name, k in (("ring append 400x16384/500", appends[(400, 500)]),
                     ("ring append 100x16384/125", appends[(100, 125)]),
                     ("event_prob_q", probq)):
         lib = ("" if k["library_ms"] is None
@@ -1253,7 +1505,7 @@ def _offline(ckpt: str):
     for mode in ("on", "off"):
         got = launches[mode]
         if got["window_gather"] != want[mode] or \
-                got["decode"] != n_batches or got["gate"] != 8 * n_batches:
+                got["decode"] != n_batches or got["gate"] != 4 * n_batches:
             raise AssertionError(f"--resident {mode}: launches {got}, "
                                  f"expected "
                                  f"{want[mode]} gathers and {n_batches} "
@@ -1883,7 +2135,7 @@ def _http_presets():
                 "MTL", init_scaled(get_model_spec("MTL").build(),
                                    0).state_dict(),
                 BUCKETS, (H, W), dev, "bf16", source="scaled-init"),
-             {"gate": 8, "decode": 1, "int8_dot": 0}, "bf16", True)):
+             {"gate": 4, "decode": 1, "int8_dot": 0}, "bf16", True)):
         r = _http_serve(ex, per_batch, 2 * LOG_PROB_TOLERANCES[prec],
                         rejected, tag=f"serve {tag}")
         if r["executor"]["precision"] != prec:
@@ -2612,9 +2864,11 @@ def _both_paths():
                                 os.path.join(RESIDENT_DIR, mode))
     # 192 train / 64 val windows at batch 32: 6 steps x 3 epochs;
     # validation at epochs 0, 1, 2 and after the last, 2 batches each.
+    # A train step launches 8 T = 1 gates, an eval batch 4 paired ones.
     n_steps, n_eval = 18, 8
-    want = {"on": (8 * (n_steps + n_eval), 8 * n_steps, n_steps + n_eval),
-            "off": (8 * (n_steps + n_eval), 8 * n_steps, 0)}
+    gates = 8 * n_steps + 4 * n_eval
+    want = {"on": (gates, 8 * n_steps, n_steps + n_eval),
+            "off": (gates, 8 * n_steps, 0)}
     report = {}
     for mode, (result, run, counts, summary, console, seconds) in \
             runs.items():
@@ -2786,6 +3040,9 @@ def main(argv=None) -> int:
     p.add_argument("--profile", action="store_true",
                    help="add torch.profiler breakdowns of the forward, of "
                         "a train step and of each preset's forward")
+    p.add_argument("--parent", default=None,
+                   help="a git archive of the parent commit's tree: time "
+                        "its gate and window gather in turns with these")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2797,6 +3054,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the dasmtl_torch package is not beside this "
               f"script ({exc})", file=sys.stderr)
         return 1
+    global PARENT
+    PARENT = args.parent
     t_start = time.perf_counter()
     device = phase_device()
     peaks = card_peaks(device["name"])
@@ -2824,7 +3083,8 @@ def main(argv=None) -> int:
          "source": "dasmtl_torch/csrc/gating.cu",
          "replaces": "16944ec^:dasmtl/ops/gating.py:47",
          "launches": train["entry"]["launches"]["gate"],
-         **_timing(kernels["gate"])},
+         **_timing(kernels["gate"]), "unit": kernels["gate"]["unit"],
+         "train_unit": kernels["gate"]["train_unit"]},
         {"name": "gate_apply_backward", "route": "cuda",
          "source": "dasmtl_torch/csrc/gating.cu",
          "replaces": "16944ec^:dasmtl/ops/gating.py:36",

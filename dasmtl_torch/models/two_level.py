@@ -9,10 +9,22 @@ modules are ``nn.ModuleList`` slots in task order), so
 ``dasmtl/models/torch_port.py`` reads this module's state dict unchanged.
 
 The public input layout is the JAX package's: ``(b, h, w, 1)`` goes in and
-is viewed as ``(b, 1, h, w)`` (free with one channel).  The eval forward
-returns per-task log-probs and calls
-:func:`dasmtl_torch.ops.gating.gate_apply` at the same 8 places the JAX
-forward calls ``gate_apply``.
+is viewed as ``(b, 1, h, w)`` (free with one channel).  The forward
+returns per-task log-probs and gates at the 8 places the JAX forward calls
+``gate_apply`` (4 stages x 2 tasks), in one of two orders:
+
+- When a gradient is recorded (training), task-major as the JAX forward:
+  8 calls of :func:`dasmtl_torch.ops.gating.gate_apply` (T = 1 launches,
+  each through ``GateFunction``), so the autograd graph, and the order in
+  which it sums the gradients of each shared map, stays the JAX one.
+- When none is (serving, eval, test, the stream tiers), stage-major: every
+  task's mask logits of a stage, then ONE
+  :func:`dasmtl_torch.ops.gating.gate_apply_multi` launch over the stage's
+  shared map, then every task's output layer: 4 paired launches in eval,
+  8 in training.  Each task's chain computes the same operations on the
+  same operands as in task-major order, so the outputs are bit-identical.
+
+Model B (one task) takes the same orders with T = 1.
 """
 
 from __future__ import annotations
@@ -26,7 +38,7 @@ from dasmtl_torch.config import NUM_DISTANCE_CLASSES, NUM_EVENT_CLASSES
 from dasmtl_torch.models.layers import (AttentionGate, ConvBN, OutputLayer,
                                         ResBlock, backbone_channels,
                                         group_mean_head, max_pool_ceil)
-from dasmtl_torch.ops.gating import gate_apply
+from dasmtl_torch.ops.gating import gate_apply, gate_apply_multi
 
 TASK_NUM_CLASSES = {"distance": NUM_DISTANCE_CLASSES,
                     "event": NUM_EVENT_CLASSES}
@@ -78,19 +90,48 @@ class TwoLevelNet(nn.Module):
             x = getattr(self, f"resblock{i}")(x)
             shared.append(x)
 
+        if torch.is_grad_enabled():
+            return self._task_major(shared)
+        return tuple(self._head(t, a)
+                     for t, a in enumerate(self._stage_major(shared)))
+
+    def _head(self, t: int, a: torch.Tensor) -> torch.Tensor:
+        logits = group_mean_head(a, TASK_NUM_CLASSES[self.tasks[t]])
+        return torch.log_softmax(logits, dim=-1)
+
+    def _stage_input(self, k: int, t: int, shared, a) -> torch.Tensor:
+        skip = shared[2 * k - 2]
+        inp = skip if a is None else torch.cat([skip, a], dim=1)
+        return getattr(self, ATT_ATTR[k])[t](inp)
+
+    def _stage_output(self, k: int, t: int, gated) -> torch.Tensor:
+        if k == 4:
+            return gated
+        return max_pool_ceil(getattr(self, f"output_layer{k}")[t](gated))
+
+    def _task_major(self, shared):
+        """Each task's four stages and head in turn, one T = 1 gate per
+        stage: the JAX order, and the order in which the training graph is
+        built."""
         preds = []
-        for t, task in enumerate(self.tasks):
+        for t in range(len(self.tasks)):
             a = None
             for k in range(1, 5):
-                skip = shared[2 * k - 2]
-                inp = skip if a is None else torch.cat([skip, a], dim=1)
-                mask_logits = getattr(self, ATT_ATTR[k])[t](inp)
-                a = gate_apply(mask_logits, shared[2 * k - 1])
-                if k < 4:
-                    a = max_pool_ceil(getattr(self, f"output_layer{k}")[t](a))
-            logits = group_mean_head(a, TASK_NUM_CLASSES[task])
-            preds.append(torch.log_softmax(logits, dim=-1))
+                mask_logits = self._stage_input(k, t, shared, a)
+                a = self._stage_output(
+                    k, t, gate_apply(mask_logits, shared[2 * k - 1]))
+            preds.append(self._head(t, a))
         return tuple(preds)
+
+    def _stage_major(self, shared):
+        """Stage by stage, every task's gate in one launch (no gradient)."""
+        a = [None] * len(self.tasks)
+        for k in range(1, 5):
+            logits = [self._stage_input(k, t, shared, a[t])
+                      for t in range(len(self.tasks))]
+            gated = gate_apply_multi(logits, shared[2 * k - 1])
+            a = [self._stage_output(k, t, g) for t, g in enumerate(gated)]
+        return a
 
 
 def MTLNet() -> TwoLevelNet:

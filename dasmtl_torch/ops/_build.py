@@ -36,7 +36,8 @@ _P = ctypes.c_void_p
 #: C entry points: name -> (restype, argtypes).  Every pointer and the
 #: stream are ``c_void_p`` (a bare int would be cut to 32 bits).
 SIGNATURES = {
-    "dasmtl_gate_fwd": (ctypes.c_int, [_P, _P, _P, ctypes.c_int64, _P]),
+    "dasmtl_gate_fwd": (ctypes.c_int, [ctypes.c_int, _P, _P, _P, _P, _P,
+                                       ctypes.c_int64, _P]),
     "dasmtl_gate_bwd": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_int64,
                                        _P]),
     "dasmtl_decode_heads": (ctypes.c_int, [
@@ -46,7 +47,7 @@ SIGNATURES = {
                                            _P, _P]),
     "dasmtl_window_gather": (ctypes.c_int, [
         _P, ctypes.c_int64, ctypes.c_int64, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, _P, _P]),
+        ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]),
     "dasmtl_ring_append": (ctypes.c_int, [
         _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _P, _P]),
     "dasmtl_int8_dot": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_int64,

@@ -2,10 +2,17 @@
 
 Counterpart of ``dasmtl/ops/gating.py:23-25 gate_apply``: every attention
 stage of the two-level network gates the shared features with a sigmoid
-mask (8 calls per MTL forward).  On a CUDA tensor the forward launches the
-hand-written Hopper kernel ``csrc/gating.cu``, the port of the Pallas kernel
-``_gate_kernel`` (``git show 16944ec^:dasmtl/ops/gating.py:47-69``); on the
-CPU it takes :func:`gate_apply_plain`.
+mask (8 gates per MTL forward, 4 stages x 2 tasks).  On a CUDA tensor the
+forward launches the hand-written Hopper kernel ``csrc/gating.cu``, the
+port of the Pallas kernel ``_gate_kernel`` (``git show
+16944ec^:dasmtl/ops/gating.py:47-69``); on the CPU it takes
+:func:`gate_apply_plain`.
+
+:func:`gate_apply_multi` gates T = 1 or 2 logits against ONE feature map in
+one launch: both tasks of a stage gate the same shared map, so the kernel
+reads it once.  Model A's forward takes it when no gradient is recorded (4
+paired launches per eval forward); each output is bit-identical to
+:func:`gate_apply` of its logits.
 
 When an input requires grad, :func:`gate_apply` goes through
 :class:`GateFunction`, the port of that kernel's custom VJP (``_gate_fwd`` /
@@ -19,14 +26,15 @@ backward kernel (:func:`gate_apply_backward`; on the CPU,
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from dasmtl_torch.device import require_hopper
 from dasmtl_torch.ops import LaunchCounter, _build
 
-#: Kernel launches made by the gate's forward (never by the plain version).
+#: Kernel launches made by the gate's forward, whatever its T (never by the
+#: plain version).
 launches = LaunchCounter()
 #: Kernel launches made by :func:`gate_apply_backward`.
 backward_launches = LaunchCounter()
@@ -36,6 +44,13 @@ def gate_apply_plain(mask_logits: torch.Tensor,
                      features: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the gate."""
     return torch.sigmoid(mask_logits) * features
+
+
+def gate_apply_multi_plain(logits_seq: Sequence[torch.Tensor],
+                           features: torch.Tensor
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The plain PyTorch version of :func:`gate_apply_multi`."""
+    return tuple(torch.sigmoid(l) * features for l in logits_seq)
 
 
 def gate_backward_plain(mask_logits: torch.Tensor, features: torch.Tensor,
@@ -54,6 +69,27 @@ def gate_apply(mask_logits: torch.Tensor,
                                     or features.requires_grad):
         return GateFunction.apply(mask_logits, features)
     return _gate_forward(mask_logits, features)
+
+
+def gate_apply_multi(logits_seq: Sequence[torch.Tensor],
+                     features: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Gate ``features`` by each of T = 1 or 2 logits in one launch: one
+    output per logits tensor, each equal to ``gate_apply(l, features)``.
+    The forward alone: it refuses operands that record a gradient."""
+    logits_seq = tuple(logits_seq)
+    if len(logits_seq) not in (1, 2):
+        raise ValueError(f"gate_apply_multi: T = {len(logits_seq)} logits; "
+                         f"the kernel takes 1 or 2")
+    operands = (*logits_seq, features)
+    if any(t.shape != features.shape for t in logits_seq):
+        raise ValueError(f"gate_apply_multi: shapes differ: "
+                         f"{[tuple(t.shape) for t in operands]}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise ValueError("gate_apply_multi: an operand records a gradient; "
+                         "gate_apply carries the backward")
+    if all(t.device.type == "cpu" for t in operands):
+        return gate_apply_multi_plain(logits_seq, features)
+    return _launch_fwd("gate_apply_multi", logits_seq, features)
 
 
 def gate_apply_backward(mask_logits: torch.Tensor, features: torch.Tensor,
@@ -86,7 +122,7 @@ def _gate_forward(mask_logits: torch.Tensor,
                   features: torch.Tensor) -> torch.Tensor:
     if mask_logits.device.type == "cpu" and features.device.type == "cpu":
         return gate_apply_plain(mask_logits, features)
-    return _gate_kernel(mask_logits, features)
+    return _launch_fwd("gate_apply", (mask_logits,), features)[0]
 
 
 def _check_operands(name: str, *operands: torch.Tensor) -> None:
@@ -113,18 +149,22 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _gate_kernel(mask_logits: torch.Tensor,
-                 features: torch.Tensor) -> torch.Tensor:
-    _check_operands("gate_apply", mask_logits, features)
-    out = torch.empty_like(mask_logits)
-    if out.numel() == 0:
-        return out
+def _launch_fwd(name: str, logits_seq: Tuple[torch.Tensor, ...],
+                features: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """ONE launch of the forward kernel for T = len(logits_seq) gates."""
+    _check_operands(name, *logits_seq, features)
+    outs = tuple(torch.empty_like(l) for l in logits_seq)
+    if features.numel() == 0:
+        return outs
     lib = _build.library()
-    rc = lib.dasmtl_gate_fwd(mask_logits.data_ptr(), features.data_ptr(),
-                             out.data_ptr(), out.numel(), _stream(out))
-    _build.check_launch(rc, "gate_apply")
+    l_ptrs = [l.data_ptr() for l in logits_seq] + [None]
+    o_ptrs = [o.data_ptr() for o in outs] + [None]
+    rc = lib.dasmtl_gate_fwd(len(logits_seq), l_ptrs[0], l_ptrs[1],
+                             features.data_ptr(), o_ptrs[0], o_ptrs[1],
+                             features.numel(), _stream(features))
+    _build.check_launch(rc, name)
     launches.add()
-    return out
+    return outs
 
 
 def _gate_bwd_kernel(mask_logits: torch.Tensor, features: torch.Tensor,

@@ -9,11 +9,19 @@ start counts once from the end of its axis (``start + dim``), then every
 start is clamped into ``[0, dim - size]``.  On CUDA tensors
 :func:`window_gather` makes one launch of ``csrc/window.cu``; on the CPU
 it takes :func:`window_gather_plain`.
+
+The kernel has three branches, chosen here from the shapes and the
+record's pointer before the launch (:func:`gather_plan`): the bulk branch,
+which brings each source row into shared memory with ``cp.async.bulk``,
+needs ``T % 4 == 0`` and a 16-byte aligned record (a contiguous view at a
+storage offset may not be); the scalar branch takes the other records; a
+gather too small to give every SM a run takes the rows branch.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -22,6 +30,53 @@ from dasmtl_torch.ops import LaunchCounter, _build
 
 #: Kernel launches made by :func:`window_gather` (never by the plain one).
 launches = LaunchCounter()
+
+#: Rows of one window per run, the kernel's work unit: 4 rows start every
+#: run of a window on 16 bytes, whatever its width.
+ROWS_PER_RUN = 4
+#: Shared memory the bulk branch may take for its two buffers
+#: (``kMaxBulkSmem`` in ``csrc/window.cu``).
+MAX_BULK_SMEM = 96 * 1024
+
+
+#: The kernel's branches, by the code its C entry point takes.
+BRANCHES = {"scalar": 0, "bulk": 1, "rows": 2}
+
+
+class GatherPlan(NamedTuple):
+    """The kernel's branch (a key of :data:`BRANCHES`) and rows per run."""
+    branch: str
+    rows_per_run: int
+
+
+def gather_plan(T: int, data_ptr: int, h: int, w: int, k: int,
+                sms: int) -> GatherPlan:
+    """The branch and run size for ``k`` windows of ``(h, w)`` from a
+    ``(C, T)`` record at ``data_ptr``, on a card of ``sms`` SMs.
+
+    - ``rows``: fewer runs of 4 rows than SMs (k <= 5 at 100x250).  The
+      gather is then one chain of dependent loads, and one block per
+      output row makes it shortest.
+    - ``bulk``: each row's 16-byte aligned superset, ``round_up(w + 3, 4)``
+      floats at most, copied into one of two buffers of ``rows_per_run``
+      rows.  It needs ``T % 4 == 0`` (the superset then stays inside the
+      record) and a 16-byte aligned record; a window too wide for even one
+      row per buffer is left to the scalar branch.
+    - ``scalar``: the rest, runs of 4 rows loaded straight from the record.
+    """
+    if k * -(-h // ROWS_PER_RUN) < sms:
+        return GatherPlan("rows", 1)
+    if T % 4 == 0 and data_ptr % 16 == 0:
+        row_bytes = 4 * ((w + 3 + 3) // 4 * 4)
+        for rows in (ROWS_PER_RUN, 2, 1):
+            if 2 * rows * row_bytes <= MAX_BULK_SMEM:
+                return GatherPlan("bulk", rows)
+    return GatherPlan("scalar", ROWS_PER_RUN)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_geometry(rec: torch.Tensor, origins: torch.Tensor,
@@ -77,9 +132,12 @@ def window_gather(rec: torch.Tensor, origins: torch.Tensor,
     out = torch.empty((k, h, w, 1), dtype=torch.float32, device=rec.device)
     if k == 0:
         return out
+    plan = gather_plan(rec.shape[1], rec.data_ptr(), h, w, k,
+                       _sm_count(rec.device))
     rc = _build.library().dasmtl_window_gather(
         rec.data_ptr(), rec.shape[0], rec.shape[1], origins.data_ptr(), k, h,
-        w, out.data_ptr(), torch.cuda.current_stream(rec.device).cuda_stream)
+        w, out.data_ptr(), BRANCHES[plan.branch], plan.rows_per_run,
+        torch.cuda.current_stream(rec.device).cuda_stream)
     _build.check_launch(rc, "window_gather")
     launches.add()
     return out

@@ -1,5 +1,6 @@
 """The port on the card: each hand-written kernel against its plain
-version, the serve forward and one train step against the CPU, the
+version (the paired gate bit for bit against its T = 1 launches, the
+window gather's bulk and scalar branches bit for bit), the serve forward and one train step against the CPU, the
 executor's stream path, the resident stream lane's ordering of ring
 appends against window gathers, the precision presets (the int8_dot
 kernel bit for bit, model C's int8 forward against the CPU, model A's
@@ -8,7 +9,9 @@ for bit against its plain version and JAX's known answers) with a
 two-rank data-parallel step on the card against the CPU; the batch gather
 bit for bit against its plain version, the resident scan step's CUDA-graph
 replays against the same steps run eagerly (an LR change and a ragged tail
-included), and a staging slot held back until its queued copy completes.
+included), a CUDA-graph capture and replay of the gather eval step (with
+its paired gate launches), and a staging slot held back until its queued
+copy completes.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -87,6 +90,47 @@ def test_gate_kernel_unaligned_tail(cuda):
                                atol=1e-6, rtol=0, equal_nan=True)
 
 
+@pytest.mark.parametrize("batch", [1, 16, 32])
+def test_paired_gate_matches_plain_and_single_launches(cuda, batch):
+    """T = 2 in one launch: within 1e-6 of the plain version (NaN kept,
+    l = -100 gives 0 and l = +100 gives f), and bit-identical to two T = 1
+    launches of the same logits."""
+    for shape in STAGES:
+        l0, f = _gate_operands(batch, (batch, *shape), cuda)
+        l1, _ = _gate_operands(batch + 100, (batch, *shape), cuda)
+        gating.launches.reset()
+        got = gating.gate_apply_multi((l0, l1), f)
+        assert gating.launches.value == 1
+        want = gating.gate_apply_multi_plain((l0, l1), f)
+        for t, (g, w, l) in enumerate(zip(got, want, (l0, l1))):
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=0,
+                                       equal_nan=True)
+            single = gating.gate_apply(l, f)
+            assert torch.equal(g.view(torch.int32), single.view(torch.int32))
+            assert g.view(-1)[0].item() == 0.0
+            assert g.view(-1)[1].item() == f.view(-1)[1].item()
+
+
+def test_paired_gate_unaligned_tail(cuda):
+    """Offset views (not 16-byte aligned) and a size that is no multiple
+    of 4: the scalar instantiation, one launch, bit-identical to T = 1."""
+    l0, f = _gate_operands(9, (1, 4 * 1001 + 3), cuda)
+    l1, _ = _gate_operands(10, (1, 4 * 1001 + 3), cuda)
+    views = [t[:, 1:] for t in (l0, l1, f)]
+    got = gating.gate_apply_multi(views[:2], views[2])
+    assert gating.launches.value == 1
+    for g, l in zip(got, views[:2]):
+        torch.testing.assert_close(g, gating.gate_apply_plain(l, views[2]),
+                                   atol=1e-6, rtol=0, equal_nan=True)
+        assert torch.equal(g.view(torch.int32),
+                           gating.gate_apply(l, views[2]).view(torch.int32))
+    # A tail alone (n < 4), aligned: block 0 gates it.
+    small = [t[:, :3].contiguous() for t in (l0, l1, f)]
+    for g, l in zip(gating.gate_apply_multi(small[:2], small[2]), small[:2]):
+        assert torch.equal(g.view(torch.int32),
+                           gating.gate_apply(l, small[2]).view(torch.int32))
+
+
 #: The backward's tolerance: a few f32 roundings of values below ~8 in
 #: magnitude (expf against torch.sigmoid, then three products).
 BWD_ATOL, BWD_RTOL = 1e-6, 1e-5
@@ -163,7 +207,8 @@ def test_serve_forward_on_the_card_matches_the_cpu(cuda):
     x[3, 0, 0, 0] = float("nan")
     ref = make_serve_infer_fn(spec, net)(x)
     out = make_serve_infer_fn(spec, copy.deepcopy(net).to(cuda))(x.to(cuda))
-    assert gating.launches.value == 8 and decode.launches.value == 1
+    # 4 paired gate launches (2 tasks each) and 1 decode per forward.
+    assert gating.launches.value == 4 and decode.launches.value == 1
     assert out["bad_rows"].cpu().tolist() == [j == 3 for j in range(8)]
     ok = ~ref["bad_rows"]
     for i, task in enumerate(spec.head_tasks):
@@ -235,7 +280,7 @@ def _dead_bias(state_dict, key):
 
 # -- the stream tier's kernels ------------------------------------------------
 
-@pytest.mark.parametrize("k", [1, 16, 256])
+@pytest.mark.parametrize("k", [1, 2, 16, 256])
 def test_window_gather_kernel_matches_plain(cuda, k):
     g = torch.Generator().manual_seed(k)
     rec = torch.randn(300, 2000, generator=g).to(cuda)
@@ -244,12 +289,61 @@ def test_window_gather_kernel_matches_plain(cuda, k):
     # As dynamic_slice: a negative start counts from the end of its axis,
     # then every start clamps into [0, dim - size].
     origins[0] = torch.tensor([-7, 5000])
+    if k > 1:
+        origins[1] = torch.tensor([-400, 1750])  # t0 = T - w; c0 clamps to 0
     origins = origins.to(torch.int32).to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert window.gather_plan(2000, rec.data_ptr(), 100, 250, k,
+                              sms).branch == ("rows" if k < 6 else "bulk")
     got = window.window_gather(rec, origins, (100, 250))
     assert got.shape == (k, 100, 250, 1) and got.is_contiguous()
     assert torch.equal(got, window.window_gather_plain(rec, origins,
                                                        (100, 250)))
     assert torch.equal(got[0, :, :, 0], rec[200:300, 1750:2000])
+    if k > 1:
+        assert torch.equal(got[1, :, :, 0], rec[0:100, 1750:2000])
+    assert window.launches.value == 1
+
+
+@pytest.mark.parametrize("case", ["full_height", "full_width", "odd_T",
+                                  "offset_base", "odd_window", "rows"])
+def test_window_gather_every_branch_bit_exact(cuda, case):
+    """Each branch bit for bit against the plain version: the bulk branch
+    at h = C and at w = T, the scalar branch on a record whose T % 4 != 0
+    and on a contiguous view at a storage offset, a window whose runs do
+    not start on 16 bytes (4-byte stores), and the rows branch on an odd
+    record (a gather too small to give every SM a run)."""
+    g = torch.Generator().manual_seed(11)
+    rec, hw, k, branch = {
+        "full_height": (torch.randn(100, 1200, generator=g), (100, 250), 16,
+                        "bulk"),
+        "full_width": (torch.randn(300, 1000, generator=g), (100, 1000), 16,
+                       "bulk"),
+        "odd_T": (torch.randn(300, 1003, generator=g), (100, 250), 16,
+                  "scalar"),
+        "offset_base": (torch.randn(301, 1000, generator=g), (100, 250), 16,
+                        "scalar"),
+        "odd_window": (torch.randn(64, 400, generator=g), (7, 13), 80,
+                       "bulk"),
+        "rows": (torch.randn(300, 1003, generator=g), (100, 250), 3, "rows"),
+    }[case]
+    rec = rec.to(cuda)
+    if case == "offset_base":
+        rec = rec.view(-1)[1:1 + 300 * 1000].view(300, 1000)
+        assert rec.is_contiguous() and rec.data_ptr() % 16
+    C, T = rec.shape
+    h, w = hw
+    origins = torch.stack([torch.randint(-C, C + 50, (k,), generator=g),
+                           torch.randint(-T, T + 50, (k,), generator=g)], 1)
+    origins[0] = torch.tensor([C - h, T - w])
+    origins[1] = torch.tensor([-1, -1])
+    origins = origins.to(torch.int32).to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert window.gather_plan(T, rec.data_ptr(), h, w, k,
+                              sms).branch == branch
+    got = window.window_gather(rec, origins, hw)
+    assert torch.equal(got, window.window_gather_plain(rec, origins, hw))
+    assert torch.equal(got[0, :, :, 0], rec[C - h:, T - w:])
     assert window.launches.value == 1
 
 
@@ -442,14 +536,15 @@ def test_model_c_int8_forward_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
 def test_model_a_launches_under_every_preset(cuda, precision):
     """BatchNorm returns f32 under every preset, so model A's gate and
-    decode kernels stay the f32 ones: 8 + 1 launches, no int8_dot."""
+    decode kernels stay the f32 ones: 4 paired gate launches + 1 decode,
+    no int8_dot."""
     set_f32_numerics()
     spec = get_model_spec("MTL")
     fn, _ = make_precision_serve_fn(spec, init_fresh(spec.build(), 0)
                                     .to(cuda), precision)
     out = fn(torch.zeros(2, 100, 250, 1, device=cuda))
     assert (gating.launches.value, decode.launches.value,
-            int8.launches.value) == (8, 1, 0)
+            int8.launches.value) == (4, 1, 0)
     assert out["log_probs_0"].dtype == torch.float32
     assert np.isfinite(out["log_probs_0"].cpu().numpy()).all()
 
@@ -656,6 +751,50 @@ def test_scan_step_graph_replays_match_eager_steps(cuda):
     want = states[1].model.state_dict()
     for k, v in states[0].model.state_dict().items():
         assert torch.equal(v, want[k]), k
+
+
+def test_gather_eval_step_graph_replay_matches_eager(cuda):
+    """The gather eval step captured in one CUDA graph: its capture makes
+    1 batch_gather and 4 paired gate launches (model A, no gradient), and
+    a replay on a new index batch gives the eager step's outputs bit for
+    bit."""
+    from dasmtl_torch.data.device import DeviceDataset
+    from dasmtl_torch.data.sources import ArraySource
+    from dasmtl_torch.train.steps import make_gather_eval_step
+
+    set_f32_numerics()
+    spec = get_model_spec("MTL")
+    g = torch.Generator().manual_seed(6)
+    src = ArraySource(torch.randn(24, 52, 64, 1, generator=g).numpy(),
+                      torch.randint(0, 16, (24,), generator=g).numpy(),
+                      torch.randint(0, 2, (24,), generator=g).numpy())
+    data = DeviceDataset(src, cuda)
+    net = init_fresh(spec.build(), seed=0).to(cuda)
+    state = TrainState(model=net, optimizer=coupled_adam(net.parameters()))
+    step = make_gather_eval_step(spec)
+    idx = torch.arange(8, dtype=torch.int32, device=cuda)
+    weight = torch.ones(8, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step(state, data, idx, weight)  # warm up cuDNN off the graph
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    gating.launches.reset()
+    batch_gather.launches.reset()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = step(state, data, idx, weight)
+    assert (gating.launches.value, batch_gather.launches.value) == (4, 1)
+    idx.copy_(torch.arange(23, 7, -2, dtype=torch.int32, device=cuda))
+    weight[-1] = 0.0
+    graph.replay()
+    eager = step(state, data, idx, weight)
+    torch.cuda.synchronize()
+    for task in spec.head_tasks:
+        assert torch.equal(static["preds"][task], eager["preds"][task])
+    for k in ("count", "loss_sum"):
+        assert torch.equal(static[k], eager[k]), k
 
 
 def test_staging_slot_waits_for_its_queued_copy(cuda):
