@@ -57,9 +57,11 @@ Phases, each fatal on failure (no phase catches its own error):
              both planes: the same open/close records, every planted event
              (but the 2-window blip, which must debounce away) one closed
              track of its type, event_prob_q launched;
-8. precision — (a) int8_dot against its plain version bit for bit at B =
-             1, 8, 32 (K 2048, N 32) with all-NaN, one-NaN, +-Inf and zero
-             rows, then timed; (b) model C's f32 serve forward at fresh init
+8. precision — (a) int8_dot against its plain version bit for bit at
+             every B from 1 to 33 (K 2048, N 32) with all-NaN, one-NaN,
+             +-Inf and zero rows, then timed at B = 1, 8 and 32, also
+             launched without programmatic dependent launch (PDL), the
+             parent's kernel in turns with ``--parent``; (b) model C's f32 serve forward at fresh init
              (seed 0) and on ``init_scaled`` weights, batch 32 at 100x250,
              card against CPU: ints on decisive rows, bad_rows, 1 decode and
              0 int8_dot launches per forward; log-probs at atol 5e-4 / rtol
@@ -108,9 +110,12 @@ Phases, each fatal on failure (no phase catches its own error):
              against the plain step wall, the heartbeat, and a dp 2 step
              under the default ``--bn_sync global``;
 10. resident — (a) the batch_gather kernel bit for bit against its plain
-             version (B = 1, 7, 32 at 100x250 and B = 32 at 7x13, -0.0 and
-             NaN on padded rows), then timed with the library sequence
-             (index_select x 3 + mul_); (b) ``python -m dasmtl_torch
+             version (B = 1, 7, 32, 33 at 100x250, B = 32 at 7x13 and
+             4-byte offset views of x and out_x, -0.0 and NaN on padded
+             rows), then timed eagerly and replayed from a CUDA graph,
+             also without PDL, the parent's kernel in turns with
+             ``--parent``, and the library sequence (index_select x 3 +
+             mul_); (b) ``python -m dasmtl_torch
              train`` on a synthetic tree (192 train / 64 val, batch 32, 3
              epochs, the LR / 1.5 every epoch, ``--tracing_guards``) with
              ``--device_data on`` and ``off``, in process under
@@ -128,8 +133,8 @@ power limit follow on a line of their own, and the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.  ``--parent DIR`` names a ``git archive`` of the parent commit's
-tree; its gate and window-gather kernels are then built and timed in
-turns with this tree's (phases 3 and 7a).  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
+tree; its gate, window-gather, int8_dot and batch_gather kernels are
+then built and timed in turns with this tree's (phases 3, 7a, 8a, 10a).  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
 forward, of one train step and of each preset's forward to the report;
 ``--out`` writes the full report as JSON.
 """
@@ -271,20 +276,25 @@ def _gate_inputs(g, b, shape):
     return logits, feats
 
 
-#: A ``git archive`` of the parent commit's tree (``--parent``): its gate
-#: and window-gather kernels are timed in turns with this tree's.
+#: A ``git archive`` of the parent commit's tree (``--parent``): its gate,
+#: window-gather, int8_dot and batch_gather kernels are timed in turns
+#: with this tree's.
 PARENT = None
+#: The parent's kernel sources, and their C signatures in the parent
+#: commit (``dasmtl_torch/ops/_build.py:SIGNATURES`` there).
+PARENT_SOURCES = ("gating.cu", "window.cu", "int8_dot.cu", "batch_gather.cu")
 
 
 @functools.lru_cache(maxsize=1)
 def _parent_kernels():
-    """The parent commit's gate forward and window gather, built with this
-    tree's nvcc flags from ``PARENT/dasmtl_torch/csrc`` and called through
-    their own C signatures; None without ``--parent``."""
+    """The parent commit's gate forward, window gather, int8_dot and
+    batch_gather, built with this tree's nvcc flags from
+    ``PARENT/dasmtl_torch/csrc`` and called through their own C
+    signatures; None without ``--parent``."""
     import ctypes
     import subprocess
 
-    from dasmtl_torch.ops import _build
+    from dasmtl_torch.ops import _build, sm_count, window
 
     if PARENT is None:
         return None
@@ -296,7 +306,7 @@ def _parent_kernels():
         [nvcc, *_build.NVCC_FLAGS, "-c", os.path.join(csrc, src), "-o",
          os.path.join(out, src + ".o")], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True))
-        for src in ("gating.cu", "window.cu")]
+        for src in PARENT_SOURCES]
     for src, proc in procs:
         _, err = proc.communicate()
         if proc.returncode:
@@ -306,35 +316,59 @@ def _parent_kernels():
                     *(os.path.join(out, s + ".o") for s, _ in procs)],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(lib_path)
-    P = ctypes.c_void_p
-    lib.dasmtl_gate_fwd.restype = ctypes.c_int
-    lib.dasmtl_gate_fwd.argtypes = [P, P, P, ctypes.c_int64, P]
-    lib.dasmtl_window_gather.restype = ctypes.c_int
-    lib.dasmtl_window_gather.argtypes = [
-        P, ctypes.c_int64, ctypes.c_int64, P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, P, P]
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for name, args in (
+            ("dasmtl_gate_fwd", [I, P, P, P, P, P, L, P]),
+            ("dasmtl_window_gather", [P, L, L, P, I, I, I, P, I, I, P]),
+            ("dasmtl_int8_dot", [P, P, P, P, P, L, I, I, P]),
+            ("dasmtl_batch_gather", [P, P, P, L, L, P, P, I, P, P, P, P])):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = args
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
+    def check(rc, kernel):
+        if rc:
+            raise RuntimeError(f"the parent's {kernel} launch failed ({rc})")
+
     def gate(l, f):
         o = torch.empty_like(l)
-        if lib.dasmtl_gate_fwd(l.data_ptr(), f.data_ptr(), o.data_ptr(),
-                               o.numel(), stream()):
-            raise RuntimeError("the parent's gate launch failed")
+        check(lib.dasmtl_gate_fwd(1, l.data_ptr(), None, f.data_ptr(),
+                                  o.data_ptr(), None, o.numel(), stream()),
+              "gate")
         return o
 
     def gather(rec, origins, hw):
         k = origins.shape[0]
         o = torch.empty((k, *hw, 1), device=rec.device)
-        if lib.dasmtl_window_gather(
-                rec.data_ptr(), rec.shape[0], rec.shape[1],
-                origins.data_ptr(), k, hw[0], hw[1], o.data_ptr(), stream()):
-            raise RuntimeError("the parent's window gather launch failed")
+        plan = window.gather_plan(rec.shape[1], rec.data_ptr(), hw[0], hw[1],
+                                  k, sm_count(rec.device))
+        check(lib.dasmtl_window_gather(
+            rec.data_ptr(), rec.shape[0], rec.shape[1], origins.data_ptr(),
+            k, hw[0], hw[1], o.data_ptr(), window.BRANCHES[plan.branch],
+            plan.rows_per_run, stream()), "window gather")
         return o
 
-    log(f"[parent] built the gate and window gather of {PARENT}")
-    return {"gate": gate, "window_gather": gather}
+    def int8_dot(x, q, scale, bias):
+        y = torch.empty((x.shape[0], q.shape[0]), device=x.device)
+        check(lib.dasmtl_int8_dot(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), x.shape[0], x.shape[1], q.shape[0], stream()),
+            "int8_dot")
+        return y
+
+    def batch_gather(x, d, e, idx, w, out):
+        check(lib.dasmtl_batch_gather(
+            x.data_ptr(), d.data_ptr(), e.data_ptr(), x.shape[0],
+            x[0].numel(), idx.data_ptr(), w.data_ptr(), idx.shape[0],
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            stream()), "batch_gather")
+        return out
+
+    log(f"[parent] built {', '.join(PARENT_SOURCES)} of {PARENT}")
+    return {"gate": gate, "window_gather": gather, "int8_dot": int8_dot,
+            "batch_gather": batch_gather}
 
 
 def _in_turns(fns: dict, order) -> dict:
@@ -1159,6 +1193,8 @@ HOST_RANGE = re.compile(r"[\w.]+#[\w.]+")
 #: Kernel-name fragments -> layers of the train step and the stream path,
 #: first match wins.
 LAYERS = (("window gather", ("window_gather",)),
+          ("batch gather", ("batch_gather",)),
+          ("int8_dot", ("int8_dot",)),
           ("ring append", ("ring_append",)),
           ("decode tail", ("decode_heads", "event_prob_q")),
           ("gate backward", ("gate_bwd",)),
@@ -1870,13 +1906,31 @@ def _int8_operands(g, rows: int):
     return x, q, scale, bias
 
 
+def _int8_no_pdl(int8, x, q, scale, bias):
+    """This tree's int8_dot launched without programmatic dependent launch:
+    what the launch overlap gains."""
+    from dasmtl_torch.ops import _build, sm_count
+
+    rows, k = x.shape
+    n = q.shape[0]
+    plan = int8.int8_plan(rows, k, n, x.data_ptr(), q.data_ptr(),
+                          sm_count(x.device))
+    y = torch.empty((rows, n), device=x.device)
+    _build.check_launch(_build.library().dasmtl_int8_dot(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), rows, k, n, plan.threads, plan.cols, int(plan.vec), 0,
+        torch.cuda.current_stream().cuda_stream), "int8_dot")
+    return y
+
+
 def _int8_kernel(peaks):
-    """(a) int8_dot against its plain version bit for bit at B = 1, 8, 32
-    with planted rows, then timed at B = 32."""
-    from dasmtl_torch.ops import int8
+    """(a) int8_dot against its plain version bit for bit at every B from
+    1 to 33 with planted rows, then timed at B = 1, 8 and 32, the parent's
+    kernel in turns with ``--parent``."""
+    from dasmtl_torch.ops import int8, sm_count
 
     g = torch.Generator(device=DEV).manual_seed(8)
-    for rows in (1, 8, 32):
+    for rows in range(1, 34):
         ops = _int8_operands(g, rows)
         got, want = int8.int8_dot(*ops), int8.int8_dot_plain(*ops)
         torch.cuda.synchronize()
@@ -1884,23 +1938,58 @@ def _int8_kernel(peaks):
             raise AssertionError(f"int8_dot differs from plain at B={rows}")
         if not torch.equal(got[0], ops[3]):
             raise AssertionError("int8_dot: an all-NaN row is not the bias")
-    log("[precision] int8_dot == plain bit for bit at B = 1, 8, 32, "
+    log("[precision] int8_dot == plain bit for bit at B = 1..33, "
         "K = 2048, N = 32 (all-NaN, one-NaN, +Inf, -Inf, zero rows)")
-    # Timing at B = 32, operands rotating through 400 sets (128 MB).
-    sets = [_int8_operands(g, 32) for _ in range(400)]
-    nbytes = 32 * FC_K * 4 + FC_N * FC_K + 2 * FC_N * 4 + 32 * FC_N * 4
-    f32_ops = 3 * 32 * FC_K + 3 * 32 * FC_N
-    k = {"ms": device_ms(_rotating(sets, int8.int8_dot), inner=20),
-         "plain_ms": device_ms(_rotating(sets, int8.int8_dot_plain),
-                               inner=20),
-         "library_ms": None, "max_abs_err": 0.0,
+    # Timing, operands rotating through >= 128 MB; at each batch this
+    # tree's kernel, the same launched without PDL, and the parent's, in
+    # turns.
+    parent = _parent_kernels()
+    per_batch = {}
+    for rows in (1, 8, 32):
+        sets = [_int8_operands(g, rows) for _ in range(
+            max(400, 128_000_000 // (rows * FC_K * 4 + FC_N * FC_K)))]
+        fns = {"new": _rotating(sets, int8.int8_dot),
+               "no_pdl": _rotating(sets, functools.partial(_int8_no_pdl,
+                                                            int8))}
+        if parent is not None:
+            fns["parent"] = _rotating(sets, parent["int8_dot"])
+        turns = _in_turns({k: (lambda fn=fn: device_ms(fn, inner=20))
+                           for k, fn in fns.items()},
+                          ("parent", "new", "no_pdl", "no_pdl", "new",
+                           "parent"))
+        nbytes = rows * FC_K * 4 + FC_N * FC_K + 2 * FC_N * 4 + \
+            rows * FC_N * 4
+        bound_ms, bound_by = bound(nbytes, 3 * rows * FC_K + 3 * rows * FC_N,
+                                   peaks, int8_ops=2 * rows * FC_K * FC_N)
+        per_batch[rows] = {
+            "ms": statistics.mean(turns["new"]), "turns_ms": turns["new"],
+            "no_pdl_ms": statistics.mean(turns["no_pdl"]),
+            "parent_ms": (statistics.mean(turns["parent"])
+                          if parent is not None else None),
+            "parent_turns_ms": turns.get("parent"),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "plan": int8.int8_plan(rows, FC_K, FC_N, 0, 0, sm_count(
+                torch.device(DEV)))._asdict()}
+        if rows == 32:
+            plain_ms = device_ms(_rotating(sets, int8.int8_dot_plain),
+                                 inner=20)
+        del sets
+        pb = per_batch[rows]
+        par = ("" if pb["parent_ms"] is None
+               else f", parent {pb['parent_ms'] * 1e3:.2f} us (turns "
+                    f"{[round(t * 1e3, 2) for t in pb['parent_turns_ms']]})")
+        log(f"[precision] int8_dot, B={rows}: {pb['ms'] * 1e3:.2f} us "
+            f"(turns {[round(t * 1e3, 2) for t in pb['turns_ms']]}), without "
+            f"PDL {pb['no_pdl_ms'] * 1e3:.2f} us{par}, bound "
+            f"{pb['bound_ms'] * 1e3:.4f} us ({pb['bound_by']}, {nbytes} B), "
+            f"plan {pb['plan']}")
+    b32 = per_batch[32]
+    k = {"ms": b32["ms"], "plain_ms": plain_ms, "library_ms": None,
+         "max_abs_err": 0.0, "bound_ms": b32["bound_ms"],
+         "bound_by": b32["bound_by"], "per_batch": per_batch,
          "unit": f"1 launch, B=32, K={FC_K}, N={FC_N}"}
-    k["bound_ms"], k["bound_by"] = bound(nbytes, f32_ops, peaks,
-                                         int8_ops=2 * 32 * FC_K * FC_N)
-    del sets
     log(f"[precision] int8_dot, B=32: {k['ms'] * 1e3:.2f} us, plain "
-        f"{k['plain_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.4f} us "
-        f"({k['bound_by']}, {nbytes} B)")
+        f"{k['plain_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.4f} us")
     return k
 
 
@@ -2704,10 +2793,44 @@ RESIDENT_DIR = os.path.join(TRAIN_DIR, "resident")
 TIMING_N, TIMING_EPOCHS, TIMING_K = 4096, 2, 8
 
 
+def _gather_no_pdl(x, d, e, idx, w, out):
+    """This tree's batch_gather launched without programmatic dependent
+    launch: what the launch overlap gains."""
+    from dasmtl_torch.ops import _build, batch_gather as bg, sm_count
+
+    plan = bg.batch_plan(x[0].numel(), idx.shape[0], x.data_ptr(),
+                         out[0].data_ptr(), sm_count(x.device))
+    _build.check_launch(_build.library().dasmtl_batch_gather(
+        x.data_ptr(), d.data_ptr(), e.data_ptr(), x.shape[0], x[0].numel(),
+        idx.data_ptr(), w.data_ptr(), idx.shape[0], out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), int(plan.vec), plan.threads,
+        plan.blocks, 0, torch.cuda.current_stream().cuda_stream),
+        "batch_gather")
+    return out
+
+
+def _graph_ms(fn, sets, launches: int = 32) -> float:
+    """Device ms per launch of ``fn`` replayed from a CUDA graph of
+    ``launches`` launches over successive operand sets, as the resident
+    train step replays its gathers."""
+    for st in sets[:3]:
+        fn(*st)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for st in sets[:launches]:
+            fn(*st)
+    ms = device_ms(graph.replay, inner=3) / launches
+    del graph
+    return ms
+
+
 def _gather_kernel(peaks):
     """(a) the batch gather against its plain version bit for bit (B = 1,
-    7, 32 at 100x250 and B = 32 at 7x13, padded rows of a negative row
-    and a NaN at the padding index), then timed."""
+    7, 32, 33 at 100x250, B = 32 at 7x13, and 4-byte offset views of x
+    and of out_x; padded rows of a negative row and a NaN at the padding
+    index), then timed eagerly and replayed from a CUDA graph, the
+    parent's kernel in turns with ``--parent``."""
     from dasmtl_torch.ops import batch_gather as bg
 
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -2728,10 +2851,24 @@ def _gather_kernel(peaks):
             w[-2:] = 0.0
         return x, d, e, idx, w
 
-    for b, hw in ((1, (H, W)), (7, (H, W)), (32, (H, W)), (32, (7, 13))):
+    def offset(t):
+        """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary."""
+        flat = torch.empty(t.numel() + 1, device="cuda")[1:]
+        return flat.view(t.shape).copy_(t)
+
+    cases = [((1, (H, W)), False), ((7, (H, W)), False),
+             ((32, (H, W)), False), ((33, (H, W)), False),
+             ((32, (7, 13)), False), ((32, (H, W)), True)]
+    for (b, hw), shifted in cases:
         ops = operands(64, hw, b)
+        out = None
+        if shifted:
+            ops = (offset(ops[0]),) + ops[1:]
+            out = (offset(torch.zeros((b, *hw, 1), device="cuda")),
+                   torch.empty(b, dtype=torch.int32, device="cuda"),
+                   torch.empty(b, dtype=torch.int32, device="cuda"))
         before = bg.launches.value
-        got = bg.batch_gather(*ops)
+        got = bg.batch_gather(*ops, out=out)
         want = bg.batch_gather_plain(*ops)
         torch.cuda.synchronize()
         if bg.launches.value - before != 1:
@@ -2740,15 +2877,18 @@ def _gather_kernel(peaks):
                             want[0].view(torch.int32))
                 and torch.equal(got[1], want[1])
                 and torch.equal(got[2], want[2])):
-            raise AssertionError(f"batch_gather != plain at B={b}, {hw}")
+            raise AssertionError(f"batch_gather != plain at B={b}, {hw}"
+                                 f"{' (offset views)' if shifted else ''}")
         if b > 1 and not (torch.signbit(got[0][-2:]).any()
                           and int(torch.isnan(got[0][-2:]).sum()) == 2):
             raise AssertionError("batch_gather lost -0.0 or NaN on padding")
-    log("[resident] batch_gather == plain bit for bit at B = 1, 7, 32 x "
-        f"{H}x{W} and B = 32 x 7x13 (scalar path), -0.0 and NaN kept on "
-        "padded rows")
+    log("[resident] batch_gather == plain bit for bit at B = 1, 7, 32, 33 x "
+        f"{H}x{W}, B = 32 x 7x13 and 4-byte offset views (scalar branch), "
+        "-0.0 and NaN kept on padded rows")
     # Timing at the main path's shape: B = 32 rows of a 4,096-window set
-    # (410 MB, beyond L2), a fresh index row per call.
+    # (410 MB, beyond L2), a fresh index row per call; this tree's kernel,
+    # the same launched without PDL, and the parent's, in turns, eagerly
+    # and replayed from a CUDA graph.
     b, n = 32, TIMING_N
     x = torch.randn((n, H, W, 1), device="cuda", generator=g)
     d = torch.randint(0, 16, (n,), device="cuda", generator=g,
@@ -2758,6 +2898,9 @@ def _gather_kernel(peaks):
     sets = [(x, d, e, torch.randperm(n, device="cuda", generator=g)[:b]
              .to(torch.int32), torch.ones(b, device="cuda"))
             for _ in range(n // b)]
+    out = (torch.empty((b, H, W, 1), device="cuda"),
+           torch.empty(b, dtype=torch.int32, device="cuda"),
+           torch.empty(b, dtype=torch.int32, device="cuda"))
 
     def library(x, d, e, idx, w):
         out = torch.index_select(x, 0, idx)
@@ -2765,20 +2908,47 @@ def _gather_kernel(peaks):
         return out, torch.index_select(d, 0, idx), torch.index_select(e, 0,
                                                                       idx)
 
-    k = {"ms": device_ms(_rotating(sets, bg.batch_gather), inner=20),
+    parent = _parent_kernels()
+    fns = {"new": lambda *a: bg.batch_gather(*a, out=out),
+           "no_pdl": lambda *a: _gather_no_pdl(*a, out)}
+    if parent is not None:
+        fns["parent"] = lambda *a: parent["batch_gather"](*a, out)
+    order = ("parent", "new", "no_pdl", "no_pdl", "new", "parent")
+    eager = _in_turns({k: (lambda fn=fn: device_ms(_rotating(sets, fn),
+                                                   inner=20))
+                       for k, fn in fns.items()}, order)
+    graph = _in_turns({k: (lambda fn=fn: _graph_ms(fn, sets))
+                       for k, fn in fns.items()}, order)
+    k = {"ms": statistics.mean(eager["new"]), "turns_ms": eager["new"],
+         "no_pdl_ms": statistics.mean(eager["no_pdl"]),
+         "graph_ms": statistics.mean(graph["new"]),
+         "graph_turns_ms": graph["new"],
+         "graph_no_pdl_ms": statistics.mean(graph["no_pdl"]),
          "plain_ms": device_ms(_rotating(sets, bg.batch_gather_plain),
                                inner=20),
          "library_ms": device_ms(_rotating(sets, library), inner=20),
          "max_abs_err": 0.0, "unit": f"1 launch, B = {b} at {H}x{W}"}
+    if parent is not None:
+        k.update(parent_ms=statistics.mean(eager["parent"]),
+                 parent_turns_ms=eager["parent"],
+                 parent_graph_ms=statistics.mean(graph["parent"]),
+                 parent_graph_turns_ms=graph["parent"])
     nbytes = 2 * b * H * W * 4 + b * 4 * 2 + b * 4 * 4
     k["bytes"] = nbytes
     k["bound_ms"], k["bound_by"] = bound(nbytes, b * H * W, peaks)
     del sets, x
+    par = ("" if parent is None
+           else f"; parent {k['parent_ms'] * 1e3:.2f} us (turns "
+                f"{[round(t * 1e3, 2) for t in eager['parent']]}), graph "
+                f"{k['parent_graph_ms'] * 1e3:.2f} us")
     log(f"[resident] batch_gather B = {b} at {H}x{W}: {k['ms'] * 1e3:.2f} "
-        f"us, plain {k['plain_ms'] * 1e3:.2f} us, library (index_select x 3 "
-        f"+ mul_) {k['library_ms'] * 1e3:.2f} us, bound "
-        f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}, {nbytes / 1e6:.2f} "
-        f"MB)")
+        f"us (turns {[round(t * 1e3, 2) for t in eager['new']]}), without "
+        f"PDL {k['no_pdl_ms'] * 1e3:.2f} us; from a CUDA graph "
+        f"{k['graph_ms'] * 1e3:.2f} us, without PDL "
+        f"{k['graph_no_pdl_ms'] * 1e3:.2f} us{par}; plain "
+        f"{k['plain_ms'] * 1e3:.2f} us, library (index_select x 3 + mul_) "
+        f"{k['library_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.2f} "
+        f"us ({k['bound_by']}, {nbytes / 1e6:.2f} MB)")
     return k
 
 
@@ -3042,7 +3212,8 @@ def main(argv=None) -> int:
                         "a train step and of each preset's forward")
     p.add_argument("--parent", default=None,
                    help="a git archive of the parent commit's tree: time "
-                        "its gate and window gather in turns with these")
+                        "its gate, window gather, int8_dot and batch_gather "
+                        "in turns with these")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "

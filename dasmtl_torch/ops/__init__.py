@@ -8,7 +8,10 @@ so a run can show that the main path went through the kernel.
 
 from __future__ import annotations
 
+import functools
 import threading
+
+import torch
 
 
 class LaunchCounter:
@@ -30,6 +33,13 @@ class LaunchCounter:
     def value(self) -> int:
         with self._lock:
             return self._n
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, asked once (the kernels' launch
+    plans size their grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch_counters() -> dict:

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Route (b) of the Hopper kernel notes: ``nvcc`` compiles every
-``dasmtl_torch/csrc/*.cu`` (one process per source, all started together)
+``dasmtl_torch/csrc/*.cu`` (one process per source, all started together;
+the ``*.cuh`` headers they include are hashed with them)
 for ``sm_90a`` and links them into ONE shared library with a plain C
 interface, loaded with :mod:`ctypes`.  That builds in seconds, where a
 ``torch.utils.cpp_extension`` build that includes PyTorch's headers takes
@@ -51,12 +52,15 @@ SIGNATURES = {
     "dasmtl_ring_append": (ctypes.c_int, [
         _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _P, _P]),
     "dasmtl_int8_dot": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_int64,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int, _P]),
     "dasmtl_leaf_digest": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int64,
                                           _P, _P]),
     "dasmtl_batch_gather": (ctypes.c_int, [
         _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P, _P, ctypes.c_int,
-        _P, _P, _P, _P]),
+        _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _P]),
     "dasmtl_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -98,7 +102,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdasmtl_torch_{h.hexdigest()[:16]}.so"

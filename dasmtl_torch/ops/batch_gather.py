@@ -17,20 +17,57 @@ Indices must lie in ``[0, N)``: :func:`check_plan` holds a whole epoch's
 plan to that on the host, once, where the plan is built.  Unlike
 ``jnp.take``'s fill mode for bad indices, the kernel reads nothing out of
 range and traps instead.
+
+The kernel's launch geometry is chosen here before the launch
+(:func:`batch_plan`), from the shapes, the pointers and the card's SM
+count alone: nothing in it reads the device, so a CUDA graph captures the
+launch as it is.  The kernel launches with programmatic dependent launch
+(``csrc/pdl.cuh``), which a graph keeps.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dasmtl_torch.device import require_hopper
-from dasmtl_torch.ops import LaunchCounter, _build
+from dasmtl_torch.ops import LaunchCounter, _build, sm_count
 
 #: Kernel launches made by :func:`batch_gather` (never by the plain one).
 launches = LaunchCounter()
+
+#: Threads per block.
+THREADS = 256
+#: Threads an H100 SM holds at once.
+THREADS_PER_SM = 2048
+
+
+class BatchPlan(NamedTuple):
+    """The float4 branch, threads per block, blocks per output row."""
+    vec: bool
+    threads: int
+    blocks: int
+
+
+def batch_plan(row: int, b: int, x_ptr: int, out_ptr: int,
+               sms: int) -> BatchPlan:
+    """The launch geometry for ``b`` rows of ``row`` floats on a card of
+    ``sms`` SMs.
+
+    - ``vec``: 16-byte loads and stores, which need ``row % 4 == 0`` and
+      both ``x`` and ``out_x`` 16-byte aligned; else one float a load.
+    - ``blocks`` per row: one float4 (or float) per thread covers the row
+      (25 blocks at 100x250), cut so that the ``b`` rows' blocks fit the
+      card's resident blocks at once; a grid-stride loop takes the rest.
+    """
+    vec = row % 4 == 0 and x_ptr % 16 == 0 and out_ptr % 16 == 0
+    units = row // 4 if vec else row
+    wave = sms * (THREADS_PER_SM // THREADS)
+    blocks = max(1, min(-(-units // THREADS), wave // b))
+    return BatchPlan(vec, THREADS, blocks)
+
 
 Gathered = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -104,10 +141,14 @@ def batch_gather(x: torch.Tensor, distance: torch.Tensor,
     if b == 0:
         return out
     row = x[0].numel()
+    plan = batch_plan(row, b, x.data_ptr(), out_x.data_ptr(),
+                      sm_count(x.device))
     rc = _build.library().dasmtl_batch_gather(
         x.data_ptr(), distance.data_ptr(), event.data_ptr(), n, row,
         idx.data_ptr(), w.data_ptr(), b, out_x.data_ptr(), out_d.data_ptr(),
-        out_e.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        out_e.data_ptr(), int(plan.vec), plan.threads, plan.blocks,
+        1,  # programmatic dependent launch
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(rc, "batch_gather")
     launches.add()
     return out

@@ -13,16 +13,22 @@ reproduce the reference bit for bit, its handling of NaN included: a row
 whose ``max |x|`` is NaN gets ``xscale = 1`` and its NaN elements quantize
 to 0, so an all-NaN row comes out as exactly the bias (XLA converts NaN to
 int8 0; ROADMAP.md queue 3 records this fact of the reference).
+
+The kernel's launch geometry is chosen here before the launch
+(:func:`int8_plan`): a block per row and group of output columns, a
+thread per 16 elements of K, and the 16-byte branch where K and the
+pointers allow it.  The kernel launches with programmatic dependent
+launch (``csrc/pdl.cuh``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from dasmtl_torch.device import require_hopper
-from dasmtl_torch.ops import LaunchCounter, _build
+from dasmtl_torch.ops import LaunchCounter, _build, sm_count
 
 #: Symmetric int8 range: +-127 (never -128).
 QMAX = 127.0
@@ -31,6 +37,42 @@ MAX_K = 32768
 
 #: Kernel launches made by :func:`int8_dot` (never by the plain version).
 launches = LaunchCounter()
+
+#: Elements of K one thread owns (``kPerThread`` in ``csrc/int8_dot.cu``).
+PER_THREAD = 16
+#: Output columns a block may take, fewest first.
+COLS = (1, 2, 4, 8)
+MAX_THREADS = 256
+
+
+class Int8Plan(NamedTuple):
+    """Threads per block, output columns per block, the 16-byte branch."""
+    threads: int
+    cols: int
+    vec: bool
+
+
+def int8_plan(rows: int, k: int, n: int, x_ptr: int, q_ptr: int,
+              sms: int) -> Int8Plan:
+    """The launch geometry for ``rows`` x ``K`` against ``N`` columns on a
+    card of ``sms`` SMs.
+
+    - ``threads``: one per 16 elements of K, rounded up to whole warps, at
+      most 256 (a longer K takes several chunks a thread).
+    - ``cols``: the fewest columns per block (1, 2, 4, 8) whose grid of
+      ``rows x ceil(N / cols)`` blocks fits one block per SM; 8 where none
+      does.  At N = 32 that is 1 at B <= 4, 2 at B = 8, 4 at B = 16 and 8
+      at B = 32 (128 blocks).  A second block on an SM only waits on the
+      first one's loads: on the H100 each of these measured faster than
+      the plans beside it (PERF.md's findings).
+    - ``vec``: 16-byte loads of x and q, which need ``K % 16 == 0`` and
+      both pointers 16-byte aligned; else the scalar branch.
+    """
+    warps = -(-k // (PER_THREAD * 32))
+    threads = min(MAX_THREADS, 32 * warps)
+    cols = next((c for c in COLS if rows * -(-n // c) <= sms), COLS[-1])
+    vec = k % PER_THREAD == 0 and x_ptr % 16 == 0 and q_ptr % 16 == 0
+    return Int8Plan(threads, cols, vec)
 
 
 def div_qmax(t: torch.Tensor) -> torch.Tensor:
@@ -100,10 +142,14 @@ def int8_dot(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     y = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     if rows == 0:
         return y
+    plan = int8_plan(rows, k, n, x.data_ptr(), q.data_ptr(),
+                     sm_count(x.device))
     rc = _build.library().dasmtl_int8_dot(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(),
         bias.data_ptr() if bias is not None else None, y.data_ptr(),
-        rows, k, n, torch.cuda.current_stream(x.device).cuda_stream)
+        rows, k, n, plan.threads, plan.cols, int(plan.vec),
+        1,  # programmatic dependent launch
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(rc, "int8_dot")
     launches.add()
     return y

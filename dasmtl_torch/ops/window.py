@@ -20,13 +20,12 @@ gather too small to give every SM a run takes the rows branch.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
 import torch
 
 from dasmtl_torch.device import require_hopper
-from dasmtl_torch.ops import LaunchCounter, _build
+from dasmtl_torch.ops import LaunchCounter, _build, sm_count
 
 #: Kernel launches made by :func:`window_gather` (never by the plain one).
 launches = LaunchCounter()
@@ -72,11 +71,6 @@ def gather_plan(T: int, data_ptr: int, h: int, w: int, k: int,
             if 2 * rows * row_bytes <= MAX_BULK_SMEM:
                 return GatherPlan("bulk", rows)
     return GatherPlan("scalar", ROWS_PER_RUN)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_geometry(rec: torch.Tensor, origins: torch.Tensor,
@@ -133,7 +127,7 @@ def window_gather(rec: torch.Tensor, origins: torch.Tensor,
     if k == 0:
         return out
     plan = gather_plan(rec.shape[1], rec.data_ptr(), h, w, k,
-                       _sm_count(rec.device))
+                       sm_count(rec.device))
     rc = _build.library().dasmtl_window_gather(
         rec.data_ptr(), rec.shape[0], rec.shape[1], origins.data_ptr(), k, h,
         w, out.data_ptr(), BRANCHES[plan.branch], plan.rows_per_run,

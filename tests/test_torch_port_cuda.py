@@ -494,6 +494,94 @@ def test_int8_dot_kernel_scalar_path_and_no_bias(cuda):
                        .view(torch.int32))
 
 
+def _edge_operands(seed, rows, k=2048, n=32, device="cpu"):
+    """Operands with the planted rows at the edges of the kernel's blocks
+    and of a thread's 16-element chunk: the first row all NaN, the last
+    all zero, NaN at element K - 1, +Inf at 16, -Inf at 15, and a row of
+    one huge element (its other elements quantize to 0)."""
+    x, q, scale, bias = _int8_operands(seed, rows, k, n)
+    x[0] = float("nan")
+    if rows > 1:
+        x[-1] = 0.0
+    for r, (col, v) in enumerate([(k - 1, float("nan")),
+                                  (min(16, k - 1), float("inf")),
+                                  (min(15, k - 1), float("-inf")),
+                                  (k // 2, 3e38)], start=1):
+        if r < rows - 1:
+            x[r, col] = v
+    return [t.to(device) for t in (x, q, scale, bias)]
+
+
+def _assert_int8_bits(ops):
+    got = int8.int8_dot(*ops)
+    want = int8.int8_dot_plain(*ops)
+    assert torch.equal(got.cpu().view(torch.int32),
+                       want.cpu().view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("rows", range(1, 34))
+def test_int8_dot_kernel_every_batch_bit_for_bit(cuda, rows):
+    """Every batch the serve buckets can form, and one past it; each plan
+    of ops/int8.py:int8_plan (1, 2, 4 and 8 columns a block) is taken."""
+    got = _assert_int8_bits(_edge_operands(rows, rows, device=cuda))
+    assert got.shape == (rows, 32)
+    assert int8.launches.value == 1
+
+
+@pytest.mark.parametrize("rows,n", [(1, 5), (32, 5), (7, 33), (32, 33)])
+def test_int8_dot_kernel_columns_off_the_group(cuda, rows, n):
+    _assert_int8_bits(_edge_operands(40 + rows, rows, n=n, device=cuda))
+
+
+@pytest.mark.parametrize("k", [37, 2050, 2052, 4096, 5000])
+def test_int8_dot_kernel_odd_and_long_k(cuda, k):
+    """K % 4 != 0, K % 16 != 0 (the scalar branch) and K past one chunk
+    a thread (the later chunks read again)."""
+    _assert_int8_bits(_edge_operands(k, 9, k=k, device=cuda))
+
+
+@pytest.mark.parametrize("x_off,q_off", [(0, 1), (4, 0), (0, 8)])
+def test_int8_dot_kernel_unaligned_views(cuda, x_off, q_off):
+    x, q, scale, bias = _edge_operands(7, 8, device=cuda)
+    xs = torch.empty(x.numel() + 4, device=cuda)
+    xv = xs[x_off // 4:x_off // 4 + x.numel()].view(x.shape).copy_(x)
+    qs = torch.empty(q.numel() + 16, dtype=torch.int8, device=cuda)
+    qv = qs[q_off:q_off + q.numel()].view(q.shape).copy_(q)
+    _assert_int8_bits([xv, qv, scale, bias])
+
+
+@pytest.mark.parametrize("cols", [1, 2, 4, 8])
+@pytest.mark.parametrize("vec", [True, False])
+def test_int8_dot_kernel_every_geometry(cuda, cols, vec):
+    """Every column group and both branches through the C entry point,
+    with and without programmatic dependent launch."""
+    from dasmtl_torch.ops import _build
+
+    x, q, scale, bias = _edge_operands(cols, 13, n=33, device=cuda)
+    want = int8.int8_dot_plain(x, q, scale, bias)
+    for pdl in (0, 1):
+        y = torch.full((13, 33), 7.0, device=cuda)
+        rc = _build.library().dasmtl_int8_dot(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), 13, 2048, 33, 128, cols, int(vec), pdl,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        assert torch.equal(y.view(torch.int32), want.view(torch.int32))
+
+
+def test_int8_dot_waits_for_the_kernel_that_writes_its_input(cuda):
+    """Under programmatic dependent launch the kernel may start before the
+    one that writes x ends: it must still read the new x."""
+    x, q, scale, bias = _edge_operands(5, 32, device=cuda)
+    x = x[1:].contiguous()
+    for i in range(20):
+        xi = x * float(i + 1)  # written by the kernel just before
+        got = int8.int8_dot(xi, q, scale, bias)
+        want = int8.int8_dot_plain(xi, q, scale, bias)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_int8_dot_refuses_what_it_does_not_take(cuda):
     x, q, scale, bias = (t.to(cuda) for t in _int8_operands(3, 4))
     with pytest.raises(TypeError):
@@ -682,6 +770,96 @@ def test_batch_gather_kernel_matches_plain_bit_for_bit(cuda, b, hw):
     if b > 1:
         assert torch.signbit(got[0][-2:]).any()  # -0.0 kept
         assert torch.isnan(got[0][-2:]).sum() == 2  # NaN kept
+
+
+def _assert_gather_bits(ops, out=None):
+    got = batch_gather.batch_gather(*ops, out=out)
+    want = batch_gather.batch_gather_plain(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    return got
+
+
+def _offset_copy(t):
+    """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    assert flat.data_ptr() % 16 == 4
+    return flat.view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("b", [1, 7, 32, 33])
+@pytest.mark.parametrize("hw", [(100, 250), (7, 13)])
+def test_batch_gather_kernel_batches_and_rows(cuda, b, hw):
+    """The float4 branch (100x250) and a row that is no multiple of 4
+    (7x13, the scalar branch), -0.0 and NaN kept on padded rows."""
+    got = _assert_gather_bits(_gather_operands(cuda, 40, hw, b, seed=b + 1))
+    assert batch_gather.launches.value == 1
+    if b > 1:
+        assert torch.signbit(got[0][-2:]).any()
+        assert torch.isnan(got[0][-2:]).sum() == 2
+
+
+@pytest.mark.parametrize("shift", ["x", "out_x", "both"])
+def test_batch_gather_kernel_offset_views(cuda, shift):
+    x, d, e, idx, w = _gather_operands(cuda, 40, (100, 250), 32, seed=9)
+    if shift in ("x", "both"):
+        x = _offset_copy(x)
+    out_x = torch.zeros((32, 100, 250, 1), device=cuda)
+    if shift in ("out_x", "both"):
+        out_x = _offset_copy(out_x)
+    out = (out_x, torch.empty(32, dtype=torch.int32, device=cuda),
+           torch.empty(32, dtype=torch.int32, device=cuda))
+    got = _assert_gather_bits((x, d, e, idx, w), out=out)
+    assert got[0].data_ptr() == out_x.data_ptr()
+
+
+def test_batch_gather_graph_replay_equals_eager(cuda):
+    """A CUDA graph of gathers (programmatic edges between them), replayed
+    on new index rows, equals the same launches made eagerly."""
+    x, d, e, idx, w = _gather_operands(cuda, 64, (100, 250), 32, seed=4)
+    g = torch.Generator().manual_seed(5)
+    plans = [torch.randint(0, 64, (32,), generator=g, dtype=torch.int32)
+             for _ in range(6)]
+    s_idx = [torch.zeros(32, dtype=torch.int32, device=cuda)
+             for _ in range(3)]
+    outs = [(torch.empty((32, 100, 250, 1), device=cuda),
+             torch.empty(32, dtype=torch.int32, device=cuda),
+             torch.empty(32, dtype=torch.int32, device=cuda))
+            for _ in range(3)]
+    for i in range(3):  # warm up on the side
+        batch_gather.batch_gather(x, d, e, s_idx[i], w, out=outs[i])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(3):
+            batch_gather.batch_gather(x, d, e, s_idx[i], w, out=outs[i])
+    for turn in range(2):
+        for i in range(3):
+            s_idx[i].copy_(plans[3 * turn + i])
+        graph.replay()
+        torch.cuda.synchronize()
+        for i in range(3):
+            want = batch_gather.batch_gather(x, d, e, s_idx[i], w)
+            for a, b_ in zip(outs[i], want):
+                assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
+
+
+def test_batch_gather_waits_for_the_kernel_that_writes_its_input(cuda):
+    """Under programmatic dependent launch the gather may start before the
+    kernel that rewrites the set ends: it must still read the new rows."""
+    x, d, e, idx, w = _gather_operands(cuda, 40, (100, 250), 32, seed=6)
+    out = (torch.empty((32, 100, 250, 1), device=cuda),
+           torch.empty(32, dtype=torch.int32, device=cuda),
+           torch.empty(32, dtype=torch.int32, device=cuda))
+    for i in range(10):
+        x.mul_(-1.0)  # written by the kernel just before
+        d.add_(1)
+        got = batch_gather.batch_gather(x, d, e, idx, w, out=out)
+        want = batch_gather.batch_gather_plain(x, d, e, idx, w)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
 
 
 def test_batch_gather_refuses_what_it_does_not_take(cuda):
