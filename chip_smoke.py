@@ -9,11 +9,18 @@ Phases, each fatal on failure (no phase catches its own error):
 2. build   — nvcc builds ``dasmtl_torch/csrc/*.cu`` into one library;
 3. kernels — each hand-written kernel against its plain PyTorch version
              on the card at the main path's shapes (the paired T = 2 gate
-             bit-equal to its T = 1 launches), then timed with CUDA
+             bit-equal to its T = 1 launches; the decode tail at B = 1,
+             16, 32 and 256 with heads 16 + 2 and at 256 with one 32-wide
+             head, NaN / Inf planted, bit-equal with and without
+             programmatic dependent launch), then timed with CUDA
              events (kernel, plain version, and the card's bound): the
              gate's 8 T = 1 launches of a train forward and 4 T = 2
-             launches of an eval forward at batch 32, 16 and 1, per stage,
-             the parent commit's kernel in turns with ``--parent``;
+             launches of an eval forward at batch 32, 16 and 1, per stage;
+             the decode tail at B = 32, 16, 256 and 1 back to back, also
+             without PDL and in the split layout (a warp per head-row,
+             bit-equal to the packed one decode_plan picks), and at B =
+             32 behind head 1's log_softmax, the forward's last kernel;
+             the parent commit's kernels in turns with ``--parent``;
 4. model   — the full-width MTL serve forward at batch 32 on the card
              against the same module on the CPU, TF32 off; exactly 4 gate
              launches (both tasks of a stage in one) and 1 decode launch
@@ -41,8 +48,11 @@ Phases, each fatal on failure (no phase catches its own error):
              against their plain versions at the stream path's shapes
              (the gather's rows branch at k = 1, its bulk branch at 16
              and 256, its scalar branch on a T % 4 != 0 and an offset
-             record), then timed (the gather at k = 256, 16 and 1, the
-             parent's kernel in turns with ``--parent``); (b) ``python -m dasmtl_torch.stream`` in process
+             record; event_prob_q at k = 1, 16 and 256, widths 2 and 32
+             and an offset view, with and without PDL), then timed (the
+             gather at k = 256, 16 and 1; event_prob_q at k = 16 back to
+             back, also without PDL, and behind torch.log_softmax; the
+             parent's kernels in turns with ``--parent``); (b) ``python -m dasmtl_torch.stream`` in process
              over a 1000 x 60000 record at stride 125, batch 256, with
              phase 6's checkpoint, resident on and off: 4,790 identical
              rows, ints equal to a CPU run of 256 of its windows on
@@ -133,8 +143,9 @@ power limit follow on a line of their own, and the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.  ``--parent DIR`` names a ``git archive`` of the parent commit's
-tree; its gate, window-gather, int8_dot and batch_gather kernels are
-then built and timed in turns with this tree's (phases 3, 7a, 8a, 10a).  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
+tree; its gate, window-gather, int8_dot, batch_gather, decode and
+event_prob_q kernels are then built and timed in turns with this tree's
+(phases 3, 7a, 8a, 10a).  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
 forward, of one train step and of each preset's forward to the report;
 ``--out`` writes the full report as JSON.
 """
@@ -277,24 +288,26 @@ def _gate_inputs(g, b, shape):
 
 
 #: A ``git archive`` of the parent commit's tree (``--parent``): its gate,
-#: window-gather, int8_dot and batch_gather kernels are timed in turns
-#: with this tree's.
+#: window-gather, int8_dot, batch_gather, decode and event_prob_q kernels
+#: are timed in turns with this tree's.
 PARENT = None
 #: The parent's kernel sources, and their C signatures in the parent
 #: commit (``dasmtl_torch/ops/_build.py:SIGNATURES`` there).
-PARENT_SOURCES = ("gating.cu", "window.cu", "int8_dot.cu", "batch_gather.cu")
+PARENT_SOURCES = ("gating.cu", "window.cu", "int8_dot.cu", "batch_gather.cu",
+                  "decode.cu")
 
 
 @functools.lru_cache(maxsize=1)
 def _parent_kernels():
-    """The parent commit's gate forward, window gather, int8_dot and
-    batch_gather, built with this tree's nvcc flags from
-    ``PARENT/dasmtl_torch/csrc`` and called through their own C
-    signatures; None without ``--parent``."""
+    """The parent commit's gate forward, window gather, int8_dot,
+    batch_gather, decode tail and event_prob_q, built with this tree's
+    nvcc flags from ``PARENT/dasmtl_torch/csrc`` and called through their
+    own C signatures; None without ``--parent``."""
     import ctypes
     import subprocess
 
-    from dasmtl_torch.ops import _build, sm_count, window
+    from dasmtl_torch.ops import _build, batch_gather as bg, int8, sm_count
+    from dasmtl_torch.ops import window
 
     if PARENT is None:
         return None
@@ -320,8 +333,11 @@ def _parent_kernels():
     for name, args in (
             ("dasmtl_gate_fwd", [I, P, P, P, P, P, L, P]),
             ("dasmtl_window_gather", [P, L, L, P, I, I, I, P, I, I, P]),
-            ("dasmtl_int8_dot", [P, P, P, P, P, L, I, I, P]),
-            ("dasmtl_batch_gather", [P, P, P, L, L, P, P, I, P, P, P, P])):
+            ("dasmtl_int8_dot", [P, P, P, P, P, L, I, I, I, I, I, I, P]),
+            ("dasmtl_batch_gather", [P, P, P, L, L, P, P, I, P, P, P, I, I,
+                                     I, I, P]),
+            ("dasmtl_decode_heads", [P, I, P, I, L, P, P, P, P, P, P]),
+            ("dasmtl_event_prob_q", [P, I, L, P, P])):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = args
 
@@ -350,25 +366,57 @@ def _parent_kernels():
             plan.rows_per_run, stream()), "window gather")
         return o
 
+    # The parent's int8_dot and batch_gather take their geometry from the
+    # same plans as this tree's (ops/int8.py, ops/batch_gather.py) and
+    # launch with PDL.
     def int8_dot(x, q, scale, bias):
-        y = torch.empty((x.shape[0], q.shape[0]), device=x.device)
+        (rows, k), n = x.shape, q.shape[0]
+        plan = int8.int8_plan(rows, k, n, x.data_ptr(), q.data_ptr(),
+                              sm_count(x.device))
+        y = torch.empty((rows, n), device=x.device)
         check(lib.dasmtl_int8_dot(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), x.shape[0], x.shape[1], q.shape[0], stream()),
-            "int8_dot")
+            y.data_ptr(), rows, k, n, plan.threads, plan.cols, int(plan.vec),
+            1, stream()), "int8_dot")
         return y
 
     def batch_gather(x, d, e, idx, w, out):
+        plan = bg.batch_plan(x[0].numel(), idx.shape[0], x.data_ptr(),
+                             out[0].data_ptr(), sm_count(x.device))
         check(lib.dasmtl_batch_gather(
             x.data_ptr(), d.data_ptr(), e.data_ptr(), x.shape[0],
             x[0].numel(), idx.data_ptr(), w.data_ptr(), idx.shape[0],
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            stream()), "batch_gather")
+            int(plan.vec), plan.threads, plan.blocks, 1, stream()),
+            "batch_gather")
+        return out
+
+    def decode_heads(heads):
+        rows, second = heads[0].shape[0], len(heads) > 1
+        lp = [torch.empty_like(h) for h in heads]
+        preds = [torch.empty(rows, dtype=torch.int32, device=h.device)
+                 for h in heads]
+        bad = torch.empty(rows, dtype=torch.bool, device=heads[0].device)
+        check(lib.dasmtl_decode_heads(
+            heads[0].data_ptr(), heads[0].shape[1],
+            heads[1].data_ptr() if second else None,
+            heads[1].shape[1] if second else 0, rows, lp[0].data_ptr(),
+            lp[1].data_ptr() if second else None, preds[0].data_ptr(),
+            preds[1].data_ptr() if second else None, bad.data_ptr(),
+            stream()), "decode_heads")
+        return lp, preds, bad
+
+    def event_prob_q(lp):
+        out = torch.empty(lp.shape[0], dtype=torch.int32, device=lp.device)
+        check(lib.dasmtl_event_prob_q(lp.data_ptr(), lp.shape[1],
+                                      lp.shape[0], out.data_ptr(), stream()),
+              "event_prob_q")
         return out
 
     log(f"[parent] built {', '.join(PARENT_SOURCES)} of {PARENT}")
     return {"gate": gate, "window_gather": gather, "int8_dot": int8_dot,
-            "batch_gather": batch_gather}
+            "batch_gather": batch_gather, "decode_heads": decode_heads,
+            "event_prob_q": event_prob_q}
 
 
 def _in_turns(fns: dict, order) -> dict:
@@ -484,6 +532,144 @@ def _time_gates(stages, gating, parent, peaks):
         "per_stage": per_stage}
 
 
+#: The order of the turns in which a kernel is timed against itself
+#: launched without PDL, the parent's kernel and, where it runs behind a
+#: predecessor, that predecessor alone (names absent from a call are
+#: skipped).
+PDL_TURNS = ("pred", "parent", "new", "split", "no_pdl", "no_pdl", "split",
+             "new", "parent", "pred")
+
+
+def _pdl_turns(fns: dict, inner: int = 20) -> dict:
+    """Every name's ``device_ms`` turns in ``PDL_TURNS`` order, and their
+    means under ``<name>_ms``."""
+    turns = _in_turns({k: (lambda fn=fn: device_ms(fn, inner=inner))
+                       for k, fn in fns.items()}, PDL_TURNS)
+    out = {f"{k}_ms": statistics.mean(v) for k, v in turns.items()}
+    out["turns_ms"] = turns
+    return out
+
+
+def _us(ms) -> str:
+    return "not timed" if ms is None else f"{ms * 1e3:.2f} us"
+
+
+def _decode_inputs(g, widths, b):
+    """Heads of ``widths`` classes at batch ``b`` on the card, NaN and Inf
+    in warp lanes 0, 15, 16 and 31 where the lane layout has them: a NaN
+    in lane 0 (row 0) and in lane 15 or the last class (row 1); +inf in
+    head 1's first class (lane 16 when two heads share a warp) or lane 16
+    of a wider head (row 2); -inf in the last class (row 3: lane 31 of a
+    32-wide head); an all -inf row 4 and a tie across row 5."""
+    nan, inf = float("nan"), float("inf")
+    heads = [torch.randn((b, w), device="cuda", generator=g) * 3.0
+             for w in widths]
+    h0, last, w0 = heads[0], heads[-1], widths[0]
+    for t, r, c, v in ((h0, 0, 0, nan), (h0, 1, min(15, w0 - 1), nan),
+                       (last, 2, 0 if len(heads) > 1 else min(16, w0 - 1),
+                        inf),
+                       (h0, 3, w0 - 1, -inf)):
+        if r < b:
+            t[r, c] = v
+    if b > 5:
+        h0[4] = -inf
+        h0[5] = float(h0[5, 0])
+    return heads
+
+
+def _decode_split(heads):
+    """Two heads in the split layout (a warp per head-row, the row's two
+    warps joined by a barrier) whatever their widths: model A's 16 + 2
+    heads so are timed against the packed layout that decode_plan picks
+    for them, the measured reason to keep both layouts (PERF.md)."""
+    from dasmtl_torch.ops import _build, decode
+
+    rows = heads[0].shape[0]
+    plan = decode.decode_plan(rows, [h.shape[1] for h in heads])
+    warps = min(decode.WARPS, 2 * rows)
+    lp = [torch.empty_like(h) for h in heads]
+    preds = [torch.empty(rows, dtype=torch.int32, device=h.device)
+             for h in heads]
+    bad = torch.empty(rows, dtype=torch.bool, device=heads[0].device)
+    rc = _build.library().dasmtl_decode_heads(
+        heads[0].data_ptr(), heads[0].shape[1], heads[1].data_ptr(),
+        heads[1].shape[1], rows, lp[0].data_ptr(), lp[1].data_ptr(),
+        preds[0].data_ptr(), preds[1].data_ptr(), bad.data_ptr(), 1,
+        plan.span, warps, -(-2 * rows // warps), 1,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(rc, "decode_heads (split)")
+    return lp, preds, bad
+
+
+def _time_decode(g, parent, peaks):
+    """The decode tail's device time on model A's heads (16 + 2): back to
+    back at B = 32, 16, 256 and 1 (this tree's kernel with and without
+    PDL, in the split layout, and the parent's, in turns; the plain
+    version at 32), and at B = 32 behind its real predecessor, the log_softmax of head 1 that ends
+    the eval forward (each pair timed, less that log_softmax alone)."""
+    from dasmtl_torch.ops import decode
+
+    kernels = {"new": decode.decode_heads,
+               "no_pdl": functools.partial(decode._decode_kernel, pdl=False)}
+    if parent is not None:
+        kernels["parent"] = parent["decode_heads"]
+    widths = (16, 2)
+    sizes = {}
+    kernels["split"] = _decode_split
+    for b in (32, 16, 256, 1):
+        sets = [(_decode_inputs(g, widths, b),) for _ in range(8)]
+        got, want = _decode_split(sets[0][0]), decode.decode_heads(sets[0][0])
+        for x, y in zip([*got[0], *got[1], got[2]],
+                        [*want[0], *want[1], want[2]]):
+            if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+                raise AssertionError(f"decode split != packed at B={b}")
+        k = _pdl_turns({n: _rotating(sets, fn) for n, fn in kernels.items()})
+        k["ms"] = k["new_ms"]
+        k["bound_ms"], k["bound_by"] = bound(
+            sum(2 * 4 * b * w + 4 * b for w in widths) + b,
+            sum(6 * b * w for w in widths), peaks)
+        k["plan"] = decode.decode_plan(b, widths)._asdict()
+        if b == 32:
+            k["plain_ms"] = device_ms(_rotating(sets, decode.decode_heads_plain),
+                                      inner=20)
+        sizes[b] = k
+        log(f"[kernels] decode, B={b} x heads {widths}: {_us(k['new_ms'])} "
+            f"(turns {[round(t * 1e3, 2) for t in k['turns_ms']['new']]}), "
+            f"without PDL {_us(k['no_pdl_ms'])}, parent "
+            f"{_us(k.get('parent_ms'))}, split {_us(k['split_ms'])} (turns "
+            f"{[round(t * 1e3, 2) for t in k['turns_ms']['split']]})"
+            + ("" if b != 32 else f", plain {_us(k['plain_ms'])}")
+            + f", bound {k['bound_ms'] * 1e3:.4f} us ({k['bound_by']}); "
+              f"plan {k['plan']}")
+    logits = [(torch.log_softmax(3.0 * torch.randn(
+                   (32, 16), device="cuda", generator=g), -1),
+               3.0 * torch.randn((32, 2), device="cuda", generator=g))
+              for _ in range(8)]
+
+    def behind(fn):
+        return lambda lp0, l1: fn([lp0, torch.log_softmax(l1, -1)])
+
+    kernels.pop("split")
+    fns = {n: _rotating(logits, behind(fn)) for n, fn in kernels.items()}
+    fns["pred"] = _rotating(logits, lambda lp0, l1: torch.log_softmax(l1, -1))
+    after = _pdl_turns(fns)
+    for n in kernels:
+        after[f"{n}_added_ms"] = after[f"{n}_ms"] - after["pred_ms"]
+    log(f"[kernels] decode at B=32 behind head 1's log_softmax (alone "
+        f"{_us(after['pred_ms'])}): adds {_us(after['new_added_ms'])}, "
+        f"without PDL {_us(after['no_pdl_added_ms'])}, parent "
+        f"{_us(after.get('parent_added_ms'))} (pairs "
+        f"{_us(after['new_ms'])}, {_us(after['no_pdl_ms'])}, "
+        f"{_us(after.get('parent_ms'))})")
+    b32 = sizes[32]
+    return {"ms": b32["ms"], "plain_ms": b32["plain_ms"], "library_ms": None,
+            "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
+            "no_pdl_ms": b32["no_pdl_ms"], "split_ms": b32["split_ms"],
+            "parent_ms": b32.get("parent_ms"),
+            "unit": "1 launch, B=32, heads 16+2", "sizes": sizes,
+            "behind_log_softmax": after}
+
+
 def phase_kernels(peaks):
     from dasmtl_torch.ops import decode, gating
 
@@ -524,34 +710,41 @@ def phase_kernels(peaks):
         f"and 32) x {len(GATE_SHAPES)} shapes: max abs err {gate_err:.3g} "
         f"(tol {GATE_ATOL}); T = 2 bit-equal to T = 1")
 
+    # The decode tail at the main path's sizes: model A's heads (16 + 2) at
+    # B = 1, 16 (the live tier's dispatch), 32 (the largest serve bucket)
+    # and 256 (the sweep's batch), model C's 32-wide head at 256; NaN and
+    # Inf planted in warp lanes 0, 15, 16 and 31.  Launched with and
+    # without PDL: bit-equal.
     dec_err = 0.0
-    heads_b32 = None
-    for b in (1, 32):
-        heads = [torch.randn((b, 16), device="cuda", generator=g) * 3.0,
-                 torch.randn((b, 2), device="cuda", generator=g) * 3.0]
-        heads[0][0, 5] = float("nan")  # row 0 poisoned in head 0
-        if b > 1:
-            heads[1][3, 1] = float("inf")  # row 3 poisoned in head 1
-            heads[0][7, 0] = float("-inf")  # a -inf log-prob: bad too
+    for widths, b in (((16, 2), 1), ((16, 2), 16), ((16, 2), 32),
+                      ((16, 2), 256), ((32,), 256)):
+        heads = _decode_inputs(g, widths, b)
         lp, preds, bad = decode.decode_heads(heads)
+        off = decode._decode_kernel(heads, pdl=False)
         lp_ref, preds_ref, bad_ref = decode.decode_heads_plain(heads)
         torch.cuda.synchronize()
+        at = f"B={b}, heads {widths}"
         if not torch.equal(bad, bad_ref):
-            raise AssertionError(f"decode bad_rows differ at B={b}: "
+            raise AssertionError(f"decode bad_rows differ at {at}: "
                                  f"{bad.tolist()} vs {bad_ref.tolist()}")
         for p, pr in zip(preds, preds_ref):
             if p.dtype != torch.int32 or not torch.equal(p, pr):
-                raise AssertionError(f"decode ints differ at B={b}")
+                raise AssertionError(f"decode ints differ at {at}")
         ok = ~bad_ref
         for a, r in zip(lp, lp_ref):
             err = (a[ok] - r[ok]).abs().max().item() if ok.any() else 0.0
             dec_err = max(dec_err, err)
             if err > DECODE_ATOL:
-                raise AssertionError(f"decode log-probs at B={b}: max abs "
+                raise AssertionError(f"decode log-probs at {at}: max abs "
                                      f"err {err:.3g} > {DECODE_ATOL}")
-        heads_b32 = heads
-    log(f"[kernels] decode == plain at B=1 and 32 (NaN/Inf rows planted): "
-        f"ints and bad_rows exact, log-prob max abs err {dec_err:.3g}")
+        for a, o in zip([*lp, *preds, bad], [*off[0], *off[1], off[2]]):
+            if not torch.equal(a.view(torch.uint8), o.view(torch.uint8)):
+                raise AssertionError(f"decode with and without PDL differ "
+                                     f"at {at}")
+    log(f"[kernels] decode == plain at B = 1, 16, 32, 256 (heads 16 + 2) "
+        f"and 256 (one 32-wide head), NaN/Inf in lanes 0, 15, 16, 31: ints "
+        f"and bad_rows exact, log-prob max abs err {dec_err:.3g} (tol "
+        f"{DECODE_ATOL}); with and without PDL bit-equal")
 
     # Timing at batch 32 (the largest bucket), 16 (the live forward) and
     # 1, the parent's kernel in turns when given: the 8 T = 1 launches of a
@@ -584,17 +777,8 @@ def phase_kernels(peaks):
                f"tree's T=1 {[round(t * 1e3, 2) for t in t1['turns_ms']]},"
                f" T=2 {[round(t * 1e3, 2) for t in t2['turns_ms']]})"))
 
-    rows = 32
-    widths = [h.shape[1] for h in heads_b32]
-    dec_bytes = sum(2 * 4 * rows * w + 4 * rows for w in widths) + rows
-    dec_flops = sum(6 * rows * w for w in widths)
-    dec_ms = device_ms(lambda: decode.decode_heads(heads_b32), inner=20)
-    dec_plain_ms = device_ms(lambda: decode.decode_heads_plain(heads_b32),
-                             inner=20)
-    dec_bound, dec_by = bound(dec_bytes, dec_flops, peaks)
-    log(f"[kernels] decode, B=32 x heads {widths}: {dec_ms * 1e3:.2f} us, "
-        f"plain {dec_plain_ms * 1e3:.2f} us, bound {dec_bound * 1e3:.4f} us "
-        f"({dec_by})")
+    dec = _time_decode(g, parent, peaks)
+    dec["max_abs_err"] = dec_err
     t1, t2 = gates[32]["t1"], gates[32]["t2"]
     return {
         "gate": {"max_abs_err": gate_err, "ms": t2["ms"],
@@ -606,9 +790,7 @@ def phase_kernels(peaks):
                      "ms": t1["ms"], "plain_ms": t1["plain_ms"],
                      "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"]},
                  "batches": gates},
-        "decode": {"max_abs_err": dec_err, "ms": dec_ms,
-                   "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
-                   "bound_by": dec_by, "unit": "1 launch, B=32, heads 16+2"},
+        "decode": dec,
     }
 
 
@@ -1370,16 +1552,29 @@ def _stream_kernels(peaks):
     log(f"[stream] ring append == plain over 200 appends at 100x{LIVE_RING} "
         f"(w_c 125) and 400x{LIVE_RING} (w_c 500): bit-exact")
 
+    # event_prob_q at k = 1, 16 and 256 on the 2-wide event head, a
+    # 32-wide head and a view 4 bytes off; launched with and without PDL:
+    # equal.
     q_err = 0
     for k in (1, 16, 256):
-        lp = torch.log_softmax(
-            4.0 * torch.randn((k, 2), device="cuda", generator=g), -1)
-        d = (decode.event_prob_q(lp) - decode.event_prob_q_plain(lp)).abs()
-        q_err = max(q_err, int(d.max().item()))
-        if q_err > 1:
-            raise AssertionError(f"event_prob_q off by {q_err} at k={k}")
-    log(f"[stream] event_prob_q == plain at k = 1, 16, 256: ints within "
-        f"{q_err} (tol 1)")
+        for width, shifted in ((2, False), (32, False), (2, True)):
+            lp = torch.log_softmax(4.0 * torch.randn(
+                (k, width), device="cuda", generator=g), -1)
+            if shifted:
+                lp = torch.empty(k * width + 1, device="cuda")[1:].view(
+                    k, width).copy_(lp)
+            got = decode.event_prob_q(lp)
+            d = (got - decode.event_prob_q_plain(lp)).abs()
+            q_err = max(q_err, int(d.max().item()))
+            if q_err > 1:
+                raise AssertionError(f"event_prob_q off by {q_err} at k={k}, "
+                                     f"width {width}")
+            if not torch.equal(got, decode._prob_q_kernel(lp, pdl=False)):
+                raise AssertionError(f"event_prob_q with and without PDL "
+                                     f"differ at k={k}, width {width}")
+    log(f"[stream] event_prob_q == plain at k = 1, 16, 256, widths 2 and "
+        f"32 and a 4-byte offset view: ints within {q_err} (tol 1); with "
+        f"and without PDL equal")
 
     # Timing.  Gather: k = 256 windows per launch (the offline batch), 16
     # (the live tier's dispatch) and 1, origins rotating over 8 sets (k =
@@ -1454,16 +1649,39 @@ def _stream_kernels(peaks):
         del rings, pairs
 
     # event_prob_q at k = 16 (the oracle lanes' top rung): 2 floats in,
-    # one int out per row, 2 exp-free compares and one exp.
-    lps = [(torch.log_softmax(torch.randn((16, 2), device="cuda",
-                                          generator=g), -1),)
-           for _ in range(4)]
-    probq = {"ms": device_ms(_rotating(lps, decode.event_prob_q), inner=20),
-             "plain_ms": device_ms(_rotating(lps, decode.event_prob_q_plain),
-                                   inner=20),
-             "library_ms": None, "max_abs_err": float(q_err),
-             "unit": "1 launch, k=16 rows of 2"}
+    # one int out per row, 2 exp-free compares and one exp.  Back to back,
+    # this tree's kernel with and without PDL and the parent's in turns;
+    # then behind its predecessor on the oracle's path, torch.log_softmax
+    # of the event logits (each pair, less the log_softmax alone).
+    logits = [(torch.randn((16, 2), device="cuda", generator=g),)
+              for _ in range(4)]
+    lps = [(torch.log_softmax(l, -1),) for l, in logits]
+    kernels = {"new": decode.event_prob_q,
+               "no_pdl": functools.partial(decode._prob_q_kernel, pdl=False)}
+    if parent is not None:
+        kernels["parent"] = parent["event_prob_q"]
+    probq = _pdl_turns({n: _rotating(lps, fn) for n, fn in kernels.items()})
+    fns = {n: _rotating(logits, lambda l, fn=fn: fn(torch.log_softmax(l, -1)))
+           for n, fn in kernels.items()}
+    fns["pred"] = _rotating(logits, lambda l: torch.log_softmax(l, -1))
+    after = _pdl_turns(fns)
+    for n in kernels:
+        after[f"{n}_added_ms"] = after[f"{n}_ms"] - after["pred_ms"]
+    probq.update(
+        ms=probq["new_ms"], behind_log_softmax=after,
+        plain_ms=device_ms(_rotating(lps, decode.event_prob_q_plain),
+                           inner=20),
+        library_ms=None, max_abs_err=float(q_err),
+        plan=decode.prob_q_plan(16)._asdict(),
+        unit="1 launch, k=16 rows of 2")
     probq["bound_ms"], probq["bound_by"] = bound(16 * 12, 16 * 4, peaks)
+    log(f"[stream] event_prob_q, k=16 x 2: {_us(probq['new_ms'])} (turns "
+        f"{[round(t * 1e3, 2) for t in probq['turns_ms']['new']]}), without "
+        f"PDL {_us(probq['no_pdl_ms'])}, parent "
+        f"{_us(probq.get('parent_ms'))}; behind torch.log_softmax (alone "
+        f"{_us(after['pred_ms'])}) it adds {_us(after['new_added_ms'])}, "
+        f"without PDL {_us(after['no_pdl_added_ms'])}, parent "
+        f"{_us(after.get('parent_added_ms'))}; plan {probq['plan']}")
     for name, k in (("ring append 400x16384/500", appends[(400, 500)]),
                     ("ring append 100x16384/125", appends[(100, 125)]),
                     ("event_prob_q", probq)):
@@ -3212,8 +3430,8 @@ def main(argv=None) -> int:
                         "a train step and of each preset's forward")
     p.add_argument("--parent", default=None,
                    help="a git archive of the parent commit's tree: time "
-                        "its gate, window gather, int8_dot and batch_gather "
-                        "in turns with these")
+                        "its gate, window gather, int8_dot, batch_gather, "
+                        "decode tail and event_prob_q in turns with these")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "

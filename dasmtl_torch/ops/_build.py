@@ -43,9 +43,11 @@ SIGNATURES = {
                                        _P]),
     "dasmtl_decode_heads": (ctypes.c_int, [
         _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int64,
-        _P, _P, _P, _P, _P, _P]),
-    "dasmtl_event_prob_q": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int64,
-                                           _P, _P]),
+        _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _P]),
+    "dasmtl_event_prob_q": (ctypes.c_int, [
+        _P, ctypes.c_int, ctypes.c_int64, _P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _P]),
     "dasmtl_window_gather": (ctypes.c_int, [
         _P, ctypes.c_int64, ctypes.c_int64, _P, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]),

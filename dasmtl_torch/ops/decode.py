@@ -12,21 +12,31 @@ on the CPU it takes :func:`decode_heads_plain`.
 confidence (``export.py:184-193``), a launch of its own in the same
 source: it reads ``log_probs_event``, a head only an infer fn that names
 its heads so emits (the analytic oracle), never ``decode_heads``.
+
+Both kernels take their launch geometry from this module, chosen before
+the launch from the shapes and the pointer alone (:func:`decode_plan`,
+:func:`prob_q_plan`), and launch with programmatic dependent launch
+(``csrc/pdl.cuh``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
 from dasmtl_torch.device import require_hopper
 from dasmtl_torch.ops import LaunchCounter, _build
 
-#: Widest head the kernel takes (one thread loops over a row's classes).
+#: Widest head the kernel takes (a head-row fills at most one warp).
 MAX_WIDTH = 32
 #: Most heads one launch covers.
 MAX_HEADS = 2
+#: Warps per block of the decode tail: B = 32 spreads over 8 SMs, k = 256
+#: over 64.
+WARPS = 4
+#: Most threads per block of :func:`event_prob_q` (one thread a row).
+PROB_Q_THREADS = 128
 
 #: Fixed-point scale of :func:`event_prob_q`: probabilities in units of
 #: 2^-20 (``dasmtl/export.py:134 PROB_Q_SCALE``).
@@ -38,6 +48,40 @@ launches = LaunchCounter()
 prob_q_launches = LaunchCounter()
 
 Decoded = Tuple[List[torch.Tensor], List[torch.Tensor], torch.Tensor]
+
+
+class DecodePlan(NamedTuple):
+    """The lane layout, lanes per head segment, warps per block, blocks."""
+    layout: str
+    span: int
+    warps: int
+    blocks: int
+
+
+def decode_plan(rows: int, widths: Sequence[int]) -> DecodePlan:
+    """The geometry of one decode launch over ``rows`` rows of heads
+    ``widths`` classes wide.
+
+    - ``span``: the lanes of a head's segment, the widest head rounded up
+      to a power of two (16 for model A's 16 + 2, 32 for model C's head).
+    - ``layout``: ``"one"`` head, one segment a warp; ``"packed"``, two
+      heads side by side in one warp, head 1 from lane ``span`` (both fit:
+      ``span <= 16``); ``"split"``, a warp per head-row (a pair that does
+      not fit, e.g. 32 + 32 or 17 + 16), the row's two warps in one block.
+    - ``warps`` per block: 4, fewer when the launch has fewer warps;
+      ``blocks``: enough for every warp (8 at B = 32 packed, 64 at
+      k = 256).
+    """
+    span = 1 << (max(widths) - 1).bit_length()
+    if len(widths) == 1:
+        layout = "one"
+    elif 2 * span <= 32:
+        layout = "packed"
+    else:
+        layout = "split"
+    tasks = max(rows, 1) * (2 if layout == "split" else 1)
+    warps = min(WARPS, tasks)
+    return DecodePlan(layout, span, warps, -(-tasks // warps))
 
 
 def decode_heads_plain(heads: Sequence[torch.Tensor]) -> Decoded:
@@ -64,7 +108,9 @@ def decode_heads(heads: Sequence[torch.Tensor]) -> Decoded:
     return _decode_kernel(heads)
 
 
-def _decode_kernel(heads: List[torch.Tensor]) -> Decoded:
+def _decode_kernel(heads: List[torch.Tensor], pdl: bool = True) -> Decoded:
+    """One launch of the decode kernel; ``pdl`` False launches it without
+    programmatic dependent launch (what the overlap gains is timed so)."""
     if len(heads) > MAX_HEADS:
         raise ValueError(f"decode_heads: the kernel takes at most "
                          f"{MAX_HEADS} heads, got {len(heads)}")
@@ -97,6 +143,7 @@ def _decode_kernel(heads: List[torch.Tensor]) -> Decoded:
         return log_probs, preds, bad
     lib = _build.library()
     second = len(heads) > 1
+    plan = decode_plan(rows, [h.shape[1] for h in heads])
     rc = lib.dasmtl_decode_heads(
         heads[0].data_ptr(), heads[0].shape[1],
         heads[1].data_ptr() if second else None,
@@ -104,7 +151,8 @@ def _decode_kernel(heads: List[torch.Tensor]) -> Decoded:
         rows,
         log_probs[0].data_ptr(), log_probs[1].data_ptr() if second else None,
         preds[0].data_ptr(), preds[1].data_ptr() if second else None,
-        bad.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+        bad.data_ptr(), int(plan.layout == "split"), plan.span, plan.warps,
+        plan.blocks, int(pdl), torch.cuda.current_stream(device).cuda_stream)
     _build.check_launch(rc, "decode_heads")
     launches.add()
     return log_probs, preds, bad
@@ -117,12 +165,33 @@ def event_prob_q_plain(log_probs: torch.Tensor) -> torch.Tensor:
     return torch.round(prob * PROB_Q_SCALE).to(torch.int32)
 
 
+class ProbQPlan(NamedTuple):
+    """Threads per block, blocks."""
+    threads: int
+    blocks: int
+
+
+def prob_q_plan(rows: int) -> ProbQPlan:
+    """The geometry of one :func:`event_prob_q` launch over ``rows`` rows:
+    one thread a row, at most ``PROB_Q_THREADS`` a block."""
+    rows = max(rows, 1)
+    threads = min(PROB_Q_THREADS, 32 * -(-rows // 32))
+    return ProbQPlan(threads, -(-rows // threads))
+
+
 def event_prob_q(log_probs: torch.Tensor) -> torch.Tensor:
     """Per-row quantized confidence of a ``(rows, classes)`` log-prob
     head; see :func:`event_prob_q_plain`.  A CUDA tensor goes through the
     kernel (a NaN row gives 0), a CPU tensor through the plain version."""
     if log_probs.device.type == "cpu":
         return event_prob_q_plain(log_probs)
+    return _prob_q_kernel(log_probs)
+
+
+def _prob_q_kernel(log_probs: torch.Tensor, pdl: bool = True
+                   ) -> torch.Tensor:
+    """One launch of the event_prob_q kernel; ``pdl`` as in
+    :func:`_decode_kernel`."""
     if log_probs.dtype != torch.float32:
         raise TypeError(f"event_prob_q: the kernel takes float32, got "
                         f"{log_probs.dtype}")
@@ -136,8 +205,12 @@ def event_prob_q(log_probs: torch.Tensor) -> torch.Tensor:
     out = torch.empty(rows, dtype=torch.int32, device=log_probs.device)
     if rows == 0:
         return out
-    rc = _build.library().dasmtl_event_prob_q(
-        log_probs.data_ptr(), log_probs.shape[1], rows, out.data_ptr(),
+    lib = _build.library()
+    width = log_probs.shape[1]
+    plan = prob_q_plan(rows)
+    rc = lib.dasmtl_event_prob_q(
+        log_probs.data_ptr(), width, rows, out.data_ptr(), plan.threads,
+        plan.blocks, int(pdl),
         torch.cuda.current_stream(log_probs.device).cuda_stream)
     _build.check_launch(rc, "event_prob_q")
     prob_q_launches.add()

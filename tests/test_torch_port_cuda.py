@@ -1,6 +1,9 @@
 """The port on the card: each hand-written kernel against its plain
 version (the paired gate bit for bit against its T = 1 launches, the
-window gather's bulk and scalar branches bit for bit), the serve forward and one train step against the CPU, the
+window gather's bulk and scalar branches bit for bit, the decode tail in
+every lane layout of ``decode_plan`` with NaN / Inf in lanes 0, 15, 16 and
+31, event_prob_q on aligned and offset views, both bit-equal with
+and without programmatic dependent launch), the serve forward and one train step against the CPU, the
 executor's stream path, the resident stream lane's ordering of ring
 appends against window gathers, the precision presets (the int8_dot
 kernel bit for bit, model C's int8 forward against the CPU, model A's
@@ -197,6 +200,67 @@ def test_decode_kernel_takes_one_32_wide_head(cuda):
     torch.testing.assert_close(lp[0].cpu()[~bad_ref], lp_ref[0][~bad_ref],
                                atol=1e-5, rtol=1e-6)
     assert decode.launches.value == 1
+
+
+DECODE_WIDTHS = [(16, 2), (16,), (2,), (32,), (32, 32), (1,), (17, 16)]
+
+
+def _planted_heads(widths, rows, seed, device):
+    """Heads with NaN / Inf in warp lanes 0, 15, 16 and 31 where the
+    layout has them (lane 16 is head 1's first class when two heads share
+    a warp), an all -inf row and a tie."""
+    g = torch.Generator().manual_seed(seed)
+    heads = [3.0 * torch.randn(rows, w, generator=g) for w in widths]
+    h0, last, w0 = heads[0], heads[-1], widths[0]
+    nan, inf = float("nan"), float("inf")
+    for t, r, c, v in ((h0, 0, 0, nan), (h0, 1, min(15, w0 - 1), nan),
+                       (last, 2, 0 if len(heads) > 1 else min(16, w0 - 1),
+                        inf),
+                       (h0, 3, w0 - 1, -inf), (last, 6, 31, nan)):
+        if r < rows and c < t.shape[1]:
+            t[r, c] = v
+    if rows > 5:
+        h0[4] = -inf
+        h0[5] = h0[5, 0].item()
+    return [h.to(device) for h in heads]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("rows", [1, 16, 32, 33, 256])
+@pytest.mark.parametrize("widths", DECODE_WIDTHS, ids=str)
+def test_decode_kernel_every_layout_matches_plain(cuda, widths, rows):
+    """Ints and bad_rows exact, log-probs within 1e-6 (chip_smoke's
+    DECODE_ATOL); with and without PDL bit for bit."""
+    heads = _planted_heads(widths, rows, rows + len(widths), cuda)
+    lp, preds, bad = decode.decode_heads(heads)
+    off = decode._decode_kernel(heads, pdl=False)
+    lp_ref, preds_ref, bad_ref = decode.decode_heads_plain(heads)
+    assert torch.equal(bad, bad_ref)
+    for p, pr in zip(preds, preds_ref):
+        assert p.dtype == torch.int32 and torch.equal(p, pr)
+    for a, r in zip(lp, lp_ref):
+        torch.testing.assert_close(a[~bad_ref], r[~bad_ref], atol=1e-6,
+                                   rtol=0)
+    for a, o in zip([*lp, *preds, bad], [*off[0], *off[1], off[2]]):
+        assert torch.equal(_bits(a), _bits(o))
+    assert decode.launches.value == 2
+
+
+def test_decode_waits_for_the_kernel_that_writes_its_input(cuda):
+    """Under programmatic dependent launch the decode may start before the
+    kernel that writes its heads ends: it must still read the new heads."""
+    h0, h1 = _planted_heads((16, 2), 32, 3, cuda)
+    for i in range(20):
+        heads = [h0 * float(i + 1), h1 - float(i)]  # written just before
+        lp, preds, bad = decode.decode_heads(heads)
+        lp_ref, preds_ref, bad_ref = decode.decode_heads_plain(heads)
+        assert torch.equal(bad, bad_ref)
+        assert all(torch.equal(p, r) for p, r in zip(preds, preds_ref))
+        torch.testing.assert_close(lp[0][~bad_ref], lp_ref[0][~bad_ref],
+                                   atol=1e-6, rtol=0)
 
 
 def test_serve_forward_on_the_card_matches_the_cpu(cuda):
@@ -406,6 +470,26 @@ def test_event_prob_q_kernel_matches_plain(cuda, k):
         decode.event_prob_q(lp.double())
     with pytest.raises(ValueError, match="contiguous"):
         decode.event_prob_q(torch.zeros(2, 4, device=cuda).t())
+
+
+@pytest.mark.parametrize("shift", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("width", [2, 32])
+@pytest.mark.parametrize("k", [1, 16, 256])
+def test_event_prob_q_kernel_views_match_plain(cuda, k, width, shift):
+    """Widths 2 and 32, aligned and a view 4 bytes off: ints within 1 of
+    the plain version, a NaN row 0, with and without PDL equal."""
+    g = torch.Generator().manual_seed(10 * k + width)
+    lp = torch.log_softmax(4.0 * torch.randn(k, width, generator=g), -1)
+    lp = lp.to(cuda)
+    if shift:
+        lp = torch.empty(k * width + 1, device=cuda)[1:].view(
+            k, width).copy_(lp)
+    got = decode.event_prob_q(lp)
+    assert (got - decode.event_prob_q_plain(lp)).abs().max().item() <= 1
+    assert torch.equal(got, decode._prob_q_kernel(lp, pdl=False))
+    lp[0, width - 1] = float("nan")
+    assert decode.event_prob_q(lp)[0].item() == 0
+    assert decode.prob_q_launches.value == 3
 
 
 def test_resident_lane_orders_appends_before_gathers(cuda):
