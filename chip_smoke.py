@@ -99,8 +99,13 @@ Phases, each fatal on failure (no phase catches its own error):
              int32, int64 and bool at sizes 0, 1, 3, 4097 and 2^20+3 (NaN,
              -0.0, +-Inf planted) in one launch, against JAX's committed
              known answers, and over model A's whole train state in one
-             launch; timed over that state (one launch, the plain version,
-             one launch per leaf), with torch.sum's answer on uint32 words;
+             launch; timed (with and without PDL, the parent's kernel in
+             turns with ``--parent``) over that state, 3,000 one-word
+             leaves, one leaf of 2^20+3 words, and the state behind a
+             ``torch._foreach_add_`` over its leaves; the plain version and
+             one launch per leaf on the state, the host time of a call
+             whose plan is cached, a profiler trace of one call (one
+             kernel, no memset), with torch.sum's answer on uint32 words;
              (b) ``python -m dasmtl_torch train --dp 2 --bn_sync
              per_replica --sanitize --sanitize_every 1 --tracing_guards
              --obs_heartbeat_s 1`` in process on a synthetic tree, batch 32
@@ -143,9 +148,9 @@ power limit follow on a line of their own, and the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.  ``--parent DIR`` names a ``git archive`` of the parent commit's
-tree; its gate, window-gather, int8_dot, batch_gather, decode and
-event_prob_q kernels are then built and timed in turns with this tree's
-(phases 3, 7a, 8a, 10a).  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
+tree; its gate, window-gather, int8_dot, batch_gather, decode,
+event_prob_q and leaf_digest kernels are then built and timed in turns
+with this tree's (phases 3, 7a, 8a, 9a, 10a).  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
 forward, of one train step and of each preset's forward to the report;
 ``--out`` writes the full report as JSON.
 """
@@ -288,26 +293,27 @@ def _gate_inputs(g, b, shape):
 
 
 #: A ``git archive`` of the parent commit's tree (``--parent``): its gate,
-#: window-gather, int8_dot, batch_gather, decode and event_prob_q kernels
-#: are timed in turns with this tree's.
+#: window-gather, int8_dot, batch_gather, decode, event_prob_q and
+#: leaf_digest kernels are timed in turns with this tree's.
 PARENT = None
 #: The parent's kernel sources, and their C signatures in the parent
 #: commit (``dasmtl_torch/ops/_build.py:SIGNATURES`` there).
 PARENT_SOURCES = ("gating.cu", "window.cu", "int8_dot.cu", "batch_gather.cu",
-                  "decode.cu")
+                  "decode.cu", "digest.cu")
 
 
 @functools.lru_cache(maxsize=1)
 def _parent_kernels():
     """The parent commit's gate forward, window gather, int8_dot,
-    batch_gather, decode tail and event_prob_q, built with this tree's
+    batch_gather, decode tail, event_prob_q and leaf_digest, built with
+    this tree's
     nvcc flags from ``PARENT/dasmtl_torch/csrc`` and called through their
     own C signatures; None without ``--parent``."""
     import ctypes
     import subprocess
 
-    from dasmtl_torch.ops import _build, batch_gather as bg, int8, sm_count
-    from dasmtl_torch.ops import window
+    from dasmtl_torch.ops import _build, batch_gather as bg, decode, int8
+    from dasmtl_torch.ops import sm_count, window
 
     if PARENT is None:
         return None
@@ -336,8 +342,10 @@ def _parent_kernels():
             ("dasmtl_int8_dot", [P, P, P, P, P, L, I, I, I, I, I, I, P]),
             ("dasmtl_batch_gather", [P, P, P, L, L, P, P, I, P, P, P, I, I,
                                      I, I, P]),
-            ("dasmtl_decode_heads", [P, I, P, I, L, P, P, P, P, P, P]),
-            ("dasmtl_event_prob_q", [P, I, L, P, P])):
+            ("dasmtl_decode_heads", [P, I, P, I, L, P, P, P, P, P, I, I, I,
+                                     I, I, P]),
+            ("dasmtl_event_prob_q", [P, I, L, P, I, I, I, P]),
+            ("dasmtl_leaf_digest", [P, I, L, P, P])):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = args
 
@@ -391,32 +399,61 @@ def _parent_kernels():
             "batch_gather")
         return out
 
+    # The parent's decode tail and event_prob_q take their geometry from
+    # the same plans as this tree's (ops/decode.py) and launch with PDL.
     def decode_heads(heads):
         rows, second = heads[0].shape[0], len(heads) > 1
         lp = [torch.empty_like(h) for h in heads]
         preds = [torch.empty(rows, dtype=torch.int32, device=h.device)
                  for h in heads]
         bad = torch.empty(rows, dtype=torch.bool, device=heads[0].device)
+        plan = decode.decode_plan(rows, [h.shape[1] for h in heads])
         check(lib.dasmtl_decode_heads(
             heads[0].data_ptr(), heads[0].shape[1],
             heads[1].data_ptr() if second else None,
             heads[1].shape[1] if second else 0, rows, lp[0].data_ptr(),
             lp[1].data_ptr() if second else None, preds[0].data_ptr(),
             preds[1].data_ptr() if second else None, bad.data_ptr(),
-            stream()), "decode_heads")
+            int(plan.layout == "split"), plan.span, plan.warps, plan.blocks,
+            1, stream()), "decode_heads")
         return lp, preds, bad
 
     def event_prob_q(lp):
         out = torch.empty(lp.shape[0], dtype=torch.int32, device=lp.device)
+        plan = decode.prob_q_plan(lp.shape[0])
         check(lib.dasmtl_event_prob_q(lp.data_ptr(), lp.shape[1],
-                                      lp.shape[0], out.data_ptr(), stream()),
+                                      lp.shape[0], out.data_ptr(),
+                                      plan.threads, plan.blocks, 1, stream()),
               "event_prob_q")
+        return out
+
+    # The parent's leaf_digest reads a table this tree's wrapper no longer
+    # builds: ptr[L] | words[L] | first_block[L + 1] | kind[L] (int64),
+    # first_block the prefix sum of 4,096-word chunks.  Its entry point
+    # clears `out` with a memset, then launches.
+    def digest_table(leaves):
+        from dasmtl_torch.ops import digest
+
+        counts = [t.numel() for t in leaves]
+        first = np.concatenate([[0], np.cumsum(
+            [-(-c // 4096) for c in counts])]).tolist()
+        table = torch.tensor([t.data_ptr() for t in leaves] + counts + first
+                             + [digest.KINDS[t.dtype] for t in leaves],
+                             dtype=torch.int64, device=leaves[0].device)
+        return table, len(leaves), first[-1]
+
+    def leaf_digest(table, n, blocks):
+        out = torch.empty(n, dtype=torch.int32, device=table.device)
+        check(lib.dasmtl_leaf_digest(table.data_ptr(), n, blocks,
+                                     out.data_ptr(), stream()),
+              "leaf_digest")
         return out
 
     log(f"[parent] built {', '.join(PARENT_SOURCES)} of {PARENT}")
     return {"gate": gate, "window_gather": gather, "int8_dot": int8_dot,
             "batch_gather": batch_gather, "decode_heads": decode_heads,
-            "event_prob_q": event_prob_q}
+            "event_prob_q": event_prob_q, "digest_table": digest_table,
+            "leaf_digest": leaf_digest}
 
 
 def _in_turns(fns: dict, order) -> dict:
@@ -2548,12 +2585,132 @@ def _model_a_state(device):
     return state
 
 
+#: The stress set of phase 9a: one-word f32 leaves.
+DIGEST_STRESS = 3000
+#: The large leaf of phase 9a: words.
+DIGEST_LARGE = 2 ** 20 + 3
+
+
+def _leaf_bytes(leaves) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def _time_digest(tag, sets, parent, peaks, pred=None):
+    """This tree's leaf_digest with and without PDL and, with ``--parent``,
+    the parent's kernel on its own tables (built once per set before
+    timing), in ``PDL_TURNS`` order over ``sets`` (lists of card leaves),
+    each set checked against the plain version on the first.  With
+    ``pred`` every call runs behind ``pred(leaves)``, which is timed alone
+    too, and ``<name>_added_ms`` is what the digest adds to it."""
+    from dasmtl_torch.ops import digest
+
+    want = digest.digest_vector_plain([t.cpu() for t in sets[0]])
+    for ls in sets[1:]:  # every plan built and cached before timing
+        digest.digest_vector(ls)
+    if not torch.equal(digest.digest_vector(sets[0]).cpu(), want):
+        raise AssertionError(f"leaf_digest != plain on {tag}")
+    kernels = {"new": lambda ls, _: digest.digest_vector(ls),
+               "no_pdl": lambda ls, _: digest._launch(ls, pdl=False)}
+    tables = [None] * len(sets)
+    if parent is not None:
+        tables = [parent["digest_table"](ls) for ls in sets]
+        if not torch.equal(parent["leaf_digest"](*tables[0]).cpu(), want):
+            raise AssertionError(f"the parent's leaf_digest != plain on "
+                                 f"{tag}")
+        kernels["parent"] = lambda ls, tab: parent["leaf_digest"](*tab)
+    fns = kernels
+    if pred is not None:
+        fns = {n: (lambda ls, tab, fn=fn: (pred(ls), fn(ls, tab)))
+               for n, fn in kernels.items()}
+        fns["pred"] = lambda ls, _: pred(ls)
+    pairs = list(zip(sets, tables))
+    k = _pdl_turns({n: _rotating(pairs, fn) for n, fn in fns.items()})
+    if pred is not None:
+        for n in kernels:
+            k[f"{n}_added_ms"] = k[f"{n}_ms"] - k["pred_ms"]
+    nbytes = _leaf_bytes(sets[0]) + 4 * len(sets[0])
+    k["bound_ms"], k["bound_by"] = bound(nbytes, 0.0, peaks)
+    k.update(leaves=len(sets[0]), bytes=nbytes, sets=len(sets))
+    added = "" if pred is None else (
+        f"; behind the predecessor (alone {_us(k['pred_ms'])}) it adds "
+        f"{_us(k['new_added_ms'])}, without PDL {_us(k['no_pdl_added_ms'])}"
+        f", parent {_us(k.get('parent_added_ms'))}")
+    log(f"[dp] leaf_digest, {tag} ({len(sets[0])} leaves, "
+        f"{nbytes / 1e6:.3f} MB, {len(sets)} sets): {_us(k['new_ms'])} "
+        f"(turns {[round(t * 1e3, 2) for t in k['turns_ms']['new']]}), "
+        f"without PDL {_us(k['no_pdl_ms'])}, parent "
+        f"{_us(k.get('parent_ms'))}, bound {_us(k['bound_ms'])} "
+        f"({k['bound_by']}){added}")
+    return k
+
+
+def _traced_calls(fn, n: int) -> tuple:
+    """CUDA runtime calls and device operations per ``fn()`` over ``n``
+    traced calls, by name.  The runtime calls are recorded as the host
+    makes them; the tracer does not keep every device record of a short
+    operation (late in this script on an H100 it kept 11 of 20 kernel
+    records, and none of a single call), so those are read for their
+    names only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    runtime, device = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            if not getattr(ev, "is_user_annotation", False) and \
+                    not HOST_RANGE.fullmatch(ev.key):
+                device[ev.key] = ev.count / n
+        elif re.match(r"cu(da)?[A-Z]", ev.key):
+            runtime[ev.key] = ev.count / n
+    return runtime, device
+
+
+def _digest_trace(leaves, parent, n: int = 20) -> dict:
+    """What a leaf_digest call asks of the card, from a torch.profiler
+    trace of ``n`` calls (the plan cached): one kernel launch a call, no
+    memset or copy, and no device operation but the kernel; the parent's
+    calls beside it with ``--parent``."""
+    from dasmtl_torch.ops import digest
+
+    def launches(runtime):
+        return sum(v for k, v in runtime.items() if "LaunchKernel" in k)
+
+    runtime, device = _traced_calls(lambda: digest.digest_vector(leaves), n)
+    moves = {k: v for k, v in runtime.items()
+             if "Memset" in k or "Memcpy" in k}
+    if launches(runtime) != 1.0 or moves or not device or any(
+            "leaf_digest" not in k for k in device):
+        raise AssertionError(f"a digest_vector call traced as runtime "
+                             f"calls {runtime} and device operations "
+                             f"{device}, not one leaf_digest launch")
+    out = {"runtime_per_call": runtime, "device_per_call": device}
+    if parent is not None:
+        table = parent["digest_table"](leaves)
+        out["parent_runtime_per_call"], out["parent_device_per_call"] = \
+            _traced_calls(lambda: parent["leaf_digest"](*table), n)
+    log(f"[dp] one digest_vector call ({n} traced): runtime calls "
+        f"{runtime}, device operations recorded {device}; the parent's: "
+        f"{out.get('parent_runtime_per_call', 'not traced')}, "
+        f"{out.get('parent_device_per_call', '')}")
+    return out
+
+
 def _digest_kernel(peaks):
     """(a) digest_vector on the card bit for bit against its plain version
-    and the known answers; model A's train state in one launch; timed."""
+    and the known answers; model A's train state in one launch; timed
+    against the parent's kernel in turns (the state, 3,000 one-word
+    leaves, one 2^20+3-word leaf, the state behind a foreach add); the
+    host time of a cached call and a profiler trace of one call."""
     from dasmtl_torch.analysis.sanitize.divergence import state_arrays
     from dasmtl_torch.analysis.sanitize.fingerprint import named_leaves
-    from dasmtl_torch.ops import digest
+    from dasmtl_torch.ops import digest, sm_count
 
     ops = _digest_operands()
     before = digest.launches.value
@@ -2580,26 +2737,71 @@ def _digest_kernel(peaks):
         raise AssertionError("model A's state: digest_vector is not one "
                              "launch equal to the plain version")
     words = sum(t.numel() for t in leaves)
-    nbytes = sum(t.numel() * t.element_size() for t in leaves) + \
-        4 * len(leaves)
+    nbytes = _leaf_bytes(leaves) + 4 * len(leaves)
+    plan = digest.digest_plan(leaves, sm_count(leaves[0].device),
+                              digest.blocks_per_sm(leaves[0].device))
     log(f"[dp] digest_vector == plain bit for bit on {len(ops)} operands "
         f"({len(DIGEST_DTYPES)} dtypes x sizes {DIGEST_SIZES}, NaN / -0.0 "
         f"/ +-Inf), == JAX's {len(digest.KNOWN_ANSWERS)} known answers; "
         f"model A's state: {len(named)} leaves, {len(leaves)} on the card "
-        f"({words:,} elements, {nbytes / 1e6:.2f} MB) in one launch")
+        f"({words:,} elements, {nbytes / 1e6:.2f} MB) in one launch of "
+        f"{plan.blocks} blocks ({len(plan.items) - plan.small} items, "
+        f"{plan.small} small leaves, {len(plan.split)} split leaves; "
+        f"{digest.blocks_per_sm(leaves[0].device)} blocks per SM)")
+    parent = _parent_kernels()
     # Timing: copies of the state's card leaves rotating through >= 128 MB.
-    sets = [([t.clone() for t in leaves],)
+    sets = [[t.clone() for t in leaves]
             for _ in range(max(2, -(-128_000_000 // nbytes)))]
-    k = {"ms": device_ms(_rotating(sets, digest.digest_vector), inner=20),
-         "plain_ms": device_ms(_rotating(sets, digest.digest_vector_plain),
-                               inner=2, reps=10),
-         "max_abs_err": 0.0, "library_ms": None, "leaves": len(leaves),
-         "words": words, "bytes": nbytes,
-         "unit": f"1 launch, model A's train state ({len(leaves)} leaves)"}
+    k = _time_digest("model A's state", sets, parent, peaks)
+    k.update(ms=k["new_ms"], max_abs_err=0.0, library_ms=None,
+             words=words, plan={"blocks": plan.blocks,
+                                "items": len(plan.items) - plan.small,
+                                "small": plan.small,
+                                "split": len(plan.split)},
+             unit=f"1 launch, model A's train state ({len(leaves)} leaves)")
+    # The host time of one call whose plan is cached (what a SAN201 check
+    # pays on the host), and the plan's build on a miss.
+    torch.cuda.synchronize()
+    n, builds = 200, digest._plans.builds
+    t0 = time.perf_counter()
+    for _ in range(n):
+        digest.digest_vector(sets[0])
+    k["host_us"] = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    if digest._plans.builds != builds:
+        raise AssertionError("a cached state's digest built a plan")
+    t0 = time.perf_counter()
+    digest.digest_plan(sets[0], sm_count(leaves[0].device),
+                       digest.blocks_per_sm(leaves[0].device))
+    k["plan_build_us"] = (time.perf_counter() - t0) * 1e6
+    k["trace"] = _digest_trace(sets[0], parent)
+    k["plain_ms"] = device_ms(_rotating([(ls,) for ls in sets],
+                                        digest.digest_vector_plain),
+                              inner=2, reps=10)
     k["per_leaf_ms"] = device_ms(_rotating(
-        sets, lambda ls: [digest.digest_vector([t]) for t in ls]),
+        [(ls,) for ls in sets],
+        lambda ls: [digest.digest_vector([t]) for t in ls]),
         inner=1, reps=10)
-    k["bound_ms"], k["bound_by"] = bound(nbytes, 0.0, peaks)
+
+    def foreach_add(ls):  # Adam's last kernel stands in as a foreach add
+        torch._foreach_add_([t for t in ls if t.dtype == torch.float32],
+                            1.0)
+
+    k["behind_foreach_add"] = _time_digest(
+        "model A's state behind torch._foreach_add_", sets, parent, peaks,
+        pred=foreach_add)
+    del sets
+    g = torch.Generator(device="cuda").manual_seed(10)
+    stress = [[torch.randn(1, device="cuda", generator=g)
+               for _ in range(DIGEST_STRESS)] for _ in range(4)]
+    k["stress"] = _time_digest(f"{DIGEST_STRESS} one-word leaves", stress,
+                               parent, peaks)
+    del stress
+    large = [[torch.randn(DIGEST_LARGE, device="cuda", generator=g)]
+             for _ in range(-(-128_000_000 // (4 * DIGEST_LARGE)))]
+    k["large"] = _time_digest(f"one leaf of {DIGEST_LARGE} words", large,
+                              parent, peaks)
+    del large
     # No single PyTorch call computes the weighted digest; what torch.sum
     # does with uint32 words on the card is recorded beside it.
     u = torch.full((1 << 20,), 0xFFFFFFFF, dtype=torch.uint32,
@@ -2610,11 +2812,12 @@ def _digest_kernel(peaks):
             f" for 2^20 x 0xFFFFFFFF"
     except RuntimeError as exc:
         k["uint32_sum"] = f"refused: {str(exc).splitlines()[0]}"
-    del sets
-    log(f"[dp] leaf_digest over model A's state: {k['ms'] * 1e3:.2f} us per "
+    log(f"[dp] leaf_digest over model A's state: {_us(k['ms'])} per "
         f"launch, plain {k['plain_ms'] * 1e3:.1f} us, one launch per leaf "
-        f"{k['per_leaf_ms'] * 1e3:.1f} us, bound {k['bound_ms'] * 1e3:.2f} us "
-        f"({k['bound_by']}); torch.sum over uint32: {k['uint32_sum']}")
+        f"{k['per_leaf_ms'] * 1e3:.1f} us, bound {_us(k['bound_ms'])} "
+        f"({k['bound_by']}); host {k['host_us']:.1f} us per cached call, "
+        f"plan build {k['plan_build_us']:.1f} us; torch.sum over uint32: "
+        f"{k['uint32_sum']}")
     return k
 
 
@@ -3431,7 +3634,8 @@ def main(argv=None) -> int:
     p.add_argument("--parent", default=None,
                    help="a git archive of the parent commit's tree: time "
                         "its gate, window gather, int8_dot, batch_gather, "
-                        "decode tail and event_prob_q in turns with these")
+                        "decode tail, event_prob_q and leaf_digest in "
+                        "turns with these")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "

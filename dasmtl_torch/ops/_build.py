@@ -57,8 +57,10 @@ SIGNATURES = {
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int, _P]),
-    "dasmtl_leaf_digest": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int64,
-                                          _P, _P]),
+    "dasmtl_leaf_digest": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, _P, ctypes.c_int,
+                                          _P]),
+    "dasmtl_leaf_digest_blocks_per_sm": (ctypes.c_int, [_P]),
     "dasmtl_batch_gather": (ctypes.c_int, [
         _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P, _P, ctypes.c_int,
         _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -8,7 +8,10 @@ executor's stream path, the resident stream lane's ordering of ring
 appends against window gathers, the precision presets (the int8_dot
 kernel bit for bit, model C's int8 forward against the CPU, model A's
 launch counts under every preset), and the leaf digest (one launch, bit
-for bit against its plain version and JAX's known answers) with a
+for bit against its plain version and JAX's known answers, on model A's
+state, offset views, 3,000 tiny leaves and split leaves with NaN / Inf
+at item boundaries, with and without programmatic dependent launch and
+over repeated calls) with a
 two-rank data-parallel step on the card against the CPU; the batch gather
 bit for bit against its plain version, the resident scan step's CUDA-graph
 replays against the same steps run eagerly (an LR change and a ragged tail
@@ -768,6 +771,91 @@ def test_digest_vector_matches_plain_and_known_answers(cuda):
             digest.KNOWN_ANSWERS[name], name
     with pytest.raises(ValueError, match="contiguous"):
         digest.digest_vector([torch.zeros(4, 4, device=cuda).t()])
+
+
+def _digest_bits(leaves, pdl=True):
+    """One launch over card ``leaves`` (``pdl`` on or off) against the plain
+    version on their CPU copies, bit for bit; the launch's digests."""
+    from dasmtl_torch.ops import digest
+
+    before = digest.launches.value
+    got = digest._launch(leaves, pdl=pdl)
+    torch.cuda.synchronize()
+    assert digest.launches.value == before + 1
+    want = digest.digest_vector_plain([t.cpu() for t in leaves])
+    assert torch.equal(got.cpu(), want)
+    return got.cpu()
+
+
+def _model_a_card_state(device):
+    """Model A at full width after one batch-2 step at 100x250, with
+    capturable Adam on the card: its card leaves (all but ``rng``)."""
+    from dasmtl_torch.analysis.sanitize.divergence import state_arrays
+    from dasmtl_torch.analysis.sanitize.fingerprint import named_leaves
+
+    set_f32_numerics()
+    spec = get_model_spec("MTL")
+    net = init_fresh(spec.build(), seed=0).to(device)
+    state = TrainState(model=net, optimizer=coupled_adam(net.parameters()))
+    rng = np.random.default_rng(0)
+    batch = {"x": torch.from_numpy(
+                 rng.normal(size=(2, 100, 250, 1)).astype(np.float32)),
+             "distance": torch.tensor([1, 2], dtype=torch.int32),
+             "event": torch.tensor([0, 1], dtype=torch.int32),
+             "weight": torch.ones(2)}
+    make_train_step(spec)(state, {k: v.to(device) for k, v in batch.items()},
+                          1e-3)
+    return [t for _, t in named_leaves(state_arrays(state))
+            if t.device.type == "cuda"]
+
+
+@pytest.mark.parametrize("case", ["grid", "model_a", "views", "tiny_3000",
+                                  "planted"])
+def test_digest_kernel_bit_equal_with_and_without_pdl(cuda, case):
+    """The grid, model A's state, views 1, 2 and 3 floats off, 3,000
+    one-word leaves, and split leaves with NaN, -0.0 and +-Inf planted on
+    both sides of every item boundary: bit-equal to the plain version with
+    PDL on and off, and three calls in a row give the same digests (every
+    slot back at 0), one launch each."""
+    from dasmtl_torch.ops import digest, sm_count
+
+    g = torch.Generator().manual_seed(12)
+    if case == "grid":
+        leaves = [t.to(cuda) for t in _digest_grid()]
+    elif case == "model_a":
+        leaves = _model_a_card_state(cuda)
+        assert len(leaves) == 694
+    elif case == "views":
+        base = torch.randn(3 * 2 ** 16 + 11, generator=g).to(cuda)
+        leaves = [base[k:k + 2 ** 16 + 5] for k in (1, 2, 3)] + [base]
+    elif case == "tiny_3000":
+        leaves = [torch.randn(1, generator=g).to(cuda) for _ in range(3000)]
+    else:
+        leaves = [torch.randn(2 ** 18 + 1, generator=g),
+                  torch.randn(2 ** 20 + 3, generator=g)]
+        specials = torch.tensor([float("nan"), -0.0, float("inf"),
+                                 float("-inf")])
+        plan = digest.digest_plan(leaves, sm_count(cuda),
+                                  digest.blocks_per_sm(cuda))
+        assert len(plan.split) == 2  # boundaries fall where the card's do
+        for it in plan.items[plan.items["begin"] > 0]:
+            b = int(it["begin"])
+            leaves[it["leaf"]][b - 2:b + 2] = specials
+        leaves = [t.to(cuda) for t in leaves]
+    first = _digest_bits(leaves)
+    for _ in range(2):
+        assert torch.equal(_digest_bits(leaves), first)
+    assert torch.equal(_digest_bits(leaves, pdl=False), first)
+
+
+def test_digest_vector_launches_once_per_call(cuda):
+    from dasmtl_torch.ops import digest
+
+    leaves = [torch.randn(n, device=cuda) for n in (1, 700, 5000, 300_000)]
+    digest.launches.reset()
+    for i in range(1, 4):
+        digest.digest_vector(leaves)
+        assert digest.launches.value == i
 
 
 def test_dp2_step_on_the_card_matches_the_cpu(cuda, tmp_path):
