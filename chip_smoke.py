@@ -141,7 +141,29 @@ Phases, each fatal on failure (no phase catches its own error):
              each run's checkpoint resumed for a 4th epoch on the other
              path; (d) 4,096 in-memory windows, 2 epochs at batch 32, K = 8,
              on both paths: examples/s, wall and device ms per step,
-             launches per step, device idle share, peak memory.
+             launches per step, device idle share, peak memory;
+11. artifacts — run right after phase 7, on phase 6e's checkpoint: (a)
+             ``python -m dasmtl_torch.export`` in process writes model A's
+             f32 and bf16 artifacts and publishes them as registry v1 and
+             v2; (b) ``--model_path`` served over HTTP through the serve
+             CLI's builder, 8 clients, the test run's 256 windows (every
+             37th NaN, answered 422): ints equal to a direct
+             ``from_state_dict`` run and, on decisive rows, to phase 6e's
+             test run, 4 gate and 1 decode launch per batch; (c)
+             ``--registry --registry_version 1`` (f32) with ``POST /swap
+             {"version": 2}`` (bf16) after a quarter of 256 requests: every
+             request answered (none closed or failed), each answer a direct
+             v1 or v2 answer and every one sent after the flip v2's,
+             generation 2, the outgoing executor closed, the swap's warmup
+             and the requests in flight at the flip printed (the CLI's
+             ``--precision f32`` builder refuses v2, as JAX's does); (d) a
+             model C int8 artifact of ``init_scaled`` weights bit-equal to
+             ``from_state_dict(..., "int8")`` at every bucket, one
+             int8_dot launch per batch; (e) phase 7b's record swept with
+             ``--exported`` (rows equal to the checkpoint sweep's), then
+             50 paced live cycles of ``stream serve --model_path``'s
+             executor on the resident plane, ints equal on decisive rows
+             to a direct forward.
 
 Then one JSON line lists every kernel of the port, the card's name and
 power limit follow on a line of their own, and the last line is
@@ -931,17 +953,52 @@ def _post(url: str, body: bytes):
         return e.code, json.loads(e.read())
 
 
-def _http_serve(executor, per_batch: dict, decisive_margin: float,
-                nan_rejected: bool, tag: str = "serve"):
-    """``ServeLoop`` + HTTP on 127.0.0.1 over ``executor``: 8 clients send
-    512 requests cycling over 32 seeded windows, every 37th NaN-poisoned.
-    Every request is answered; a poisoned one with 422 when the preset
-    rejects NaN windows (``nan_rejected``), else with 200; every answer's
-    ints equal a direct ``executor.run`` of the same window on rows whose
-    top-2 margin exceeds ``decisive_margin``.  The launch counters are
-    zeroed just before the traffic and read just after it, and must be
-    ``per_batch`` times the batches served."""
+def _get(url: str):
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _direct(executor, xs: np.ndarray, decisive_margin: float):
+    """A direct run of ``xs`` through ``executor`` in its largest bucket
+    (the tail zero-padded to a bucket): ``(preds, bad, decisive,
+    log_probs)``, ``decisive`` per task the rows whose top-2 margin
+    exceeds ``decisive_margin``."""
     from dasmtl_torch.serve.parity import _decision_margins
+
+    step, runs = max(executor.buckets), []
+    for i in range(0, len(xs), step):
+        part = xs[i:i + step]
+        x = np.zeros((min(b for b in executor.buckets if b >= len(part)),
+                      *xs.shape[1:], 1), np.float32)
+        x[:len(part), ..., 0] = part
+        p, b, lp = executor.collect(executor.dispatch(x),
+                                    want_log_probs=True)
+        n = len(part)
+        runs.append(({k: v[:n] for k, v in p.items()}, b[:n],
+                     {k: v[:n] for k, v in lp.items()}))
+    preds = {k: np.concatenate([r[0][k] for r in runs]) for k in runs[0][0]}
+    lps = {k: np.concatenate([r[2][k] for r in runs]) for k in runs[0][2]}
+    bad = np.concatenate([r[1] for r in runs])
+    margins = _decision_margins(preds, lps)
+    return (preds, bad, {t: m > decisive_margin for t, m in margins.items()},
+            lps)
+
+
+def _http_serve(executor, per_batch: dict, decisive_margin: float,
+                nan_rejected: bool, tag: str = "serve", windows=None,
+                n_requests: int = N_REQUESTS, direct=None):
+    """``ServeLoop`` + HTTP on 127.0.0.1 over ``executor``: 8 clients send
+    ``n_requests`` requests cycling over ``windows`` (32 seeded ones by
+    default), every 37th NaN-poisoned.  Every request is answered; a
+    poisoned one with 422 when the preset rejects NaN windows
+    (``nan_rejected``), else with 200; every answer's ints equal a direct
+    run of the same window through ``direct`` (``executor`` by default)
+    on rows whose top-2 margin exceeds ``decisive_margin``.  The launch
+    counters are zeroed just before the traffic and read just after it,
+    and must be ``per_batch`` times the batches served."""
     from dasmtl_torch.serve.server import ServeLoop, make_http_server
 
     loop = ServeLoop(executor, buckets=BUCKETS, max_wait_s=0.005,
@@ -950,10 +1007,11 @@ def _http_serve(executor, per_batch: dict, decisive_margin: float,
     url = f"http://127.0.0.1:{httpd.server_address[1]}/infer"
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
-    windows = np.random.default_rng(0).normal(
-        size=(32, H, W)).astype(np.float32)
+    if windows is None:
+        windows = np.random.default_rng(0).normal(
+            size=(32, H, W)).astype(np.float32)
     spoiled = windows.copy()
-    spoiled[:, 50, 125] = np.nan
+    spoiled[:, H // 2, W // 2] = np.nan
     try:
         loop.start()
         clean = [json.dumps({"x": w.tolist()}).encode() for w in windows]
@@ -967,7 +1025,7 @@ def _http_serve(executor, per_batch: dict, decisive_margin: float,
         _reset_launches()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(N_CLIENTS) as pool:
-            answers = list(pool.map(send, range(N_REQUESTS)))
+            answers = list(pool.map(send, range(n_requests)))
         wall = time.perf_counter() - t0
         drained = loop.drain(timeout=60.0)
         launches = {k: _launches()[k] for k in per_batch}
@@ -990,13 +1048,8 @@ def _http_serve(executor, per_batch: dict, decisive_margin: float,
                              f"launches, expected {per_batch} per batch")
     # Direct runs of the same windows (and their poisoned copies), outside
     # the server.
-    direct = {}
-    for poison, xs in ((False, windows), (True, spoiled)):
-        preds, bad, lp = executor.collect(executor.dispatch(xs[..., None]),
-                                          want_log_probs=True)
-        margins = _decision_margins(preds, lp)
-        direct[poison] = (preds, bad, {t: m > decisive_margin
-                                       for t, m in margins.items()})
+    direct = {poison: _direct(direct or executor, xs, decisive_margin)
+              for poison, xs in ((False, windows), (True, spoiled))}
     if direct[False][1].any():
         raise AssertionError(f"{tag}: direct run rejected a clean window")
     if direct[True][1].all() != nan_rejected or direct[True][1].any() != \
@@ -1014,7 +1067,7 @@ def _http_serve(executor, per_batch: dict, decisive_margin: float,
             continue
         if code != 200 or not payload.get("ok"):
             raise AssertionError(f"{tag}: request {i}: {code} {payload}")
-        preds, _, decisive = direct[poison]
+        preds, _, decisive, _ = direct[poison]
         got = payload["predictions"]
         for task in preds:
             if decisive[task][j] and got[task] != int(preds[task][j]):
@@ -1023,16 +1076,16 @@ def _http_serve(executor, per_batch: dict, decisive_margin: float,
                                      f"{int(preds[task][j])}")
         n_ok += 1
         n_nan_200 += int(poison)
-    if n_ok + n_poison != N_REQUESTS or \
-            stats["requests"]["answered"] != N_REQUESTS:
+    if n_ok + n_poison != n_requests or \
+            stats["requests"]["answered"] != n_requests:
         raise AssertionError(f"{tag}: answered "
                              f"{stats['requests']['answered']} of "
-                             f"{N_REQUESTS}")
+                             f"{n_requests}")
     lat = stats["latency_ms"]
     return {"answered": stats["requests"]["answered"], "ok": n_ok,
             "nonfinite": n_poison, "nan_answered_200": n_nan_200,
             "p50_ms": lat["p50"], "p99_ms": lat["p99"],
-            "windows_per_s": N_REQUESTS / wall, "wall_s": wall,
+            "windows_per_s": n_requests / wall, "wall_s": wall,
             "mean_occupancy": stats["batches"]["mean_occupancy"],
             "batches": n_batches, "launches": launches,
             "decisive_rows": {t: int(d.sum())
@@ -1323,7 +1376,10 @@ def _entry_points():
         f"{trained.reports['event']['accuracy']:.3f}; test ints == direct "
         f"eval_step on {agree} decisive rows of 256; examples/s per window "
         f"{[round(r, 1) for r in rates]}; peak memory {peak / 2**20:.1f} MiB")
-    return {"checkpoint": ckpt, "launches": launches, "train_s": train_s,
+    return {"checkpoint": ckpt, "data": (striking, excavating),
+            "test_predictions": {t: np.asarray(v) for t, v in
+                                 tested.predictions.items()},
+            "launches": launches, "train_s": train_s,
             "test_s": test_s,
             "examples_per_s": rates, "peak_memory_bytes": peak,
             "val_acc": {t: r["accuracy"]
@@ -1856,8 +1912,9 @@ def _offline(ckpt: str):
         + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
             layers_ms["on"].items(), key=lambda kv: -kv[1]))
         + f"); the gather is {100 * gather_share:.2f}% of it")
-    os.remove(path)
-    return {"rows": n, "batches": n_batches, "launches": launches,
+    # The record and its rows stay for the artifacts phase's sweep.
+    return {"record_path": path, "rows_csv": csvs["off"],
+            "rows": n, "batches": n_batches, "launches": launches,
             "decisive_rows_equal": agree, "windows_per_s": rates,
             "device_idle_share": idle, "kernel_ms_per_batch": layers_ms}
 
@@ -2120,6 +2177,499 @@ def phase_stream(peaks, ckpt: str):
     oracle = _live_oracle()
     return {"kernels": kernels, "offline": offline, "live": live,
             "oracle": oracle}
+
+
+# -- phase 11: artifacts ------------------------------------------------------
+SWAP_REQUESTS = 256  # requests of the checkpoint and the registry runs
+
+
+def _export_and_publish(ckpt: str, reg: str) -> dict:
+    """(a) ``python -m dasmtl_torch.export`` in process: model A's f32 and
+    bf16 artifacts of the checkpoint, published as registry v1 and v2."""
+    from dasmtl_torch.export import ArtifactRegistry, artifact_header
+    from dasmtl_torch.export import main as export_main
+
+    paths, t = {}, {}
+    for prec in ("f32", "bf16"):
+        paths[prec] = os.path.join(TRAIN_DIR, f"mtl-{prec}.torch")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = export_main(["--model", "MTL", "--model_path", ckpt,
+                              "--out", paths[prec], "--registry", reg,
+                              "--precision", prec, "--device", DEV])
+        t[prec] = time.perf_counter() - t0
+        if rc != 0 or artifact_header(paths[prec])["precision"] != prec:
+            raise AssertionError(f"export --precision {prec} gave {rc}")
+    versions = [(e["version"], e["precision"])
+                for e in ArtifactRegistry(reg).versions()]
+    if versions != [(1, "f32"), (2, "bf16")]:
+        raise AssertionError(f"registry holds {versions}")
+    sizes = {p: os.path.getsize(path) for p, path in paths.items()}
+    log(f"[artifacts] python -m dasmtl_torch.export: model A f32 "
+        f"{sizes['f32']} B ({t['f32']:.2f} s), bf16 {sizes['bf16']} B "
+        f"({t['bf16']:.2f} s), published as registry v1, v2")
+    return {"paths": paths, "bytes": sizes, "export_s": t}
+
+
+def _test_windows(striking: str, excavating: str) -> np.ndarray:
+    """The test run's windows of phase 6e, in its order."""
+    from dasmtl_torch.data.pipeline import eval_batches
+    from dasmtl_torch.data.sources import RamSource
+    from dasmtl_torch.data.splits import build_splits
+
+    source = RamSource(build_splits(striking, excavating, is_test=True).val)
+    return np.concatenate([b["x"][:int(b["weight"].sum()), ..., 0]
+                           for b in eval_batches(source, 32)])
+
+
+def _serve_checkpoint(entry: dict) -> dict:
+    """(b) ``python -m dasmtl_torch.serve --model_path`` (the CLI's
+    builder) over HTTP on the test run's 256 windows, every 37th NaN: its
+    ints equal to a direct ``from_state_dict`` run and, on decisive rows,
+    to the test entry point's."""
+    from dasmtl_torch.serve import __main__ as serve_cli
+    from dasmtl_torch.serve.executor import InferExecutor
+    from dasmtl_torch.train.checkpoint import checkpoint_weights
+
+    dev = torch.device(DEV)
+    ckpt = entry["checkpoint"]
+    args = serve_cli.build_parser().parse_args(["--model_path", ckpt])
+    executor = serve_cli.executor_builder(args, BUCKETS, (H, W), dev)()
+    direct = InferExecutor.from_state_dict(
+        "MTL", checkpoint_weights(ckpt), BUCKETS, (H, W), dev)
+    windows = _test_windows(*entry["data"])
+    r = _http_serve(executor, {"gate": 4, "decode": 1}, DECISIVE,
+                    nan_rejected=True, tag="artifacts serve --model_path",
+                    windows=windows, n_requests=SWAP_REQUESTS, direct=direct)
+    if r["executor"]["source"] != f"checkpoint:{ckpt}":
+        raise AssertionError(f"served {r['executor']['source']}")
+    preds, _, decisive, _ = _direct(direct, windows, DECISIVE)
+    tested = entry["test_predictions"]
+    agree = {}
+    for task, dec in decisive.items():
+        if not np.array_equal(preds[task][dec], tested[task][dec]):
+            raise AssertionError(f"--model_path {task} ints differ from "
+                                 f"the test entry point's")
+        agree[task] = int(dec.sum())
+    log(f"[artifacts] serve --model_path over HTTP: {r['answered']} of "
+        f"{SWAP_REQUESTS} answered ({r['ok']} ok, {r['nonfinite']} "
+        f"nonfinite 422); {r['windows_per_s']:.1f} windows/s, p50 "
+        f"{r['p50_ms']} ms, p99 {r['p99_ms']} ms over {r['batches']} "
+        f"batches; launches {r['launches']}; ints == from_state_dict on "
+        f"{r['decisive_rows']} decisive rows and == test on {agree} of "
+        f"{len(windows)}")
+    r.pop("executor")
+    r["test_decisive_rows_equal"] = agree
+    return r
+
+
+def _swap_run(reg: str) -> dict:
+    """(c) serve ``--registry --registry_version 1`` (f32) and ``POST /swap
+    {"version": 2}`` (bf16) after a quarter of ``SWAP_REQUESTS``, the
+    clients sending on until another quarter went out after the flip:
+    every request answered, each
+    answer a direct v1 or v2 answer (told apart by its log-probs, its ints
+    equal on decisive rows), the ones sent after the flip v2's,
+    generation 2, the outgoing executor closed."""
+    from dasmtl_torch.export import ArtifactRegistry
+    from dasmtl_torch.serve import __main__ as serve_cli
+    from dasmtl_torch.serve.executor import InferExecutor
+    from dasmtl_torch.serve.parity import LOG_PROB_TOLERANCES
+    from dasmtl_torch.serve.server import ServeLoop, make_http_server
+
+    dev = torch.device(DEV)
+    registry = ArtifactRegistry(reg)
+    args = serve_cli.build_parser().parse_args(
+        ["--registry", reg, "--registry_version", "1"])
+    cli_build = serve_cli.executor_builder(args, BUCKETS, None, dev)
+    with contextlib.redirect_stderr(io.StringIO()):
+        v1 = cli_build()
+    loop = ServeLoop(v1, buckets=BUCKETS, max_wait_s=0.005,
+                     queue_depth=256, inflight=2)
+
+    def build(version):  # the artifact's own preset, as a library caller
+        return InferExecutor.from_exported(registry.resolve(version)["path"],
+                                           BUCKETS, device=dev)
+
+    httpd = make_http_server(loop, "127.0.0.1", 0, swap_builder=build)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    windows = np.random.default_rng(1).normal(
+        size=(32, H, W)).astype(np.float32)
+    bodies = [json.dumps({"x": w.tolist(), "log_probs": True}).encode()
+              for w in windows]
+    spoiled = windows[0].copy()
+    spoiled[H // 2, W // 2] = np.nan
+    nan_body = json.dumps({"x": spoiled.tolist()}).encode()
+    times, flip = {}, {}
+    answered = threading.Semaphore(0)
+    lock = threading.Lock()
+    next_i = iter(range(8 * SWAP_REQUESTS))  # the cap, never reached here
+
+    def client():
+        """Send until SWAP_REQUESTS are out and, after the flip, another
+        SWAP_REQUESTS // 4: the swap lands mid-traffic however long the
+        incoming executor warms."""
+        out = []
+        while True:
+            with lock:
+                i = next(next_i, None)
+                after = sum(1 for t, _ in times.values()
+                            if t > flip.get("t", float("inf")))
+            if i is None or (i >= SWAP_REQUESTS
+                             and after >= SWAP_REQUESTS // 4):
+                return out
+            t0 = time.perf_counter()
+            got = _post(f"{base}/infer", nan_body if i % POISON_EVERY == 0
+                        else bodies[i % 32])
+            with lock:
+                times[i] = (t0, time.perf_counter())
+            answered.release()
+            out.append((i, got))
+
+    def watch():
+        while loop.generation == 1 and not flip.get("stop"):
+            time.sleep(0.0002)
+        flip["t"] = time.perf_counter()
+
+    try:
+        loop.start()
+        with contextlib.redirect_stderr(io.StringIO()):
+            refused = loop.swap_to(cli_build, 2)
+        if refused["state"] != "failed" or "precision" not in \
+                refused["detail"] or loop.generation != 1:
+            raise AssertionError(f"the CLI builder (--precision f32) took "
+                                 f"the bf16 v2: {refused}")
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(N_CLIENTS) as pool:
+            futs = [pool.submit(client) for _ in range(N_CLIENTS)]
+            for _ in range(SWAP_REQUESTS // 4):
+                answered.acquire(timeout=120)
+            code, posted = _post(f"{base}/swap",
+                                 json.dumps({"version": 2}).encode())
+            answers = [a for f in futs for a in f.result()]
+        wall = time.perf_counter() - t0
+        n_sent = len(answers)
+        deadline = time.monotonic() + 120
+        while loop.swap_status["state"] == "warming":
+            if time.monotonic() > deadline:
+                raise AssertionError("the swap never finished warming")
+            time.sleep(0.01)
+        flip["stop"] = True
+        watcher.join(timeout=10)
+        _, swap = _get(f"{base}/swap")
+        v2 = loop.executor
+        cli = _cli_swap(loop, cli_build, registry, bodies)
+        drained = loop.drain(timeout=60.0)
+        stats = loop.stats()
+    finally:
+        httpd.shutdown()
+        server.join(timeout=10.0)
+        httpd.server_close()
+        loop.close()
+    if code != 202 or posted["swap"]["state"] != "started":
+        raise AssertionError(f"POST /swap: {code} {posted}")
+    if swap["generation"] != 2 or swap["swap"]["state"] != "done" or \
+            swap["swap"]["precision"] != "bf16" or not drained:
+        raise AssertionError(f"GET /swap: {swap}, drained {drained}")
+    if not v1.closed or not v2.closed:
+        raise AssertionError("an outgoing executor was not closed")
+    direct = {}
+    for version, margin in ((1, DECISIVE), (2, 2 * LOG_PROB_TOLERANCES[
+            "bf16"])):
+        ex = build(version)
+        direct[version] = _direct(ex, windows, margin)
+        ex.close()
+    t_flip = flip["t"]
+    # Whose answer: v1's (f32) when its log-probs lie within the f32
+    # tolerance of v1's direct run, v2's (bf16) when within the bf16
+    # preset's tolerance of v2's; on a window where v2's own log-probs lie
+    # within the f32 tolerance of v1's, the two cannot be told apart.
+    def near(lp, version, j, atol, rtol=0.0):
+        lps = direct[version][3]
+        return all(np.allclose(lp[k], lps[k][j], atol=atol, rtol=rtol)
+                   for k in lps)
+
+    apart = [not near({k: v[j] for k, v in direct[2][3].items()}, 1, j,
+                      MODEL_ATOL, MODEL_RTOL) for j in range(32)]
+    served = {"v1": 0, "v2": 0, "either": 0}
+    after = inflight = after_apart = 0
+    for i, (code, payload) in answers:
+        if i % POISON_EVERY == 0:
+            if code != 422 or payload.get("error") != "nonfinite":
+                raise AssertionError(f"swap run: poisoned request {i}: "
+                                     f"{code} {payload}")
+            continue
+        if code != 200 or not payload.get("ok"):
+            raise AssertionError(f"swap run: request {i}: {code} {payload}")
+        j = i % 32
+        got, lp = payload["predictions"], payload["log_probs"]
+        version = (1 if near(lp, 1, j, MODEL_ATOL, MODEL_RTOL) else
+                   2 if near(lp, 2, j, LOG_PROB_TOLERANCES["bf16"]) else 0)
+        if not version:
+            raise AssertionError(f"request {i}: log-probs neither v1's "
+                                 f"nor v2's")
+        preds, _, dec, _ = direct[version]
+        if any(got[t] != int(preds[t][j]) for t in preds if dec[t][j]):
+            raise AssertionError(f"request {i}: {got}, direct v{version} "
+                                 f"{ {t: int(preds[t][j]) for t in preds} }")
+        served[f"v{version}" if apart[j] else "either"] += 1
+        sent, back = times[i]
+        if sent > t_flip:
+            after += 1
+            after_apart += apart[j]
+            if apart[j] and version != 2:
+                raise AssertionError(f"request {i}, sent after the flip, "
+                                     f"was answered by v1")
+        elif back > t_flip:
+            inflight += 1
+    if not after_apart or not served["v1"]:
+        raise AssertionError(f"no told-apart request on one side of the "
+                             f"flip: {served}, {after_apart} sent after it")
+    for j, (code, payload) in enumerate(cli["answers"]):
+        if code != 200 or not near(payload["log_probs"], 1, j, MODEL_ATOL,
+                                   MODEL_RTOL):
+            raise AssertionError(f"after the CLI's swap to v3 (v1's f32 "
+                                 f"bytes), window {j}: {code}, log-probs "
+                                 f"not v1's")
+        preds, _, dec, _ = direct[1]
+        if any(payload["predictions"][t] != int(preds[t][j])
+               for t in preds if dec[t][j]):
+            raise AssertionError(f"v3 window {j}: {payload['predictions']}")
+    lat = stats["latency_ms"]
+    n_sent += len(cli["answers"])
+    if stats["requests"]["answered"] != n_sent or \
+            stats["requests"].get("closed") or \
+            stats["requests"].get("error"):
+        raise AssertionError(f"swap run requests {stats['requests']} of "
+                             f"{n_sent} sent")
+    out = {"answered": stats["requests"]["answered"], "sent": n_sent,
+           "windows_per_s": n_sent / wall, "p50_ms": lat["p50"],
+           "p99_ms": lat["p99"], "warmup_s": swap["swap"]["warmup_s"],
+           "inflight_at_flip": inflight, "sent_after_flip": after,
+           "windows_told_apart": int(sum(apart)),
+           "answers_by_version": served,
+           "refused_by_cli_precision": refused["detail"],
+           "cli_swap_v3_warmup_s": cli["warmup_s"]}
+    log(f"[artifacts] registry v1 (f32) -> POST /swap v2 (bf16) after "
+        f"{SWAP_REQUESTS // 4} answers: {out['answered']} of "
+        f"{n_sent} answered, none closed or failed; incoming warmup "
+        f"{out['warmup_s']} s; {inflight} requests in flight at the flip, "
+        f"{after} sent after it (v2's answer on the {after_apart} whose "
+        f"window tells v1 from v2: {sum(apart)} of 32); answers by version "
+        f"{served}; {out['windows_per_s']:.1f} "
+        f"windows/s, p50 {lat['p50']} ms, p99 {lat['p99']} ms; generation "
+        f"2, outgoing executor closed; the CLI's --precision f32 builder "
+        f"refused v2 as JAX does, then took v3 (f32) through POST /swap "
+        f"on the CLI's front end: warmup {cli['warmup_s']} s, generation "
+        f"3, v2 closed, {len(cli['answers'])} answers == v1's")
+    return out
+
+
+def _cli_swap(loop, cli_build, registry, bodies) -> dict:
+    """Publish v1's f32 bytes again as v3 and ``POST /swap {"version": 3}``
+    to a front end armed as ``python -m dasmtl_torch.serve --registry``
+    arms it (``swap_builder`` = the CLI's ``executor_builder``): its
+    registry re-resolve builds and warms v3, and the loop flips from the
+    bf16 v2 back to f32.  Then one request per window."""
+    from dasmtl_torch.serve.server import make_http_server
+
+    entry = registry.publish_file(registry.resolve(1)["path"])
+    if entry["version"] != 3:
+        raise AssertionError(f"published {entry}")
+    httpd = make_http_server(loop, "127.0.0.1", 0, swap_builder=cli_build)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            code, posted = _post(f"{base}/swap",
+                                 json.dumps({"version": 3}).encode())
+            deadline = time.monotonic() + 120
+            while (loop.swap_status.get("version") != 3
+                   or loop.swap_status["state"] == "warming"):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the v3 swap never finished "
+                                         "warming")
+                time.sleep(0.01)
+        _, swap = _get(f"{base}/swap")
+        answers = [_post(f"{base}/infer", body) for body in bodies]
+    finally:
+        httpd.shutdown()
+        server.join(timeout=10.0)
+        httpd.server_close()
+    if code != 202 or swap["generation"] != 3 or \
+            swap["swap"]["state"] != "done" or \
+            swap["swap"]["precision"] != "f32":
+        raise AssertionError(f"the CLI's POST /swap v3: {code} {posted}, "
+                             f"{swap}")
+    return {"warmup_s": swap["swap"]["warmup_s"], "answers": answers}
+
+
+def _model_c_int8_artifact() -> dict:
+    """(d) model C int8 from ``init_scaled`` weights through
+    ``export_infer``: ``from_exported`` bit-equal to ``from_state_dict(...,
+    "int8")`` at every bucket, one int8_dot launch per batch."""
+    from dasmtl_torch.export import export_infer
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_scaled
+    from dasmtl_torch.ops import int8
+    from dasmtl_torch.serve.executor import InferExecutor
+
+    dev = torch.device(DEV)
+    spec = get_model_spec("multi_classifier")
+    net = init_scaled(spec.build(), 0)
+    path = os.path.join(TRAIN_DIR, "model-c-int8.torch")
+    with open(path, "wb") as f:
+        f.write(export_infer(spec, net, input_hw=(H, W), precision="int8"))
+    ex = InferExecutor.from_exported(path, BUCKETS, (H, W), dev, "int8")
+    ref = InferExecutor.from_state_dict("multi_classifier", net.state_dict(),
+                                        BUCKETS, (H, W), dev, "int8")
+    x = np.random.default_rng(2).normal(size=(32, H, W, 1)).astype(
+        np.float32)
+    x[3, 7, 7, 0] = np.nan
+    launches = 0
+    for b in BUCKETS:
+        int8.launches.reset()
+        got = ex.collect(ex.dispatch(x[:b]), want_log_probs=True)
+        launches += int8.launches.value
+        want = ref.collect(ref.dispatch(x[:b]), want_log_probs=True)
+        for a, c in ((got[0], want[0]), (got[2], want[2])):
+            for k in a:
+                if not np.array_equal(a[k], c[k], equal_nan=True):
+                    raise AssertionError(f"model C int8 artifact {k} at "
+                                         f"B = {b} differs from "
+                                         f"from_state_dict")
+        if not np.array_equal(got[1], want[1]):
+            raise AssertionError(f"bad_rows differ at B = {b}")
+    if launches != len(BUCKETS):
+        raise AssertionError(f"{len(BUCKETS)} batches made {launches} "
+                             f"int8_dot launches")
+    size = os.path.getsize(path)
+    log(f"[artifacts] model C int8 artifact ({size} B): from_exported "
+        f"bit-equal to from_state_dict at B = {list(BUCKETS)}, "
+        f"{launches} int8_dot launches for {len(BUCKETS)} batches")
+    return {"bytes": size, "int8_dot_launches": launches,
+            "batches": len(BUCKETS)}
+
+
+def _stream_artifacts(stream: dict, paths: dict, ckpt: str) -> dict:
+    """(e) the offline sweep of phase 7b's record with ``--exported`` (its
+    rows equal the checkpoint sweep's), then 50 paced cycles of ``stream
+    serve --model_path``'s executor on the resident plane, ints equal on
+    decisive rows to a direct forward of the same samples.  The live
+    executor comes from ``stream serve``'s own parser and source
+    selection."""
+    from dasmtl_torch.serve.server import ServeLoop
+    from dasmtl_torch.stream.__main__ import main as stream_main
+    from dasmtl_torch.stream.live import (StreamLoop, StreamTenant,
+                                          build_serve_parser, serve_executor)
+
+    off = stream["offline"]
+    out = os.path.join(TRAIN_DIR, "sweep_exported.csv")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = stream_main(["--device", DEV, "--record", off["record_path"],
+                          "--exported", paths["f32"],
+                          "--stride_time", str(STRIDE_T),
+                          "--batch_size", str(SWEEP_BATCH), "--out", out])
+    sweep_s = time.perf_counter() - t0
+    with open(out, newline="") as f:
+        rows = list(csv.DictReader(f))
+    if rc != 0 or rows != off["rows_csv"]:
+        raise AssertionError(f"the --exported sweep gave {rc} and "
+                             f"{len(rows)} rows differing from the "
+                             f"checkpoint sweep's")
+
+    cycles = 50
+    args = build_serve_parser().parse_args(
+        ["--model_path", ckpt, "--window", f"{H}x{W}", "--resident", "on",
+         "--device", DEV])
+    executor = serve_executor(args, BUCKETS, (H, W), torch.device(DEV))
+    if executor.source != f"checkpoint:{ckpt}":
+        raise AssertionError(f"stream serve --model_path built "
+                             f"{executor.source}")
+    loop = ServeLoop(executor, buckets=BUCKETS, max_wait_s=0.005,
+                     queue_depth=256, inflight=2).start()
+    tenants = [StreamTenant(f"f{i}", src, window=(H, W),
+                            stride_time=STRIDE_T, ring_samples=LIVE_RING,
+                            chunk_samples=LIVE_CHUNK)
+               for i, src in enumerate(_live_sources(LIVE_FIBERS,
+                                                     LIVE_CHANNELS))]
+    stream_loop = StreamLoop(loop, tenants, cycle_budget=LIVE_BUDGET,
+                             max_wait_s=0.005, resident=args.resident)
+    try:
+        if not stream_loop.resident_enabled:
+            raise AssertionError("--model_path did not take the resident "
+                                 "plane")
+        seen = _record_decodes(tenants)
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        _paced(stream_loop, tenants, cycles)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        lat = sorted(x for t in tenants for x in t.latencies)
+        if not stream_loop.drain(timeout=30.0):
+            raise AssertionError("the live loop did not drain")
+    finally:
+        stream_loop.close()
+        loop.close()
+    by_fiber = {}
+    for fiber, tile, t_0 in seen:
+        by_fiber.setdefault(fiber, []).append((tile, t_0))
+    fwd = executor.raw_infer_fn
+    agree = {"distance": 0, "event": 0}
+    for fiber, keys in by_fiber.items():
+        data = _replay(int(fiber[1:]), cycles + 1)
+        for k0 in range(0, len(keys), 256):
+            part = keys[k0:k0 + 256]
+            xs = np.stack([data[H * tile:H * tile + H, t_0:t_0 + W]
+                           for tile, t_0 in part])[..., None]
+            res = fwd(torch.from_numpy(xs).to(DEV))
+            for i, task in enumerate(("distance", "event")):
+                lp = res[f"log_probs_{i}"].cpu().numpy()
+                ints = res[task].cpu().numpy()
+                dec = _decisive(lp)
+                for j, key in enumerate(part):
+                    ok, event, distance, _ = seen[(fiber, *key)]
+                    got = distance if task == "distance" else event
+                    if ok and dec[j]:
+                        if got != ints[j]:
+                            raise AssertionError(f"live {fiber} {key} "
+                                                 f"{task}: {got}, direct "
+                                                 f"{ints[j]}")
+                        agree[task] += 1
+    chunks = sum(t.resident.feed.h2d_chunks for t in tenants)
+    if launches["ring_append"] != chunks or launches["window_gather"] == 0:
+        raise AssertionError(f"live launches {launches} for {chunks} chunks")
+    live = {"windows": len(seen), "windows_per_s": len(seen) / wall,
+            "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "launches": launches, "decisive_rows_equal": agree}
+    log(f"[artifacts] offline sweep --exported: {len(rows)} rows equal to "
+        f"the checkpoint sweep's ({sweep_s:.2f} s, host path); live "
+        f"--model_path on the resident plane, {cycles} paced cycles: "
+        f"{live['windows']} windows, {live['windows_per_s']:.1f} windows/s, "
+        f"p50 {live['p50_ms']:.2f} ms p99 {live['p99_ms']:.2f} ms; ints == "
+        f"a direct forward on {agree} decisive windows; launches {launches}")
+    return {"sweep_rows": len(rows), "sweep_s": sweep_s, "live": live}
+
+
+def phase_artifacts(entry: dict, stream: dict) -> dict:
+    t0 = time.perf_counter()
+    reg = os.path.join(TRAIN_DIR, "registry")
+    exported = _export_and_publish(entry["checkpoint"], reg)
+    out = {"export": exported, "serve": _serve_checkpoint(entry),
+           "swap": _swap_run(reg), "model_c_int8": _model_c_int8_artifact(),
+           "stream": _stream_artifacts(stream, exported["paths"],
+                                       entry["checkpoint"])}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[artifacts] phase done in {out['seconds']:.1f} s")
+    return out
 
 
 # -- phase 8 ------------------------------------------------------------------
@@ -3657,7 +4207,12 @@ def main(argv=None) -> int:
     model = phase_model(args.profile)
     serve = phase_serve()
     train = phase_train(peaks, args.profile)
-    stream = phase_stream(peaks, train["entry"].pop("checkpoint"))
+    stream = phase_stream(peaks, train["entry"]["checkpoint"])
+    artifacts = phase_artifacts(train["entry"], stream)
+    for k in ("checkpoint", "data", "test_predictions"):
+        train["entry"].pop(k)
+    for k in ("record_path", "rows_csv"):
+        stream["offline"].pop(k)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     precision = phase_precision(peaks)
     dp = phase_dp(peaks)
@@ -3723,7 +4278,8 @@ def main(argv=None) -> int:
         with open(args.out, "w", encoding="utf-8") as f:
             json.dump({"device": device, "build": build, "kernels": kernels,
                        "model": model, "serve": serve, "train": train,
-                       "stream": stream, "precision": precision, "dp": dp,
+                       "stream": stream, "artifacts": artifacts,
+                       "precision": precision, "dp": dp,
                        "resident": resident,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)

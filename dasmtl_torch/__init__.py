@@ -13,8 +13,10 @@ tier (:mod:`dasmtl_torch.stream`: the offline record sweep and the live
 multi-fiber tier, on the host or the resident data plane), slice 4 model C
 (:mod:`dasmtl_torch.models.inception`) and the bf16 / int8 serving presets
 (:mod:`dasmtl_torch.models.precision`, :mod:`dasmtl_torch.serve.parity`).
-The
-hand-written Hopper kernels live in ``csrc/`` and are built on their first
+A later slice serves what the port trains: the versioned artifact
+container and registry (``python -m dasmtl_torch.export``), the
+``--model_path`` / ``--exported`` / ``--registry`` model sources, and the
+server's blue/green ``POST /swap``.  The hand-written Hopper kernels live in ``csrc/`` and are built on their first
 CUDA call (:mod:`dasmtl_torch.ops._build`), never at import.
 """
 

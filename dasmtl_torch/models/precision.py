@@ -37,7 +37,7 @@ even.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -253,4 +253,27 @@ def apply_precision(model: nn.Module, precision: str) -> nn.Module:
             else:
                 continue
             setattr(parent, name, new.train(False))
+    return model
+
+
+def stored_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """What an artifact stores of a transformed ``model``: its state dict
+    without what a load derives, the dequantized bf16 weight of an int8
+    conv (:func:`rederive_buffers` rebuilds it from ``q`` and the
+    scales)."""
+    derived = {f"{name}.weight" for name, m in model.named_modules()
+               if isinstance(m, ReducedConv2d) and hasattr(m, "q")}
+    return {k: v for k, v in model.state_dict().items() if k not in derived}
+
+
+def rederive_buffers(model: nn.Module) -> nn.Module:
+    """Recompute, after a ``load_state_dict`` into a transformed
+    ``model``, the buffers derived from loaded ones: an int8 conv's bf16
+    weight from its ``q`` and scales, and every f32 copy of a bf16 bias.
+    Nothing is quantized again."""
+    for m in model.modules():
+        if isinstance(m, ReducedConv2d) and hasattr(m, "q"):
+            m.weight = dequantize_kernel(m.q, m.scale)
+        if hasattr(m, "bias_f32"):
+            m.bias_f32 = m.bias.float()
     return model

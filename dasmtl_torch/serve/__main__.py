@@ -1,23 +1,31 @@
 """``python -m dasmtl_torch.serve`` — the port's online inference server.
 
-Counterpart of ``python -m dasmtl.serve`` (``dasmtl/serve/__main__.py``)
-for the serving slice: ``--fresh_init`` serves seed-deterministic
-fresh-init weights of ``--model`` on ``--device`` (``cuda`` by default),
-``POST /infer`` answers windows, ``GET /readyz`` is 503 until warmup has
-run every bucket (the front end binds BEFORE warmup, so liveness answers
-meanwhile), and SIGTERM drains: in-flight batches finish, new work gets an
+Counterpart of ``python -m dasmtl.serve`` (``dasmtl/serve/__main__.py``).
+Exactly one model source: ``--model_path`` (a port checkpoint, as ``test``
+restores it), ``--exported`` (a port artifact of ``python -m
+dasmtl_torch.export``), ``--registry DIR [--registry_version N|latest]``
+(a versioned artifact registry) or ``--fresh_init`` (seed-deterministic
+fresh-init weights of ``--model``).  The server runs on ``--device``
+(``cuda`` by default), ``POST /infer`` answers windows, ``GET /readyz`` is
+503 until warmup has run every bucket (the front end binds BEFORE warmup,
+so liveness answers meanwhile), ``POST /swap {"version": ...}`` rebuilds
+the executor through the same builder as startup (a registry replica
+re-resolves, a checkpoint replica re-reads its weights) and flips to it
+blue/green, and SIGTERM drains: in-flight batches finish, new work gets an
 explicit ``closed``, and the ``drained=... answered=... p50=... p99=...``
 line goes to stderr.
 
 ``--model`` takes every family (model C is ``multi_classifier``) and
 ``--precision f32|bf16|int8`` every serving preset (:mod:`dasmtl_torch.
-models.precision`).  ``--parity-check`` runs the precision gate instead of
-serving (``dasmtl/serve/__main__.py:168-238``): the ``--precision`` preset,
-or both reduced presets under ``f32``, against the f32 forward over a
-seeded eval set (52x64 unless ``--window`` says otherwise); exit 0 when
-every preset passes, 1 otherwise.  The JAX server's other model sources
-exit with code 2 and name the ROADMAP.md item that brings them, and so do
-the JAX server's flags this slice does not carry (:data:`JAX_ONLY_FLAGS`).
+models.precision`); an artifact's header must agree with it.
+``--parity-check`` runs the precision gate instead of serving
+(``dasmtl/serve/__main__.py:168-238``): the ``--precision`` preset, or
+both reduced presets under ``f32``, against the f32 forward over a seeded
+eval set (52x64 unless ``--window`` says otherwise), on the weights of
+``--model_path`` or the fresh init; exit 0 when every preset passes, 1
+otherwise.  The JAX server's flags this port does not carry yet exit with
+code 2 and name the ROADMAP.md item that brings them
+(:data:`JAX_ONLY_FLAGS`).
 """
 
 from __future__ import annotations
@@ -28,28 +36,18 @@ import threading
 
 from dasmtl_torch import config as C
 
-#: Options of ``python -m dasmtl.serve`` this slice does not port yet ->
-#: the ROADMAP.md item that brings each.
-_ARTIFACTS = "ROADMAP.md queue 1 item 5, 'Artifacts and registry'"
 _POOL = "ROADMAP.md queue 1 item 4, 'Executor pool'"
 _OBS = "ROADMAP.md queue 1 item 6, 'Observability endpoints and tracing'"
 _ANALYSIS = ("ROADMAP.md queue 1 item 3 (the lint, audit, conc and mem "
              "families analyse JAX code and are not ported)")
-NOT_YET_PORTED = {
-    "model_path": f"{_ARTIFACTS} (the JAX checkpoints are Orbax files the "
-                  f"port cannot read yet)",
-    "exported": _ARTIFACTS,
-    "registry": _ARTIFACTS,
-}
 #: Flags of ``python -m dasmtl.serve`` the port's parser does not declare,
 #: by name prefix (``history`` is ``--history`` and ``--history_interval_s``)
 #: -> the ROADMAP.md item that brings them.
 JAX_ONLY_FLAGS = (
     ("devices", _POOL), ("shard_largest", _POOL),
     ("shard_multihost", _POOL),
-    ("registry_version", _ARTIFACTS),
     ("trace_ring", _OBS), ("latency_buckets_ms", _OBS),
-    ("profile_", _OBS), ("history", _OBS),
+    ("slo_p99_ms", _OBS), ("profile_", _OBS), ("history", _OBS),
     ("conc_", _ANALYSIS), ("mem_", _ANALYSIS),
     ("selftest", f"{_POOL} (the serving soak, serve/selftest.py)"),
 )
@@ -72,26 +70,34 @@ def _parse_window(p: argparse.ArgumentParser, text: str):
         p.error(f"--window must look like 100x250, got {text!r}")
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
+        prog="python -m dasmtl_torch.serve",
         description="dasmtl_torch online inference serving: dynamic "
                     "micro-batching over a bucketed CUDA executor")
-    src = p.add_argument_group("model source")
-    src.add_argument("--fresh_init", action="store_true",
-                     help="serve seed-deterministic fresh-init weights "
-                          "(the only source this slice ports)")
+    src = p.add_argument_group("model source (exactly one)")
     src.add_argument("--model_path", type=str, default=None,
-                     help="not yet ported")
+                     help="port checkpoint dir (ckpts/step_<n> or best)")
     src.add_argument("--exported", type=str, default=None,
-                     help="not yet ported")
-    src.add_argument("--registry", type=str, default=None,
-                     help="not yet ported")
+                     help="port artifact (python -m dasmtl_torch.export); "
+                          "its header's window and precision must agree "
+                          "with --window / --precision")
+    src.add_argument("--fresh_init", action="store_true",
+                     help="serve seed-deterministic fresh-init weights")
+    src.add_argument("--registry", type=str, default=None, metavar="DIR",
+                     help="serve from a versioned artifact registry "
+                          "(python -m dasmtl_torch.export --registry "
+                          "publishes into one); POST /swap re-resolves")
+    p.add_argument("--registry_version", type=str, default="latest",
+                   help="registry version to load at startup (an int or "
+                        "'latest')")
     p.add_argument("--model", type=str, default="MTL",
                    help="model family: MTL, single_distance, single_event, "
-                        "multi_classifier")
+                        "multi_classifier (an artifact names its own)")
     p.add_argument("--window", type=str, default=None, metavar="HxW",
                    help="window shape, e.g. 100x250 (default: "
-                        f"{C.INPUT_HEIGHT}x{C.INPUT_WIDTH})")
+                        f"{C.INPUT_HEIGHT}x{C.INPUT_WIDTH}; an artifact's "
+                        "own with --exported / --registry)")
     p.add_argument("--buckets", type=str,
                    default=",".join(str(b) for b in C.SERVE_BUCKETS),
                    help="comma-separated batch-shape ladder run at warmup; "
@@ -114,7 +120,8 @@ def main(argv=None) -> int:
                         "collected")
     p.add_argument("--precision", type=str, default=C.SERVE_PRECISION,
                    choices=["f32", "bf16", "int8"],
-                   help="serving precision preset")
+                   help="serving precision preset; with --exported or "
+                        "--registry the artifact's header must agree")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
     p.add_argument("--parity-check", action="store_true",
@@ -122,12 +129,59 @@ def main(argv=None) -> int:
                    help="run the precision parity gate instead of serving: "
                         "the --precision preset (both reduced presets "
                         "under f32) against the f32 forward over a seeded "
-                        "eval set; exit 0/1")
+                        "eval set, on --model_path's weights or the fresh "
+                        "init; exit 0/1")
     p.add_argument("--parity_windows", type=int, default=256,
                    help="eval-set size for --parity-check")
     p.add_argument("--parity_out", type=str, default=None, metavar="PATH",
                    help="also write the parity report section into PATH "
                         "(not docs/PARITY.md, the JAX package's)")
+    return p
+
+
+def executor_builder(args, buckets, window, device):
+    """``build(version=None) -> InferExecutor`` for the model source of
+    ``args``: the one builder of startup and of every ``POST /swap``
+    (``dasmtl/serve/__main__.py:275-310``).  A registry builder resolves
+    ``version`` (``--registry_version`` at startup), a checkpoint builder
+    re-reads its weights, an artifact builder re-reads its file; each
+    artifact is checked against ``window`` (None: the artifact's own) and
+    ``--precision``."""
+    from dasmtl_torch.serve.executor import InferExecutor
+
+    hw = window or (C.INPUT_HEIGHT, C.INPUT_WIDTH)
+    if args.exported:
+        def build(version=None):
+            return InferExecutor.from_exported(
+                args.exported, buckets, expected_hw=window, device=device,
+                precision=args.precision)
+    elif args.registry:
+        from dasmtl_torch.export import ArtifactRegistry
+
+        registry = ArtifactRegistry(args.registry)
+
+        def build(version=None):
+            entry = registry.resolve(version if version is not None
+                                     else args.registry_version)
+            print(f"dasmtl_torch.serve: registry {args.registry} -> "
+                  f"v{entry['version']} ({entry['file']})", file=sys.stderr)
+            return InferExecutor.from_exported(
+                entry["path"], buckets, expected_hw=window, device=device,
+                precision=args.precision)
+    elif args.model_path:
+        def build(version=None):
+            return InferExecutor.from_checkpoint(
+                args.model, args.model_path, buckets, hw, device,
+                args.precision)
+    else:
+        def build(version=None):
+            return InferExecutor.from_fresh_init(
+                args.model, buckets, hw, C.SEED, device, args.precision)
+    return build
+
+
+def main(argv=None) -> int:
+    p = build_parser()
     args, extra = p.parse_known_args(argv)
     for arg in extra:
         item = _jax_only_item(arg)
@@ -137,39 +191,33 @@ def main(argv=None) -> int:
             return 2
     if extra:
         p.error(f"unrecognized arguments: {' '.join(extra)}")
-
-    for opt, item in NOT_YET_PORTED.items():
-        if getattr(args, opt):
-            print(f"dasmtl_torch.serve: --{opt} is not yet ported: {item}",
-                  file=sys.stderr)
-            return 2
     if args.parity_check:
         return _parity_check(p, args)
-    if not args.fresh_init:
-        p.error("--fresh_init is required (the only model source this "
-                "slice ports)")
+    n_sources = sum(1 for v in (args.exported, args.model_path,
+                                args.fresh_init, args.registry) if v)
+    if n_sources != 1:
+        p.error("exactly one of --exported / --model_path / --fresh_init "
+                "/ --registry is required")
     try:
         buckets = tuple(int(b) for b in args.buckets.split(",") if b)
     except ValueError:
         p.error(f"--buckets must be comma-separated ints, "
                 f"got {args.buckets!r}")
-    window = (_parse_window(p, args.window) if args.window
-              else (C.INPUT_HEIGHT, C.INPUT_WIDTH))
+    window = _parse_window(p, args.window) if args.window else None
 
     from dasmtl_torch.device import resolve_device
-    from dasmtl_torch.serve.executor import InferExecutor
     from dasmtl_torch.serve.server import (ServeLoop,
                                            install_signal_handlers,
                                            make_http_server)
 
     device = resolve_device(args.device)
+    build_executor = executor_builder(args, buckets, window, device)
     try:
-        executor = InferExecutor.from_fresh_init(args.model, buckets, window,
-                                                 C.SEED, device,
-                                                 args.precision)
-    except (ValueError, NotImplementedError) as exc:
-        # An unknown or not yet ported model family is an operational
-        # error with a named fix, not a traceback.
+        executor = build_executor()
+    except (ValueError, NotImplementedError, OSError) as exc:
+        # A missing file, an unknown family, or a window / precision /
+        # registry disagreement is an operational error with a named fix,
+        # not a traceback.
         print(f"dasmtl_torch.serve: {exc}", file=sys.stderr)
         return 2
     loop = ServeLoop(executor, buckets=buckets,
@@ -178,7 +226,8 @@ def main(argv=None) -> int:
                      watermark=args.watermark, inflight=args.inflight)
     # Bind the front end BEFORE warmup: /healthz answers while buckets
     # warm, /readyz stays 503 until every bucket has run.
-    httpd = make_http_server(loop, args.host, args.port)
+    httpd = make_http_server(loop, args.host, args.port,
+                             swap_builder=build_executor)
     host, port = httpd.server_address[:2]
     if args.port_file:
         with open(args.port_file, "w", encoding="utf-8") as f:
@@ -186,15 +235,16 @@ def main(argv=None) -> int:
     stop = threading.Event()
     t = threading.Thread(target=httpd.serve_forever, daemon=True)
     t.start()
+    h, w = executor.input_hw
     print(f"warming {len(buckets)} bucket(s) {list(buckets)} on "
-          f"{window[0]}x{window[1]} windows (precision {args.precision}) "
-          f"on {device}; liveness already up on http://{host}:{port} ...",
+          f"{h}x{w} windows (precision {executor.precision}) on {device}; "
+          f"liveness already up on http://{host}:{port} ...",
           file=sys.stderr)
     loop.start()
     print(f"serving {executor.source} on http://{host}:{port} "
-          f"(POST /infer, GET /healthz, GET /readyz, GET /stats); warmup "
-          f"{loop.stats()['warmup_s']:.2f}s; in-flight window "
-          f"{loop.inflight_window}; SIGTERM drains", file=sys.stderr)
+          f"(POST /infer, GET /healthz, GET /readyz, GET /stats, POST "
+          f"/swap); warmup {loop.stats()['warmup_s']:.2f}s; in-flight "
+          f"window {loop.inflight_window}; SIGTERM drains", file=sys.stderr)
 
     # SIGTERM/SIGINT: refuse new work, let the dispatcher finish what is
     # queued, then stop accepting connections.  shutdown() must not run in
@@ -212,29 +262,33 @@ def main(argv=None) -> int:
           f"shed={stats['requests']['shed']} "
           f"p50={stats['latency_ms']['p50']}ms "
           f"p99={stats['latency_ms']['p99']}ms "
-          f"occupancy={stats['batches']['mean_occupancy']:.2f}",
-          file=sys.stderr)
+          f"occupancy={stats['batches']['mean_occupancy']:.2f} "
+          f"generation={loop.generation}", file=sys.stderr)
     return 0 if drained else 1
 
 
 def _parity_check(p: argparse.ArgumentParser, args) -> int:
-    """``--parity-check``: gate the reduced presets on fresh-init weights
-    of ``--model``; 0 when every preset passes."""
+    """``--parity-check``: gate the reduced presets on the weights of
+    ``--model_path`` (fresh-init weights of ``--model`` without it); 0
+    when every preset passes."""
     from dasmtl_torch.device import card_label, resolve_device
     from dasmtl_torch.models.registry import get_model_spec
     from dasmtl_torch.serve.parity import run_parity, write_parity_report
+    from dasmtl_torch.train.checkpoint import checkpoint_weights
 
     window = _parse_window(p, args.window) if args.window else (52, 64)
     resolve_device(args.device)  # raises without a card, naming --device cpu
     try:
         get_model_spec(args.model)
-    except ValueError as exc:
+        weights = (checkpoint_weights(args.model_path) if args.model_path
+                   else None)
+    except (ValueError, OSError) as exc:
         print(f"dasmtl_torch.serve: {exc}", file=sys.stderr)
         return 2
     presets = ([args.precision] if args.precision != "f32"
                else ["bf16", "int8"])
-    reports = [run_parity(prec, model=args.model, input_hw=window,
-                          n_windows=args.parity_windows,
+    reports = [run_parity(prec, model=args.model, state_dict=weights,
+                          input_hw=window, n_windows=args.parity_windows,
                           device=args.device, verbose=True)
                for prec in presets]
     if args.parity_out:

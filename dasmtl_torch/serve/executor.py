@@ -29,13 +29,18 @@ Under a reduced precision preset (``bf16``, ``int8``; :mod:`dasmtl_torch.
 models.precision`) the weights are transformed once, at construction, and
 batches are staged and dispatched in bf16; ``precision``, ``input_dtype``
 and ``precision_meta`` say which (JAX ``executor.py:256-258``).
-:meth:`InferExecutor.from_state_dict` serves given weights, the
-counterpart of ``from_checkpoint(model, None, ...)`` (``:141-153``) that
-lets the parity gate build the f32 and the reduced executor from the same
-weights.
 
-Not ported yet (ROADMAP.md): the executor pool and the exported-artifact
-and checkpoint constructors.
+The constructors: :meth:`InferExecutor.from_fresh_init`,
+:meth:`~InferExecutor.from_state_dict` (given weights; the parity gate
+builds the f32 and the reduced executor from the same ones),
+:meth:`~InferExecutor.from_checkpoint` (a port checkpoint, JAX
+``:138-155``) and :meth:`~InferExecutor.from_exported` (a port artifact
+of :mod:`dasmtl_torch.export`, JAX ``:113-136``), which refuses a window
+or precision that disagrees with the serving config before any traffic.
+As in JAX, an exported executor has no ``raw_infer_fn``, so the resident
+stream lanes refuse it.
+
+Not ported yet (ROADMAP.md queue 1 item 4): the executor pool.
 """
 
 from __future__ import annotations
@@ -48,8 +53,10 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from dasmtl_torch.config import INPUT_HEIGHT, INPUT_WIDTH
 from dasmtl_torch.device import set_f32_numerics
-from dasmtl_torch.export import make_precision_serve_fn
+from dasmtl_torch.export import (load_artifact_model, make_precision_serve_fn,
+                                 transformed_serve_fn)
 from dasmtl_torch.models.precision import check_precision, staging_dtype_for
 from dasmtl_torch.models.registry import get_model_spec
 from dasmtl_torch.models.weights import init_fresh
@@ -73,8 +80,12 @@ class InferExecutor:
     def __init__(self, infer_fn, input_hw: Tuple[int, int],
                  buckets: Sequence[int], device: torch.device, *,
                  source: str = "fn", precision: str = "f32",
-                 precision_meta: Optional[dict] = None):
-        self.raw_infer_fn = infer_fn
+                 precision_meta: Optional[dict] = None,
+                 fusable: bool = True):
+        self._fn = infer_fn
+        #: The forward the resident lanes fuse behind their gather; None
+        #: for an exported artifact (``fusable=False``), as in JAX.
+        self.raw_infer_fn = infer_fn if fusable else None
         self.device = torch.device(device)
         self.placement = self.device
         self.input_hw = (int(input_hw[0]), int(input_hw[1]))
@@ -88,6 +99,7 @@ class InferExecutor:
                         if self.device.type == "cuda" else None)
         self._warm = False
         self.warmup_s: Optional[float] = None
+        self.closed = False
 
     @property
     def stream(self) -> Optional[torch.cuda.Stream]:
@@ -116,6 +128,44 @@ class InferExecutor:
         net.load_state_dict(state_dict, strict=True)
         return cls._serving(model, net, buckets, input_hw, device,
                             precision, source)
+
+    @classmethod
+    def from_checkpoint(cls, model: str, model_path: str,
+                        buckets: Sequence[int],
+                        input_hw: Optional[Tuple[int, int]] = None,
+                        device: torch.device = torch.device("cuda"),
+                        precision: str = "f32") -> "InferExecutor":
+        """Serve the weights of the port checkpoint at ``model_path``
+        (``ckpts/step_<n>`` or ``best``, as ``test`` restores them) under
+        ``precision``, the transform applied once here."""
+        from dasmtl_torch.train.checkpoint import checkpoint_weights
+
+        return cls.from_state_dict(
+            model, checkpoint_weights(model_path), buckets,
+            input_hw or (INPUT_HEIGHT, INPUT_WIDTH), device, precision,
+            source=f"checkpoint:{model_path}")
+
+    @classmethod
+    def from_exported(cls, path: str, buckets: Sequence[int],
+                      expected_hw: Optional[Tuple[int, int]] = None,
+                      device: torch.device = torch.device("cuda"),
+                      precision: Optional[str] = None) -> "InferExecutor":
+        """Serve a port artifact.  Its header's window dictates the
+        window; ``expected_hw`` (the configured window) and ``precision``
+        (the configured preset, None = the artifact's) are checked
+        against it BEFORE the server starts, each disagreement an
+        operational ``ValueError`` naming the fix."""
+        header, spec, net, meta, hw = _load_validated_artifact(
+            path, expected_hw, precision)
+        stored = header.get("precision", "f32")
+        fn = transformed_serve_fn(spec, net, stored)
+        net.to(device)
+        set_f32_numerics()
+        return cls(fn, hw, buckets, device, source=f"exported:{path}",
+                   precision=stored,
+                   precision_meta={**meta.summary(), "artifact_version":
+                                   header.get("artifact_version", 0)},
+                   fusable=False)
 
     @classmethod
     def _serving(cls, model: str, net: torch.nn.Module, buckets, input_hw,
@@ -151,13 +201,13 @@ class InferExecutor:
         t0 = time.perf_counter()
         xt = torch.as_tensor(x).to(self.input_dtype)
         if self._stream is None:
-            out = self.raw_infer_fn(xt.to(self.device))
+            out = self._fn(xt.to(self.device))
             return InflightBatch(outputs=out, bucket=int(x.shape[0]),
                                  dispatch_s=time.perf_counter() - t0)
         # Work queued on the default stream (weight uploads) comes first.
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
-            out = self.raw_infer_fn(xt.to(self.device, non_blocking=True))
+            out = self._fn(xt.to(self.device, non_blocking=True))
             done = torch.cuda.Event()
             done.record(self._stream)
         return InflightBatch(outputs=out, bucket=int(x.shape[0]), done=done,
@@ -204,3 +254,28 @@ class InferExecutor:
     def close(self) -> None:
         if self._stream is not None:
             self._stream.synchronize()
+        self.closed = True
+
+
+def _load_validated_artifact(path: str,
+                             expected_hw: Optional[Tuple[int, int]],
+                             precision: Optional[str]):
+    """Read the artifact and check it against both halves of the serving
+    config, window and precision preset (JAX ``executor.py:300-327``);
+    returns ``(header, spec, model, meta, hw)``."""
+    header, spec, net, meta = load_artifact_model(path)
+    hw = tuple(int(v) for v in header["input_hw"])
+    if expected_hw is not None and tuple(expected_hw) != hw:
+        raise ValueError(
+            f"exported artifact {path} takes {hw[0]}x{hw[1]} windows "
+            f"but the configured window is {expected_hw[0]}x"
+            f"{expected_hw[1]} — re-export or fix the window config")
+    artifact_precision = header.get("precision", "f32")
+    if precision is not None and precision != artifact_precision:
+        raise ValueError(
+            f"exported artifact {path} was exported with precision "
+            f"'{artifact_precision}' but the serving config asks "
+            f"for '{precision}' — re-export with python -m "
+            f"dasmtl_torch.export --precision {precision}, or start the "
+            f"server with --precision {artifact_precision}")
+    return header, spec, net, meta, hw

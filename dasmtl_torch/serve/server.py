@@ -25,9 +25,22 @@ its answer and every later submit resolves at once with ``closed``.
 ``GET /healthz`` answers as soon as the front end binds; ``GET /readyz``
 is 503 until warmup has run every bucket and again during drain.
 
-Not ported yet (ROADMAP.md): request tracing (``trace_id`` stays null),
-``GET /metrics``, ``/trace``, ``/query``, ``POST /profile`` with the SLO
-profiler, and the blue/green ``/swap``.
+**Blue/green executor swap** (``swap_executor`` / ``swap_to``, JAX
+``server.py:233-318``): the incoming executor (from the artifact registry,
+a re-read checkpoint, ...) warms every bucket on its own CUDA stream while
+the outgoing one keeps serving, then the data plane flips under the lock.
+Each dispatched batch carries the executor and the staging pool it was
+launched through, so a batch in flight at the flip collects on the
+outgoing executor's stream and its pinned slot goes back to the old pool;
+the outgoing executor closes when its last batch has been collected.  A
+swap that changes the staging dtype (f32 -> bf16) gets fresh staging
+buffers.  ``POST /swap {"version": ...}`` runs one in the background
+(202; 409 while one warms; a structured 503 without a builder) and ``GET
+/swap`` and ``/healthz`` (``generation``, ``swap``) report it.
+
+Not ported yet (ROADMAP.md queue 1 item 6): request tracing
+(``trace_id`` stays null), ``GET /metrics``, ``/trace``, ``/query`` and
+``POST /profile`` with the SLO profiler.
 """
 
 from __future__ import annotations
@@ -101,9 +114,7 @@ class ServeLoop:
         # depth = in-flight window + 1 (one extra for the batch being
         # formed) keeps acquire effectively non-blocking; slots release at
         # collect, when the device is done with the host buffer.
-        self._staging = StagingBuffers.for_buckets(
-            buckets, executor.input_hw, depth=self.inflight_window + 1,
-            pin=executor.device.type == "cuda", dtype=executor.input_dtype)
+        self._staging = self._staging_for(executor)
         self._cv = threading.Condition()
         self._stop = False
         self._slots = threading.BoundedSemaphore(self.inflight_window)
@@ -112,6 +123,15 @@ class ServeLoop:
         self._collector: Optional[threading.Thread] = None
         self._warmup_s: Optional[float] = None
         self._inflight = 0  # dispatched-but-uncollected batches (stats)
+        # Blue/green swap state: generation counts executor flips (1 = the
+        # executor start() warmed); _outstanding maps id(executor) to its
+        # dispatched-but-uncollected batches, so a retired executor closes
+        # only after its last batch is collected.
+        self.generation = 1
+        self._outstanding: dict = {}
+        self._retired: list = []
+        self._swap_lock = threading.Lock()
+        self._swap = {"state": "idle"}
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "ServeLoop":
@@ -150,8 +170,18 @@ class ServeLoop:
                 return False
         return True
 
+    def _staging_for(self, executor) -> StagingBuffers:
+        return StagingBuffers.for_buckets(
+            self.batcher.buckets, executor.input_hw,
+            depth=self.inflight_window + 1,
+            pin=executor.device.type == "cuda", dtype=executor.input_dtype)
+
     def close(self) -> None:
         self.drain(timeout=30.0)
+        with self._cv:
+            retired, self._retired = list(self._retired), []
+        for ex in retired:
+            ex.close()
         self.executor.close()
 
     @property
@@ -162,6 +192,94 @@ class ServeLoop:
     def ready(self) -> bool:
         """Readiness (vs liveness): warm and not draining."""
         return self._warmup_s is not None and not self.batcher.draining
+
+    # -- blue/green executor swap --------------------------------------------
+    def swap_executor(self, new_executor) -> float:
+        """Warm ``new_executor`` (every bucket, on its own stream, while
+        the current one serves), then flip the data plane onto it.
+        Batches in flight collect through the outgoing executor, which
+        closes once its last one is collected.  Returns warmup seconds."""
+        if tuple(new_executor.input_hw) != tuple(self.executor.input_hw):
+            raise ValueError(
+                f"incoming executor takes {new_executor.input_hw} windows, "
+                f"serving {self.executor.input_hw} — blue/green swap "
+                f"cannot change the window shape; roll new replicas")
+        if tuple(new_executor.buckets) != tuple(self.batcher.buckets):
+            raise ValueError(
+                f"incoming executor warmed buckets "
+                f"{tuple(new_executor.buckets)}, the batcher flushes "
+                f"{tuple(self.batcher.buckets)} — rebuild with matching "
+                f"--buckets")
+        warmup_s = new_executor.warmup()
+        new_staging = self._staging
+        if (new_executor.input_dtype != self.executor.input_dtype
+                or new_executor.device != self.executor.device):
+            # Staging in the incoming dtype; the old buffers drain back to
+            # the old pool (each in-flight batch carries its own).
+            new_staging = self._staging_for(new_executor)
+        with self._cv:
+            self._retired.append(self.executor)
+            self.executor = new_executor
+            self._staging = new_staging
+            self.generation += 1
+        self._reap()
+        return warmup_s
+
+    def swap_to(self, builder, version=None) -> dict:
+        """One blue/green swap from ``builder(version) -> executor``
+        (a registry resolve, a checkpoint re-read): build, warm, flip,
+        recording progress in :attr:`swap_status`.  One swap at a time; a
+        second while one warms is refused, the status unchanged.  A
+        failure is a ``failed`` status, the serving executor unchanged."""
+        with self._swap_lock:
+            if self._swap.get("state") == "warming":
+                return {"state": "refused",
+                        "detail": "a swap is already warming",
+                        "current": dict(self._swap)}
+            self._swap = {"state": "warming", "version": version,
+                          "started_t": time.time()}
+        try:
+            new_executor = builder(version)
+            warmup_s = self.swap_executor(new_executor)
+            status = {"state": "done", "version": version,
+                      "generation": self.generation,
+                      "warmup_s": round(warmup_s, 3),
+                      "source": new_executor.source,
+                      "precision": new_executor.precision}
+        except Exception as exc:  # noqa: BLE001 — a failed swap is status
+            status = {"state": "failed", "version": version,
+                      "detail": f"{type(exc).__name__}: {exc}",
+                      "generation": self.generation}
+        with self._swap_lock:
+            self._swap = status
+        return status
+
+    @property
+    def swap_status(self) -> dict:
+        with self._swap_lock:
+            return dict(self._swap)
+
+    def _executor_done(self, executor) -> None:
+        """One batch through ``executor`` finished (collected or failed):
+        drop its outstanding count and close every retired executor left
+        with none."""
+        with self._cv:
+            left = self._outstanding.get(id(executor), 1) - 1
+            if left <= 0:
+                self._outstanding.pop(id(executor), None)
+            else:
+                self._outstanding[id(executor)] = left
+        self._reap()
+
+    def _reap(self) -> None:
+        to_close = []
+        with self._cv:
+            for ex in list(self._retired):
+                if not self._outstanding.get(id(ex)):
+                    self._retired.remove(ex)
+                    to_close.append(ex)
+        for ex in to_close:
+            ex.close()
 
     @property
     def inflight_depth(self) -> int:
@@ -213,15 +331,23 @@ class ServeLoop:
         self.metrics.observe_stage(
             "queue_wait", max(0.0, t_taken - plan.requests[0].enqueue_t))
         self._slots.acquire()  # the bounded in-flight window
-        slot = self._staging.acquire(plan.bucket)
+        # The executor and staging pair, taken together under the lock: a
+        # flip may swap both, and this batch assembles into, dispatches
+        # through and releases back to the pair it started with.
+        with self._cv:
+            executor, staging = self.executor, self._staging
+            self._outstanding[id(executor)] = \
+                self._outstanding.get(id(executor), 0) + 1
+        slot = staging.acquire(plan.bucket)
         t_form = self.clock()
         try:
             plan.assemble_into(slot.tensor)
             t_formed = self.clock()
-            handle = self.executor.dispatch(slot.tensor)
+            handle = executor.dispatch(slot.tensor)
         except Exception as exc:  # noqa: BLE001 — must answer the callers
-            self._staging.release(slot)
+            staging.release(slot)
             self._slots.release()
+            self._executor_done(executor)
             self._fail_plan(plan, exc)
             return
         self.metrics.observe_stage("form", t_formed - t_form)
@@ -229,7 +355,7 @@ class ServeLoop:
         with self._cv:
             self._inflight += 1
             self.metrics.observe_inflight(self._inflight)
-        self._completion.put((plan, handle, slot))
+        self._completion.put((plan, handle, slot, staging, executor))
 
     # -- stage 2: collector --------------------------------------------------
     def _collect_loop(self) -> None:
@@ -242,17 +368,20 @@ class ServeLoop:
                 continue
             if item is _SENTINEL:
                 return
-            plan, handle, slot = item
+            plan, handle, slot, staging, executor = item
             t0 = self.clock()
             try:
-                preds, bad, log_probs = self.executor.collect(
+                # Through the executor that dispatched the batch: after a
+                # flip it is the outgoing one, on its own stream.
+                preds, bad, log_probs = executor.collect(
                     handle, want_log_probs=plan.want_log_probs)
             except Exception as exc:  # noqa: BLE001 — answer the callers
                 self._fail_plan(plan, exc)
                 continue
             finally:
-                self._staging.release(slot)
+                staging.release(slot)
                 self._slots.release()
+                self._executor_done(executor)
                 with self._cv:
                     self._inflight -= 1
                     self._cv.notify_all()
@@ -317,8 +446,10 @@ class ServeLoop:
             "warm": self._warmup_s is not None,
             "queue_depth": self.batcher.depth,
             "inflight": self.inflight_depth,
+            "generation": self.generation,
             "source": self.executor.source,
             "precision": self.executor.precision,
+            "swap": self.swap_status,
         }
 
 
@@ -342,9 +473,11 @@ def install_signal_handlers(loop: ServeLoop,
 # -- HTTP front end -----------------------------------------------------------
 
 
-def _make_handler(loop: ServeLoop, request_timeout_s: float):
+def _make_handler(loop: ServeLoop, request_timeout_s: float,
+                  swap_builder=None):
     """Handler class closed over the loop (BaseHTTPRequestHandler is
-    instantiated per connection, so state rides the class)."""
+    instantiated per connection, so state rides the class).
+    ``swap_builder(version) -> executor`` arms ``POST /swap``."""
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -368,12 +501,51 @@ def _make_handler(loop: ServeLoop, request_timeout_s: float):
             elif path == "/readyz":
                 h = loop.healthz()
                 self._reply(200 if h["ready"] else 503, h)
+            elif path == "/swap":
+                self._reply(200, {"swap": loop.swap_status,
+                                  "generation": loop.generation})
             elif path == "/stats":
                 self._reply(200, loop.stats())
             else:
                 self._reply(404, {"error": f"unknown path {path}"})
 
+        def _post_swap(self) -> None:
+            """Build and warm the incoming executor in the background (the
+            current one keeps serving), flip when warm; 202 now, poll
+            ``GET /swap`` for the outcome."""
+            if swap_builder is None:
+                self._reply(503, {"swap": {
+                    "state": "unavailable",
+                    "detail": "this replica was started without a "
+                              "swappable model source"}})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n)) if n else {}
+                version = body.get("version")
+            except (ValueError, AttributeError,
+                    json.JSONDecodeError) as exc:
+                self._reply(400, {"error": "bad_request",
+                                  "detail": f"expected JSON "
+                                            f'{{"version": ...}}: {exc}'})
+                return
+            if loop.swap_status.get("state") == "warming":
+                self._reply(409, {"swap": loop.swap_status,
+                                  "detail": "a swap is already warming"})
+                return
+            threading.Thread(
+                target=_crash_logged(
+                    lambda: loop.swap_to(swap_builder, version),
+                    "serve-swap"),
+                name="dasmtl-torch-serve-swap", daemon=True).start()
+            self._reply(202, {"swap": {"state": "started",
+                                       "version": version},
+                              "generation": loop.generation})
+
         def do_POST(self) -> None:  # noqa: N802 — http.server API shape
+            if self.path == "/swap":
+                self._post_swap()
+                return
             if self.path != "/infer":
                 self._reply(404, {"error": f"unknown path {self.path}"})
                 return
@@ -421,9 +593,11 @@ def _make_handler(loop: ServeLoop, request_timeout_s: float):
 
 
 def make_http_server(loop: ServeLoop, host: str = "127.0.0.1",
-                     port: int = 0, request_timeout_s: float = 30.0
-                     ) -> ThreadingHTTPServer:
+                     port: int = 0, request_timeout_s: float = 30.0,
+                     swap_builder=None) -> ThreadingHTTPServer:
     """Bind (port 0 = ephemeral; read ``server_address[1]``) but do not
-    serve — callers run ``serve_forever`` and ``shutdown`` themselves."""
+    serve — callers run ``serve_forever`` and ``shutdown`` themselves.
+    ``swap_builder(version) -> executor`` arms ``POST /swap``."""
     return ThreadingHTTPServer((host, port),
-                               _make_handler(loop, request_timeout_s))
+                               _make_handler(loop, request_timeout_s,
+                                             swap_builder))

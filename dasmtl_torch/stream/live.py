@@ -25,7 +25,9 @@ the soak selftest, alerts and metrics history (``/query``), and the serve
 loop's own ``dasmtl_serve_*`` families, so ``GET /metrics`` renders the
 stream families alone.
 
-``serve_main`` is ``python -m dasmtl_torch.stream serve``.
+``serve_main`` is ``python -m dasmtl_torch.stream serve``, over a port
+checkpoint (``--model_path``), a port artifact (``--exported``: the host
+data plane only, as in JAX), fresh-init weights or the analytic oracle.
 """
 
 from __future__ import annotations
@@ -78,8 +80,6 @@ ADAPT_MIN_WEIGHT_FRACTION = 0.25
 #: Options of ``dasmtl stream serve`` this slice does not port yet -> the
 #: ROADMAP.md item that brings each.
 NOT_YET_PORTED = {
-    "model_path": "ROADMAP.md queue 1 item 5, 'Artifacts and registry'",
-    "exported": "ROADMAP.md queue 1 item 5, 'Artifacts and registry'",
     "devices": "ROADMAP.md queue 1 item 4, 'Executor pool'",
     "precision": "ROADMAP.md queue 1 item 10, 'The stream tier's presets "
                  "and model C' (the resident gather and ring are f32)",
@@ -667,9 +667,8 @@ def _not_ported(args) -> Optional[str]:
     return None
 
 
-def serve_main(argv=None) -> int:
-    """``python -m dasmtl_torch.stream serve`` — continuous inference over
-    live fibers."""
+def build_serve_parser() -> argparse.ArgumentParser:
+    """The parser of ``python -m dasmtl_torch.stream serve``."""
     p = argparse.ArgumentParser(
         prog="python -m dasmtl_torch.stream serve",
         description="continuous multi-fiber streaming inference: live "
@@ -682,9 +681,11 @@ def serve_main(argv=None) -> int:
                      help="the analytic RMS oracle (needs --window with a "
                           "height divisible by 16)")
     src.add_argument("--model_path", type=str, default=None,
-                     help="not yet ported")
+                     help="port checkpoint dir (ckpts/step_<n> or best)")
     src.add_argument("--exported", type=str, default=None,
-                     help="not yet ported")
+                     help="port artifact (python -m dasmtl_torch.export); "
+                          "its window is the artifact's, and it streams on "
+                          "the host data plane")
     p.add_argument("--model", type=str, default="MTL")
     p.add_argument("--window", type=str, default=None, metavar="HxW",
                    help="window shape, e.g. 100x250 (default: "
@@ -777,14 +778,46 @@ def serve_main(argv=None) -> int:
     p.add_argument("--port_file", type=str, default=None, metavar="PATH")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
+    return p
+
+
+def serve_executor(args, buckets, window, device):
+    """The executor of the model source that ``args`` names: the oracle,
+    a port artifact (its window checked against ``window``), a port
+    checkpoint or seed-deterministic fresh-init weights."""
+    from dasmtl_torch.serve.executor import InferExecutor
+
+    hw = window or (C.INPUT_HEIGHT, C.INPUT_WIDTH)
+    if args.oracle:
+        from dasmtl_torch.stream.selftest import _oracle_pool
+
+        return _oracle_pool(window, buckets, device)
+    if args.exported:
+        return InferExecutor.from_exported(
+            args.exported, buckets, expected_hw=window, device=device,
+            precision=args.precision)
+    if args.model_path:
+        return InferExecutor.from_checkpoint(
+            args.model, args.model_path, buckets, hw, device)
+    return InferExecutor.from_fresh_init(args.model, buckets, hw, C.SEED,
+                                         device)
+
+
+def serve_main(argv=None) -> int:
+    """``python -m dasmtl_torch.stream serve`` — continuous inference over
+    live fibers."""
+    p = build_serve_parser()
     args = p.parse_args(argv)
 
     refusal = _not_ported(args)
     if refusal:
         print(f"dasmtl_torch.stream serve: {refusal}", file=sys.stderr)
         return 2
-    if args.fresh_init == args.oracle:
-        p.error("exactly one of --fresh_init / --oracle is required")
+    n_sources = sum(1 for v in (args.exported, args.model_path,
+                                args.fresh_init, args.oracle) if v)
+    if n_sources != 1:
+        p.error("exactly one of --exported / --model_path / --fresh_init "
+                "/ --oracle is required")
     try:
         buckets = tuple(int(b) for b in args.buckets.split(",") if b)
     except ValueError:
@@ -795,10 +828,8 @@ def serve_main(argv=None) -> int:
     window = _parse_window(p, args.window) if args.window else None
     if args.oracle and window is None:
         p.error("--oracle needs an explicit --window HxW")
-    window = window or (C.INPUT_HEIGHT, C.INPUT_WIDTH)
 
     from dasmtl_torch.device import resolve_device
-    from dasmtl_torch.serve.executor import InferExecutor
     from dasmtl_torch.serve.server import ServeLoop, install_signal_handlers
     from dasmtl_torch.stream.feed import (FileTailSource, PlantedEvent,
                                           SocketSource, SyntheticSource)
@@ -812,17 +843,12 @@ def serve_main(argv=None) -> int:
             print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
             return 2
     device = resolve_device(args.device)
-    if args.oracle:
-        from dasmtl_torch.stream.selftest import _oracle_pool
-
-        executor = _oracle_pool(window, buckets, device)
-    else:
-        try:
-            executor = InferExecutor.from_fresh_init(args.model, buckets,
-                                                     window, C.SEED, device)
-        except (ValueError, NotImplementedError) as exc:
-            print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
-            return 2
+    try:
+        executor = serve_executor(args, buckets, window, device)
+    except (ValueError, NotImplementedError, OSError) as exc:
+        print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
+        return 2
+    window = executor.input_hw
     channels = args.channels or window[0]
 
     sources = []
@@ -865,13 +891,18 @@ def serve_main(argv=None) -> int:
     loop = ServeLoop(executor, buckets=buckets,
                      max_wait_s=args.max_wait_ms / 1e3,
                      queue_depth=args.queue_depth, inflight=args.inflight)
-    stream = StreamLoop(loop, tenants, cycle_budget=args.cycle_budget,
-                        max_wait_s=args.max_wait_ms / 1e3,
-                        events_path=args.events_path,
-                        events_ring=args.events_ring,
-                        resident=args.resident,
-                        resident_max_windows=args.resident_max_windows,
-                        adapt_weights=args.adapt_weights)
+    try:
+        stream = StreamLoop(loop, tenants, cycle_budget=args.cycle_budget,
+                            max_wait_s=args.max_wait_ms / 1e3,
+                            events_path=args.events_path,
+                            events_ring=args.events_ring,
+                            resident=args.resident,
+                            resident_max_windows=args.resident_max_windows,
+                            adapt_weights=args.adapt_weights)
+    except ValueError as exc:
+        # --resident on with an exported artifact, as JAX refuses it.
+        print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
+        return 2
     httpd = make_stream_http_server(stream, args.host, args.port)
     host, port = httpd.server_address[:2]
     if args.port_file:

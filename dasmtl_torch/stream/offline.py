@@ -18,6 +18,12 @@ Two data paths, one forward (model + the decode-tail kernel):
   (:func:`dasmtl_torch.export.make_resident_forward`, the factory the live
   lanes share) feeds the forward directly.
 
+The model is a port checkpoint (``--model_path``) or a port artifact
+(``--exported``, :mod:`dasmtl_torch.export`), whose header gives the
+window; as in JAX (``offline.py:116-141``), an artifact streams on the
+host path only (``resident="on"`` is refused, ``auto`` takes the host)
+and not under ``dp``.
+
 The sweep keeps two batches in flight: batch ``i + 1`` is enqueued before
 batch ``i``'s predictions are read back (copied into pinned memory behind a
 CUDA event), so the host cuts and writes rows while the card computes.
@@ -38,7 +44,6 @@ EVENT_NAMES = ("striking", "excavating")
 #: Options of ``python -m dasmtl.stream`` this slice does not port yet ->
 #: the ROADMAP.md item that brings each.
 NOT_YET_PORTED = {
-    "exported": "ROADMAP.md queue 1 item 5, 'Artifacts and registry'",
     "dp": "ROADMAP.md queue 1 item 8, 'Model C, multi-device training and "
           "CV' (multi-device)",
     "sanitize": "ROADMAP.md queue 1 item 3, 'Guards, sanitizers and the "
@@ -83,12 +88,15 @@ def stream_predict(record: np.ndarray, model_path: Optional[str],
                    out_csv: Optional[str] = None,
                    process_index: int = 0, process_count: int = 1,
                    resident: str = "auto", device: str = "cuda",
-                   seed: Optional[int] = None) -> list:
+                   seed: Optional[int] = None,
+                   exported_path: Optional[str] = None) -> list:
     """Run ``model`` (the port checkpoint at ``model_path``, or a fresh
     init from ``seed`` when None) over every window of ``record`` on
     ``device``; returns the prediction rows and writes ``out_csv`` when
     given.  ``resident`` ("auto" | "on" | "off") picks the data path (see
-    :func:`resolve_offline_resident`)."""
+    :func:`resolve_offline_resident`).  ``exported_path`` streams a port
+    artifact instead (its window, its preset), on the host path; ``model``
+    still names the CSV columns, as in JAX."""
     import torch
 
     from dasmtl_torch.config import INPUT_HEIGHT, INPUT_WIDTH, SEED, Config
@@ -107,6 +115,10 @@ def stream_predict(record: np.ndarray, model_path: Optional[str],
     refuse_serve_only(model, "stream")
     spec = get_model_spec(model)
     dev = resolve_device(device)
+    if exported_path is not None:
+        return _stream_exported(record, exported_path, spec, batch_size,
+                                stride, out_csv, process_index,
+                                process_count, resident, dev, model_path)
     window = tuple(window or (INPUT_HEIGHT, INPUT_WIDTH))
     cfg = Config(model=model, device=dev.type,
                  seed=SEED if seed is None else int(seed))
@@ -148,8 +160,43 @@ def stream_predict(record: np.ndarray, model_path: Optional[str],
         def run(batch):
             return body(to_device(batch["x"]))
 
-    return _emit(spec, plan, batches, run, out_csv, process_index,
-                 process_count)
+    return _emit(spec, plan, batches, lambda b: _readback(run(b)), out_csv,
+                 process_index, process_count)
+
+
+def _stream_exported(record, path, spec, batch_size, stride, out_csv,
+                     process_index, process_count, resident, dev,
+                     model_path) -> list:
+    """The ``exported_path`` sweep: host windows through the artifact's
+    executor, two batches in flight (batch ``i + 1`` dispatched before
+    batch ``i`` is collected on the executor's stream)."""
+    from dasmtl_torch.data.windowing import plan_windows, window_batches
+    from dasmtl_torch.serve.executor import InferExecutor
+
+    if model_path:
+        raise ValueError("pass either exported_path or model_path, not "
+                         "both")
+    if resident == "on":
+        raise ValueError(
+            "resident='on' needs the window gather in front of the "
+            "model's own forward, which an exported artifact does not "
+            "provide — stream from a checkpoint for the resident path")
+    executor = InferExecutor.from_exported(path, (batch_size,), device=dev)
+    plan = plan_windows(record.shape, window=executor.input_hw,
+                        stride=_resolve_stride(stride, executor.input_hw))
+    batches = window_batches(record, batch_size, plan=plan,
+                             process_index=process_index,
+                             process_count=process_count)
+
+    def start(batch):
+        handle = executor.dispatch(batch["x"])
+        return lambda: executor.collect(handle)[0]
+
+    try:
+        return _emit(spec, plan, batches, start, out_csv, process_index,
+                     process_count)
+    finally:
+        executor.close()
 
 
 def _readback(out: Dict) -> Callable[[], Dict[str, np.ndarray]]:
@@ -172,10 +219,11 @@ def _readback(out: Dict) -> Callable[[], Dict[str, np.ndarray]]:
     return wait
 
 
-def _emit(spec, plan, batches, run, out_csv, process_index,
+def _emit(spec, plan, batches, start, out_csv, process_index,
           process_count) -> list:
-    """Prediction rows of ``run`` over ``batches`` (padding slots
-    skipped), two batches in flight; writes the CSV shard when asked."""
+    """Prediction rows over ``batches`` (padding slots skipped), two
+    batches in flight: ``start(batch)`` enqueues one and returns the wait
+    for its int predictions.  Writes the CSV shard when asked."""
     tasks = [t for t, _ in spec.report_tasks]
     fieldnames = ["window_index", "channel_origin", "time_origin", "weight"]
     fieldnames += [f for f, t in (("pred_distance_m", "distance"),
@@ -197,7 +245,7 @@ def _emit(spec, plan, batches, run, out_csv, process_index,
 
     pending = None
     for batch in batches:
-        wait = _readback(run(batch))
+        wait = start(batch)
         if pending is not None:
             add_rows(pending[0], pending[1]())
         pending = (batch, wait)
@@ -226,7 +274,10 @@ def main(argv=None) -> int:
                    help="port checkpoint directory (ckpts/step_<n>) to "
                         "restore weights from")
     p.add_argument("--exported", type=str, default=None,
-                   help="not yet ported")
+                   help="stream a port artifact (python -m "
+                        "dasmtl_torch.export) instead of a checkpoint, on "
+                        "the host path; --model still names the CSV "
+                        "columns")
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--stride_time", type=int, default=None,
                    help="time-axis stride in samples (default: window "
@@ -244,6 +295,11 @@ def main(argv=None) -> int:
     p.add_argument("--sanitize", action=argparse.BooleanOptionalAction,
                    default=False, help="not yet ported")
     args = p.parse_args(argv)
+    if bool(args.model_path) == bool(args.exported):
+        p.error("exactly one of --model_path / --exported is required")
+    if args.dp != 1 and args.exported:
+        p.error("--dp is unavailable with --exported (the artifact's "
+                "computation is fixed at export time)")
     for opt, item in NOT_YET_PORTED.items():
         value = getattr(args, opt)
         if value and not (opt == "dp" and value == 1):
@@ -257,9 +313,6 @@ def main(argv=None) -> int:
     except NotImplementedError as exc:
         print(f"dasmtl_torch.stream: {exc}", file=sys.stderr)
         return 2
-    if not args.model_path:
-        p.error("--model_path is required (a port checkpoint; --exported "
-                "is not yet ported)")
 
     from dasmtl_torch.data import matio
     from dasmtl_torch.device import resolve_device
@@ -270,10 +323,17 @@ def main(argv=None) -> int:
     if args.stride_channels or args.stride_time:
         stride = (args.stride_channels, args.stride_time)
     out_csv = args.out or (args.record + ".predictions.csv")
-    rows = stream_predict(np.asarray(record), args.model_path,
-                          model=args.model, batch_size=args.batch_size,
-                          stride=stride, out_csv=out_csv,
-                          resident=args.resident, device=args.device)
+    try:
+        rows = stream_predict(np.asarray(record), args.model_path,
+                              model=args.model, batch_size=args.batch_size,
+                              stride=stride, out_csv=out_csv,
+                              resident=args.resident, device=args.device,
+                              exported_path=args.exported)
+    except (ValueError, OSError) as exc:
+        # An unreadable, foreign or mismatched artifact, or --resident on
+        # with one: an operational error with a named fix.
+        print(f"dasmtl_torch.stream: {exc}", file=sys.stderr)
+        return 2
     print(f"streamed {len(rows)} windows from {record.shape} record "
           f"-> {out_csv}")
     return 0

@@ -386,7 +386,9 @@ def _pool_members(pool) -> list:
 
 def pool_supports_resident(pool) -> bool:
     """The fused program needs the executor's own forward
-    (``raw_infer_fn``)."""
+    (``raw_infer_fn``): a checkpoint, fresh-init or oracle executor has
+    one, an exported artifact's has none (JAX's StableHLO program is
+    fixed, and the port keeps that refusal)."""
     return pool is not None and all(
         getattr(e, "raw_infer_fn", None) is not None
         for e in _pool_members(pool))
@@ -413,7 +415,9 @@ def resolve_resident_mode(mode: str, pool, tenants, *,
         if not supported:
             raise ValueError(
                 "stream_resident='on' needs the executor's own forward to "
-                "gather windows on the card — run with resident off")
+                "gather windows on the card, which an exported artifact "
+                "does not provide — serve from a checkpoint, or run with "
+                "resident off")
         return True
     return (supported
             and all(torch.device(e.placement).type == "cuda"

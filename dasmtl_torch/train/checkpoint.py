@@ -54,12 +54,12 @@ def _write(path: str, payload: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
-def _read(path: str, state: TrainState) -> Dict[str, Any]:
+def _read(path: str, map_location) -> Dict[str, Any]:
     file = os.path.join(path, PAYLOAD)
     if not os.path.exists(file):
         raise FileNotFoundError(f"no port checkpoint at {path} (expected "
                                 f"{PAYLOAD} inside it)")
-    return torch.load(file, map_location=state.device, weights_only=True)
+    return torch.load(file, map_location=map_location, weights_only=True)
 
 
 def _steps(ckpt_root: str):
@@ -159,15 +159,23 @@ class CheckpointManager:
         path = path or self.latest_path()
         if path is None:
             raise FileNotFoundError(f"no checkpoint under {self.root}")
-        return _restore_full(state, _read(path, state))
+        return _restore_full(state, _read(path, state.device))
 
 
 def restore_weights(state: TrainState, path: str) -> TrainState:
     """Weights-only restore for ``--model_path``: the model's parameters
     and BatchNorm stats, nothing of the optimizer or counters (reference
     ``load_state_dict(..., strict=True)``, utils.py:122-123)."""
-    state.model.load_state_dict(_read(path, state)["model"], strict=True)
+    state.model.load_state_dict(checkpoint_weights(path, state.device),
+                                strict=True)
     return state
+
+
+def checkpoint_weights(path: str, map_location="cpu") -> Dict[str, Any]:
+    """The model state dict of the checkpoint at ``path`` (what
+    :func:`restore_weights` loads), for a consumer with no train state:
+    the server, the exporter."""
+    return _read(path, map_location)["model"]
 
 
 def latest_step_path(run_dir: str) -> Optional[str]:
@@ -218,7 +226,7 @@ def restore_latest_in(state: TrainState, savedir: str,
     if path is None:
         return None
     run_dir = os.path.dirname(os.path.dirname(path))  # <run>/ckpts/step_<n>
-    return _restore_full(state, _read(path, state)), run_dir
+    return _restore_full(state, _read(path, state.device)), run_dir
 
 
 def best_metric_on_disk(run_dir: str) -> Optional[float]:

@@ -16,8 +16,10 @@ two-rank data-parallel step on the card against the CPU; the batch gather
 bit for bit against its plain version, the resident scan step's CUDA-graph
 replays against the same steps run eagerly (an LR change and a ragged tail
 included), a CUDA-graph capture and replay of the gather eval step (with
-its paired gate launches), and a staging slot held back until its queued
-copy completes.
+its paired gate launches), a staging slot held back until its queued
+copy completes, and executors loaded from port artifacts (model A f32,
+bf16 and int8, model C int8) answering with the bits of
+``from_state_dict``.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -1166,3 +1168,44 @@ def test_staging_slot_waits_for_its_queued_copy(cuda):
     again["x"].fill_(2.0)
     torch.cuda.synchronize()
     assert bool((placed["x"] == 1.0).all())
+
+
+@pytest.mark.parametrize("family,precision", [
+    ("MTL", "f32"), ("MTL", "bf16"), ("MTL", "int8"),
+    ("multi_classifier", "int8")])
+def test_an_artifact_serves_the_bits_of_from_state_dict(cuda, tmp_path,
+                                                        family, precision):
+    """An executor loaded from a port artifact answers on the card with
+    the bits of ``from_state_dict`` built from the source weights: the
+    artifact stores the preset's tensors (int8 kernels and scales),
+    nothing is quantized again; model C's int8 ``fc`` launches int8_dot
+    once per batch on both."""
+    from dasmtl_torch.export import export_infer
+
+    spec = get_model_spec(family)
+    sd = init_scaled(spec.build(), 0).state_dict()
+    net = spec.build()
+    net.load_state_dict(sd)
+    path = tmp_path / f"{family}-{precision}.torch"
+    path.write_bytes(export_infer(spec, net, input_hw=(100, 250),
+                                  precision=precision))
+    x = torch.randn(8, 100, 250, 1,
+                    generator=torch.Generator().manual_seed(2))
+    x[5, 1, 1, 0] = float("nan")
+    ref = InferExecutor.from_state_dict(family, sd, (8,), (100, 250), cuda,
+                                        precision)
+    ex = InferExecutor.from_exported(str(path), (8,), (100, 250), cuda,
+                                     precision)
+    assert ex.input_dtype == ref.input_dtype and ex.raw_infer_fn is None
+    int8.launches.reset()
+    got = ex.collect(ex.dispatch(x), want_log_probs=True)
+    want = ref.collect(ref.dispatch(x), want_log_probs=True)
+    assert int8.launches.value == (2 if family == "multi_classifier"
+                                   else 0)
+    for a, b in ((got[0], want[0]), (got[2], want[2])):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert np.array_equal(a[k], b[k], equal_nan=True), k
+    assert np.array_equal(got[1], want[1])
+    ex.close()
+    ref.close()

@@ -267,26 +267,49 @@ def test_http_infer_answers_and_rejects(http_loop):
 
 
 # -- CLI -----------------------------------------------------------------------
-@pytest.mark.parametrize("argv", [
-    ["--model_path", "ckpt"], ["--exported", "a.stablehlo"],
-    ["--registry", "reg"], ["--parity-check", "--model_path", "ckpt"],
-    ["--fresh_init", "--model", "multi_classifier", "--exported", "a"]])
-def test_cli_refuses_what_is_not_ported(argv, capsys):
-    assert serve_main(argv + ["--device", "cpu"]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+def _exit_code(main, argv) -> int:
+    try:
+        return main(argv)
+    except SystemExit as exc:  # argparse's p.error
+        return exc.code
+
+
+@pytest.mark.parametrize("argv, said", [
+    (["--model_path", "ckpt"], "no port checkpoint at ckpt"),
+    (["--exported", "jax.stablehlo"], "ROADMAP.md queue 1 item 5"),
+    (["--registry", "reg"], "holds no readable versions"),
+    (["--parity-check", "--model_path", "ckpt"],
+     "no port checkpoint at ckpt"),
+    (["--fresh_init", "--model", "multi_classifier", "--exported", "a"],
+     "exactly one of --exported / --model_path / --fresh_init")])
+def test_cli_refuses_what_is_not_ported(argv, said, tmp_path, monkeypatch,
+                                        capsys):
+    """Each model source now serves; what it cannot serve exits 2 with an
+    operational message, as the JAX server refuses it: a missing
+    checkpoint, a JAX StableHLO artifact (naming the converter's item),
+    an empty registry, two sources at once."""
+    from dasmtl.export import ARTIFACT_VERSION, pack_artifact
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "jax.stablehlo").write_bytes(pack_artifact(
+        b"stablehlo", {"artifact_version": ARTIFACT_VERSION,
+                       "precision": "f32", "model": "MTL",
+                       "input_hw": list(HW)}))
+    assert _exit_code(serve_main, argv + ["--device", "cpu"]) == 2
+    assert said in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv, item", [
     (["--devices", "2"], "item 4"), (["--shard_largest"], "item 4"),
     (["--shard_multihost"], "item 4"),
-    (["--registry_version", "v1"], "item 5"),
+    (["--slo_p99_ms", "50"], "item 6"),
     (["--trace_ring", "64"], "item 6"),
     (["--latency_buckets_ms=1,5"], "item 6"),
     (["--profile_dir", "/p"], "item 6"),
     (["--history_interval_s", "5"], "item 6"),
     (["--conc_lockdep"], "item 3"), (["--mem_track"], "item 3"),
     (["--selftest_requests", "8"], "item 4")],
-    ids=["devices", "shard_largest", "shard_multihost", "registry_version",
+    ids=["devices", "shard_largest", "shard_multihost", "slo_p99_ms",
          "trace_ring", "latency_buckets_ms", "profile", "history", "conc",
          "mem", "selftest"])
 def test_cli_jax_only_flags_exit_2_naming_their_item(argv, item, capsys):
@@ -294,6 +317,23 @@ def test_cli_jax_only_flags_exit_2_naming_their_item(argv, item, capsys):
     err = capsys.readouterr().err
     assert f"ROADMAP.md queue 1 {item}" in err and "not yet ported" in err
     assert argv[0].split("=")[0] in err
+
+
+@pytest.mark.parametrize("version, said", [
+    ("v1", "bad registry version 'v1' (an int or 'latest'); available: v1"),
+    ("9", "has no version 9; available: v1")])
+def test_cli_registry_version_is_refused_as_jax_refuses_it(
+        version, said, weights, tmp_path, capsys):
+    """``--registry_version`` is ported: a version the registry cannot
+    resolve exits 2 with the JAX registry's message."""
+    from dasmtl_torch.export import ArtifactRegistry, export_infer
+
+    reg = str(tmp_path / "reg")
+    ArtifactRegistry(reg).publish(export_infer(
+        get_model_spec("MTL"), port_model("MTL", weights), input_hw=HW))
+    assert serve_main(["--registry", reg, "--registry_version", version,
+                       "--device", "cpu"]) == 2
+    assert said in capsys.readouterr().err
 
 
 def test_cli_cuda_without_a_card_raises():

@@ -156,12 +156,19 @@ def test_stream_cli_writes_the_rows_and_refuses_what_is_not_ported(
                           device="cpu")
     assert [{k: str(v) for k, v in r.items()} for r in want] == rows
     assert len(rows) == 4  # origins 0, 125, 250 and the clamped 350
-    for extra, item in ((["--exported", "a"], "item 5"),
-                        (["--dp", "2"], "item 8"),
+    for extra, item in ((["--dp", "2"], "item 8"),
                         (["--sanitize"], "item 3")):
         assert stream_main(["--record", path, "--model_path", ckpt,
                             *extra]) == 2
         assert item in capsys.readouterr().err
+    # --exported is ported; beside --model_path it is refused as JAX
+    # refuses it.
+    with pytest.raises(SystemExit) as exc:
+        stream_main(["--record", path, "--model_path", ckpt, "--exported",
+                     "a"])
+    assert exc.value.code == 2
+    assert "exactly one of --model_path / --exported" in \
+        capsys.readouterr().err
     with pytest.raises(RuntimeError, match="--device cpu"):
         stream_main(["--record", path, "--model_path", ckpt])
 
@@ -391,8 +398,6 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--model_path", "ckpt"], "item 5"),
-    (["--exported", "a.stablehlo"], "item 5"),
     (["--devices", "2"], "item 4"),
     (["--precision", "bf16"], "item 10"),
     (["--precision", "int8"], "item 10"),
@@ -408,6 +413,29 @@ def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys):
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and item in err
+
+
+@pytest.mark.parametrize("argv,said", [
+    (["--fresh_init", "--model_path", "ckpt"],
+     "exactly one of --exported / --model_path / --fresh_init / --oracle"),
+    (["--exported", "jax.stablehlo"], "ROADMAP.md queue 1 item 5")])
+def test_stream_serve_sources_are_refused_as_jax_refuses_them(
+        argv, said, tmp_path, monkeypatch, capsys):
+    """``--model_path`` and ``--exported`` are ported: two sources at once,
+    or a JAX StableHLO artifact, exit 2 with an operational message."""
+    from dasmtl.export import ARTIFACT_VERSION, pack_artifact
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "jax.stablehlo").write_bytes(pack_artifact(
+        b"stablehlo", {"artifact_version": ARTIFACT_VERSION,
+                       "precision": "f32", "model": "MTL",
+                       "input_hw": list(HW)}))
+    try:
+        rc = cli.main(["stream", "serve", "--synthetic", "1",
+                       "--device", "cpu", *argv])
+    except SystemExit as exc:  # argparse's p.error
+        rc = exc.code
+    assert rc == 2 and said in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [
