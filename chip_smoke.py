@@ -163,9 +163,33 @@ Phases, each fatal on failure (no phase catches its own error):
              ``--exported`` (rows equal to the checkpoint sweep's), then
              50 paced live cycles of ``stream serve --model_path``'s
              executor on the resident plane, ints equal on decisive rows
-             to a direct forward.
+             to a direct forward;
+12. cv     — (a) the fold_select kernel on 5 folds of model A's full-width
+             train state (Adam's state included, NaN payloads / -0.0 /
+             +-Inf planted): save, the step's in-place writes, restore,
+             bit for bit ``fold_select_plain`` for 5 has_real patterns
+             with and without PDL; then timed: a padded step's save and
+             restore passes (1 of 5 folds padded, rotating) against the
+             bytes bound, a normal step's pass, the plain version and one
+             ``torch.where`` over a flat buffer of one fold's bytes; (b)
+             one model C train step at 100x250 on ``init_scaled`` weights
+             with dropout off, card against CPU at the one-step
+             tolerances in f64 (f32 printed), then ``python -m
+             dasmtl_torch train`` and ``test --model multi_classifier``
+             on the card by default, resident and host paths (64 / 32
+             windows, dropout on): gathers, the dropout generator in the
+             checkpoint, the test run's three reports; (c) ``train
+             --cv_parallel --model MTL`` over 5 folds of 128 and 129
+             windows (fold 0's 5th step padded), 1 epoch, deterministic
+             algorithms: every fold's final state within the one-step
+             tolerances of its ``--fold_index`` resident run, 2
+             fold_select launches a step, the counters zeroed just before
+             the run; (d) the CV epoch timed (5 folds x 800 in-memory
+             windows, batch 32) against one fold's resident run, and
+             model C's host and resident train steps (1,024 windows).
 
-Then one JSON line lists every kernel of the port, the card's name and
+Then one JSON line lists every kernel of the port (fold_select has no
+parent kernel, so ``--parent`` times it alone), the card's name and
 power limit follow on a line of their own, and the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -183,6 +207,7 @@ import argparse
 import contextlib
 import copy
 import csv
+import dataclasses
 import functools
 import io
 import json
@@ -1469,6 +1494,7 @@ HOST_RANGE = re.compile(r"[\w.]+#[\w.]+")
 #: first match wins.
 LAYERS = (("window gather", ("window_gather",)),
           ("batch gather", ("batch_gather",)),
+          ("fold select", ("fold_select",)),
           ("int8_dot", ("int8_dot",)),
           ("ring append", ("ring_append",)),
           ("decode tail", ("decode_heads", "event_prob_q")),
@@ -3957,9 +3983,10 @@ def _final_state(run_dir: str, step: int) -> dict:
                       weights_only=True)["model"]
 
 
-def _cli_train(argv, savedir):
-    """``python -m dasmtl_torch train`` in process under deterministic
-    algorithms; (result, run dir, kernel launches, summary record)."""
+def _cli_train(argv, savedir, entry: str = "train", det: bool = True):
+    """``python -m dasmtl_torch train`` (or ``test``) in process, under
+    deterministic algorithms unless ``det`` is False; (result, run dir,
+    kernel launches, the last metrics record, console log, seconds)."""
     from dasmtl_torch import cli
     from dasmtl_torch.analysis.sanitize.determinism import deterministic
     from dasmtl_torch.ops import launch_counters
@@ -3967,9 +3994,11 @@ def _cli_train(argv, savedir):
     for c in launch_counters().values():
         c.reset()
     before = set(os.listdir(savedir)) if os.path.isdir(savedir) else set()
+    main = cli.train_main if entry == "train" else cli.test_main
     t0 = time.perf_counter()
-    with deterministic("cuda"), contextlib.redirect_stdout(io.StringIO()):
-        result = cli.train_main(argv + ["--output_savedir", savedir])
+    with (deterministic("cuda") if det else contextlib.nullcontext()), \
+            contextlib.redirect_stdout(io.StringIO()):
+        result = main(argv + ["--output_savedir", savedir])
     seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
     counts = {n: c.value for n, c in launch_counters().items()}
@@ -3979,8 +4008,9 @@ def _cli_train(argv, savedir):
         summary = [json.loads(line) for line in f][-1]
     with open(os.path.join(run, "console_output.log")) as f:
         console = f.read()
-    if result is None or summary.get("kind") != "summary":
-        raise AssertionError(f"train {argv} gave no result or summary")
+    if result is None or (entry == "train" and "--cv_parallel" not in argv
+                          and summary.get("kind") != "summary"):
+        raise AssertionError(f"{entry} {argv} gave no result or summary")
     return result, run, counts, summary, console, seconds
 
 
@@ -4072,10 +4102,11 @@ def _both_paths():
     return report
 
 
-def _timing_cell():
-    """(d) 4,096 in-memory windows, 2 epochs at batch 32, K = 8, on both
-    paths: examples/s, wall and device ms per step, launches per step,
-    device idle share, peak memory."""
+def _timing_cell(family: str = "MTL", n: int = None, tag: str = "resident"
+                 ):
+    """(d) ``n`` in-memory windows (4,096 by default), 2 epochs at batch
+    32, K = 8, on both paths: examples/s, wall and device ms per step,
+    launches per step, device idle share, peak memory."""
     from dasmtl_torch.config import Config
     from dasmtl_torch.data.pipeline import BatchIterator
     from dasmtl_torch.data.sources import ArraySource
@@ -4084,20 +4115,21 @@ def _timing_cell():
     from dasmtl_torch.ops import batch_gather as bg
     from dasmtl_torch.train.loop import Trainer
 
+    n = TIMING_N if n is None else n
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((TIMING_N, H, W, 1), dtype=np.float32)
-    train = ArraySource(x, rng.integers(0, 16, TIMING_N).astype(np.int32),
-                        rng.integers(0, 2, TIMING_N).astype(np.int32))
+    x = rng.standard_normal((n, H, W, 1), dtype=np.float32)
+    train = ArraySource(x, rng.integers(0, 16, n).astype(np.int32),
+                        rng.integers(0, 2, n).astype(np.int32))
     val = ArraySource(x[:64], train.distance[:64], train.event[:64])
-    spec = get_model_spec("MTL")
-    steps = -(-TIMING_N // 32)
+    spec = get_model_spec(family)
+    steps = -(-n // 32)
     out = {}
     for mode in ("on", "off"):
-        cfg = Config(device="cuda", model="MTL", batch_size=32,
+        cfg = Config(device="cuda", model=family, batch_size=32,
                      epoch_num=TIMING_EPOCHS, log_every_steps=steps,
                      val_every=100, ckpt_every_epochs=0,
                      steps_per_dispatch=TIMING_K, device_data=mode)
-        run_dir = os.path.join(RESIDENT_DIR, f"timing_{mode}")
+        run_dir = os.path.join(RESIDENT_DIR, f"timing_{family}_{mode}")
         os.makedirs(run_dir, exist_ok=True)
         tr = Trainer(cfg, spec, build_state(cfg, spec, torch.device("cuda")),
                      BatchIterator(train, 32, seed=cfg.seed), val, run_dir)
@@ -4141,17 +4173,20 @@ def _timing_cell():
         # device time.
         dev_ms = event_ms if mode == "on" else kernel_ms
         out[mode] = {
-            "epoch_s": epoch_s, "examples_per_s": TIMING_N / epoch_s[-1],
+            "epoch_s": epoch_s, "examples_per_s": n / epoch_s[-1],
             "wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
             "event_ms_per_step": event_ms,
             "profiled_kernel_ms_per_step": kernel_ms,
+            "layer_ms_per_step": {k: v / TIMING_K for k, v in
+                                  layers.items()},
             "launches_per_step": launches / TIMING_K,
             "device_idle_share": 1.0 - dev_ms / wall_ms,
             "peak_memory_bytes": peak, "batch_gather_launches": gathers}
         del tr
         torch.cuda.empty_cache()
     for mode, r in out.items():
-        log(f"[resident] timing, device_data {mode}: {r['examples_per_s']:.1f}"
+        log(f"[{tag}] timing {family}, device_data {mode}: "
+            f"{r['examples_per_s']:.1f}"
             f" examples/s, {r['wall_ms_per_step']:.3f} ms wall / "
             f"{r['device_ms_per_step']:.3f} ms device per step (events "
             f"{r['event_ms_per_step']:.3f}, profiler kernels "
@@ -4160,7 +4195,8 @@ def _timing_cell():
             f"launches per step, device idle "
             f"{100 * r['device_idle_share']:.1f}%, peak memory "
             f"{r['peak_memory_bytes'] / 2**20:.1f} MiB; epochs "
-            f"{[round(t, 2) for t in r['epoch_s']]} s")
+            f"{[round(t, 2) for t in r['epoch_s']]} s; kernel ms per step "
+            f"by layer {({k: round(v, 3) for k, v in r['layer_ms_per_step'].items()})}")
     return out
 
 
@@ -4173,6 +4209,428 @@ def phase_resident(peaks):
     timing = _timing_cell()
     shutil.rmtree(RESIDENT_DIR, ignore_errors=True)
     return {"batch_gather": kernel, "both": both, "timing": timing}
+
+
+# -- phase 12 ------------------------------------------------------------------
+CV_DIR = os.path.join(TRAIN_DIR, "cv")
+#: Folds of the reference protocol, and the step's batch.
+CV_FOLDS, CV_BATCH = 5, 32
+#: The CV timing cell: 1,000 in-memory windows, 5 folds of 800 training
+#: windows, 2 epochs at batch 32, K = 8; model C's timing cell: 1,024.
+CV_TIMING_N, CV_TIMING_EPOCHS, MODEL_C_TIMING_N = 1000, 2, 1024
+
+
+def _leaf_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+def _fold_weights(pattern) -> torch.Tensor:
+    """A step's (F, B) plan weights: fold ``f`` has real rows (its first
+    ``f + 1``) where ``pattern[f]``, none elsewhere."""
+    w = torch.zeros(len(pattern), CV_BATCH, device=DEV)
+    for f, real in enumerate(pattern):
+        if real:
+            w[f, :1 + f] = 1.0
+    return w
+
+
+def _fold_select_kernel(peaks):
+    """(a) fold_select over 5 folds of model A's full-width train state
+    (694 leaves each, Adam's state included): save, the step's in-place
+    writes, restore, bit for bit ``fold_select_plain`` with NaN payloads,
+    -0.0 and +-Inf planted, every pattern with and without PDL; then a
+    normal step's pass and a padded step's passes timed against the bytes
+    bound, the plain version and one ``torch.where`` over a flat buffer of
+    one fold's bytes."""
+    from dasmtl_torch.config import Config
+    from dasmtl_torch.main import build_state
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.ops import fold_select as fs
+    from dasmtl_torch.train.optim import ensure_adam_state
+    from dasmtl_torch.train.steps import state_leaves
+
+    spec = get_model_spec("MTL")
+    states = [build_state(Config(device=DEV), spec, torch.device(DEV))
+              for _ in range(CV_FOLDS)]
+    for s in states:
+        ensure_adam_state(s.optimizer)
+    live = [state_leaves(s) for s in states]
+    g = torch.Generator(device=DEV).manual_seed(12)
+
+    def fill(leaves, f, shift):
+        with torch.no_grad():
+            for t in leaves:
+                if t.is_floating_point():
+                    t.copy_(torch.randn(t.shape, device=DEV, generator=g)
+                            + shift)
+                else:
+                    t.fill_(2 ** 33 + 7 * f + shift)
+            head = leaves[0].view(-1)
+            head[:4] = torch.tensor([float("nan"), -0.0, float("inf"),
+                                     float("-inf")], device=DEV)
+            head[:1].view(torch.int32).bitwise_or_(f + 1)  # a NaN payload
+
+    for f, leaves in enumerate(live):
+        fill(leaves, f, 0)
+    old = [[t.clone() for t in leaves] for leaves in live]
+    new = [[t.clone() for t in leaves] for leaves in live]
+    for f, leaves in enumerate(new):
+        fill(leaves, f, 1)
+    snapshot = torch.empty(CV_FOLDS * fs.snapshot_bytes(live[0]),
+                           dtype=torch.uint8, device=DEV)
+    patterns = ((True,) * 5, (True,) * 4 + (False,), (False,) + (True,) * 4,
+                (False, True, False, True, False), (False,) * 5)
+    for pdl in (True, False):
+        for pattern in patterns:
+            w = _fold_weights(pattern)
+            for leaves, src in zip(live, old):
+                torch._foreach_copy_(leaves, src)
+            before = fs.launches.value
+            fs.launch(live, snapshot, w, restore=False, pdl=pdl)
+            for leaves, src in zip(live, new):
+                torch._foreach_copy_(leaves, src)
+            fs.launch(live, snapshot, w, restore=True, pdl=pdl)
+            want = fs.fold_select_plain(new, old, w)
+            torch.cuda.synchronize()
+            if fs.launches.value - before != 2:
+                raise AssertionError("fold_select: not one launch a pass")
+            for f in range(CV_FOLDS):
+                for i, (a, b) in enumerate(zip(live[f], want[f])):
+                    if not torch.equal(_leaf_bits(a), _leaf_bits(b)):
+                        raise AssertionError(
+                            f"fold_select != plain: fold {f} leaf {i} "
+                            f"({a.dtype}, {a.numel()}), pattern {pattern}, "
+                            f"pdl {pdl}")
+    plan = fs._plans.get(live, torch.cuda.current_stream().cuda_stream)[1]
+    log(f"[cv] fold_select == plain bit for bit on 5 folds x "
+        f"{len(live[0])} leaves of model A's train state, NaN payloads / "
+        f"-0.0 / +-Inf planted, patterns "
+        f"{[''.join('R' if r else 'p' for r in p) for p in patterns]}, with "
+        f"and without PDL; {plan.blocks} blocks ({len(plan.items)} items, "
+        f"{plan.small} small leaves)")
+    # Timing: a normal step's pass (every fold real: no state byte moves)
+    # and a padded step's save and restore passes (one fold of 5 padded,
+    # the padded fold rotating so that 5 x 27 MB pass through the 50 MB
+    # L2, as five folds' steps would have evicted it).
+    for leaves, src in zip(live, old):
+        torch._foreach_copy_(leaves, src)
+    state_bytes = sum(t.numel() * t.element_size() for t in live[0])
+    real_w = _fold_weights((True,) * CV_FOLDS)
+    pads = [(_fold_weights(tuple(f != p for f in range(CV_FOLDS))),)
+            for p in range(CV_FOLDS)]
+
+    def run(restore, pdl):
+        return lambda w: fs.launch(live, snapshot, w, restore=restore,
+                                   pdl=pdl)
+
+    k = {"normal_ms": device_ms(lambda: run(False, True)(real_w), inner=20),
+         "normal_no_pdl_ms": device_ms(lambda: run(False, False)(real_w),
+                                       inner=20),
+         "ms": device_ms(_rotating(pads, run(False, True)), inner=10),
+         "no_pdl_ms": device_ms(_rotating(pads, run(False, False)),
+                                inner=10),
+         "restore_ms": device_ms(_rotating(pads, run(True, True)), inner=10),
+         "plain_ms": device_ms(_rotating(pads, lambda w:
+                                         fs.fold_select_plain(live, old, w)),
+                               inner=2, reps=10)}
+    # Rotating over 5 pairs of flat buffers, as the kernel rotates folds.
+    cond = torch.zeros((), dtype=torch.bool, device=DEV)
+    flat = [(cond, torch.empty(state_bytes // 4, device=DEV),
+             torch.empty(state_bytes // 4, device=DEV))
+            for _ in range(CV_FOLDS)]
+    k["library_ms"] = device_ms(_rotating(flat, torch.where), inner=10)
+    weights_bytes = CV_FOLDS * CV_BATCH * 4
+    nbytes = 2 * state_bytes + weights_bytes
+    k["bytes"], k["state_bytes"] = nbytes, state_bytes
+    k["bound_ms"], k["bound_by"] = bound(nbytes, 0.0, peaks)
+    k["normal_bound_ms"] = bound(weights_bytes, 0.0, peaks)[0]
+    k["max_abs_err"] = 0.0
+    k["unit"] = ("1 launch, the save pass of a padded step: 1 of 5 folds "
+                 "padded, model A's state")
+    log(f"[cv] fold_select, model A's state ({state_bytes / 1e6:.2f} MB a "
+        f"fold): padded step's save pass {k['ms'] * 1e3:.2f} us (without PDL "
+        f"{k['no_pdl_ms'] * 1e3:.2f}), restore pass "
+        f"{k['restore_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.2f} us "
+        f"({k['bound_by']}, {nbytes / 1e6:.2f} MB); a normal step's pass "
+        f"{k['normal_ms'] * 1e3:.2f} us (without PDL "
+        f"{k['normal_no_pdl_ms'] * 1e3:.2f}, bound "
+        f"{k['normal_bound_ms'] * 1e3:.4f}); plain (torch.where per leaf, "
+        f"5 folds) {k['plain_ms'] * 1e3:.2f} us; library (one torch.where "
+        f"over two {state_bytes / 1e6:.2f} MB buffers, 5 pairs rotating) "
+        f"{k['library_ms'] * 1e3:.2f} us")
+    del live, old, new, snapshot, flat, states
+    torch.cuda.empty_cache()
+    return k
+
+
+def _model_c_step_compare():
+    """(b) one model C train step at 100x250, batch 8, on ``init_scaled``
+    weights with dropout off, card against CPU at the one-step tolerances,
+    both in f64 (in f32 the train-mode BatchNorms amplify each device's
+    rounding of ~1e-7 until Adam's first step, ~lr * sign(g), flips on
+    gradients near their noise: JAX's own f32 step differs from its f64
+    one so, tests/test_torch_port_model_c_train.py)."""
+    from dasmtl_torch.models.inception import InceptionV3Classifier
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_scaled
+    from dasmtl_torch.train.steps import make_train_step
+
+    spec = get_model_spec("multi_classifier")
+    step = make_train_step(spec)
+    batch = _train_batch(8)
+    report = {}
+    for dtype in (torch.float64, torch.float32):
+        cpu_state = _new_state(init_scaled(
+            InceptionV3Classifier(dropout_rate=0.0), 1).to(dtype))
+        card_state = _new_state(copy.deepcopy(cpu_state.model).to(DEV))
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+        m_cpu = step(cpu_state, b, 1e-3)
+        m_card = step(card_state, {k: v.to(DEV) for k, v in b.items()},
+                      1e-3)
+        loss = [float(m["loss_sum"] / m["count"]) for m in (m_cpu, m_card)]
+        tag = "f64" if dtype == torch.float64 else "f32"
+        report[tag] = {"loss_card": loss[1], "loss_cpu": loss[0]}
+        if dtype == torch.float32:
+            break  # printed, not gated (see the docstring)
+        if abs(loss[0] - loss[1]) >= LOSS_TOL:
+            raise AssertionError(f"model C step loss: card {loss[1]:.8f}, "
+                                 f"CPU {loss[0]:.8f}")
+        for key in ("correct_mixed", "correct_distance", "correct_event",
+                    "count"):
+            if float(m_cpu[key]) != float(m_card[key]):
+                raise AssertionError(f"model C step {key} differs")
+        report[tag].update(_state_diff(
+            {k: v.cpu() for k, v in card_state.model.state_dict().items()},
+            cpu_state.model.state_dict()))
+    log(f"[cv] model C one train step at {H}x{W}, batch 8, init_scaled, "
+        f"dropout off, card == CPU in f64: loss {report['f64']['loss_card']:.8f}"
+        f" vs {report['f64']['loss_cpu']:.8f}, params max |delta| "
+        f"{report['f64']['param_max_abs_diff']:.3g}, BN "
+        f"{report['f64']['bn_max_abs_diff']:.3g}; in f32 (not gated) loss "
+        f"{report['f32']['loss_card']:.6f} vs {report['f32']['loss_cpu']:.6f}")
+    return report
+
+
+def _model_c_entry_points():
+    """(b) ``python -m dasmtl_torch train`` then ``test --model
+    multi_classifier`` on the card (no ``--device``: cuda is the
+    default), resident and host paths: 96 files at 100x250, 64 train / 32
+    val, batch 32, 1 epoch with dropout on."""
+    from dasmtl_torch.data.synthetic import make_synthetic_dataset
+
+    root = os.path.join(CV_DIR, "model_c")
+    striking, excavating = make_synthetic_dataset(
+        os.path.join(root, "data"), files_per_category=3, seed=5)
+    base = ["--model", "multi_classifier", "--batch_size", "32",
+            "--epoch_num", "1", "--log_every_steps", "1", "--val_every", "1",
+            "--trainVal_set_striking", striking,
+            "--trainVal_set_excavating", excavating]
+    n_steps, n_evals = 2, 2  # 64 / 32; validation at epoch 0 and the end
+    report = {}
+    for mode in ("on", "off"):
+        result, run, counts, _, console, seconds = _cli_train(
+            base + ["--device_data", mode], os.path.join(root, mode),
+            det=False)
+        want = n_steps + n_evals if mode == "on" else 0
+        if counts["batch_gather"] != want or \
+                ("[device-data] training set resident" in console) != \
+                (mode == "on"):
+            raise AssertionError(f"model C train, device_data {mode}: "
+                                 f"{counts['batch_gather']} gathers")
+        if f"device: {DEV}" not in console:
+            raise AssertionError("model C did not train on the card")
+        ckpt = os.path.join(run, "ckpts", f"step_{n_steps}")
+        payload = torch.load(os.path.join(ckpt, "state.pt"),
+                             map_location="cpu", weights_only=True)
+        if payload.get("generator") is None:
+            raise AssertionError("model C's checkpoint lacks its dropout "
+                                 "generator")
+        test, _, t_counts, _, t_console, _ = _cli_train(
+            ["--model", "multi_classifier", "--batch_size", "32",
+             "--model_path", ckpt, "--test_set_striking", striking,
+             "--test_set_excavating", excavating],
+            os.path.join(root, f"test_{mode}"), entry="test", det=False)
+        acc = {t: r["accuracy"] for t, r in test.reports.items()}
+        if set(acc) != {"mixed", "distance", "event"} or not all(
+                np.isfinite(list(acc.values()))):
+            raise AssertionError(f"model C test run: {acc}")
+        report[mode] = {"launches": counts, "seconds": seconds,
+                        "val_acc": {t: r["accuracy"] for t, r in
+                                    result.reports.items()},
+                        "test_acc": acc}
+    log(f"[cv] model C train + test through python -m dasmtl_torch on the "
+        f"card (64 train / 32 val at batch 32, dropout on): resident "
+        f"{report['on']['seconds']:.1f} s with "
+        f"{report['on']['launches']['batch_gather']} gathers, host "
+        f"{report['off']['seconds']:.1f} s with 0; test accuracies "
+        f"{report['on']['test_acc']} / {report['off']['test_acc']}")
+    return report
+
+
+def _cv_tree():
+    """5 files a category (16 distances x 2 events) and one more in
+    striking 0m: KFold(5) gives fold 0 128 training windows and folds 1-4
+    129, so fold 0's 5th step at batch 32 is padded."""
+    from dasmtl_torch.data.synthetic import make_synthetic_dataset
+
+    striking, excavating = make_synthetic_dataset(
+        os.path.join(CV_DIR, "data"), files_per_category=5, seed=6)
+    shutil.copy(os.path.join(striking, "0m", "sample_0000.mat"),
+                os.path.join(striking, "0m", "sample_0005.mat"))
+    return striking, excavating
+
+
+def _cv_run():
+    """(c) ``train --cv_parallel --model MTL`` over 5 folds for one epoch,
+    under deterministic algorithms, against 5 single-fold resident runs
+    (``--fold_index f``): each fold's final state within the one-step
+    tolerances of its single run, the padded fold one step short, 2
+    fold_select launches per step."""
+    from dasmtl_torch.data.splits import build_cv_splits
+
+    striking, excavating = _cv_tree()
+    cv = build_cv_splits(striking, excavating)
+    sizes = [len(ix) for ix in cv.train_idx]
+    steps = [-(-n // CV_BATCH) for n in sizes]
+    if sizes != [128, 129, 129, 129, 129]:
+        raise AssertionError(f"CV train sets {sizes}")
+    base = ["--model", "MTL", "--batch_size", str(CV_BATCH), "--epoch_num",
+            "1", "--val_every", "100", "--trainVal_set_striking", striking,
+            "--trainVal_set_excavating", excavating]
+    result, run, counts, _, console, seconds = _cli_train(
+        base + ["--cv_parallel"], os.path.join(CV_DIR, "cv"))
+    s = max(steps)
+    val_batches = sum(-(-len(ix) // CV_BATCH) for ix in cv.val_idx)
+    want = {"fold_select": 2 * s, "batch_gather": s + 2 * val_batches}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"cv launches {got}, not {want}")
+    if "[cv summary epoch 1] task=distance acc mean=" not in console:
+        raise AssertionError("no cross-fold summary")
+    diffs = []
+    for f in range(CV_FOLDS):
+        cv_sd = _final_state(os.path.join(run, f"fold{f}"), steps[f])
+        _, one, one_counts, _, _, _ = _cli_train(
+            base + ["--fold_index", str(f), "--device_data", "on"],
+            os.path.join(CV_DIR, f"fold{f}"))
+        if one_counts["fold_select"] != 0:
+            raise AssertionError("a single-fold run launched fold_select")
+        diffs.append(_state_diff(cv_sd, _final_state(one, steps[f])))
+    report = {"seconds": seconds, "launches": got, "steps": steps,
+              "train_sizes": sizes, "state_diff": diffs,
+              "fold0_acc": result.primary_accuracy}
+    log(f"[cv] python -m dasmtl_torch train --cv_parallel: 5 folds of "
+        f"{sizes} windows, {steps} steps, 1 epoch in {seconds:.1f} s; "
+        f"launches {got} (2 fold_select a step); each fold against its "
+        f"--fold_index resident run: params max |delta| "
+        f"{[d['param_max_abs_diff'] for d in diffs]}, BN "
+        f"{[d['bn_max_abs_diff'] for d in diffs]}")
+    return report
+
+
+def _cv_timing():
+    """(d) the CV epoch: 5 folds of 800 in-memory windows, 2 epochs at
+    batch 32, K = 8, against one fold's resident run of the same 800 in
+    the same call: wall s and examples/s per epoch, device ms per dispatch
+    from events, device idle share."""
+    from dasmtl_torch.config import Config
+    from dasmtl_torch.data.pipeline import BatchIterator
+    from dasmtl_torch.data.sources import ArraySource
+    from dasmtl_torch.data.splits import kfold_split
+    from dasmtl_torch.main import build_state
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.train.cv import CVTrainer
+    from dasmtl_torch.train.loop import Trainer, dispatch_len
+
+    rng = np.random.default_rng(1)
+    n = CV_TIMING_N
+    full = ArraySource(rng.standard_normal((n, H, W, 1), dtype=np.float32),
+                       rng.integers(0, 16, n).astype(np.int32),
+                       rng.integers(0, 2, n).astype(np.int32))
+    folds = kfold_split(n, CV_FOLDS, 1)
+    spec = get_model_spec("MTL")
+    cfg = Config(device=DEV, model="MTL", batch_size=CV_BATCH,
+                 epoch_num=CV_TIMING_EPOCHS, val_every=100,
+                 ckpt_every_epochs=0, steps_per_dispatch=8)
+    out = {}
+    tr = CVTrainer(cfg, spec, full, [f[0] for f in folds],
+                   [f[1] for f in folds], os.path.join(CV_DIR, "timing"))
+    epoch_s = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        for epoch in range(CV_TIMING_EPOCHS):
+            t0 = time.perf_counter()
+            tr._train_epoch(epoch, 1e-3)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+    k = dispatch_len(cfg.steps_per_dispatch, tr.steps_per_epoch)
+    idx, w = tr.cv_step.plan(*tr._epoch_plan(0))
+
+    def dispatch():
+        tr.cv_step(tr.states, idx[:k], w[:k], 1e-3)
+
+    event_ms = device_ms(dispatch, inner=1, reps=5) / k
+    layers, _, _, launches = _kernel_ms(dispatch, 2)
+    examples = sum(len(f[0]) for f in folds)
+    wall_ms = epoch_s[-1] / tr.steps_per_epoch * 1e3
+    out["cv"] = {"epoch_s": epoch_s, "examples_per_s": examples /
+                 epoch_s[-1], "wall_ms_per_step": wall_ms,
+                 "device_ms_per_step": event_ms,
+                 "device_idle_share": 1.0 - event_ms / wall_ms,
+                 "steps_per_epoch": tr.steps_per_epoch, "k": k,
+                 "launches_per_step": launches / k,
+                 "layer_ms_per_step": {n: v / k for n, v in layers.items()}}
+    del tr
+    one = ArraySource(full.x[folds[0][0]], full.distance[folds[0][0]],
+                      full.event[folds[0][0]])
+    single = Trainer(dataclasses.replace(cfg, device_data="on"), spec, build_state(cfg, spec, torch.device(DEV)),
+                     BatchIterator(one, CV_BATCH, seed=cfg.seed), one,
+                     os.path.join(CV_DIR, "timing_single"))
+    epoch_s = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        for epoch in range(CV_TIMING_EPOCHS):
+            t0 = time.perf_counter()
+            single._train_epoch(epoch, 1e-3)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+    out["single_fold"] = {"epoch_s": epoch_s,
+                          "examples_per_s": len(one) / epoch_s[-1]}
+    del single
+    torch.cuda.empty_cache()
+    c, s1 = out["cv"], out["single_fold"]
+    log(f"[cv] timing: 5 folds x {len(one)} windows at {H}x{W}, batch 32, "
+        f"K = "
+        f"{c['k']}: epoch {c['epoch_s'][-1]:.3f} s, "
+        f"{c['examples_per_s']:.1f} examples/s all folds, "
+        f"{c['wall_ms_per_step']:.3f} ms wall / {c['device_ms_per_step']:.3f}"
+        f" ms device per 5-fold step, device idle "
+        f"{100 * c['device_idle_share']:.1f}%, "
+        f"{c['launches_per_step']:.0f} launches and kernel ms by layer "
+        f"{({n: round(v, 3) for n, v in c['layer_ms_per_step'].items()})}"
+        f" per step; one fold's resident run "
+        f"{s1['epoch_s'][-1]:.3f} s an epoch, {s1['examples_per_s']:.1f} "
+        f"examples/s; epochs {[round(t, 2) for t in c['epoch_s']]} s")
+    return out
+
+
+def phase_cv(peaks):
+    """Phase 12: model C's training and every CV fold at once."""
+    from dasmtl_torch.device import set_f32_numerics
+
+    set_f32_numerics()
+    shutil.rmtree(CV_DIR, ignore_errors=True)
+    kernel = _fold_select_kernel(peaks)
+    compare = _model_c_step_compare()
+    entry = _model_c_entry_points()
+    run = _cv_run()
+    timing = _cv_timing()
+    model_c_timing = _timing_cell("multi_classifier", MODEL_C_TIMING_N,
+                                  tag="cv")
+    shutil.rmtree(CV_DIR, ignore_errors=True)
+    shutil.rmtree(RESIDENT_DIR, ignore_errors=True)
+    return {"fold_select": kernel, "model_c_step": compare,
+            "model_c_entry": entry, "cv_run": run, "cv_timing": timing,
+            "model_c_timing": model_c_timing}
 
 
 def main(argv=None) -> int:
@@ -4217,6 +4675,8 @@ def main(argv=None) -> int:
     precision = phase_precision(peaks)
     dp = phase_dp(peaks)
     resident = phase_resident(peaks)
+    cv = phase_cv(peaks)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     sk, offline = stream["kernels"], stream["offline"]
 
     # Launches: each kernel's count over its path's run, the counters
@@ -4225,7 +4685,8 @@ def main(argv=None) -> int:
     # offline sweep for the gather, the live model-A resident run for the
     # ring append, the resident oracle soak for event_prob_q, the model-C
     # int8 HTTP run for int8_dot, the dp run for leaf_digest, phase 10's
-    # resident train run for batch_gather.
+    # resident train run for batch_gather, phase 12's CV run for
+    # fold_select.
     line = {"kernels": [
         {"name": "gate_apply", "route": "cuda",
          "source": "dasmtl_torch/csrc/gating.cu",
@@ -4273,6 +4734,11 @@ def main(argv=None) -> int:
          "replaces": "dasmtl/train/steps.py:200",
          "launches": resident["both"]["on"]["launches"]["batch_gather"],
          **_timing(resident["batch_gather"])},
+        {"name": "fold_select", "route": "cuda",
+         "source": "dasmtl_torch/csrc/fold_select.cu",
+         "replaces": "dasmtl/train/steps.py:258",
+         "launches": cv["cv_run"]["launches"]["fold_select"],
+         **_timing(cv["fold_select"]), "unit": cv["fold_select"]["unit"]},
     ]}
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
@@ -4280,7 +4746,7 @@ def main(argv=None) -> int:
                        "model": model, "serve": serve, "train": train,
                        "stream": stream, "artifacts": artifacts,
                        "precision": precision, "dp": dp,
-                       "resident": resident,
+                       "resident": resident, "cv": cv,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

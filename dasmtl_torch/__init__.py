@@ -16,7 +16,10 @@ multi-fiber tier, on the host or the resident data plane), slice 4 model C
 A later slice serves what the port trains: the versioned artifact
 container and registry (``python -m dasmtl_torch.export``), the
 ``--model_path`` / ``--exported`` / ``--registry`` model sources, and the
-server's blue/green ``POST /swap``.  The hand-written Hopper kernels live in ``csrc/`` and are built on their first
+server's blue/green ``POST /swap``.  The next trains model C and every
+cross-validation fold at once (:mod:`dasmtl_torch.train.cv`,
+``--cv_parallel``).  The hand-written Hopper kernels live in ``csrc/``
+and are built on their first
 CUDA call (:mod:`dasmtl_torch.ops._build`), never at import.
 """
 

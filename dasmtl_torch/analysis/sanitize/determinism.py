@@ -18,8 +18,10 @@ non-finite probe (SAN202).  On the card a cell runs with
 ``CUBLAS_WORKSPACE_CONFIG``: without them cuDNN's backward convolutions
 break bit-exact chains.
 
-The cell names are JAX's.  bf16 cells (ROADMAP.md queue 1 item 11) and
-``multi_classifier`` cells (item 8) are not ported.
+The cell names are JAX's.  bf16 cells (ROADMAP.md queue 1 item 11) are
+not ported.  A ``multi_classifier`` cell trains with dropout on, each
+rank's masks from its own stream (:func:`~dasmtl_torch.train.state.
+dropout_generator`), so its chain is reproducible from the seed.
 
 The committed baseline (``--check-baseline`` / ``--update-baseline``,
 ``dasmtl/analysis/sanitize/determinism.py:246-310``) is the port's own,
@@ -51,8 +53,6 @@ MATRIX_DP = (1, 2)
 NOT_PORTED = {
     "bfloat16": "ROADMAP.md queue 1 item 11, 'Training under "
                 "--compute_dtype bfloat16'",
-    "multi_classifier": "ROADMAP.md queue 1 item 8, 'Model C, "
-                        "multi-device training and CV' (model C's loss)",
 }
 #: The port's committed baseline.
 DEFAULT_BASELINE_PATH = os.path.join(os.path.dirname(os.path.abspath(
@@ -92,8 +92,6 @@ class SanitizeCell:
         """The ROADMAP.md item this cell waits for, or None."""
         if self.compute_dtype == "bfloat16":
             return NOT_PORTED["bfloat16"]
-        if self.model == "multi_classifier":
-            return NOT_PORTED["multi_classifier"]
         return None
 
 
@@ -209,7 +207,8 @@ def _cell_body(world, cell: SanitizeCell, device: str
     cfg = Config(model=cell.model, batch_size=cell.batch_size,
                  seed=cell.seed, device=device)
     spec = get_model_spec(cell.model)
-    state = build_state(cfg, spec, dev)
+    state = build_state(cfg, spec, dev,
+                        rank=world.rank if world is not None else 0)
     step = make_train_step(spec, world=world)
     rng = np.random.default_rng(cell.seed)
     chain = cell.name  # genesis link: the cell identity itself

@@ -18,9 +18,9 @@
 The JAX runner pins a CPU backend with virtual devices; the port runs on
 ``--device cuda`` (the default, raising without a card) or ``--device
 cpu``, and its ``dp`` cells run as ``dp`` ranks, which share the card when
-there is one.  bf16 and ``multi_classifier`` cells named with ``--cells``
-exit 2 naming their ROADMAP.md item; in a preset those cells are skipped
-with a note naming it.
+there is one.  bf16 cells named with ``--cells`` exit 2 naming their
+ROADMAP.md item; in a preset those cells are skipped with a note naming
+it.
 """
 
 from __future__ import annotations

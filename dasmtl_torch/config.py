@@ -119,6 +119,8 @@ class Config:
     # visible card), and the BatchNorm semantics across them.
     dp: int = -1
     bn_sync: str = "global"  # global | per_replica
+    # Every CV fold at once on one card (``dasmtl/config.py:126``).
+    cv_parallel: bool = False
     # The device-resident training set (``:112-121``): ``auto`` keeps a RAM
     # source within the budget on the card and replays
     # ``steps_per_dispatch`` fused steps per CUDA graph; the CPU declines.
@@ -159,6 +161,9 @@ class Config:
                 f"unknown guard_transfer {self.guard_transfer!r}")
         if self.sanitize_every < 1:
             raise ValueError("sanitize_every must be >= 1")
+        if self.cv_parallel and self.fold_index is not None:
+            raise ValueError("cv_parallel trains every fold at once; "
+                             "--fold_index selects a single fold — pick one")
         if self.obs_heartbeat_s < 0:
             raise ValueError("obs_heartbeat_s must be >= 0 (0 = off)")
         # ``dasmtl/config.py:365-374``.
@@ -198,7 +203,7 @@ _MULTI = ("ROADMAP.md queue 1 item 8, 'Model C, multi-device training and "
 #: Flags of the JAX train/test CLI the port does not carry yet: their JAX
 #: default and the ROADMAP.md item that brings them.
 NOT_YET_PORTED = {
-    "sp": (1, _MULTI), "cv_parallel": (False, _MULTI),
+    "sp": (1, _MULTI),
     "compute_dtype": ("float32", "ROADMAP.md queue 1 item 11, 'Training "
                                  "under --compute_dtype bfloat16'"),
     "loader_native": ("auto", "ROADMAP.md queue 1 item 15, 'The native "
@@ -321,6 +326,11 @@ def _add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dp", type=int, default=d.dp,
                    help="data-parallel ranks (-1 = every visible card); "
                         "ranks beyond the cards share them")
+    p.add_argument("--cv_parallel", action=argparse.BooleanOptionalAction,
+                   default=d.cv_parallel,
+                   help="train all 5 CV folds at once against one resident "
+                        "dataset (one card; --dp > 1 is ROADMAP.md queue 1 "
+                        "item 8)")
     p.add_argument("--bn_sync", type=str, default=d.bn_sync,
                    choices=["global", "per_replica"],
                    help="BatchNorm under dp: global batch statistics, or "
@@ -383,6 +393,11 @@ def _parse(argv, description: str) -> Config:
             print(f"dasmtl_torch: --{name} is not yet ported: {item}",
                   file=sys.stderr)
             raise SystemExit(2)
+    if kw.get("cv_parallel") and kw.get("dp", -1) > 1:
+        print(f"dasmtl_torch: --dp {kw['dp']} with --cv_parallel (the fold "
+              f"axis sharded over cards) is not yet ported: {_MULTI}",
+              file=sys.stderr)
+        raise SystemExit(2)
     return Config(**kw)
 
 

@@ -120,6 +120,44 @@ def build_splits(striking_dir: str, excavating_dir: str, *,
     return DatasetSplits(train=train, val=val)
 
 
+@dataclasses.dataclass
+class CVSplits:
+    """All folds at once over one shared example list
+    (``dasmtl/data/splits.py:102-111``): ``examples[train_idx[f]]`` is fold
+    ``f``'s train set, exactly the files ``build_splits(fold_index=f)``
+    selects, in its order."""
+    examples: List[Example]
+    train_idx: List[np.ndarray]  # per fold, indices into examples
+    val_idx: List[np.ndarray]
+
+
+def build_cv_splits(striking_dir: str, excavating_dir: str, *,
+                    random_state: int = 1, n_folds: int = 5) -> CVSplits:
+    """Every fold of the reference's 5-fold protocol
+    (dataset_preparation.py:157-166) over one example list, so the folds
+    train against one resident dataset (``dasmtl/data/splits.py:
+    114-131``)."""
+    examples: List[Example] = []
+    train_idx: List[List[int]] = [[] for _ in range(n_folds)]
+    val_idx: List[List[int]] = [[] for _ in range(n_folds)]
+    for event_id, dir_path in ((EVENT_STRIKING, striking_dir),
+                               (EVENT_EXCAVATING, excavating_dir)):
+        collector = DataCollector(dir_path)
+        for category in collector.get_all_categories():
+            files = collector.files_by_category[category]
+            distance = distance_label_from_category(category)
+            base = len(examples)
+            examples.extend(Example(f, distance, event_id) for f in files)
+            for f, (tr, va) in enumerate(kfold_split(len(files), n_folds,
+                                                     random_state)):
+                train_idx[f].extend(base + int(i) for i in tr)
+                val_idx[f].extend(base + int(i) for i in va)
+    return CVSplits(
+        examples=examples,
+        train_idx=[np.asarray(ix, np.int64) for ix in train_idx],
+        val_idx=[np.asarray(ix, np.int64) for ix in val_idx])
+
+
 def export_manifest_csv(examples: Sequence[Example], path: str) -> None:
     """Name/label manifest (reference ``get_name_label_csv``,
     dataset_preparation.py:275-297)."""

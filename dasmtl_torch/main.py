@@ -2,8 +2,9 @@
 
     Config -> (model spec, device, data sources, TrainState) -> Trainer
 
-without the JAX package's spatial axis, parallel CV, profiler or plots
-(ROADMAP.md names the items that bring them).  A run makes a timestamped
+without the JAX package's spatial axis, profiler or plots (ROADMAP.md
+names the items that bring them).  ``--cv_parallel`` trains every CV fold
+at once on one card (:func:`_run_cv_parallel`).  A run makes a timestamped
 run dir with ``console_output.log``, ``config.json``, the train/val
 manifests, ``metrics/`` and ``ckpts/``.
 
@@ -27,26 +28,29 @@ from dasmtl_torch.data.pipeline import BatchIterator
 from dasmtl_torch.data.sources import DiskSource, RamSource, _SourceBase
 from dasmtl_torch.data.splits import build_splits, export_manifest_csv
 from dasmtl_torch.device import resolve_device, set_f32_numerics
-from dasmtl_torch.models.registry import (ModelSpec, get_model_spec,
-                                          refuse_serve_only)
+from dasmtl_torch.models.registry import ModelSpec, get_model_spec
 from dasmtl_torch.models.weights import init_fresh
 from dasmtl_torch.parallel.dist import World, launch, resolve_dp
 from dasmtl_torch.train.checkpoint import (best_metric_on_disk,
                                            restore_latest_in, restore_weights)
 from dasmtl_torch.train.loop import Trainer, ValidationResult
 from dasmtl_torch.train.optim import coupled_adam
-from dasmtl_torch.train.state import TrainState
+from dasmtl_torch.train.state import TrainState, dropout_generator
 from dasmtl_torch.utils.logger import Logger
 from dasmtl_torch.utils.rundir import make_run_dir
 
 
-def build_state(cfg: Config, spec: ModelSpec,
-                device: torch.device) -> TrainState:
+def build_state(cfg: Config, spec: ModelSpec, device: torch.device,
+                rank: int = 0) -> TrainState:
     """A fresh init (``init_fresh`` from a ``torch.Generator`` seeded with
-    ``cfg.seed``) on ``device``, with coupled Adam over its parameters."""
+    ``cfg.seed``) on ``device``, with coupled Adam over its parameters and,
+    for a family with dropout, ``rank``'s dropout generator."""
     model = init_fresh(spec.build(), seed=cfg.seed).to(device)
     optimizer = coupled_adam(model.parameters(), cfg.weight_decay, cfg.lr)
-    return TrainState(model=model, optimizer=optimizer, seed=cfg.seed)
+    generator = (dropout_generator(cfg.seed, device, rank)
+                 if spec.uses_dropout else None)
+    return TrainState(model=model, optimizer=optimizer, seed=cfg.seed,
+                      generator=generator)
 
 
 def build_sources(cfg: Config, is_test: bool,
@@ -81,10 +85,67 @@ def build_sources(cfg: Config, is_test: bool,
     return src_cls(splits.train, **kwargs), val_source
 
 
+def _run_cv_parallel(cfg: Config, spec: ModelSpec, run_dir: str,
+                     device: torch.device) -> ValidationResult:
+    """All 5 folds of the reference CV protocol in one run on one card
+    (``dasmtl/main.py:125-183``; :mod:`dasmtl_torch.train.cv`).  Returns
+    fold 0's final validation result; the cross-fold summary is printed
+    and recorded in metrics.jsonl."""
+    from dasmtl_torch.data.splits import build_cv_splits
+    from dasmtl_torch.train.cv import CVTrainer
+
+    cv = build_cv_splits(cfg.trainval_set_striking,
+                         cfg.trainval_set_excavating,
+                         random_state=cfg.random_state)
+    n_folds = len(cv.train_idx)
+    # The fold axis shards over cards in JAX; the port runs every fold on
+    # one card (--dp > 1 exits 2 at parsing, naming ROADMAP.md item 8).
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        reason = "--dp 1 requested" if cfg.dp == 1 else \
+            "the fold axis is not sharded over cards yet"
+        print(f"[cv] note: running on 1 of {torch.cuda.device_count()} "
+              f"visible devices ({reason})")
+    if cfg.dataset_ram:
+        print(f"preloading {len(cv.examples)} .mat files (scipy loader)")
+    full_source = RamSource(cv.examples, key=cfg.mat_key,
+                            noise_snr_db=cfg.noise_snr_db,
+                            noise_seed=cfg.seed)
+    print(f"cv examples: {len(full_source)} files, {n_folds} folds")
+    trainer = CVTrainer(cfg, spec, full_source, cv.train_idx, cv.val_idx,
+                        run_dir, device=device)
+    if cfg.resume:
+        resumed_run = trainer.try_resume(cfg.output_savedir)
+        if resumed_run is not None:
+            epoch = max(int(s.epoch) for s in trainer.states)
+            print(f"resumed all folds at epoch {epoch} from {resumed_run}")
+        else:
+            print(f"--resume: no complete CV checkpoint set under "
+                  f"{cfg.output_savedir}; starting fresh")
+    reports = trainer.fit()
+    print(f"run dir: {run_dir}")
+    return reports[-1][0].result
+
+
 def main_process(cfg: Config, is_test: bool = False) -> ValidationResult:
     """End-to-end run (train or eval); the final validation result."""
-    refuse_serve_only(cfg.model, "train")  # model C: serving only, for now
     device = resolve_device(cfg.device)  # raises, naming --device cpu
+    if cfg.cv_parallel:
+        if is_test:
+            raise ValueError("cv_parallel is a training mode; evaluate "
+                             "individual fold checkpoints with python -m "
+                             "dasmtl_torch test --model_path "
+                             "<run>/fold<k>/ckpts/best")
+        run_dir = make_run_dir(cfg.output_savedir, cfg.model, is_test)
+        spec = get_model_spec(cfg.model)
+        if device.type == "cuda":
+            set_f32_numerics()  # TF32 would break the parity tolerances
+        with Logger(os.path.join(run_dir, "console_output.log")):
+            name = (torch.cuda.get_device_name(device)
+                    if device.type == "cuda" else "cpu")
+            print(f"device: {device} ({name})")
+            with open(os.path.join(run_dir, "config.json"), "w") as f:
+                f.write(cfg.to_json())
+            return _run_cv_parallel(cfg, spec, run_dir, device)
     if is_test and not cfg.model_path:
         raise ValueError("test mode requires --model_path (a checkpoint "
                          "directory to evaluate)")
@@ -127,7 +188,8 @@ def run(cfg: Config, is_test: bool, run_dir: str,
         if main:
             with open(os.path.join(run_dir, "config.json"), "w") as f:
                 f.write(cfg.to_json())
-        state = build_state(cfg, spec, device)
+        state = build_state(cfg, spec, device,
+                            rank=world.rank if world is not None else 0)
         n_params = sum(p.numel() for p in state.model.parameters())
         print(f"model={cfg.model} params={n_params:,}")
         if cfg.model_path:

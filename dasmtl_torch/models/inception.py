@@ -20,8 +20,10 @@ Parity notes (pinned by ``tests/test_torch_port_inception.py``):
 - Branches concatenate along channels in the JAX order, the nested
   concats of :class:`InceptionE` too: ``fc`` reads the channels so.
 - The head is a global average pool in f32 (``:238``), dropout (an
-  identity in eval) and ``fc``; it returns raw logits, as the JAX module
-  does (the serve forward's decode tail takes the log-softmax).
+  identity in eval; in train mode Flax's mask rule on the train state's
+  generator, :class:`~dasmtl_torch.models.layers.Dropout`) and ``fc``; it
+  returns raw logits, as the JAX module does (the serve forward's decode
+  tail and the train loss take the log-softmax).
 
 The public input is ``(b, h, w, 1)``, as for :class:`~dasmtl_torch.models.
 two_level.TwoLevelNet`; 75x75 is the smallest window the stem and the
@@ -37,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dasmtl_torch.config import NUM_MIXED_CLASSES
-from dasmtl_torch.models.layers import BN_MOMENTUM, BatchNorm2d
+from dasmtl_torch.models.layers import BN_MOMENTUM, BatchNorm2d, Dropout
 
 BN_EPS = 1e-3
 
@@ -247,7 +249,7 @@ class InceptionV3Classifier(nn.Module):
         self.Mixed_7a = InceptionD(768)
         self.Mixed_7b = InceptionE(1280)
         self.Mixed_7c = InceptionE(2048)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.fc = nn.Linear(2048, num_classes)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -266,5 +268,9 @@ class InceptionV3Classifier(nn.Module):
                if self.AuxLogits is not None and self.training else None)
         for name in ("Mixed_7a", "Mixed_7b", "Mixed_7c"):
             x = getattr(self, name)(x)
-        logits = self.fc(self.dropout(x.mean(dim=(2, 3)).float()))
+        # The pool in f32 at least (a bf16 preset's maps), as JAX's
+        # ``astype(float32)``; an f64 model stays f64.
+        pooled = x.mean(dim=(2, 3))
+        pooled = pooled.to(torch.promote_types(pooled.dtype, torch.float32))
+        logits = self.fc(self.dropout(pooled))
         return (logits,) if aux is None else (logits, aux)

@@ -85,6 +85,37 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+class Dropout(nn.Module):
+    """Flax's ``nn.Dropout`` (``dasmtl/models/inception.py:239``) with an
+    explicit generator: train mode keeps each unit where a uniform draw
+    from ``generator`` falls below ``keep_prob = 1 - rate`` and computes
+    ``where(keep, x / keep_prob, 0)``; eval mode, and rate 0, return ``x``
+    as it is.  The train state owns the generator and binds it
+    (:meth:`dasmtl_torch.train.state.TrainState.bind_dropout`); a draw
+    without one raises, so no mask ever comes from torch's global
+    generator."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"dropout rate {rate} outside [0, 1]")
+        self.rate = float(rate)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError("train-mode dropout needs the train state's "
+                               "generator (TrainState.bind_dropout)")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 def sync_batchnorm(model: nn.Module, on: bool = True) -> nn.Module:
     """Set (or clear) ``sync`` on every :class:`BatchNorm2d` of ``model``."""
     for m in model.modules():

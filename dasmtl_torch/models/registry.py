@@ -5,8 +5,9 @@ module, which loss trains it, which task each output head carries, and how
 to decode the heads into per-task predictions.  Model C
 (``multi_classifier``) decodes its 32-way head as ``registry.py:51-55``
 does: ``mixed = argmax``, ``distance = mixed % 16``, ``event = mixed //
-16``, all int32.  It serves in this slice; its training and its stream
-tier come later (:data:`SERVE_ONLY` names the items).
+16``, all int32; it trains on the mixed label's cross-entropy with
+dropout (``uses_dropout``, ``:85-94``).  Its stream tier comes later
+(:data:`SERVE_ONLY` names the item).
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ class ModelSpec:
     # head, in head order).
     derive: Optional[Callable[[Sequence[torch.Tensor]],
                               Dict[str, torch.Tensor]]] = None
+    # The train forward draws dropout masks (from the train state's
+    # generator).
+    uses_dropout: bool = False
 
     def decode_ints(self, preds: Sequence[torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
@@ -58,10 +62,6 @@ def _derive_mixed(preds: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
     mixed = preds[0]
     return {"mixed": mixed, "distance": mixed % NUM_DISTANCE_CLASSES,
             "event": mixed // NUM_DISTANCE_CLASSES}
-
-
-def _not_trained_yet(outputs, batch):
-    raise NotImplementedError(f"model C's loss: {SERVE_ONLY['train']}")
 
 
 _REGISTRY = {
@@ -85,19 +85,16 @@ _REGISTRY = {
     "multi_classifier": ModelSpec(
         name="multi_classifier",
         build=lambda: InceptionV3Classifier(num_classes=NUM_MIXED_CLASSES),
-        loss_fn=_not_trained_yet,
+        loss_fn=losses.multi_classifier_loss,
         report_tasks=(("mixed", NUM_MIXED_CLASSES),
                       ("distance", NUM_DISTANCE_CLASSES),
                       ("event", NUM_EVENT_CLASSES)),
-        head_tasks=("mixed",), derive=_derive_mixed),
+        head_tasks=("mixed",), derive=_derive_mixed, uses_dropout=True),
 }
 
-#: Model C serves; where the port does not take it yet, the ROADMAP.md
-#: item that brings it.
+#: Model C serves and trains; where the port does not take it yet, the
+#: ROADMAP.md item that brings it.
 SERVE_ONLY = {
-    "train": "ROADMAP.md queue 1 item 8, 'Model C, multi-device training "
-             "and CV' (model C's loss, aux head and dropout: python -m "
-             "dasmtl_torch train|test)",
     "stream": "ROADMAP.md queue 1 item 10, 'The stream tier's presets and "
               "model C'",
 }
@@ -106,8 +103,8 @@ SERVE_ONLY_MODELS = ("multi_classifier",)
 
 def refuse_serve_only(name: str, use: str) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP.md item when
-    ``name`` is a family the port serves but does not ``use`` (``train``
-    or ``stream``) yet."""
+    ``name`` is a family the port serves but does not ``use``
+    (``stream``) yet."""
     if name in SERVE_ONLY_MODELS:
         raise NotImplementedError(
             f"model {name!r} (model C) serves in dasmtl_torch but does not "

@@ -44,8 +44,8 @@ def sm_count(device: torch.device) -> int:
 
 def launch_counters() -> dict:
     """Every kernel's :class:`LaunchCounter`, by kernel name."""
-    from dasmtl_torch.ops import (batch_gather, decode, digest, gating, int8,
-                                  ring, window)
+    from dasmtl_torch.ops import (batch_gather, decode, digest, fold_select,
+                                  gating, int8, ring, window)
 
     return {"gate_apply": gating.launches,
             "gate_apply_backward": gating.backward_launches,
@@ -55,7 +55,8 @@ def launch_counters() -> dict:
             "ring_append": ring.launches,
             "int8_dot": int8.launches,
             "leaf_digest": digest.launches,
-            "batch_gather": batch_gather.launches}
+            "batch_gather": batch_gather.launches,
+            "fold_select": fold_select.launches}
 
 
 def launch_counts() -> dict:

@@ -65,6 +65,10 @@ SIGNATURES = {
         _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P, _P, ctypes.c_int,
         _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         _P]),
+    "dasmtl_fold_select": (ctypes.c_int, [
+        _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_int64, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+    "dasmtl_fold_select_blocks_per_sm": (ctypes.c_int, [_P]),
     "dasmtl_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

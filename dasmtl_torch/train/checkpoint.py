@@ -11,9 +11,12 @@ in place of Orbax, under the JAX package's layout names:
 
 A payload holds the whole :class:`~dasmtl_torch.train.state.TrainState`:
 the model's state dict (parameters and BatchNorm stats), the Adam state,
-``step``, ``epoch`` and the generator seed.  Each save is written into a
-temporary directory and renamed into place, so a crash mid-save never
-leaves a half-written checkpoint under a final name.
+``step``, ``epoch``, the generator seed and, for a family with dropout,
+the dropout generator's state (one saved on the other kind of device, a
+CUDA Philox state against the CPU's Mersenne twister, cannot be loaded:
+the restored run keeps its freshly seeded stream).  Each save is written
+into a temporary directory and renamed into place, so a crash mid-save
+never leaves a half-written checkpoint under a final name.
 
 Adam's form follows the device a payload is restored to, not the one it
 was saved from (:func:`load_optimizer`): a card run's capturable Adam (its
@@ -39,10 +42,13 @@ PAYLOAD = "state.pt"
 
 
 def state_payload(state: TrainState) -> Dict[str, Any]:
-    return {"model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step), "epoch": int(state.epoch),
-            "seed": int(state.seed)}
+    payload = {"model": state.model.state_dict(),
+               "optimizer": state.optimizer.state_dict(),
+               "step": int(state.step), "epoch": int(state.epoch),
+               "seed": int(state.seed)}
+    if state.generator is not None:
+        payload["generator"] = state.generator.get_state()
+    return payload
 
 
 def _write(path: str, payload: Dict[str, Any]) -> None:
@@ -101,6 +107,10 @@ def _restore_full(state: TrainState, payload: Dict[str, Any]) -> TrainState:
     state.step = int(payload["step"])
     state.epoch = int(payload["epoch"])
     state.seed = int(payload["seed"])
+    saved = payload.get("generator")
+    if saved is not None and state.generator is not None and \
+            saved.numel() == state.generator.get_state().numel():
+        state.generator.set_state(saved.cpu())
     return state
 
 

@@ -50,10 +50,10 @@ the budget; ``on`` forces it (on the CPU too); ``off`` never.  It declines
 -- with a once-per-run notice under ``on``, silently under ``auto`` -- for
 ``bn_sync`` other than ``global``, ``--sanitize``, more than one rank, a
 lazy source with per-gather noise and a source over the budget, as JAX
-does, and for two reasons of the port's own: NaN watching
+does, and for one reason of the port's own: NaN watching
 (``--guard_nan_check``, ``--debug_nans``) is forward hooks, which run at a
-graph's capture but never at its replay; and model C's training is
-ROADMAP.md queue 1 item 8.
+graph's capture but never at its replay.  Every family takes it, model C
+(with its dropout) too.
 """
 
 from __future__ import annotations
@@ -88,6 +88,7 @@ from dasmtl_torch.ops import launch_counts
 from dasmtl_torch.parallel.dist import all_gather_object, shard_batch
 from dasmtl_torch.train import metrics as host_metrics
 from dasmtl_torch.train.checkpoint import CheckpointManager
+from dasmtl_torch.train.losses import mixed_label
 from dasmtl_torch.train.optim import stepped_lr
 from dasmtl_torch.train.state import TrainState
 from dasmtl_torch.train.steps import (ScanTrainStep, make_eval_step,
@@ -384,6 +385,7 @@ class Trainer:
         weight = np.concatenate(all_weight)
         real = weight > 0
         y_true = {k: np.concatenate(v)[real] for k, v in labels.items()}
+        y_true["mixed"] = mixed_label(y_true["distance"], y_true["event"])
         loss = sums["loss_sum"] / count
         for k, v in sums.items():
             if k.startswith("loss_sum_"):
@@ -470,9 +472,6 @@ class Trainer:
             return declined("--guard_nan_check / --debug_nans watch module "
                             "outputs with forward hooks, which run when a "
                             "CUDA graph is captured, never when it replays")
-        if self.spec.name == "multi_classifier":
-            return declined("model C's training is ROADMAP.md queue 1 item "
-                            "8, 'Model C, multi-device training and CV'")
         if cfg.device_data == "auto" and self.state.device.type == "cpu":
             return False
         nbytes = resident_bytes(self.train_iter.source)

@@ -37,6 +37,29 @@ def coupled_adam(params: Iterable[torch.nn.Parameter],
         capturable=True)
 
 
+def ensure_adam_state(optimizer: torch.optim.Adam) -> None:
+    """Create the Adam state of every parameter that has none yet, exactly
+    as Adam's first step would (``_init_group``: a 0-d float32 ``step``,
+    on the parameter's device when capturable, else on the CPU, and zero
+    moments), so the whole train state exists before its first step."""
+    for group in optimizer.param_groups:
+        on_card = group["capturable"] or group["fused"]
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if len(state):
+                continue
+            state["step"] = torch.zeros(
+                (), dtype=torch.float32,
+                device=p.device if on_card else "cpu")
+            state["exp_avg"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            if group["amsgrad"]:
+                state["max_exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """Set the LR of every group: a tensor LR is filled in place (outside
     any graph), a float one replaced."""

@@ -41,6 +41,7 @@ import torch
 from dasmtl_torch.models.registry import ModelSpec
 from dasmtl_torch.ops import _build, launch_counters
 from dasmtl_torch.ops.batch_gather import batch_gather, check_plan
+from dasmtl_torch.train.losses import mixed_label
 from dasmtl_torch.train.optim import set_lr
 from dasmtl_torch.train.state import TrainState
 
@@ -55,17 +56,25 @@ def _weighted_correct(preds: torch.Tensor, labels: torch.Tensor,
 BN_SYNC = ("global", "per_replica")
 
 
+def _batch_labels(batch: Batch) -> Dict[str, torch.Tensor]:
+    """The batch's labels by task, model C's mixed label included
+    (``dasmtl/train/steps.py:81-84``)."""
+    return {"distance": batch["distance"], "event": batch["event"],
+            "mixed": mixed_label(batch["distance"], batch["event"])}
+
+
 def _step_metrics(spec: ModelSpec, outputs, batch: Batch,
                   loss: torch.Tensor, parts: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
     with torch.no_grad():
         preds = spec.decode(outputs)
+        labels = _batch_labels(batch)
         weight = batch["weight"]
         n = weight.sum()
         metrics = {"loss_sum": loss.detach() * n, "count": n}
         for task, p in preds.items():
             metrics[f"correct_{task}"] = _weighted_correct(
-                p, batch[task], weight)
+                p, labels[task], weight)
         for k, v in parts.items():
             metrics[f"loss_sum_{k}"] = v.detach() * n
     return metrics
@@ -240,6 +249,19 @@ class _Graph:
         self.launches = launches
 
 
+def _train_body(spec: ModelSpec, state: TrainState,
+                batch: Batch) -> Dict[str, torch.Tensor]:
+    """One train step of ``state`` on a gathered batch (forward, loss,
+    backward, Adam, BatchNorm update); its metrics."""
+    model, opt = state.model, state.optimizer
+    outputs = model(batch["x"])
+    loss, parts = spec.loss_fn(outputs, batch)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    return _step_metrics(spec, outputs, batch, loss, parts)
+
+
 class ScanTrainStep:
     """``make_scan_train_step`` (``dasmtl/train/steps.py:175-216``): ``k``
     full train steps per dispatch over a training set resident on the
@@ -266,6 +288,10 @@ class ScanTrainStep:
     - a dispatch copies its plan slice into the static buffers
       (``non_blocking``) and replays; Adam reads the LR card tensor that
       ``set_lr`` fills, so an LR change reaches the graph;
+    - a family with dropout draws its masks from the train state's
+      generator, registered with every graph, so each replay draws fresh
+      masks (a graph would otherwise replay the Philox offset it
+      captured);
     - kernel launch counters count at capture only, so the capture's
       counts are taken back and added at every replay.
 
@@ -273,17 +299,21 @@ class ScanTrainStep:
     was asked for), through the plain gather.
     """
 
-    def __init__(self, spec: ModelSpec, data, batch_size: int):
+    def __init__(self, spec: ModelSpec, data, batch_size: int,
+                 folds: int = 1):
         self.spec = spec
         self.data = data
         self.batch_size = int(batch_size)
         dev = data.device
         self.on_card = dev.type == "cuda"
-        b = self.batch_size
-        self._out = (torch.empty((b,) + tuple(data.x.shape[1:]),
+        rows = self.batch_size * folds
+        self._out = (torch.empty((rows,) + tuple(data.x.shape[1:]),
                                  dtype=torch.float32, device=dev),
-                     torch.empty((b,), dtype=torch.int32, device=dev),
-                     torch.empty((b,), dtype=torch.int32, device=dev))
+                     torch.empty((rows,), dtype=torch.int32, device=dev),
+                     torch.empty((rows,), dtype=torch.int32, device=dev))
+        # One step's plan row: (B,), or (F, B) for F folds.
+        self._row = (self.batch_size,) if folds == 1 else \
+            (folds, self.batch_size)
         self.keys: Optional[List[str]] = None
         self._graphs: Dict[int, _Graph] = {}
         self._warm = False
@@ -301,39 +331,44 @@ class ScanTrainStep:
                torch.from_numpy(np.ascontiguousarray(weight, np.float32)))
         return tuple(t.pin_memory() for t in out) if self.on_card else out
 
-    def _body(self, state: TrainState, idx: torch.Tensor,
-              weight: torch.Tensor) -> torch.Tensor:
-        """One train step on the gathered batch; its metrics stacked in
-        ``self.keys`` order."""
-        model, opt = state.model, state.optimizer
+    def _gather(self, idx: torch.Tensor, weight: torch.Tensor
+                ) -> Batch:
         x, d, e = batch_gather(self.data.x, self.data.distance,
-                               self.data.event, idx, weight, out=self._out)
-        batch = {"x": x, "distance": d, "event": e, "weight": weight}
-        outputs = model(x)
-        loss, parts = self.spec.loss_fn(outputs, batch)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        metrics = _step_metrics(self.spec, outputs, batch, loss, parts)
+                               self.data.event, idx.reshape(-1),
+                               weight.reshape(-1), out=self._out)
+        return {"x": x, "distance": d, "event": e,
+                "weight": weight.reshape(-1)}
+
+    def _stacked(self, metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
         if self.keys is None:
             self.keys = sorted(metrics)
         return torch.stack([metrics[k].float() for k in self.keys])
 
-    def _eager(self, state, idx, weight) -> torch.Tensor:
-        return torch.stack([self._body(state, idx[i], weight[i])
+    def _body(self, states: List[TrainState], idx: torch.Tensor,
+              weight: torch.Tensor) -> torch.Tensor:
+        """One train step on the gathered batch; its metrics stacked in
+        ``self.keys`` order."""
+        return self._stacked(_train_body(self.spec, states[0],
+                                         self._gather(idx, weight)))
+
+    def _eager(self, states, idx, weight) -> torch.Tensor:
+        return torch.stack([self._body(states, idx[i], weight[i])
                             for i in range(idx.shape[0])])
 
-    def _capture(self, state: TrainState, k: int) -> _Graph:
+    def _capture(self, states: List[TrainState], k: int) -> _Graph:
         from dasmtl_torch.analysis.guards import declared_sync
 
         dev = self.data.device
         g = _Graph(torch.cuda.CUDAGraph(),
-                   torch.zeros((k, self.batch_size), dtype=torch.int32,
+                   torch.zeros((k,) + self._row, dtype=torch.int32,
                                device=dev),
-                   torch.zeros((k, self.batch_size), dtype=torch.float32,
+                   torch.zeros((k,) + self._row, dtype=torch.float32,
                                device=dev),
-                   torch.zeros((k, len(self.keys)), dtype=torch.float32,
-                               device=dev), {})
+                   torch.zeros((k,) + self._row[:-1] + (len(self.keys),),
+                               dtype=torch.float32, device=dev), {})
+        for state in states:
+            if state.generator is not None:
+                g.graph.register_generator_state(state.generator)
         counters = launch_counters()
         before = {n: c.value for n, c in counters.items()}
         # Capture synchronizes the device: a declared sync.
@@ -341,7 +376,8 @@ class ScanTrainStep:
                 g.graph, pool=self._pool, stream=self._stream,
                 capture_error_mode="thread_local"):
             for i in range(k):
-                g.metrics[i].copy_(self._body(state, g.idx[i], g.weight[i]))
+                g.metrics[i].copy_(self._body(states, g.idx[i],
+                                              g.weight[i]))
         for name, c in counters.items():
             n = c.value - before[name]
             if n:
@@ -352,34 +388,115 @@ class ScanTrainStep:
         _build.note_capture()
         return g
 
-    def __call__(self, state: TrainState, idx: torch.Tensor,
-                 weight: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
+    def _dispatch(self, states: List[TrainState], idx: torch.Tensor,
+                  weight: torch.Tensor, lr: float) -> torch.Tensor:
+        """``idx.shape[0]`` steps of ``states``; the metrics stacked."""
         k = idx.shape[0]
-        state.model.train()
-        set_lr(state.optimizer, lr)
+        for state in states:
+            state.model.train()
+            set_lr(state.optimizer, lr)
         if not self.on_card:
-            stacked = self._eager(state, idx, weight)
-        elif not self._warm:
+            return self._eager(states, idx, weight)
+        if not self._warm:
             dev = self.data.device
             plan = (idx.to(dev, non_blocking=True),
                     weight.to(dev, non_blocking=True))
             main = torch.cuda.current_stream(dev)
             self._stream.wait_stream(main)
             with torch.cuda.stream(self._stream):
-                stacked = self._eager(state, *plan)
+                stacked = self._eager(states, *plan)
             main.wait_stream(self._stream)
             stacked.record_stream(main)
             self._warm = True
             # Captured now, in the run's first dispatch (inside a one-epoch
             # guard warmup), as JAX compiles its scan at the first call.
-            self._capture(state, k)
-        else:
-            g = self._graphs.get(k) or self._capture(state, k)
-            g.idx.copy_(idx, non_blocking=True)
-            g.weight.copy_(weight, non_blocking=True)
-            g.graph.replay()
-            for c, n in g.launches.items():
-                c.add(n)
-            stacked = g.metrics.clone()
-        state.step += k
+            self._capture(states, k)
+            return stacked
+        g = self._graphs.get(k) or self._capture(states, k)
+        g.idx.copy_(idx, non_blocking=True)
+        g.weight.copy_(weight, non_blocking=True)
+        g.graph.replay()
+        for c, n in g.launches.items():
+            c.add(n)
+        return g.metrics.clone()
+
+    def __call__(self, state: TrainState, idx: torch.Tensor,
+                 weight: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
+        stacked = self._dispatch([state], idx, weight, lr)
+        state.step += idx.shape[0]
         return {key: stacked[:, i] for i, key in enumerate(self.keys)}
+
+
+def state_leaves(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor of a train state, in a fixed order: the parameters,
+    the buffers (BatchNorm running stats and counters), then each
+    parameter's Adam state (``step``, ``exp_avg``, ``exp_avg_sq``).  The
+    Adam state must exist (:func:`~dasmtl_torch.train.optim.
+    ensure_adam_state`)."""
+    model, opt = state.model, state.optimizer
+    leaves = [p.detach() for p in model.parameters()]
+    leaves += [b for b in model.buffers()]
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state[p]
+            leaves += [st[k] for k in sorted(st)]
+    return leaves
+
+
+class CVScanTrainStep(ScanTrainStep):
+    """``make_cv_scan_train_step`` (``dasmtl/train/steps.py:219-280``):
+    ``k`` steps of all ``F`` folds per dispatch over ONE shared resident
+    dataset, as one CUDA-graph replay on the card (eagerly on the CPU).
+
+    A step gathers the ``F·B`` rows of its ``(F, B)`` plan row in one
+    ``batch_gather`` launch (fold ``f``'s batch is rows ``f·B`` to
+    ``f·B + B - 1``), saves the state of every fold whose row holds no real
+    example (:class:`~dasmtl_torch.ops.fold_select.FoldSelect`, one
+    launch), runs the F fold steps one after another (each its own module
+    and Adam), and restores the saved folds (one launch): JAX's
+    ``where(has_real, new, old)``, so a padded step of a shorter fold is a
+    bit-exact no-op, Adam's step counters included.  The folds run one
+    after another, not batched: a batched (grouped-convolution) fold step
+    is ROADMAP.md item 16.
+
+    ``step(states, idx, weight, lr)`` takes a ``(k, F, B)`` slice of an
+    epoch's plan and returns each metric's per-step sums ``(k, F)``.  Each
+    fold's host ``step`` counts its real steps only, read from the host
+    plan.  A family with dropout draws each fold's masks from its own
+    generator, which runs on over a padded step (a graph cannot select
+    the host's Philox offset)."""
+
+    def __init__(self, spec: ModelSpec, data, batch_size: int,
+                 states: List[TrainState]):
+        from dasmtl_torch.ops.fold_select import FoldSelect
+        from dasmtl_torch.train.optim import ensure_adam_state
+
+        super().__init__(spec, data, batch_size, folds=len(states))
+        self.n_folds = len(states)
+        for state in states:
+            ensure_adam_state(state.optimizer)
+        self.select = FoldSelect([state_leaves(s) for s in states])
+
+    def _body(self, states: List[TrainState], idx: torch.Tensor,
+              weight: torch.Tensor) -> torch.Tensor:
+        batch = self._gather(idx, weight)
+        self.select.save(weight)
+        b = self.batch_size
+        rows = []
+        for f, state in enumerate(states):
+            fold = {k: v[f * b:(f + 1) * b] for k, v in batch.items()}
+            rows.append(self._stacked(_train_body(self.spec, state, fold)))
+        self.select.restore(weight)
+        return torch.stack(rows)
+
+    def __call__(self, states: List[TrainState], idx: torch.Tensor,
+                 weight: torch.Tensor, lr: float
+                 ) -> Dict[str, torch.Tensor]:
+        if len(states) != self.n_folds:
+            raise ValueError(f"{len(states)} states for {self.n_folds} "
+                             f"folds")
+        stacked = self._dispatch(states, idx, weight, lr)
+        real = (weight.sum(dim=-1) > 0).sum(dim=0).tolist()  # host plan
+        for state, n in zip(states, real):
+            state.step += int(n)
+        return {key: stacked[..., i] for i, key in enumerate(self.keys)}

@@ -17,9 +17,12 @@ bit for bit against its plain version, the resident scan step's CUDA-graph
 replays against the same steps run eagerly (an LR change and a ragged tail
 included), a CUDA-graph capture and replay of the gather eval step (with
 its paired gate launches), a staging slot held back until its queued
-copy completes, and executors loaded from port artifacts (model A f32,
+copy completes, executors loaded from port artifacts (model A f32,
 bf16 and int8, model C int8) answering with the bits of
-``from_state_dict``.
+``from_state_dict``, the CV step's fold_select (bit for bit against its
+plain version with and without PDL, and replayed from a CUDA graph),
+dropout masks fresh at every graph replay, model C's resident step, and
+one CV dispatch against the folds' single-fold dispatches.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -1209,3 +1212,262 @@ def test_an_artifact_serves_the_bits_of_from_state_dict(cuda, tmp_path,
     assert np.array_equal(got[1], want[1])
     ex.close()
     ref.close()
+
+
+# -- the CV step's per-fold select ----------------------------------------------
+def _select_leaves(seed, device):
+    """One fold's leaves: f32 with NaN payloads, -0.0 and ±Inf, a leaf
+    large enough for block items, an int64 counter, a 0-d f32, a float64,
+    a bf16, a view 4 bytes into its base, and an empty leaf."""
+    g = torch.Generator().manual_seed(seed)
+    f32 = torch.randn(37, generator=g)
+    f32[:5] = torch.tensor([float("nan"), -0.0, float("inf"),
+                            float("-inf"), 0.0])
+    f32.view(torch.int32)[0] |= seed + 1  # a NaN payload per fold
+    base = torch.randn(20, generator=g)
+    base[3] = -0.0
+    leaves = [f32, torch.randn(2 ** 20 + 3, generator=g),
+              torch.tensor([2 ** 40 + seed, -5, 7], dtype=torch.int64),
+              torch.tensor(float(seed)), torch.randn(5, generator=g).double(),
+              torch.randn(9, generator=g).to(torch.bfloat16), base[1:12],
+              torch.zeros(0)]
+    return [t.to(device) for t in leaves]
+
+
+def _views_on_card(leaves, device):
+    """The leaves on the card; the view stays a view (4 bytes off)."""
+    out = []
+    for t in leaves:
+        if t.numel() == 11 and t.dtype == torch.float32:
+            base = torch.zeros(20, device=device)
+            base[1:12] = t.to(device)
+            out.append(base[1:12])
+        else:
+            out.append(t.to(device))
+    return out
+
+
+def _select_bits(t):
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.cpu().reshape(-1).numpy().view(np.uint8)
+
+
+def _select_case(cuda, pattern):
+    f = len(pattern)
+    old = [_views_on_card(_select_leaves(10 + i, "cpu"), cuda)
+           for i in range(f)]
+    new = [_views_on_card(_select_leaves(70 + i, "cpu"), cuda)
+           for i in range(f)]
+    w = torch.zeros(f, 8, device=cuda)
+    for i, real in enumerate(pattern):
+        if real:
+            w[i, :1 + i] = 1.0
+    return old, new, w
+
+
+SELECT_PATTERNS = [(True,), (False,), (True, False), (False, False),
+                   (False, True, True, False, True), (False,) * 5,
+                   (True,) * 5]
+
+
+@pytest.mark.parametrize("pdl", [True, False], ids=["pdl", "no_pdl"])
+@pytest.mark.parametrize("pattern", SELECT_PATTERNS,
+                         ids=["".join("R" if r else "p" for r in p)
+                              for p in SELECT_PATTERNS])
+def test_fold_select_kernel_bit_equal_to_plain(cuda, pattern, pdl):
+    """Save, the step's in-place writes, restore: every leaf of every fold
+    bit for bit ``fold_select_plain(new, old, w)``; one launch a pass."""
+    from dasmtl_torch.ops import fold_select as fs
+
+    old, new, w = _select_case(cuda, pattern)
+    want = fs.fold_select_plain(new, old, w)
+    live = [_views_on_card(_select_leaves(10 + i, "cpu"), cuda)
+            for i in range(len(pattern))]  # old's values, the view kept
+    assert live[0][6].data_ptr() % 16 == 4
+    snapshot = torch.empty(len(live) * fs.snapshot_bytes(live[0]),
+                           dtype=torch.uint8, device=cuda)
+    fs.launches.reset()
+    fs.launch(live, snapshot, w, restore=False, pdl=pdl)
+    for leaves, src in zip(live, new):
+        for t, s in zip(leaves, src):
+            t.copy_(s)
+    fs.launch(live, snapshot, w, restore=True, pdl=pdl)
+    torch.cuda.synchronize()
+    assert fs.launches.value == 2
+    for got_f, want_f in zip(live, want):
+        for a, b in zip(got_f, want_f):
+            assert np.array_equal(_select_bits(a), _select_bits(b))
+
+
+def test_fold_select_replays_from_a_cuda_graph(cuda):
+    """Both passes captured in one CUDA graph around an in-place step; two
+    replays with other weights in the static weight buffer select by the
+    weights of each replay."""
+    from dasmtl_torch.ops import fold_select as fs
+
+    old, new, w = _select_case(cuda, (True, False, True))
+    live = [[t.clone() for t in leaves] for leaves in old]
+    sel = fs.FoldSelect(live)
+    static_w = w.clone()
+    sel.save(static_w)  # builds and caches the plan on this stream
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        sel.save(static_w)  # the capture stream's plan, built eagerly
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    fs.launches.reset()
+    with torch.cuda.graph(graph, stream=stream):
+        sel.save(static_w)
+        for leaves, src in zip(live, new):
+            torch._foreach_copy_(leaves, src)
+        sel.restore(static_w)
+    for pattern in ((False, True, True), (True, True, False)):
+        for leaves, src in zip(live, old):
+            torch._foreach_copy_(leaves, src)
+        static_w.zero_()
+        for i, real in enumerate(pattern):
+            if real:
+                static_w[i, 0] = 1.0
+        graph.replay()
+        torch.cuda.synchronize()
+        want = fs.fold_select_plain(new, old, static_w)
+        for got_f, want_f in zip(live, want):
+            for a, b in zip(got_f, want_f):
+                assert np.array_equal(_select_bits(a), _select_bits(b))
+
+
+def test_dropout_masks_differ_across_graph_replays(cuda):
+    """A Dropout drawing from a generator registered with the graph (as
+    ``ScanTrainStep._capture`` registers the train state's) draws a fresh
+    mask at every replay, and the generator's state moves on."""
+    from dasmtl_torch.models.layers import Dropout
+    from dasmtl_torch.train.state import dropout_generator
+
+    d = Dropout(0.5)
+    d.generator = dropout_generator(3, cuda)
+    x = torch.ones(4096, device=cuda)
+    out = torch.empty_like(x)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out.copy_(d(x))  # warmup
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(d.generator)
+    with torch.cuda.graph(graph, stream=stream):
+        out.copy_(d(x))
+    masks, states = [], []
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        masks.append((out != 0).cpu())
+        states.append(d.generator.get_state())
+    assert not torch.equal(masks[0], masks[1])
+    assert not torch.equal(masks[1], masks[2])
+    assert not torch.equal(states[0], states[1])
+    kept = torch.stack(masks).float().mean().item()
+    assert 0.45 < kept < 0.55
+
+
+def test_model_c_scan_step_replays_with_dropout(cuda):
+    """Model C's resident step at 75x75 with dropout on: the warmup
+    dispatch, a capture and two replays run, each replay moving the
+    dropout generator on; a ragged dispatch of 2 steps captures a second
+    graph with the same generator registered, and its replays move it on
+    too; the parameters stay finite."""
+    from dasmtl_torch.data.device import DeviceDataset
+    from dasmtl_torch.data.sources import ArraySource
+    from dasmtl_torch.train.state import dropout_generator
+    from dasmtl_torch.train.steps import ScanTrainStep
+
+    set_f32_numerics()
+    spec = get_model_spec("multi_classifier")
+    g = torch.Generator().manual_seed(6)
+    src = ArraySource(torch.randn(8, 75, 75, 1, generator=g).numpy(),
+                      torch.randint(0, 16, (8,), generator=g).numpy(),
+                      torch.randint(0, 2, (8,), generator=g).numpy())
+    net = init_scaled(spec.build(), 1).to(cuda)
+    state = TrainState(model=net, optimizer=coupled_adam(net.parameters()),
+                       generator=dropout_generator(0, cuda))
+    scan = ScanTrainStep(spec, DeviceDataset(src, cuda), 4)
+    idx, w = scan.plan(np.arange(8, dtype=np.int32).reshape(2, 4),
+                       np.ones((2, 4), np.float32))
+    seen = []
+    for k in (1, 1, 1, 2, 2):
+        scan(state, idx[:k], w[:k], 1e-3)
+        torch.cuda.synchronize()
+        seen.append(state.generator.get_state())
+    assert scan.captures == 2 and state.step == 7
+    for a, b in zip(seen[1:], seen[2:]):
+        assert not torch.equal(a, b)
+    assert all(torch.isfinite(p).all() for p in net.parameters())
+
+
+def test_cv_dispatch_equals_single_fold_dispatches(cuda):
+    """One ``CVScanTrainStep`` dispatch of 3 folds x 2 steps (fold 2's
+    second step padded) against each fold's own ``ScanTrainStep`` over
+    the same rows, under deterministic algorithms: the one-step
+    tolerances (tests/test_torch_parity.py:286-291) on the parameters and
+    BatchNorm stats, the padded fold's Adam step counters at 1, and 2
+    fold_select launches a step."""
+    from dasmtl_torch.analysis.sanitize.determinism import deterministic
+    from dasmtl_torch.data.device import DeviceDataset
+    from dasmtl_torch.data.sources import ArraySource
+    from dasmtl_torch.ops import fold_select as fs
+    from dasmtl_torch.train.steps import CVScanTrainStep, ScanTrainStep
+
+    set_f32_numerics()
+    spec = get_model_spec("MTL")
+    g = torch.Generator().manual_seed(8)
+    n, b = 24, 8
+    x = torch.randn(n, 52, 64, 1, generator=g).numpy()
+    d = torch.randint(0, 16, (n,), generator=g).numpy()
+    e = torch.randint(0, 2, (n,), generator=g).numpy()
+    idx = np.stack([np.arange(3 * b).reshape(3, b) % n,
+                    (np.arange(3 * b).reshape(3, b) + 5) % n]).astype(
+                        np.int32)  # (k=2, F=3, B)
+    w = np.ones((2, 3, b), np.float32)
+    w[1, 2] = 0.0  # fold 2's second step: no real row
+
+    def states():
+        out = []
+        for _ in range(3):
+            net = init_fresh(spec.build(), seed=0).to(cuda)
+            out.append(TrainState(model=net,
+                                  optimizer=coupled_adam(net.parameters())))
+        return out
+
+    with deterministic("cuda"):
+        data = DeviceDataset(ArraySource(x, d, e), cuda)
+        cv_states = states()
+        cv = CVScanTrainStep(spec, data, b, cv_states)
+        fs.launches.reset()
+        p_idx, p_w = cv.plan(idx, w)
+        cv(cv_states, p_idx[:1], p_w[:1], 1e-3)  # eager warmup + capture
+        cv(cv_states, p_idx[1:], p_w[1:], 1e-3)  # a replay
+        torch.cuda.synchronize()
+        assert fs.launches.value == 4 and cv.captures == 1
+        assert [s.step for s in cv_states] == [2, 2, 1]
+        singles = states()
+        for f, state in enumerate(singles):
+            real = w[:, f].sum(-1) > 0
+            scan = ScanTrainStep(spec, data, b)
+            si, sw = scan.plan(idx[real, f], w[real, f])
+            for s in range(si.shape[0]):
+                scan(state, si[s:s + 1], sw[s:s + 1], 1e-3)
+        torch.cuda.synchronize()
+    for got, want in zip(cv_states, singles):
+        assert got.step == want.step
+        gs, ws = got.model.state_dict(), want.model.state_dict()
+        for k, v in ws.items():
+            tol = (dict(atol=1e-5, rtol=1e-3) if "running" in k else
+                   dict(atol=5e-5, rtol=1e-3))
+            if v.dtype.is_floating_point:
+                torch.testing.assert_close(gs[k], v, **tol)
+            else:
+                assert torch.equal(gs[k], v), k
+    for st in cv_states[2].optimizer.state.values():
+        assert float(st["step"]) == 1.0

@@ -350,7 +350,7 @@ def _noisy_lazy():
     ("over_budget", dict(device_data_budget_mb=0),
      "exceed device_data_budget_mb"),
     ("nan_check", dict(guard_nan_check=True), "forward hooks"),
-    ("model_c", dict(), "item 8")])
+    ("model_c", dict(debug_nans=True), "forward hooks")])
 def test_each_decline_prints_its_notice_and_keeps_the_host_path(
         case, over, notice, tmp_path, capsys):
     train = _noisy_lazy() if case == "lazy_noise" else \
@@ -369,6 +369,16 @@ def test_each_decline_prints_its_notice_and_keeps_the_host_path(
     tr.cfg.device_data = "auto"
     tr._device_data_noticed = False
     assert tr._use_device_data() is False
+    assert "[device-data]" not in capsys.readouterr().out
+
+
+def test_model_c_takes_the_resident_path(tmp_path, capsys):
+    """Model C's training is ported: like models A and B it takes the
+    resident path when forced on, with no notice."""
+    src = ArraySource(*_arrays(8, 1))
+    tr = _trainer(tmp_path, "c", src, src, spec="multi_classifier",
+                  device_data="on")
+    assert tr._use_device_data() is True
     assert "[device-data]" not in capsys.readouterr().out
 
 

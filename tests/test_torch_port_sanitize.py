@@ -11,8 +11,8 @@ counterpart, on the CPU.
   summary keys; the registry counters under JAX's names.
 - (g) the heartbeat's schema and records equal JAX's for the same feed.
 - (h) the train CLI takes the guard, sanitizer, heartbeat and dp flags as
-  JAX parses them, and still exits 2 on ``--sp``, ``--cv_parallel`` and
-  ``--compute_dtype bfloat16``.
+  JAX parses them, and still exits 2 on ``--sp``, ``--cv_parallel`` with
+  ``--dp 2`` and ``--compute_dtype bfloat16``.
 - ``python -m dasmtl_torch.sanitize``: the self-test catches all three
   faults (two gloo ranks); determinism cells repeat bit for bit, dp1 and
   dp2; JAX's cell names, presets and synthetic draws; unported cells exit
@@ -219,7 +219,7 @@ def test_guard_sanitize_heartbeat_and_dp_flags_parse_as_jax():
 
 @pytest.mark.parametrize("argv,item", [
     (["--sp", "2"], "Model C, multi-device training and CV"),
-    (["--cv_parallel"], "Model C, multi-device training and CV"),
+    (["--cv_parallel", "--dp", "2"], "Model C, multi-device training and CV"),
     (["--compute_dtype", "bfloat16"], "item 11")])
 def test_spatial_cv_and_bf16_training_still_exit_2(argv, item, capsys):
     with pytest.raises(SystemExit) as info:
@@ -265,8 +265,8 @@ def test_cells_presets_and_batches_are_jax_s(capsys):
     assert "preset quick: MTL-f32-dp2" in capsys.readouterr().out
     for argv, item in ((["--cells", "MTL-bf16-dp2", "--device", "cpu"],
                         "item 11"),
-                       (["--cells", "multi_classifier-f32-dp1", "--device",
-                         "cpu"], "item 8")):
+                       (["--cells", "multi_classifier-bf16-dp1", "--device",
+                         "cpu"], "item 11")):
         assert runner.main(argv) == 2
         assert item in capsys.readouterr().err
 

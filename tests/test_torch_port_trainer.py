@@ -284,7 +284,8 @@ def test_device_cuda_without_a_card_names_device_cpu(tmp_path):
 @pytest.mark.parametrize("argv, item", [
     (["--sp", "2"], "item 8, 'Model C, multi-device training and CV'"),
     (["--loader_native", "on"], "item 15, 'The native MAT reader'"),
-    (["--cv_parallel"], "item 8, 'Model C, multi-device training and CV'"),
+    (["--cv_parallel", "--dp", "2"],
+     "item 8, 'Model C, multi-device training and CV'"),
     (["--compute_dtype", "bfloat16"], "item 11"),
     (["--profile_dir", "/x"], "item 6, 'Observability endpoints and "
                               "tracing'"),
@@ -333,12 +334,26 @@ def test_flags_at_their_defaults_are_accepted_and_spelled_as_jax():
 
 
 def test_unported_model_family_exits_2(tmp_path, capsys):
-    assert cli.main(["train", "--device", "cpu", "--model",
-                     "multi_classifier", "--output_savedir",
-                     str(tmp_path)]) == 2
-    assert "Model C" in capsys.readouterr().err
-    assert cli.main(["test", "--device", "cpu", "--model",
-                     "multi_classifier", "--model_path", "ckpt",
-                     "--output_savedir", str(tmp_path)]) == 2
-    assert "item 8" in capsys.readouterr().err
+    """Every family now trains, model C included (its train and test
+    entry points run to the end); what model C still lacks, its stream
+    tier, exits 2 naming ROADMAP.md item 10, as unknown commands do."""
+    striking, excavating = make_synthetic_dataset(
+        str(tmp_path / "data"), files_per_category=2, num_categories=2,
+        shape=(75, 75), seed=4)
+    runs = str(tmp_path / "runs")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # one step of InceptionV3 at 75x75
+    try:
+        assert cli.main(["train", "--device", "cpu", "--model",
+                         "multi_classifier", "--batch_size", "4",
+                         "--epoch_num", "1", "--trainVal_set_striking",
+                         striking, "--trainVal_set_excavating", excavating,
+                         "--output_savedir", runs]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    assert "[val epoch 1] task=mixed acc=" in capsys.readouterr().out
+    assert cli.main(["stream", "--record", "r.mat", "--model_path", "ckpt",
+                     "--model", "multi_classifier", "--device",
+                     "cpu"]) == 2
+    assert "item 10" in capsys.readouterr().err
     assert cli.main(["nope"]) == 2 and cli.main([]) == 2
