@@ -168,10 +168,16 @@ Phases, each fatal on failure (no phase catches its own error):
              train state (Adam's state included, NaN payloads / -0.0 /
              +-Inf planted): save, the step's in-place writes, restore,
              bit for bit ``fold_select_plain`` for 5 has_real patterns
-             with and without PDL; then timed: a padded step's save and
-             restore passes (1 of 5 folds padded, rotating) against the
-             bytes bound, a normal step's pass, the plain version and one
-             ``torch.where`` over a flat buffer of one fold's bytes; (b)
+             with and without PDL, eagerly and replayed from a CUDA
+             graph, and so on the ring's edge cases (3,000 tiny leaves,
+             one 2^20 + 3 word leaf, misaligned views, F = 1 and 32); the
+             plan's grid, ring and registers logged; then timed, with
+             ``--parent`` in turns with the parent's kernel: a padded
+             step's save and restore passes (1 of 5 folds padded,
+             rotating) against the bytes bound, a normal step's pass, the
+             plain version, and on operands rotating over 5 sets
+             ``torch._foreach_copy_`` into the snapshot views, a flat
+             ``copy_`` of one fold's bytes and ``torch.where(out=)``; (b)
              one model C train step at 100x250 on ``init_scaled`` weights
              with dropout off, card against CPU at the one-step
              tolerances in f64 (f32 printed), then ``python -m
@@ -188,15 +194,14 @@ Phases, each fatal on failure (no phase catches its own error):
              windows, batch 32) against one fold's resident run, and
              model C's host and resident train steps (1,024 windows).
 
-Then one JSON line lists every kernel of the port (fold_select has no
-parent kernel, so ``--parent`` times it alone), the card's name and
+Then one JSON line lists every kernel of the port, the card's name and
 power limit follow on a line of their own, and the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.  ``--parent DIR`` names a ``git archive`` of the parent commit's
 tree; its gate, window-gather, int8_dot, batch_gather, decode,
-event_prob_q and leaf_digest kernels are then built and timed in turns
-with this tree's (phases 3, 7a, 8a, 9a, 10a).  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
+event_prob_q, leaf_digest and fold_select kernels are then built and
+timed in turns with this tree's (phases 3, 7a, 8a, 9a, 10a, 12a).  ``--profile`` adds ``torch.profiler`` breakdowns of the batch-32
 forward, of one train step and of each preset's forward to the report;
 ``--out`` writes the full report as JSON.
 """
@@ -340,20 +345,20 @@ def _gate_inputs(g, b, shape):
 
 
 #: A ``git archive`` of the parent commit's tree (``--parent``): its gate,
-#: window-gather, int8_dot, batch_gather, decode, event_prob_q and
-#: leaf_digest kernels are timed in turns with this tree's.
+#: window-gather, int8_dot, batch_gather, decode, event_prob_q, leaf_digest
+#: and fold_select kernels are timed in turns with this tree's.
 PARENT = None
 #: The parent's kernel sources, and their C signatures in the parent
 #: commit (``dasmtl_torch/ops/_build.py:SIGNATURES`` there).
 PARENT_SOURCES = ("gating.cu", "window.cu", "int8_dot.cu", "batch_gather.cu",
-                  "decode.cu", "digest.cu")
+                  "decode.cu", "digest.cu", "fold_select.cu")
 
 
 @functools.lru_cache(maxsize=1)
 def _parent_kernels():
     """The parent commit's gate forward, window gather, int8_dot,
-    batch_gather, decode tail, event_prob_q and leaf_digest, built with
-    this tree's
+    batch_gather, decode tail, event_prob_q, leaf_digest and fold_select,
+    built with this tree's
     nvcc flags from ``PARENT/dasmtl_torch/csrc`` and called through their
     own C signatures; None without ``--parent``."""
     import ctypes
@@ -392,7 +397,9 @@ def _parent_kernels():
             ("dasmtl_decode_heads", [P, I, P, I, L, P, P, P, P, P, I, I, I,
                                      I, I, P]),
             ("dasmtl_event_prob_q", [P, I, L, P, I, I, I, P]),
-            ("dasmtl_leaf_digest", [P, I, L, P, P])):
+            ("dasmtl_leaf_digest", [P, I, I, I, P, I, P]),
+            ("dasmtl_fold_select", [P, I, I, I, I, P, L, P, I, I, I, P]),
+            ("dasmtl_fold_select_blocks_per_sm", [P])):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = args
 
@@ -474,33 +481,102 @@ def _parent_kernels():
               "event_prob_q")
         return out
 
-    # The parent's leaf_digest reads a table this tree's wrapper no longer
-    # builds: ptr[L] | words[L] | first_block[L + 1] | kind[L] (int64),
-    # first_block the prefix sum of 4,096-word chunks.  Its entry point
-    # clears `out` with a memset, then launches.
+    # The parent's leaf_digest is PR 10's design, unchanged since: it
+    # reads this tree's work list (ops/digest.py's cached plan) and
+    # launches with PDL.
     def digest_table(leaves):
         from dasmtl_torch.ops import digest
 
-        counts = [t.numel() for t in leaves]
-        first = np.concatenate([[0], np.cumsum(
-            [-(-c // 4096) for c in counts])]).tolist()
-        table = torch.tensor([t.data_ptr() for t in leaves] + counts + first
-                             + [digest.KINDS[t.dtype] for t in leaves],
-                             dtype=torch.int64, device=leaves[0].device)
-        return table, len(leaves), first[-1]
+        table, plan = digest._plans.get(leaves, stream())
+        return table, len(plan.items), plan.small, len(leaves)
 
-    def leaf_digest(table, n, blocks):
+    def leaf_digest(table, items, small, n):
         out = torch.empty(n, dtype=torch.int32, device=table.device)
-        check(lib.dasmtl_leaf_digest(table.data_ptr(), n, blocks,
-                                     out.data_ptr(), stream()),
+        check(lib.dasmtl_leaf_digest(table.data_ptr(), items, small, n,
+                                     out.data_ptr(), 1, stream()),
               "leaf_digest")
         return out
+
+    # A parent fold_select with head records (PR 13 on) reads this tree's
+    # work list, sized by its own occupancy; PR 12's reads the list of its
+    # select_plan (_parent_select_plan): its records, then the (F, L)
+    # pointer table.  The snapshot layout is the same.
+    with open(os.path.join(csrc, "fold_select.cu"), encoding="utf-8") as f:
+        heads = "kHead" in f.read()
+
+    def select_table(folds):
+        from dasmtl_torch.ops import fold_select as fs
+
+        per_sm = ctypes.c_int(0)
+        check(lib.dasmtl_fold_select_blocks_per_sm(ctypes.byref(per_sm)),
+              "fold_select occupancy")
+        ptrs = [[t.data_ptr() for t in leaves] for leaves in folds]
+        nbytes = [t.numel() * t.element_size() for t in folds[0]]
+        sms = sm_count(folds[0][0].device)
+        if heads:
+            plan = fs.select_plan(nbytes, ptrs, sms, max(1, per_sm.value))
+            parts, third = [plan.items, plan.spans, plan.heads,
+                            plan.head_addrs], plan.blocks
+            items = plan.items
+        else:
+            items, third = _parent_select_plan(nbytes, ptrs, sms,
+                                               max(1, per_sm.value))
+            parts = [items]
+        host = np.concatenate([a.reshape(-1).view(np.uint8) for a in parts]
+                              + [np.asarray(ptrs, np.uint64).reshape(-1)
+                                 .view(np.uint8)])
+        table = torch.from_numpy(host).to(folds[0][0].device)
+        return table, len(items), third, len(folds), len(folds[0])
+
+    def fold_select(tab, snapshot, stride, w, restore, pdl):
+        table, items, third, n_folds, n_leaves = tab
+        check(lib.dasmtl_fold_select(
+            table.data_ptr(), items, third, n_folds, n_leaves,
+            snapshot.data_ptr(), stride, w.data_ptr(), w.shape[1],
+            int(restore), int(pdl), stream()), "fold_select")
 
     log(f"[parent] built {', '.join(PARENT_SOURCES)} of {PARENT}")
     return {"gate": gate, "window_gather": gather, "int8_dot": int8_dot,
             "batch_gather": batch_gather, "decode_heads": decode_heads,
             "event_prob_q": event_prob_q, "digest_table": digest_table,
-            "leaf_digest": leaf_digest}
+            "leaf_digest": leaf_digest, "select_table": select_table,
+            "fold_select": fold_select}
+
+
+def _parent_select_plan(nbytes, ptrs, sms, per_sm):
+    """PR 12's fold_select work list (its ops/fold_select.py:select_plan):
+    leaves over 2 KB cut into items of about equal bytes, multiples of
+    16, at least 16 KB, so that the grid is at most one wave; the leaves
+    of at most 2 KB whole after them, 8 to a block.  Its records and the
+    count of small leaves."""
+    from dasmtl_torch.ops.fold_select import ITEM
+
+    def up16(n):
+        return -(-n // 16) * 16
+
+    offsets, at = [], 0
+    for n in nbytes:
+        offsets.append(at)
+        at += up16(int(n))
+    vec = [all(p[l] % 16 == 0 for p in ptrs) for l in range(len(nbytes))]
+    small = [l for l, n in enumerate(nbytes) if 0 < n <= 2048]
+    rest = [l for l, n in enumerate(nbytes) if n > 2048]
+    budget = max(1, sms * per_sm - -(-len(small) // 8))
+    sizes = np.asarray([nbytes[l] for l in rest], np.int64)
+    target = 4 * 16 * 256
+    while int(np.maximum(1, sizes // target).sum()) > budget:
+        target *= 2
+    rows = []
+    for l in rest:
+        n = int(nbytes[l])
+        parts = max(1, n // target)
+        per = up16(-(-n // parts))
+        for begin in range(0, n, per):
+            rows.append((begin, offsets[l] + begin, min(per, n - begin), l,
+                         int(vec[l]), 0))
+    rows += [(0, offsets[l], int(nbytes[l]), l, int(vec[l]), 0)
+             for l in small]
+    return np.array(rows, dtype=ITEM), len(small)
 
 
 def _in_turns(fns: dict, order) -> dict:
@@ -4234,18 +4310,162 @@ def _fold_weights(pattern) -> torch.Tensor:
     return w
 
 
+def _select_check(live, old, new, w, snapshot, tag, pdl, graph=None):
+    """Save, the step's in-place writes, restore (eagerly, or by replaying
+    ``graph``, which captured them around ``live`` and the static weights
+    ``w``): every leaf bit for bit ``fold_select_plain``, one launch a
+    pass."""
+    from dasmtl_torch.ops import fold_select as fs
+
+    for leaves, src in zip(live, old):
+        torch._foreach_copy_(leaves, src)
+    before = fs.launches.value
+    if graph is None:
+        fs.launch(live, snapshot, w, restore=False, pdl=pdl)
+        for leaves, src in zip(live, new):
+            torch._foreach_copy_(leaves, src)
+        fs.launch(live, snapshot, w, restore=True, pdl=pdl)
+    else:
+        graph.replay()
+    want = fs.fold_select_plain(new, old, w)
+    torch.cuda.synchronize()
+    if graph is None and fs.launches.value - before != 2:
+        raise AssertionError("fold_select: not one launch a pass")
+    for f in range(len(live)):
+        for i, (a, b) in enumerate(zip(live[f], want[f])):
+            if not torch.equal(_leaf_bits(a), _leaf_bits(b)):
+                raise AssertionError(
+                    f"fold_select != plain: {tag}, fold {f} leaf {i} "
+                    f"({a.dtype}, {a.numel()}), pdl {pdl}"
+                    f"{', graph replay' if graph is not None else ''}")
+
+
+def _select_graph(live, old, new, snapshot, patterns, tag, pdl):
+    """Both passes captured in one CUDA graph around the in-place step,
+    replayed once for each pattern written into the static weights."""
+    from dasmtl_torch.ops import fold_select as fs
+
+    w = _fold_weights(patterns[0])
+
+    def passes():
+        fs.launch(live, snapshot, w, restore=False, pdl=pdl)
+        for leaves, src in zip(live, new):
+            torch._foreach_copy_(leaves, src)
+        fs.launch(live, snapshot, w, restore=True, pdl=pdl)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        passes()  # the capture stream's plan, built eagerly
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = fs.launches.value
+    with torch.cuda.graph(graph, stream=stream):
+        passes()
+    if fs.launches.value - before != 2:
+        raise AssertionError("fold_select: not one launch a pass captured")
+    for pattern in patterns:
+        w.copy_(_fold_weights(pattern))
+        _select_check(live, old, new, w, snapshot, tag, pdl, graph=graph)
+    del graph
+
+
+def _select_shape_leaves(case, f, shift):
+    """Fold ``f``'s leaves for the ring's edge cases (the card tests'
+    ``_shape_leaves``): 3,000 one-word leaves; one leaf of 2^20 + 3 words;
+    views 4 and 8 bytes into their bases; a few leaves with a 20 KB leaf
+    and a 12-byte tail."""
+    g = torch.Generator(device=DEV).manual_seed(1000 * shift + f)
+
+    def randn(n):
+        return torch.randn(n, device=DEV, generator=g)
+
+    if case == "tiny":
+        return [randn(1) for _ in range(3000)]
+    if case == "big":
+        return [randn(2 ** 20 + 3)]
+    if case == "misaligned":
+        out = []
+        for n, off in ((70_000, 1), (5000, 2), (300, 1), (70_000, 0)):
+            base = torch.zeros(n + 4, device=DEV)
+            base[off:off + n] = randn(n)
+            out.append(base[off:off + n])
+        return out
+    head = randn(5000)
+    head[:4] = torch.tensor([float("nan"), -0.0, float("inf"),
+                             float("-inf")], device=DEV)
+    head[:1].view(torch.int32).bitwise_or_(f + 1)
+    return [head, randn(1027), randn(7),
+            torch.full((1,), 2 ** 40 + f, dtype=torch.int64, device=DEV)]
+
+
+#: The ring's edge cases phase 12a holds bit for bit: a case, its folds.
+SELECT_SHAPES = (("tiny", 5), ("big", 2), ("misaligned", 3), ("folds", 1),
+                 ("folds", 32))
+
+
+def _select_shapes():
+    """Every edge case with and without PDL, eagerly and from a graph."""
+    from dasmtl_torch.ops import fold_select as fs
+
+    for case, n_folds in SELECT_SHAPES:
+        live = [_select_shape_leaves(case, f, 0) for f in range(n_folds)]
+        old = [[t.clone() for t in leaves] for leaves in live]
+        new = [_select_shape_leaves(case, f, 1) for f in range(n_folds)]
+        snapshot = torch.empty(n_folds * fs.snapshot_bytes(live[0]),
+                               dtype=torch.uint8, device=DEV)
+        patterns = [tuple((f + k) % 3 != 0 for f in range(n_folds))
+                    for k in range(3)] + [(False,) * n_folds]
+        tag = f"{case}, F = {n_folds}"
+        for pdl in (True, False):
+            for pattern in patterns:
+                _select_check(live, old, new, _fold_weights(pattern),
+                              snapshot, tag, pdl)
+            _select_graph(live, old, new, snapshot, patterns, tag, pdl)
+        del live, old, new, snapshot
+    log(f"[cv] fold_select == plain bit for bit on the ring's edge cases "
+        f"{[f'{c} F={n}' for c, n in SELECT_SHAPES]}, 4 patterns each, "
+        f"with and without PDL, eagerly and replayed from a CUDA graph")
+
+
+def _kernel_registers(kernel: str) -> str:
+    """``-Xptxas -v``'s line for ``kernel`` in this run's build, or what
+    kept it from being read."""
+    from dasmtl_torch.ops import _build
+
+    lines = _build.build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for nxt in lines[i + 1:i + 4]:
+                if "Used" in nxt and "registers" in nxt:
+                    return nxt.split(":", 1)[1].strip()
+    return "not read (the library was already built)" if not lines else \
+        "not found in the ptxas report"
+
+
+#: fold_select's turns: the parent's kernel and this tree's, with and
+#: without PDL, each timed twice.
+SELECT_TURNS = ("parent", "new", "parent_no_pdl", "no_pdl", "no_pdl",
+                "parent_no_pdl", "new", "parent")
+
+
 def _fold_select_kernel(peaks):
     """(a) fold_select over 5 folds of model A's full-width train state
     (694 leaves each, Adam's state included): save, the step's in-place
     writes, restore, bit for bit ``fold_select_plain`` with NaN payloads,
-    -0.0 and +-Inf planted, every pattern with and without PDL; then a
-    normal step's pass and a padded step's passes timed against the bytes
-    bound, the plain version and one ``torch.where`` over a flat buffer of
-    one fold's bytes."""
+    -0.0 and +-Inf planted, every pattern with and without PDL, eagerly
+    and replayed from a CUDA graph, then the ring's edge cases; then a
+    normal step's pass and a padded step's save and restore passes timed
+    (with ``--parent`` in turns with the parent's kernel, with and without
+    PDL) against the bytes bound, the plain version and three library
+    calls on rotating operands: ``torch._foreach_copy_`` of the padded
+    fold's leaves into their snapshot views, a flat ``copy_`` of one
+    fold's bytes and ``torch.where(out=)``."""
     from dasmtl_torch.config import Config
     from dasmtl_torch.main import build_state
     from dasmtl_torch.models.registry import get_model_spec
     from dasmtl_torch.ops import fold_select as fs
+    from dasmtl_torch.ops import sm_count
     from dasmtl_torch.train.optim import ensure_adam_state
     from dasmtl_torch.train.steps import state_leaves
 
@@ -4282,32 +4502,32 @@ def _fold_select_kernel(peaks):
                 (False, True, False, True, False), (False,) * 5)
     for pdl in (True, False):
         for pattern in patterns:
-            w = _fold_weights(pattern)
-            for leaves, src in zip(live, old):
-                torch._foreach_copy_(leaves, src)
-            before = fs.launches.value
-            fs.launch(live, snapshot, w, restore=False, pdl=pdl)
-            for leaves, src in zip(live, new):
-                torch._foreach_copy_(leaves, src)
-            fs.launch(live, snapshot, w, restore=True, pdl=pdl)
-            want = fs.fold_select_plain(new, old, w)
-            torch.cuda.synchronize()
-            if fs.launches.value - before != 2:
-                raise AssertionError("fold_select: not one launch a pass")
-            for f in range(CV_FOLDS):
-                for i, (a, b) in enumerate(zip(live[f], want[f])):
-                    if not torch.equal(_leaf_bits(a), _leaf_bits(b)):
-                        raise AssertionError(
-                            f"fold_select != plain: fold {f} leaf {i} "
-                            f"({a.dtype}, {a.numel()}), pattern {pattern}, "
-                            f"pdl {pdl}")
+            _select_check(live, old, new, _fold_weights(pattern), snapshot,
+                          "model A's state", pdl)
+        _select_graph(live, old, new, snapshot, patterns, "model A's state",
+                      pdl)
     plan = fs._plans.get(live, torch.cuda.current_stream().cuda_stream)[1]
+    sp = plan.spans
+    geometry = {
+        "grid": plan.blocks, "sms": sm_count(torch.device(DEV)),
+        "blocks_per_sm": fs.blocks_per_sm(torch.device(DEV)),
+        "chunk": fs.CHUNK, "stages": fs.STAGES,
+        "dynamic_smem": fs.RING_BYTES, "records": len(plan.items),
+        "bulk_chunks": int((sp["thread"] - sp["bulk"]).sum()),
+        "thread_pieces": int((sp["end"] - sp["thread"]).sum()),
+        "registers": _kernel_registers("fold_select_kernel")}
     log(f"[cv] fold_select == plain bit for bit on 5 folds x "
         f"{len(live[0])} leaves of model A's train state, NaN payloads / "
         f"-0.0 / +-Inf planted, patterns "
         f"{[''.join('R' if r else 'p' for r in p) for p in patterns]}, with "
-        f"and without PDL; {plan.blocks} blocks ({len(plan.items)} items, "
-        f"{plan.small} small leaves)")
+        f"and without PDL, eagerly and replayed from a CUDA graph; plan: "
+        f"grid {geometry['grid']} ({geometry['sms']} SMs x "
+        f"{geometry['blocks_per_sm']}), ring {fs.STAGES} x {fs.CHUNK} B "
+        f"({fs.RING_BYTES} B dynamic shared memory a block), "
+        f"{geometry['bulk_chunks']} bulk chunks + "
+        f"{geometry['thread_pieces']} thread pieces; ptxas: "
+        f"{geometry['registers']}")
+    _select_shapes()
     # Timing: a normal step's pass (every fold real: no state byte moves)
     # and a padded step's save and restore passes (one fold of 5 padded,
     # the padded fold rotating so that 5 x 27 MB pass through the 50 MB
@@ -4318,27 +4538,82 @@ def _fold_select_kernel(peaks):
     real_w = _fold_weights((True,) * CV_FOLDS)
     pads = [(_fold_weights(tuple(f != p for f in range(CV_FOLDS))),)
             for p in range(CV_FOLDS)]
-
-    def run(restore, pdl):
-        return lambda w: fs.launch(live, snapshot, w, restore=restore,
-                                   pdl=pdl)
-
-    k = {"normal_ms": device_ms(lambda: run(False, True)(real_w), inner=20),
-         "normal_no_pdl_ms": device_ms(lambda: run(False, False)(real_w),
-                                       inner=20),
-         "ms": device_ms(_rotating(pads, run(False, True)), inner=10),
-         "no_pdl_ms": device_ms(_rotating(pads, run(False, False)),
-                                inner=10),
-         "restore_ms": device_ms(_rotating(pads, run(True, True)), inner=10),
-         "plain_ms": device_ms(_rotating(pads, lambda w:
-                                         fs.fold_select_plain(live, old, w)),
-                               inner=2, reps=10)}
-    # Rotating over 5 pairs of flat buffers, as the kernel rotates folds.
-    cond = torch.zeros((), dtype=torch.bool, device=DEV)
-    flat = [(cond, torch.empty(state_bytes // 4, device=DEV),
-             torch.empty(state_bytes // 4, device=DEV))
+    parent = _parent_kernels()
+    launchers = {"new": lambda w, restore: fs.launch(
+                     live, snapshot, w, restore=restore, pdl=True),
+                 "no_pdl": lambda w, restore: fs.launch(
+                     live, snapshot, w, restore=restore, pdl=False)}
+    if parent is not None:
+        tab = parent["select_table"](live)
+        stride = fs.snapshot_bytes(live[0])
+        for name, pdl in (("parent", True), ("parent_no_pdl", False)):
+            launchers[name] = (
+                lambda w, restore, pdl=pdl: parent["fold_select"](
+                    tab, snapshot, stride, w, restore, pdl))
+        for pattern in patterns:  # the parent's kernel is right too
+            w = _fold_weights(pattern)
+            for leaves, src in zip(live, old):
+                torch._foreach_copy_(leaves, src)
+            launchers["parent"](w, False)
+            for leaves, src in zip(live, new):
+                torch._foreach_copy_(leaves, src)
+            launchers["parent"](w, True)
+            want = fs.fold_select_plain(new, old, w)
+            torch.cuda.synchronize()
+            for a, b in zip(sum(live, []), sum(want, [])):
+                if not torch.equal(_leaf_bits(a), _leaf_bits(b)):
+                    raise AssertionError("the parent's fold_select != plain")
+        for leaves, src in zip(live, old):
+            torch._foreach_copy_(leaves, src)
+    k = {"geometry": geometry}
+    for tag, sets, restore, inner in (("save", pads, False, 10),
+                                      ("restore", pads, True, 10),
+                                      ("normal", [(real_w,)], False, 20)):
+        turns = _in_turns(
+            {n: (lambda fn=fn: device_ms(_rotating(
+                sets, lambda w, fn=fn: fn(w, restore)), inner=inner))
+             for n, fn in launchers.items()}, SELECT_TURNS)
+        k[f"{tag}_turns_ms"] = turns
+        for n, t in turns.items():
+            k[f"{tag}_{n}_ms"] = statistics.mean(t)
+    k["ms"], k["no_pdl_ms"] = k["save_new_ms"], k["save_no_pdl_ms"]
+    k["restore_ms"], k["normal_ms"] = k["restore_new_ms"], k["normal_new_ms"]
+    k["plain_ms"] = device_ms(_rotating(pads, lambda w: fs.fold_select_plain(
+        live, old, w)), inner=2, reps=10)
+    # The library calls, every operand rotating over 5 sets so that the
+    # writes reach DRAM as the kernel's do (5 x 27 MB > the 50 MB L2).
+    stride = fs.snapshot_bytes(live[0])
+    views = []
+    for f in range(CV_FOLDS):
+        views.append([snapshot[f * stride + o:f * stride + o +
+                               t.numel() * t.element_size()]
+                      .view(t.dtype).view(t.shape)
+                      for t, o in zip(live[f], plan.offsets)])
+    lib = {"foreach_copy_ms": device_ms(_rotating(
+        list(zip(views, live)), torch._foreach_copy_), inner=10)}
+    del views
+    flat = [(torch.empty(state_bytes, dtype=torch.uint8, device=DEV),
+             torch.empty(state_bytes, dtype=torch.uint8, device=DEV))
             for _ in range(CV_FOLDS)]
-    k["library_ms"] = device_ms(_rotating(flat, torch.where), inner=10)
+    lib["flat_copy_ms"] = device_ms(_rotating(
+        flat, lambda dst, src: dst.copy_(src)), inner=10)
+    del flat
+    cond = torch.zeros((), dtype=torch.bool, device=DEV)
+    quads = [tuple(torch.empty(state_bytes // 4, device=DEV)
+                   for _ in range(3)) for _ in range(CV_FOLDS)]
+    lib["where_out_ms"] = device_ms(_rotating(
+        quads, lambda a, b, o: torch.where(cond, a, b, out=o)), inner=10)
+    # PR 12's yardstick, kept to show the correction: no out=, so the
+    # allocator hands every call the block the last result freed and all
+    # the writes land on one 13.65 MB buffer, partly in L2.
+    lib["where_l2_ms"] = device_ms(_rotating(
+        [(cond, a, b) for a, b, _ in quads], torch.where), inner=10)
+    del quads
+    k.update(lib)
+    like = {"torch._foreach_copy_": lib["foreach_copy_ms"],
+            "flat copy_": lib["flat_copy_ms"]}
+    k["library_call"] = min(like, key=like.get)
+    k["library_ms"] = like[k["library_call"]]
     weights_bytes = CV_FOLDS * CV_BATCH * 4
     nbytes = 2 * state_bytes + weights_bytes
     k["bytes"], k["state_bytes"] = nbytes, state_bytes
@@ -4347,18 +4622,28 @@ def _fold_select_kernel(peaks):
     k["max_abs_err"] = 0.0
     k["unit"] = ("1 launch, the save pass of a padded step: 1 of 5 folds "
                  "padded, model A's state")
+
+    def turns(tag):
+        return ", ".join(
+            f"{n} {_us(k.get(f'{tag}_{n}_ms'))} "
+            f"{[round(t * 1e3, 2) for t in k[f'{tag}_turns_ms'].get(n, [])]}"
+            for n in ("new", "no_pdl", "parent", "parent_no_pdl"))
+
     log(f"[cv] fold_select, model A's state ({state_bytes / 1e6:.2f} MB a "
-        f"fold): padded step's save pass {k['ms'] * 1e3:.2f} us (without PDL "
-        f"{k['no_pdl_ms'] * 1e3:.2f}), restore pass "
-        f"{k['restore_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.2f} us "
-        f"({k['bound_by']}, {nbytes / 1e6:.2f} MB); a normal step's pass "
-        f"{k['normal_ms'] * 1e3:.2f} us (without PDL "
-        f"{k['normal_no_pdl_ms'] * 1e3:.2f}, bound "
-        f"{k['normal_bound_ms'] * 1e3:.4f}); plain (torch.where per leaf, "
-        f"5 folds) {k['plain_ms'] * 1e3:.2f} us; library (one torch.where "
-        f"over two {state_bytes / 1e6:.2f} MB buffers, 5 pairs rotating) "
-        f"{k['library_ms'] * 1e3:.2f} us")
-    del live, old, new, snapshot, flat, states
+        f"fold), bound {_us(k['bound_ms'])} ({k['bound_by']}, "
+        f"{nbytes / 1e6:.2f} MB), normal bound "
+        f"{k['normal_bound_ms'] * 1e3:.4f} us; in turns: padded step's save "
+        f"pass {turns('save')}; restore pass {turns('restore')}; a normal "
+        f"step's pass {turns('normal')}; plain (torch.where per leaf, 5 "
+        f"folds) {_us(k['plain_ms'])}; library, every operand rotating over "
+        f"5 sets: torch._foreach_copy_ of the padded fold's {len(live[0])} "
+        f"leaves into their snapshot views {_us(lib['foreach_copy_ms'])}, "
+        f"flat copy_ of {state_bytes / 1e6:.2f} MB "
+        f"{_us(lib['flat_copy_ms'])}, torch.where(out=) "
+        f"{_us(lib['where_out_ms'])}; PR 12's torch.where without out= "
+        f"(writes partly from L2) {_us(lib['where_l2_ms'])}; fastest "
+        f"like-for-like: {k['library_call']}")
+    del live, old, new, snapshot, states
     torch.cuda.empty_cache()
     return k
 
@@ -4642,8 +4927,8 @@ def main(argv=None) -> int:
     p.add_argument("--parent", default=None,
                    help="a git archive of the parent commit's tree: time "
                         "its gate, window gather, int8_dot, batch_gather, "
-                        "decode tail, event_prob_q and leaf_digest in "
-                        "turns with these")
+                        "decode tail, event_prob_q, leaf_digest and "
+                        "fold_select in turns with these")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "

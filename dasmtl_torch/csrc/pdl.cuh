@@ -24,22 +24,30 @@ __device__ __forceinline__ void allow_next_grid() {
   asm volatile("griddepcontrol.launch_dependents;");
 }
 
-// kernel<<<grid, threads, 0, stream>>>(args...), with programmatic stream
-// serialization when `pdl`; the launch's cudaError_t.
+// kernel<<<grid, threads, smem, stream>>>(args...), with programmatic
+// stream serialization when `pdl`; the launch's cudaError_t.
 template <typename... Params, typename... Args>
-cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, int threads,
-                       cudaStream_t stream, bool pdl, Args... args) {
+cudaError_t launch_pdl_smem(void (*kernel)(Params...), dim3 grid,
+                            int threads, int smem, cudaStream_t stream,
+                            bool pdl, Args... args) {
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(static_cast<unsigned>(threads));
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = pdl ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// The same with no dynamic shared memory.
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, int threads,
+                       cudaStream_t stream, bool pdl, Args... args) {
+  return launch_pdl_smem(kernel, grid, threads, 0, stream, pdl, args...);
 }
 
 }  // namespace dasmtl_pdl

@@ -18,19 +18,21 @@ CVScanTrainStep` (:class:`FoldSelect`): ``save`` copies the state of
 every fold with no real row into a snapshot, ``restore`` writes it back.
 On the card each pass is ONE launch of ``csrc/fold_select.cu`` that reads
 ``has_real`` from the step's weights on the card; a fold with a real row
-moves no byte.  The launch works through a list of 32-byte records built
-here on the host (:func:`select_plan`: one fold's layout, large leaves cut
-into items of about equal bytes, small leaves packed eight to a block)
-and cached on the card with the folds' pointer table
-(:class:`_Plans`), so a captured graph replays it.  On the CPU the
-passes take the plain version: a snapshot copy and
-:func:`fold_select_plain`.
+moves no byte.  The launch is a persistent grid (the blocks resident at
+the kernel's shared-memory ring) that works through a list of 32-byte
+records built here on the host (:func:`select_plan`: one fold's bytes cut
+into bulk chunks, which go through the ring by TMA bulk copies, and
+thread pieces, dealt out so that every block has an equal share) and
+cached on the card with the folds' pointer table (:class:`_Plans`), so a
+captured graph replays it.  On the CPU the passes take the plain version:
+a snapshot copy and :func:`fold_select_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import threading
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
@@ -63,31 +65,53 @@ def fold_select_plain(new: Sequence[Leaves], old: Sequence[Leaves],
 
 
 # -- the kernel's work list ---------------------------------------------------
-#: One record (``csrc/fold_select.cu`` ``Item``): the item's first byte in
-#: its leaf, its first byte in a fold's snapshot slice, its bytes, the
-#: leaf's column in the pointer table, ``mode`` (bit 0: 16-byte branch).
+#: One record (``csrc/fold_select.cu`` ``Item``), a piece of one leaf: its
+#: first byte in the leaf (``begin``), its first byte in a fold's snapshot
+#: slice (``snap``), its bytes (``count``), the leaf's column in the
+#: pointer table (``leaf``) and ``mode`` (bit 0: 16-byte aligned in every
+#: fold).  A block's records are its bulk chunks of at most :data:`CHUNK`
+#: bytes (16-byte aligned, multiples of 16), which warp 0 streams through
+#: the shared-memory ring, then its thread pieces, one a thread of warps
+#: 1-7 (tails, small leaves, misaligned leaves).
 ITEM = np.dtype([("begin", "<i8"), ("snap", "<i8"), ("count", "<i4"),
                  ("leaf", "<i4"), ("mode", "<i4"), ("pad", "<i4")])
-#: Threads per block, and the warps (small leaves) of a packed block.
+#: One a block (``csrc/fold_select.cu`` int4 span): its bulk chunks are
+#: records ``[bulk, thread)``, its thread pieces ``[thread, end)``.
+SPAN = np.dtype([("bulk", "<i4"), ("thread", "<i4"), ("end", "<i4"),
+                 ("pad", "<i4")])
+#: Head records a block (``kHead``): copies of its first bulk chunks
+#: (``count`` 0 past the last), each with its state address in every fold,
+#: which warp 0 loads before it waits for the grid before it.
+HEAD = 8
+#: Threads per block; warp 0 drives the ring, the other warps the pieces.
 THREADS = 256
-WARPS = THREADS // 32
-#: Most bytes of a small leaf, copied whole by one warp.
+#: The ring (``kChunk``, ``kStages`` in the kernel): bytes of a slot, the
+#: slots, and the dynamic shared memory they take.
+CHUNK = 16384
+STAGES = 12
+RING_BYTES = CHUNK * STAGES
+#: Most bytes of a leaf that takes the thread path whole.
 SMALL = 2048
-#: Fewest bytes of a block item: four 16-byte loads per thread.
-MIN_ITEM_BYTES = 4 * 16 * THREADS
-#: Resident blocks per SM when no card says otherwise (2,048 threads).
-PER_SM = 2048 // THREADS
+#: Most bytes of a thread piece: 16 16-byte units, or 64 single bytes
+#: where the leaf is misaligned in some fold.
+PIECE, PIECE_BYTES = 256, 64
+#: Resident blocks per SM when no card says otherwise (one ring an SM).
+PER_SM = 1
 #: Most folds one launch takes (the kernel's bit mask).
 MAX_FOLDS = 32
 
 
 class SelectPlan(NamedTuple):
-    """One fold's work: ``items`` (ITEM records, the block items first,
-    then the ``small`` leaves, one a warp), the grid's ``blocks``, each
-    leaf's byte offset in a snapshot slice (``offsets``) and the slice's
-    bytes (``stride``)."""
+    """One fold's work: ``items`` (ITEM records, block by block), one
+    ``spans`` entry (SPAN) a block of the persistent grid of ``blocks``,
+    :data:`HEAD` ``heads`` a block (ITEM) with their state addresses in
+    each fold (``head_addrs``, uint64 ``(blocks * HEAD, F)``), each leaf's
+    byte offset in a snapshot slice (``offsets``) and the slice's bytes
+    (``stride``)."""
     items: np.ndarray
-    small: int
+    spans: np.ndarray
+    heads: np.ndarray
+    head_addrs: np.ndarray
     blocks: int
     offsets: Tuple[int, ...]
     stride: int
@@ -97,6 +121,10 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def _pieces(begin: int, end: int, step: int):
+    return [(a, min(step, end - a)) for a in range(begin, end, step)]
+
+
 def select_plan(nbytes: Sequence[int], ptrs: Sequence[Sequence[int]],
                 sms: int, per_sm: int = PER_SM) -> SelectPlan:
     """The kernel's work list for leaves of ``nbytes`` bytes whose
@@ -104,47 +132,78 @@ def select_plan(nbytes: Sequence[int], ptrs: Sequence[Sequence[int]],
     holds ``per_sm`` of its blocks each.
 
     - Each leaf gets a 16-byte-aligned slice of a fold's snapshot, in leaf
-      order; empty leaves get no item.
-    - Small leaves (at most :data:`SMALL` bytes) are copied whole, one warp
-      a leaf, :data:`WARPS` to a block.
-    - The other leaves are cut into items of about equal bytes, multiples
-      of 16, at least :data:`MIN_ITEM_BYTES`, so that the grid is at most
-      one wave of ``sms * per_sm`` blocks (it may be smaller).
-    - An item takes the 16-byte branch when its leaf's address is 16-byte
-      aligned in every fold, else the byte branch.
+      order; empty leaves get no record.
+    - A leaf of more than :data:`SMALL` bytes that is 16-byte aligned in
+      every fold is cut into bulk chunks of :data:`CHUNK` bytes (the last
+      one shorter, a multiple of 16) and a thread piece of its last
+      ``count % 16`` bytes.  Every other leaf is cut into thread pieces of
+      :data:`PIECE` bytes (:data:`PIECE_BYTES` when it is misaligned in
+      some fold).
+    - The grid is ``sms * per_sm`` blocks.  The chunks, leaf after leaf,
+      are dealt out one at a time, each to the block with the fewest
+      bytes so far (the lowest index on a tie), then the pieces likewise:
+      so every block's bytes are within one chunk of the mean, and the
+      blocks' n-th chunks lie side by side in memory, one sweep over the
+      state that the card's memory serves faster than a contiguous range
+      a block.
+    - Each block's first :data:`HEAD` bulk chunks are copied into its head
+      records, with their state addresses in every fold.
     """
     offsets, at = [], 0
     for n in nbytes:
         offsets.append(at)
         at += _align16(int(n))
     vec = [all(p[l] % 16 == 0 for p in ptrs) for l in range(len(nbytes))]
-    small = [l for l, n in enumerate(nbytes) if 0 < n <= SMALL]
-    rest = [l for l, n in enumerate(nbytes) if n > SMALL]
-    budget = max(1, sms * per_sm - -(-len(small) // WARPS))
-    sizes = np.asarray([nbytes[l] for l in rest], np.int64)
-    target = MIN_ITEM_BYTES
-    while int(np.maximum(1, sizes // target).sum()) > budget:
-        target *= 2
-    rows = []
-    for l in rest:
-        n = int(nbytes[l])
-        parts = max(1, n // target)
-        per = _align16(-(-n // parts))
-        for begin in range(0, n, per):
-            rows.append((begin, offsets[l] + begin, min(per, n - begin), l,
-                         int(vec[l]), 0))
-    big = len(rows)
-    rows += [(0, offsets[l], int(nbytes[l]), l, int(vec[l]), 0)
-             for l in small]
+    blocks = max(1, sms * per_sm)
+    load = [(0, b) for b in range(blocks)]  # a heap of (bytes, block)
+    bulk = [[] for _ in range(blocks)]
+    thread = [[] for _ in range(blocks)]
+
+    def deal(unit, to):
+        got, b = heapq.heappop(load)
+        to[b].append(unit)
+        heapq.heappush(load, (got + unit[1], b))
+
+    pieces = []
+    for l, n in enumerate(int(n) for n in nbytes):
+        if vec[l] and n > SMALL:
+            body = n // 16 * 16
+            for o, c in _pieces(0, body, CHUNK):
+                deal((o, c, l, 1), bulk)
+            if n > body:
+                pieces.append((body, n - body, l, 1))
+        else:
+            pieces += [(o, c, l, int(vec[l])) for o, c in
+                       _pieces(0, n, PIECE if vec[l] else PIECE_BYTES)]
+    for piece in pieces:
+        deal(piece, thread)
+    rows, spans = [], []
+    for b in range(blocks):
+        first = len(rows)
+        rows += [(o, offsets[l] + o, c, l, m, 0)
+                 for o, c, l, m in bulk[b] + thread[b]]
+        spans.append((first, first + len(bulk[b]), len(rows), 0))
     items = np.array(rows, dtype=ITEM)
-    return SelectPlan(items, len(small), big + -(-len(small) // WARPS),
-                      tuple(offsets), at)
+    spans = np.array(spans, dtype=SPAN)
+    heads = np.zeros(blocks * HEAD, dtype=ITEM)
+    head_addrs = np.zeros((blocks * HEAD, len(ptrs)), np.uint64)
+    table = np.asarray(ptrs, np.uint64).reshape(len(ptrs), -1)
+    for b, (first, bulk_end, _, _) in enumerate(spans):
+        n = min(HEAD, int(bulk_end - first))
+        head = items[first:first + n]
+        heads[b * HEAD:b * HEAD + n] = head
+        head_addrs[b * HEAD:b * HEAD + n] = (
+            table[:, head["leaf"]] + head["begin"].astype(np.uint64)).T
+    return SelectPlan(items, spans, heads, head_addrs, blocks, tuple(offsets),
+                      at)
 
 
 @functools.lru_cache(maxsize=None)
 def blocks_per_sm(device: torch.device) -> int:
-    """The kernel's resident blocks per SM on ``device``, asked of the
-    occupancy API once."""
+    """The kernel's resident blocks per SM on ``device`` at its ring's
+    :data:`RING_BYTES` of dynamic shared memory, asked of the occupancy
+    API once (which also allows the kernel that shared memory, before any
+    capture)."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
         _build.check_launch(
@@ -158,10 +217,10 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 class _Plans:
-    """Work lists on the card, each followed by its folds' pointer table,
-    kept while the leaves' pointers, sizes and dtypes stay the same (a
-    train state updated in place), so a pass copies nothing to the card
-    once the state has settled and a CUDA graph replays the table it
+    """Work lists on the card (records, spans, head records and their
+    addresses, then the folds' pointer table), kept while the leaves' pointers, sizes and dtypes stay the
+    same (a train state updated in place), so a pass copies nothing to the
+    card once the state has settled and a CUDA graph replays the table it
     captured.  Keyed by device and stream as well.  The newest ``KEEP``
     plans are kept; :attr:`builds` counts the plans built."""
 
@@ -187,9 +246,11 @@ class _Plans:
         plan = select_plan([_nbytes(t) for t in folds[0]], ptrs,
                            sm_count(device), blocks_per_sm(device))
         table = np.asarray(ptrs, np.uint64).reshape(-1)
-        host = np.zeros(plan.items.nbytes + table.nbytes, np.uint8)
-        host[:plan.items.nbytes] = plan.items.view(np.uint8)
-        host[plan.items.nbytes:] = table.view(np.uint8)
+        host = np.concatenate([plan.items.view(np.uint8),
+                               plan.spans.view(np.uint8),
+                               plan.heads.view(np.uint8),
+                               plan.head_addrs.reshape(-1).view(np.uint8),
+                               table.view(np.uint8)])
         on_card = torch.from_numpy(host).pin_memory().to(device,
                                                          non_blocking=True)
         with self._lock:
@@ -248,7 +309,7 @@ def launch(folds: Sequence[Leaves], snapshot: torch.Tensor,
     if len(plan.items) == 0:
         return  # every leaf empty: nothing to keep
     rc = _build.library().dasmtl_fold_select(
-        table.data_ptr(), len(plan.items), plan.small, n_folds,
+        table.data_ptr(), len(plan.items), plan.blocks, n_folds,
         len(folds[0]), snapshot.data_ptr(), plan.stride, weight.data_ptr(),
         b, int(restore), int(pdl), stream)
     _build.check_launch(rc, "fold_select")

@@ -652,14 +652,26 @@ def _post(url, body: dict):
     return _get(req)
 
 
+def _ready(url):
+    """``/readyz`` answers 200; a refused or timed-out connection is a
+    child not ready yet."""
+    try:
+        return _get(url + "/readyz")[0] == 200
+    except OSError:
+        return False
+
+
 def _run_server(argv, tmp_path, check):
-    """Run ``argv`` as a subprocess with ``--port 0 --port_file``, call
-    ``check(url)`` once it is ready, then SIGTERM it; its stderr."""
+    """Run ``argv`` as a subprocess with ``--port 0 --port_file`` on one
+    intra-op thread (torch's pool on every core of a host the suite loads
+    starves it), call ``check(url, deadline)`` once it is ready, then
+    SIGTERM it; its stderr.  Each wait has a deadline of its own."""
     port_file = tmp_path / "port"
     proc = subprocess.Popen(
         [sys.executable, "-m", *argv, "--device", "cpu", "--port", "0",
          "--port_file", str(port_file)],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     try:
         deadline = time.monotonic() + 120
         while not (port_file.exists() and port_file.read_text().strip()):
@@ -667,10 +679,12 @@ def _run_server(argv, tmp_path, check):
             assert time.monotonic() < deadline
             time.sleep(0.1)
         url = f"http://127.0.0.1:{port_file.read_text().strip()}"
-        while _get(url + "/readyz")[0] != 200:
+        deadline = time.monotonic() + 120
+        while not _ready(url):
+            assert proc.poll() is None, proc.communicate()
             assert time.monotonic() < deadline
             time.sleep(0.1)
-        check(url, deadline)
+        check(url, time.monotonic() + 120)
         proc.send_signal(signal.SIGTERM)
         _, err = proc.communicate(timeout=60)
     finally:

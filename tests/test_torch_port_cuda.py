@@ -20,7 +20,8 @@ its paired gate launches), a staging slot held back until its queued
 copy completes, executors loaded from port artifacts (model A f32,
 bf16 and int8, model C int8) answering with the bits of
 ``from_state_dict``, the CV step's fold_select (bit for bit against its
-plain version with and without PDL, and replayed from a CUDA graph),
+plain version with and without PDL, on model A-like leaves and on the
+ring's edge cases, and replayed from a CUDA graph),
 dropout masks fresh at every graph replay, model C's resident step, and
 one CV dispatch against the folds' single-fold dispatches.
 
@@ -1301,34 +1302,129 @@ def test_fold_select_kernel_bit_equal_to_plain(cuda, pattern, pdl):
             assert np.array_equal(_select_bits(a), _select_bits(b))
 
 
-def test_fold_select_replays_from_a_cuda_graph(cuda):
+def _shape_leaves(case, seed, device):
+    """One fold's leaves for the ring's edge cases: 3,000 one-word leaves;
+    one leaf of 2^20 + 3 words; views of 4 and 8 bytes into their bases
+    beside aligned leaves (one of 70,000 words); a fold of a few leaves
+    with a 20 KB leaf and a 12-byte tail (for F = 1 and F = 32)."""
+    g = torch.Generator().manual_seed(seed)
+    if case == "tiny":
+        return [torch.randn(1, generator=g).to(device) for _ in range(3000)]
+    if case == "big":
+        return [torch.randn(2 ** 20 + 3, generator=g).to(device)]
+    if case == "misaligned":
+        out = []
+        for n, off in ((70_000, 1), (5000, 2), (300, 1), (70_000, 0)):
+            base = torch.zeros(n + 4, device=device)
+            base[off:off + n] = torch.randn(n, generator=g).to(device)
+            out.append(base[off:off + n])
+        return out
+    f32 = torch.randn(5000, generator=g)
+    f32[:4] = torch.tensor([float("nan"), -0.0, float("inf"), float("-inf")])
+    f32.view(torch.int32)[0] |= seed + 1
+    return [t.to(device) for t in (
+        f32, torch.randn(1027, generator=g), torch.randn(7, generator=g),
+        torch.tensor([2 ** 40 + seed], dtype=torch.int64))]
+
+
+SHAPE_CASES = [("tiny", (False, True, False, True, True)),
+               ("big", (False, True)), ("misaligned", (True, False, False)),
+               ("folds", (False,)),
+               ("folds", tuple(f % 3 != 1 for f in range(32)))]
+SHAPE_IDS = [f"{c}-F{len(p)}" for c, p in SHAPE_CASES]
+
+
+def _shape_case(cuda, case, pattern):
+    f = len(pattern)
+    old = [_shape_leaves(case, 10 + i, cuda) for i in range(f)]
+    new = [_shape_leaves(case, 70 + i, cuda) for i in range(f)]
+    w = torch.zeros(f, 8, device=cuda)
+    for i, real in enumerate(pattern):
+        if real:
+            w[i, :1 + i % 8] = 1.0
+    return old, new, w
+
+
+def _copy_leaves(dst, src):
+    for leaves, s in zip(dst, src):
+        for t, v in zip(leaves, s):
+            t.copy_(v)
+
+
+@pytest.mark.parametrize("pdl", [True, False], ids=["pdl", "no_pdl"])
+@pytest.mark.parametrize("case, pattern", SHAPE_CASES, ids=SHAPE_IDS)
+def test_fold_select_kernel_bit_equal_on_ring_shapes(cuda, case, pattern,
+                                                     pdl):
+    """The ring's edge cases (3,000 tiny leaves, one 2^20 + 3 word leaf,
+    misaligned views, F = 1 and 32): save, the step, restore, bit for bit
+    ``fold_select_plain``; one launch a pass."""
+    from dasmtl_torch.ops import fold_select as fs
+
+    old, new, w = _shape_case(cuda, case, pattern)
+    want = fs.fold_select_plain(new, old, w)
+    live = _shape_case(cuda, case, pattern)[0]
+    if case == "misaligned":
+        assert live[0][0].data_ptr() % 16 == 4
+        assert live[0][1].data_ptr() % 16 == 8
+    snapshot = torch.empty(len(live) * fs.snapshot_bytes(live[0]),
+                           dtype=torch.uint8, device=cuda)
+    fs.launches.reset()
+    fs.launch(live, snapshot, w, restore=False, pdl=pdl)
+    _copy_leaves(live, new)
+    fs.launch(live, snapshot, w, restore=True, pdl=pdl)
+    torch.cuda.synchronize()
+    assert fs.launches.value == 2
+    for got_f, want_f in zip(live, want):
+        for a, b in zip(got_f, want_f):
+            assert np.array_equal(_select_bits(a), _select_bits(b))
+
+
+GRAPH_CASES = [("model", None), *SHAPE_CASES]
+
+
+@pytest.mark.parametrize("pdl", [True, False], ids=["pdl", "no_pdl"])
+@pytest.mark.parametrize("case, pattern", GRAPH_CASES,
+                         ids=["model-F3", *SHAPE_IDS])
+def test_fold_select_replays_from_a_cuda_graph(cuda, case, pattern, pdl):
     """Both passes captured in one CUDA graph around an in-place step; two
     replays with other weights in the static weight buffer select by the
     weights of each replay."""
     from dasmtl_torch.ops import fold_select as fs
 
-    old, new, w = _select_case(cuda, (True, False, True))
+    if case == "model":
+        old, new, w = _select_case(cuda, (True, False, True))
+    else:
+        old, new, w = _shape_case(cuda, case, pattern)
+    f = len(old)
     live = [[t.clone() for t in leaves] for leaves in old]
-    sel = fs.FoldSelect(live)
+    if case == "misaligned":  # clone() is aligned: keep the views
+        live = _shape_case(cuda, case, pattern)[0]
+    snapshot = torch.empty(f * fs.snapshot_bytes(live[0]), dtype=torch.uint8,
+                           device=cuda)
     static_w = w.clone()
-    sel.save(static_w)  # builds and caches the plan on this stream
+
+    def passes():
+        fs.launch(live, snapshot, static_w, restore=False, pdl=pdl)
+        for leaves, src in zip(live, new):
+            torch._foreach_copy_(leaves, src)
+        fs.launch(live, snapshot, static_w, restore=True, pdl=pdl)
+
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        sel.save(static_w)  # the capture stream's plan, built eagerly
+        passes()  # the capture stream's plan, built eagerly
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     fs.launches.reset()
     with torch.cuda.graph(graph, stream=stream):
-        sel.save(static_w)
-        for leaves, src in zip(live, new):
-            torch._foreach_copy_(leaves, src)
-        sel.restore(static_w)
-    for pattern in ((False, True, True), (True, True, False)):
+        passes()
+    assert fs.launches.value == 2
+    for k in range(2):
+        pattern_k = [(i + k) % 3 != 0 for i in range(f)]
         for leaves, src in zip(live, old):
             torch._foreach_copy_(leaves, src)
         static_w.zero_()
-        for i, real in enumerate(pattern):
+        for i, real in enumerate(pattern_k):
             if real:
                 static_w[i, 0] = 1.0
         graph.replay()

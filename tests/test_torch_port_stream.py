@@ -355,28 +355,45 @@ def _get(url):
         return e.code, e.read().decode()
 
 
+def _until(done, what, proc, seconds=120):
+    """Poll ``done()`` every 0.1 s until it holds, for at most ``seconds``
+    from now (each wait its own deadline), while ``proc`` lives."""
+    deadline = time.monotonic() + seconds
+    while not done():
+        assert proc.poll() is None, (what, proc.communicate())
+        assert time.monotonic() < deadline, f"{what}: not in {seconds} s"
+        time.sleep(0.1)
+
+
+def _ready(url):
+    """``/readyz`` answers 200; a refused or timed-out connection is a
+    child not ready yet."""
+    try:
+        return _get(url + "/readyz")[0] == 200
+    except OSError:
+        return False
+
+
 def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
+    """The child runs torch on one intra-op thread, as the other port
+    tests do: on a host loaded by the suite's other workers, torch's
+    thread pool on every core starved it past two minutes before its
+    first answer."""
     port_file = tmp_path / "port"
     proc = subprocess.Popen(
         [sys.executable, "-m", "dasmtl_torch.stream", "serve",
          "--synthetic", "2", "--fresh_init", "--window", "52x64",
          "--device", "cpu", "--resident", "on", "--port", "0",
          "--port_file", str(port_file)],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     try:
-        deadline = time.monotonic() + 120
-        while not (port_file.exists() and port_file.read_text().strip()):
-            assert proc.poll() is None, proc.communicate()
-            assert time.monotonic() < deadline
-            time.sleep(0.1)
+        _until(lambda: port_file.exists() and port_file.read_text().strip(),
+               "port file", proc)
         url = f"http://127.0.0.1:{port_file.read_text().strip()}"
-        while _get(url + "/readyz")[0] != 200:
-            assert time.monotonic() < deadline
-            time.sleep(0.1)
-        while json.loads(_get(url + "/stats")[1])["tenants"]["f1"][
-                "resolved"] < 4:
-            assert time.monotonic() < deadline
-            time.sleep(0.1)
+        _until(lambda: _ready(url), "/readyz 200", proc)
+        _until(lambda: json.loads(_get(url + "/stats")[1])["tenants"]["f1"][
+            "resolved"] >= 4, "4 windows resolved on f1", proc)
         stats = json.loads(_get(url + "/stats")[1])
         assert stats["resident"] is True
         assert stats["tenants"]["f0"]["resident"]["dispatches"] > 0
@@ -388,7 +405,7 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
             set(families)
         assert _get(url + "/query")[0] == 501
         proc.send_signal(signal.SIGTERM)
-        _, err = proc.communicate(timeout=60)
+        _, err = proc.communicate(timeout=120)
     finally:
         if proc.poll() is None:
             proc.kill()
