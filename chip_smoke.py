@@ -26,11 +26,15 @@ Phases, each fatal on failure (no phase catches its own error):
              launches (both tasks of a stage in one) and 1 decode launch
              per forward;
 5. serve   — ``ServeLoop`` + HTTP on 127.0.0.1 at 100x250, buckets
-             1..32, fresh init (seed 0); 8 clients send 512 requests,
+             1..32, fresh init (seed 0), over the server's
+             ``ExecutorPool`` (every visible card, one CUDA graph per
+             bucket); 8 clients send 512 requests,
              every 37th NaN-poisoned; every request answered, the poisoned
              ones with 422, predictions equal to a direct ``executor.run``
-             of the same windows, drain clean.  The launch counters are
-             zeroed just before the traffic and read just after it;
+             of the same windows, drain clean, no graph captured after
+             warmup.  The launch counters are
+             zeroed just before the traffic and read just after it (a
+             graph replay adds the launches its capture recorded);
 6. train   — (a) the gate's backward kernel against its plain version at
              the four stage shapes, batch 1 and 32, then timed like the
              forward; (b) one full-width batch-32 train step at 100x250 on
@@ -60,9 +64,12 @@ Phases, each fatal on failure (no phase catches its own error):
              windows/s, device idle share and kernel ms per dispatch by
              layer; (c) the live tier of model A at 100x250 (4 fibers x
              400 channels, chunk 500, ring 16384, 200 paced cycles) on both
-             data planes: every window's ints equal on decisive rows, ring
+             data planes, each run over a pool of its own (the resident
+             lanes replay one graph per rung and ring buffer): every
+             window's ints equal on decisive rows, ring
              appends = chunks flushed, gathers = dispatches, windows/s,
-             sample-to-event p50/p99, then 20 cycles under the profiler;
+             sample-to-event p50/p99, no post-warmup capture, then 20
+             cycles under the profiler;
              (d) the oracle soak at the JAX selftest's 64x64 geometry on
              both planes: the same open/close records, every planted event
              (but the 2-window blip, which must debounce away) one closed
@@ -155,7 +162,9 @@ Phases, each fatal on failure (no phase catches its own error):
              request answered (none closed or failed), each answer a direct
              v1 or v2 answer and every one sent after the flip v2's,
              generation 2, the outgoing executor closed, the swap's warmup
-             and the requests in flight at the flip printed (the CLI's
+             (its graph captures included), the requests in flight at the
+             flip, no capture after any pool's warmup and the run's peak
+             memory printed (the CLI's
              ``--precision f32`` builder refuses v2, as JAX's does); (d) a
              model C int8 artifact of ``init_scaled`` weights bit-equal to
              ``from_state_dict(..., "int8")`` at every bucket, one
@@ -192,7 +201,27 @@ Phases, each fatal on failure (no phase catches its own error):
              fold_select launches a step, the counters zeroed just before
              the run; (d) the CV epoch timed (5 folds x 800 in-memory
              windows, batch 32) against one fold's resident run, and
-             model C's host and resident train steps (1,024 windows).
+             model C's host and resident train steps (1,024 windows);
+13. graphs — the executor pool's CUDA graphs: zero post-warmup captures
+             on every member after phase 5's HTTP run, 11c's swap and 7c's
+             live run; (a) model A f32, model A bf16 and model C int8 at
+             100x250 (``init_scaled`` weights), every bucket replayed from
+             its graph against the eager forward on seeded windows with a
+             NaN row: bit-equal, or within atol 5e-4 / rtol 1e-4 with the
+             ints equal on decisive rows, the line says which; (b) a
+             batch-32 and a batch-1 forward of each, eager against graph:
+             host-paced wall and device ms, idle share, the port's
+             launches per forward (per replay) and the profiler's
+             kernels, a served batch's round trip, warmup and capture
+             seconds; (c) three dispatches of one bucket before any
+             collect, each answered with its own rows; (d) the live
+             resident tier of model A with graph lanes against eager
+             lanes: identical decodes and tracks, cycle wall, launches
+             and device idle per cycle; (e) ``run_selftest(devices=1,
+             input_hw=(100, 250))`` passing on the card; (f) ``python -m
+             dasmtl_torch.serve --fresh_init --devices 2`` exiting 2 with
+             the pool's message on a one-card machine; the phase's peak
+             memory.
 
 Then one JSON line lists every kernel of the port, the card's name and
 power limit follow on a line of their own, and the last line is
@@ -1132,6 +1161,11 @@ def _http_serve(executor, per_batch: dict, decisive_margin: float,
         launches = {k: _launches()[k] for k in per_batch}
         stats = loop.stats()
         late = loop.submit(windows[0], timeout=10.0)
+        # Direct runs of the same windows (and their poisoned copies),
+        # outside the server, before the loop closes the executor (and
+        # drops its graphs).
+        direct = {poison: _direct(direct or executor, xs, decisive_margin)
+                  for poison, xs in ((False, windows), (True, spoiled))}
     finally:
         httpd.shutdown()
         server.join(timeout=10.0)
@@ -1147,10 +1181,6 @@ def _http_serve(executor, per_batch: dict, decisive_margin: float,
     if launches != {k: v * n_batches for k, v in per_batch.items()}:
         raise AssertionError(f"{tag}: {n_batches} batches made {launches} "
                              f"launches, expected {per_batch} per batch")
-    # Direct runs of the same windows (and their poisoned copies), outside
-    # the server.
-    direct = {poison: _direct(direct or executor, xs, decisive_margin)
-              for poison, xs in ((False, windows), (True, spoiled))}
     if direct[False][1].any():
         raise AssertionError(f"{tag}: direct run rejected a clean window")
     if direct[True][1].all() != nan_rejected or direct[True][1].any() != \
@@ -1192,14 +1222,29 @@ def _http_serve(executor, per_batch: dict, decisive_margin: float,
             "decisive_rows": {t: int(d.sum())
                               for t, d in direct[False][2].items()},
             "stages": stats["stages"], "warmup_s": stats["warmup_s"],
-            "executor": stats["executor"]}
+            "executor": stats["executor"],
+            "post_warmup_compiles": _post_warmup(stats["executor"])}
+
+
+def _post_warmup(summary: dict) -> list:
+    """Post-warmup graph captures per pool member (a bare executor's
+    own), from a ``compile_summary``; every one must be 0."""
+    members = summary.get("per_device") or [summary]
+    got = [m.get("post_warmup_compiles", 0) for m in members]
+    if any(got):
+        raise AssertionError(f"post-warmup graph captures {got} on "
+                             f"{[m.get('placement') for m in members]}")
+    return got
 
 
 def phase_serve():
-    from dasmtl_torch.serve.executor import InferExecutor
+    from dasmtl_torch.serve.executor import ExecutorPool
 
-    executor = InferExecutor.from_fresh_init("MTL", BUCKETS, (H, W), 0,
-                                             torch.device("cuda", 0))
+    # The server's own executor: a pool over every visible card (one
+    # here), one CUDA graph per bucket.
+    executor = ExecutorPool.from_fresh_init("MTL", BUCKETS, (H, W), 0,
+                                            torch.device("cuda", 0),
+                                            devices=-1)
     r = _http_serve(executor, {"gate": 4, "decode": 1}, DECISIVE,
                     nan_rejected=True)
     log(f"[serve] {N_REQUESTS} HTTP requests from {N_CLIENTS} clients at "
@@ -1207,8 +1252,11 @@ def phase_serve():
         f" p50 {r['p50_ms']} ms, p99 {r['p99_ms']} ms, "
         f"{r['windows_per_s']:.1f} windows/s, mean occupancy "
         f"{r['mean_occupancy']:.3f} over {r['batches']} batches; launches "
-        f"{r['launches']}; decisive rows {r['decisive_rows']}/32 equal to "
-        f"the direct run; drain clean, late submit 'closed'")
+        f"{r['launches']} (graph replays); decisive rows "
+        f"{r['decisive_rows']}/32 equal to the direct run; drain clean, "
+        f"late submit 'closed'; pool of {r['executor']['pool_size']}, "
+        f"warmup {r['warmup_s']:.2f} s, post-warmup captures "
+        f"{r['post_warmup_compiles']}")
     r.pop("executor")
     return r
 
@@ -2082,6 +2130,7 @@ def _live_run(executor, resident: str):
         torch.cuda.synchronize()
         lat = sorted(x for t in tenants for x in t.latencies)
         out = {"launches": _launches(), "wall_s": wall,
+               "cycles": LIVE_CYCLES,
                "windows": sum(t.resolved for t in tenants),
                "shed": sum(t.shed for t in tenants),
                "p50_ms": 1e3 * lat[len(lat) // 2],
@@ -2091,6 +2140,8 @@ def _live_run(executor, resident: str):
         if resident == "on":
             out["chunks"] = sum(t.resident.feed.h2d_chunks for t in tenants)
             out["dispatches"] = sum(t.resident.dispatches for t in tenants)
+            out["lane_graphs"] = sum(t.resident.executor.graph_count
+                                     for t in tenants)
         # Where a paced cycle's time goes: more cycles under the profiler,
         # after the run's counts were read.
         layers, _, cycle_ms, per_cycle = _kernel_ms(
@@ -2099,6 +2150,15 @@ def _live_run(executor, resident: str):
                    kernel_launches_per_cycle=per_cycle)
         if not stream.drain(timeout=30.0):
             raise AssertionError("the live loop did not drain")
+        # Zero post-warmup captures: the serve pool's members and every
+        # resident lane.
+        out["post_warmup_compiles"] = _post_warmup(
+            executor.compile_summary()) + [
+            t.resident.executor.post_warmup_compiles for t in tenants
+            if t.resident is not None]
+        if any(out["post_warmup_compiles"]):
+            raise AssertionError(f"post-warmup captures "
+                                 f"{out['post_warmup_compiles']}")
         return seen, out
     finally:
         stream.close()
@@ -2111,15 +2171,22 @@ def _replay(seed: int, cycles: int) -> np.ndarray:
     return np.concatenate([src.poll(LIVE_CHUNK) for _ in range(cycles)], 1)
 
 
+def _live_executor(eager: bool = False):
+    """Model A's serve pool of the live runs (seed 0), one per run: a
+    loop's close drops its pool's graphs."""
+    from dasmtl_torch.serve.executor import ExecutorPool
+
+    return ExecutorPool.from_fresh_init("MTL", BUCKETS, (H, W), 0,
+                                        torch.device(DEV), devices=-1,
+                                        eager=eager)
+
+
 def _live_model_a():
     """(c) the live tier of model A at 100x250 on both data planes."""
-    from dasmtl_torch.serve.executor import InferExecutor
-
-    executor = InferExecutor.from_fresh_init("MTL", BUCKETS, (H, W), 0,
-                                             torch.device(DEV))
     runs = {}
     seen = {}
     for mode in ("on", "off"):
+        executor = _live_executor()
         seen[mode], runs[mode] = _live_run(executor, mode)
     on, off = runs["on"], runs["off"]
     if set(seen["on"]) != set(seen["off"]) or on["shed"] or off["shed"]:
@@ -2435,6 +2502,8 @@ def _swap_run(reg: str) -> dict:
             time.sleep(0.0002)
         flip["t"] = time.perf_counter()
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     try:
         loop.start()
         with contextlib.redirect_stderr(io.StringIO()):
@@ -2465,8 +2534,10 @@ def _swap_run(reg: str) -> dict:
         _, swap = _get(f"{base}/swap")
         v2 = loop.executor
         cli = _cli_swap(loop, cli_build, registry, bodies)
+        v3 = loop.executor
         drained = loop.drain(timeout=60.0)
         stats = loop.stats()
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     finally:
         httpd.shutdown()
         server.join(timeout=10.0)
@@ -2479,6 +2550,9 @@ def _swap_run(reg: str) -> dict:
         raise AssertionError(f"GET /swap: {swap}, drained {drained}")
     if not v1.closed or not v2.closed:
         raise AssertionError("an outgoing executor was not closed")
+    # Each incoming pool captured its graphs before its flip: none after.
+    post = {f"v{i}": _post_warmup(ex.compile_summary())
+            for i, ex in ((1, v1), (2, v2), (3, v3))}
     direct = {}
     for version, margin in ((1, DECISIVE), (2, 2 * LOG_PROB_TOLERANCES[
             "bf16"])):
@@ -2555,7 +2629,8 @@ def _swap_run(reg: str) -> dict:
            "windows_told_apart": int(sum(apart)),
            "answers_by_version": served,
            "refused_by_cli_precision": refused["detail"],
-           "cli_swap_v3_warmup_s": cli["warmup_s"]}
+           "cli_swap_v3_warmup_s": cli["warmup_s"],
+           "post_warmup_compiles": post, "peak_memory_mib": peak_mib}
     log(f"[artifacts] registry v1 (f32) -> POST /swap v2 (bf16) after "
         f"{SWAP_REQUESTS // 4} answers: {out['answered']} of "
         f"{n_sent} answered, none closed or failed; incoming warmup "
@@ -2567,7 +2642,8 @@ def _swap_run(reg: str) -> dict:
         f"2, outgoing executor closed; the CLI's --precision f32 builder "
         f"refused v2 as JAX does, then took v3 (f32) through POST /swap "
         f"on the CLI's front end: warmup {cli['warmup_s']} s, generation "
-        f"3, v2 closed, {len(cli['answers'])} answers == v1's")
+        f"3, v2 closed, {len(cli['answers'])} answers == v1's; "
+        f"post-warmup captures {post}; peak memory {peak_mib:.1f} MiB")
     return out
 
 
@@ -2633,6 +2709,8 @@ def _model_c_int8_artifact() -> dict:
     x = np.random.default_rng(2).normal(size=(32, H, W, 1)).astype(
         np.float32)
     x[3, 7, 7, 0] = np.nan
+    ex.warmup()
+    ref.warmup()
     launches = 0
     for b in BUCKETS:
         int8.launches.reset()
@@ -4918,6 +4996,281 @@ def phase_cv(peaks):
             "model_c_timing": model_c_timing}
 
 
+# -- phase 13: graphs ---------------------------------------------------------
+#: The serve configurations held graph against eager: (tag, family,
+#: preset), on ``init_scaled`` weights (seed 0) at 100x250.
+GRAPH_CONFIGS = (("A f32", "MTL", "f32"), ("A bf16", "MTL", "bf16"),
+                 ("C int8", "multi_classifier", "int8"))
+#: The batch sizes of the eager-against-graph timing.
+GRAPH_TIMED = (32, 1)
+
+
+def _graph_pair(family: str, prec: str):
+    """A graph executor and an eager one over the same weights, both
+    warmed; the graph executor's warmup and capture seconds."""
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_scaled
+    from dasmtl_torch.serve.executor import InferExecutor
+
+    sd = init_scaled(get_model_spec(family).build(), 0).state_dict()
+    made = [InferExecutor.from_state_dict(
+        family, sd, BUCKETS, (H, W), torch.device(DEV), prec,
+        source="scaled-init", eager=eager) for eager in (False, True)]
+    warm = [ex.warmup() for ex in made]
+    return made, {"warmup_s": warm[0], "eager_warmup_s": warm[1],
+                  "capture_s": made[0].capture_s}
+
+
+def _graph_held(tag: str, b: int, got, want) -> str:
+    """A graph's answer against the eager forward's on one input: "bit"
+    when every output is bit-equal, else "tol" when the log-probs lie
+    within atol 5e-4 / rtol 1e-4 and the ints agree on decisive rows;
+    raises otherwise."""
+    (gp, gb, gl), (ep, eb, el) = got, want
+    if not np.array_equal(gb, eb) or sorted(gl) != sorted(el):
+        raise AssertionError(f"[graphs] {tag} B = {b}: bad_rows or heads "
+                             f"differ from the eager forward")
+    if all(np.array_equal(gl[k], el[k], equal_nan=True) for k in el) and \
+            all(np.array_equal(gp[k], ep[k]) for k in ep):
+        return "bit"
+    ok = ~eb
+    for i, k in enumerate(sorted(el)):
+        np.testing.assert_allclose(gl[k][ok], el[k][ok], atol=MODEL_ATOL,
+                                   rtol=MODEL_RTOL,
+                                   err_msg=f"[graphs] {tag} B = {b} {k}")
+    for task in ep:
+        dec = ok.copy()
+        for k in el:
+            dec[ok] &= _decisive(el[k][ok])
+        if not np.array_equal(gp[task][dec], ep[task][dec]):
+            raise AssertionError(f"[graphs] {tag} B = {b} {task} ints "
+                                 f"differ on decisive rows")
+    return "tol"
+
+
+def _graph_times(graph, eager, b: int) -> dict:
+    """Eager against graph for one batch-``b`` forward (the input already
+    on the card): host-paced wall ms (20 calls, then a sync), device ms
+    from CUDA events with the calls queued ahead (as many a window as keep
+    the queue under ~600 kernels), the device idle share,
+    the port's launches per forward (the wrappers' counters; a replay adds
+    its recorded launches) and the profiler's kernels per forward; and a
+    served batch's round trip (dispatch of a pinned batch + collect)."""
+    x = torch.from_numpy(np.random.default_rng(b).normal(
+        size=(b, H, W, 1)).astype(np.float32)).to(eager.input_dtype)
+    xd = x.to(DEV)
+    entry = graph.graph(b)
+    with torch.inference_mode():
+        entry.inputs[0].copy_(xd)
+    fns = {"eager": lambda: eager.raw_infer_fn(xd), "graph": entry.replay}
+    pinned = x.pin_memory()
+    runs = {"eager": lambda: eager.run(pinned),
+            "graph": lambda: graph.run(pinned)}
+    out = {}
+    for mode, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 20 * 1e3
+        kernels = _kernel_ms(fn, 5)[3]
+        # As many calls per timed window as keep the launch queue under
+        # ~600 kernels (a deeper queue makes the host pace the events).
+        inner = max(1, int(600 // max(kernels, 1.0)))
+        dev_ms = device_ms(fn, inner=inner, reps=10)
+        _reset_launches()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        port = {k: v / 10 for k, v in _launches().items() if v}
+        t0 = time.perf_counter()
+        for _ in range(20):
+            runs[mode]()
+        run_ms = (time.perf_counter() - t0) / 20 * 1e3
+        out[mode] = {"wall_ms": wall, "device_ms": dev_ms,
+                     "event_inner": inner, "idle": 1.0 - dev_ms / wall,
+                     "port_launches_per_forward": port,
+                     "profiler_kernels_per_forward": kernels,
+                     "run_ms": run_ms}
+    return out
+
+
+def _graph_configs() -> dict:
+    """(a) every bucket of A f32, A bf16 and C int8 replayed from its
+    graph against the eager forward, (b) the eager-against-graph timing
+    at batch 32 and 1, (c) three dispatches of one bucket before any
+    collect."""
+    out = {}
+    for tag, family, prec in GRAPH_CONFIGS:
+        (graph, eager), warm = _graph_pair(family, prec)
+        rng = np.random.default_rng(13)
+        held = {}
+        for b in BUCKETS:
+            x = rng.normal(size=(b, H, W, 1)).astype(np.float32)
+            x[0, 3, 5, 0] = np.nan
+            held[b] = _graph_held(tag, b, graph.collect(
+                graph.dispatch(x), want_log_probs=True), eager.collect(
+                eager.dispatch(x), want_log_probs=True))
+        times = {b: _graph_times(graph, eager, b) for b in GRAPH_TIMED}
+        summary = graph.compile_summary()
+        if summary["graph_count"] != len(BUCKETS) or \
+                summary["post_warmup_compiles"]:
+            raise AssertionError(f"[graphs] {tag}: {summary}")
+        out[tag] = {"held": held, "times": times, **warm,
+                    "graphs": summary["graph_count"],
+                    "launches_per_replay":
+                        summary["launches_per_replay"]}
+        log(f"[graphs] {tag} at {H}x{W}: every bucket {list(BUCKETS)} "
+            f"replayed from its graph against the eager forward: "
+            + ", ".join(f"B={b} {h}" for b, h in held.items())
+            + f" (bit = bit-equal, tol = atol {MODEL_ATOL} / rtol "
+            f"{MODEL_RTOL} with decisive ints equal); warmup "
+            f"{warm['warmup_s']:.2f} s of which capture "
+            f"{warm['capture_s']:.2f} s (eager warmup "
+            f"{warm['eager_warmup_s']:.2f} s)")
+        for b, t in times.items():
+            e, g = t["eager"], t["graph"]
+            log(f"[graphs]   {tag} B={b}: wall {e['wall_ms']:.3f} -> "
+                f"{g['wall_ms']:.3f} ms, device {e['device_ms']:.3f} -> "
+                f"{g['device_ms']:.3f} ms, idle {100 * e['idle']:.1f}% -> "
+                f"{100 * g['idle']:.1f}%, a served batch's round trip "
+                f"{e['run_ms']:.3f} -> {g['run_ms']:.3f} ms; port launches "
+                f"per forward {e['port_launches_per_forward']} -> "
+                f"{g['port_launches_per_forward']}, profiler kernels "
+                f"{e['profiler_kernels_per_forward']:.0f} -> "
+                f"{g['profiler_kernels_per_forward']:.0f}")
+            if e["port_launches_per_forward"] != \
+                    g["port_launches_per_forward"]:
+                raise AssertionError(f"[graphs] {tag} B={b}: a replay "
+                                     f"adds other launches than a forward")
+        if tag == "A f32":
+            out["inflight"] = _three_inflight(graph, eager)
+        graph.close()
+        eager.close()
+        del graph, eager
+    return out
+
+
+def _three_inflight(graph, eager) -> dict:
+    """Three dispatches of bucket 8 before any collect: each answered
+    with its own rows (a replay's outputs are cloned at dispatch)."""
+    rng = np.random.default_rng(8)
+    xs = [torch.from_numpy((i + 1) * rng.normal(size=(8, H, W, 1)).astype(
+        np.float32)).pin_memory() for i in range(3)]
+    handles = [graph.dispatch(x) for x in xs]
+    held = [_graph_held("A f32 in flight", 8,
+                        graph.collect(h, want_log_probs=True),
+                        eager.collect(eager.dispatch(x), want_log_probs=True))
+            for h, x in zip(handles, xs)]
+    log(f"[graphs] A f32: 3 dispatches of B=8 before any collect, each "
+        f"answered with its own rows: {held}")
+    return {"held": held}
+
+
+def _graph_live() -> dict:
+    """(d) the live resident tier of model A (phase 7c's 4 fibers x 400
+    channels), graph lanes against eager lanes: the same decodes and
+    tracks; cycle wall, launches and device idle per cycle."""
+    runs, seen = {}, {}
+    for mode, eager in (("graph", False), ("eager", True)):
+        seen[mode], runs[mode] = _live_run(_live_executor(eager), "on")
+    g, e = runs["graph"], runs["eager"]
+    differ = [k for k in seen["graph"] if seen["graph"][k] !=
+              seen["eager"].get(k)]
+    if set(seen["graph"]) != set(seen["eager"]) or differ or \
+            (g["opens"], g["closes"]) != (e["opens"], e["closes"]):
+        raise AssertionError(f"[graphs] live: {len(differ)} decodes differ, "
+                             f"tracks {g['opens']}/{g['closes']} vs "
+                             f"{e['opens']}/{e['closes']}")
+    for mode, r in runs.items():
+        busy = sum(r["kernel_ms_per_cycle"].values())
+        r.update(cycle_wall_ms=1e3 * r["wall_s"] / r["cycles"],
+                 busy_ms_per_cycle=busy,
+                 idle=1.0 - busy / r["profiled_cycle_wall_ms"],
+                 port_launches_per_cycle={
+                     k: v / r["cycles"] for k, v in r["launches"].items()})
+    log(f"[graphs] live model A, {LIVE_FIBERS} fibers x {LIVE_CHANNELS} "
+        f"channels, {LIVE_CYCLES} paced cycles, eager -> graph lanes: "
+        f"{len(seen['graph'])} windows with identical decodes and "
+        f"{g['opens']} / {g['closes']} track opens / closes on both; cycle "
+        f"wall {e['cycle_wall_ms']:.3f} -> {g['cycle_wall_ms']:.3f} ms; "
+        f"under the profiler {e['profiled_cycle_wall_ms']:.3f} -> "
+        f"{g['profiled_cycle_wall_ms']:.3f} ms wall, "
+        f"{e['busy_ms_per_cycle']:.3f} -> {g['busy_ms_per_cycle']:.3f} ms "
+        f"of kernels, device idle {100 * e['idle']:.1f}% -> "
+        f"{100 * g['idle']:.1f}%, profiler kernels "
+        f"{e['kernel_launches_per_cycle']:.0f} -> "
+        f"{g['kernel_launches_per_cycle']:.0f} per cycle; port launches "
+        f"per cycle {g['port_launches_per_cycle']} (eager "
+        f"{e['port_launches_per_cycle']}); {g['lane_graphs']} lane graphs; "
+        f"post-warmup captures {g['post_warmup_compiles']}")
+    return {"windows": len(seen["graph"]), "graph": g, "eager": e}
+
+
+def _graph_selftest() -> dict:
+    """(e) the serving soak on the card at 100x250."""
+    from dasmtl_torch.serve.selftest import run_selftest
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        r = run_selftest(devices=1, input_hw=(H, W),
+                         device=torch.device(DEV))
+    if not r["passed"]:
+        raise AssertionError(f"[graphs] selftest: {r['failures']}")
+    log(f"[graphs] run_selftest(devices=1, input_hw=({H}, {W})) PASSED: "
+        f"{r['ok']} ok / {r['refused']} refused of {r['requests']}, "
+        f"occupancy {r['mean_occupancy']:.2f}, p50 {r['p50_ms']} ms, p99 "
+        f"{r['p99_ms']} ms, warmup {r['warmup_s']:.2f} s, max in flight "
+        f"{r['max_inflight_observed']}/{r['inflight_window']}, per device "
+        f"{r['per_device_compiles']}")
+    return {k: r[k] for k in ("ok", "refused", "requests", "mean_occupancy",
+                              "p50_ms", "p99_ms", "warmup_s",
+                              "per_device_compiles")}
+
+
+def _graph_pool_refusal() -> dict:
+    """(f) ``python -m dasmtl_torch.serve --fresh_init --devices 2`` on
+    this one-card machine exits 2 with the pool's message."""
+    import subprocess
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "dasmtl_torch.serve", "--fresh_init",
+         "--devices", "2"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=300)
+    want = (f"pool of 2 devices requested, {torch.cuda.device_count()} "
+            f"visible")
+    if proc.returncode != 2 or want not in proc.stderr:
+        raise AssertionError(f"[graphs] --devices 2: rc {proc.returncode}, "
+                             f"{proc.stderr[-500:]}")
+    log(f"[graphs] python -m dasmtl_torch.serve --fresh_init --devices 2: "
+        f"exit 2, '{proc.stderr.strip()}'")
+    return {"rc": proc.returncode, "stderr": proc.stderr.strip()}
+
+
+def phase_graphs(serve: dict, stream: dict, artifacts: dict) -> dict:
+    """Phase 13: the executor pool's graphs.  Zero post-warmup captures
+    after phase 5's HTTP run, 11c's swap and 7c's live run (read from
+    their reports), then (a)-(f), the phase's peak memory."""
+    t0 = time.perf_counter()
+    post = {"serve": serve["post_warmup_compiles"],
+            "swap": artifacts["swap"]["post_warmup_compiles"],
+            "live": stream["live"]["resident"]["post_warmup_compiles"]}
+    log(f"[graphs] post-warmup captures on every member: phase 5's HTTP "
+        f"run {post['serve']}, phase 11c's swap {post['swap']}, phase 7c's "
+        f"live run (pool + lanes) {post['live']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"post_warmup_compiles": post, "configs": _graph_configs(),
+           "live": _graph_live(), "selftest": _graph_selftest(),
+           "pool_refusal": _graph_pool_refusal()}
+    out["peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[graphs] phase done in {out['seconds']:.1f} s, peak memory "
+        f"{out['peak_memory_mib']:.1f} MiB")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None, help="write the report here")
@@ -4962,6 +5315,7 @@ def main(argv=None) -> int:
     resident = phase_resident(peaks)
     cv = phase_cv(peaks)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    graphs = phase_graphs(serve, stream, artifacts)
     sk, offline = stream["kernels"], stream["offline"]
 
     # Launches: each kernel's count over its path's run, the counters
@@ -5031,7 +5385,7 @@ def main(argv=None) -> int:
                        "model": model, "serve": serve, "train": train,
                        "stream": stream, "artifacts": artifacts,
                        "precision": precision, "dp": dp,
-                       "resident": resident, "cv": cv,
+                       "resident": resident, "cv": cv, "graphs": graphs,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

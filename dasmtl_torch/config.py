@@ -38,6 +38,10 @@ SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
 SERVE_MAX_WAIT_MS = 5.0
 SERVE_QUEUE_DEPTH = 256
 SERVE_INFLIGHT = 2
+#: Executor-pool size (-1 = every visible card), and whether a batch of
+#: the largest bucket is split over the whole pool (JAX ``config.py:175``).
+SERVE_DEVICES = -1
+SERVE_SHARD_LARGEST = False
 #: The serving precision preset (``Config.serve_precision``).
 SERVE_PRECISION = "f32"
 SERVE_HOST = "127.0.0.1"

@@ -4,14 +4,25 @@ Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises.  Each kernel module carries
 a :class:`LaunchCounter` that its wrapper bumps once per kernel launch,
 so a run can show that the main path went through the kernel.
+
+A CUDA graph capture launches nothing: inside :func:`recorded_launches`
+the wrappers' launches on that thread are recorded for the graph, which
+adds them to the counters at every replay, and other threads' launches
+(a pool's replays while another pool captures) go on counting as they
+happen.  A train-step capture does not use it: autograd runs the
+backward's launches on its own device threads, so ``ScanTrainStep``
+takes the counters' difference across its capture back instead.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 
 import torch
+
+_recording = threading.local()
 
 
 class LaunchCounter:
@@ -22,6 +33,10 @@ class LaunchCounter:
         self._n = 0
 
     def add(self, n: int = 1) -> None:
+        record = getattr(_recording, "counts", None)
+        if record is not None:
+            record[self] = record.get(self, 0) + n
+            return
         with self._lock:
             self._n += n
 
@@ -33,6 +48,20 @@ class LaunchCounter:
     def value(self) -> int:
         with self._lock:
             return self._n
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Record, not count, this thread's launches inside: yields the
+    ``{LaunchCounter: launches}`` dict a graph capture adds at every
+    replay."""
+    prev = getattr(_recording, "counts", None)
+    counts: dict = {}
+    _recording.counts = counts
+    try:
+        yield counts
+    finally:
+        _recording.counts = prev
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,9 +1,12 @@
 """Online inference serving for the port: the counterpart of
-:mod:`dasmtl.serve` for one CUDA device.
+:mod:`dasmtl.serve` on CUDA devices.
 
 ``python -m dasmtl_torch.serve --fresh_init --window 100x250`` binds the
 HTTP front end (:mod:`dasmtl_torch.serve.server`) over a
 :class:`~dasmtl_torch.serve.server.ServeLoop` and an
-:class:`~dasmtl_torch.serve.executor.InferExecutor`.  Modules are imported
-where they are used; importing this package builds nothing.
+:class:`~dasmtl_torch.serve.executor.ExecutorPool` (one warmed CUDA graph
+per bucket and device, :mod:`dasmtl_torch.serve.graphs`);
+``--selftest`` runs the serving soak (:mod:`dasmtl_torch.serve.selftest`).
+Modules are imported where they are used; importing this package builds
+nothing.
 """

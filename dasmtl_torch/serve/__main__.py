@@ -18,7 +18,13 @@ line goes to stderr.
 ``--model`` takes every family (model C is ``multi_classifier``) and
 ``--precision f32|bf16|int8`` every serving preset (:mod:`dasmtl_torch.
 models.precision`); an artifact's header must agree with it.
-``--parity-check`` runs the precision gate instead of serving
+``--devices N`` (-1, the default: every visible card) serves from an
+executor pool, one warmed CUDA graph per (bucket, device), batches
+round-robin; ``--shard_largest`` splits a largest-bucket batch into one row
+block per member; ``--selftest`` runs the serving soak instead of serving
+(``--selftest_requests``, ``--selftest_clients``, ``--selftest_devices``;
+exit 0 when it passed).  ``--parity-check`` runs the precision gate
+instead of serving
 (``dasmtl/serve/__main__.py:168-238``): the ``--precision`` preset, or
 both reduced presets under ``f32``, against the f32 forward over a seeded
 eval set (52x64 unless ``--window`` says otherwise), on the weights of
@@ -44,12 +50,10 @@ _ANALYSIS = ("ROADMAP.md queue 1 item 3 (the lint, audit, conc and mem "
 #: by name prefix (``history`` is ``--history`` and ``--history_interval_s``)
 #: -> the ROADMAP.md item that brings them.
 JAX_ONLY_FLAGS = (
-    ("devices", _POOL), ("shard_largest", _POOL),
-    ("shard_multihost", _POOL),
+    ("shard_multihost", f"{_POOL} (serving ranks on separate hosts)"),
     ("trace_ring", _OBS), ("latency_buckets_ms", _OBS),
     ("slo_p99_ms", _OBS), ("profile_", _OBS), ("history", _OBS),
     ("conc_", _ANALYSIS), ("mem_", _ANALYSIS),
-    ("selftest", f"{_POOL} (the serving soak, serve/selftest.py)"),
 )
 
 
@@ -118,6 +122,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inflight", type=int, default=C.SERVE_INFLIGHT,
                    help="pipeline depth: batches dispatched but not yet "
                         "collected")
+    p.add_argument("--devices", type=int, default=C.SERVE_DEVICES,
+                   help="executor-pool size (-1 = every visible card); "
+                        "batches round-robin over one warmed CUDA graph "
+                        "per (bucket, device)")
+    p.add_argument("--shard_largest", action="store_true",
+                   default=C.SERVE_SHARD_LARGEST,
+                   help="split largest-bucket batches into one row block "
+                        "per pool device instead of running them on one")
     p.add_argument("--precision", type=str, default=C.SERVE_PRECISION,
                    choices=["f32", "bf16", "int8"],
                    help="serving precision preset; with --exported or "
@@ -136,25 +148,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--parity_out", type=str, default=None, metavar="PATH",
                    help="also write the parity report section into PATH "
                         "(not docs/PARITY.md, the JAX package's)")
+    p.add_argument("--selftest", action="store_true",
+                   help="run the in-process serving soak (concurrent "
+                        "clients, NaN poisoning, SIGTERM drain) and exit "
+                        "0/1 — no network")
+    p.add_argument("--selftest_requests", type=int, default=512)
+    p.add_argument("--selftest_clients", type=int, default=8)
+    p.add_argument("--selftest_devices", type=int, default=1,
+                   help="executor-pool size for the selftest")
     return p
 
 
 def executor_builder(args, buckets, window, device):
-    """``build(version=None) -> InferExecutor`` for the model source of
-    ``args``: the one builder of startup and of every ``POST /swap``
-    (``dasmtl/serve/__main__.py:275-310``).  A registry builder resolves
-    ``version`` (``--registry_version`` at startup), a checkpoint builder
-    re-reads its weights, an artifact builder re-reads its file; each
-    artifact is checked against ``window`` (None: the artifact's own) and
+    """``build(version=None) -> ExecutorPool`` for the model source of
+    ``args`` over ``--devices`` (``--shard_largest``): the one builder of
+    startup and of every ``POST /swap`` (``dasmtl/serve/__main__.py:
+    275-310``).  A registry builder resolves ``version``
+    (``--registry_version`` at startup), a checkpoint builder re-reads its
+    weights, an artifact builder re-reads its file; each artifact is
+    checked against ``window`` (None: the artifact's own) and
     ``--precision``."""
-    from dasmtl_torch.serve.executor import InferExecutor
+    from dasmtl_torch.serve.executor import ExecutorPool
 
     hw = window or (C.INPUT_HEIGHT, C.INPUT_WIDTH)
+    pool_kw = dict(devices=args.devices, shard_largest=args.shard_largest)
     if args.exported:
         def build(version=None):
-            return InferExecutor.from_exported(
+            return ExecutorPool.from_exported(
                 args.exported, buckets, expected_hw=window, device=device,
-                precision=args.precision)
+                precision=args.precision, **pool_kw)
     elif args.registry:
         from dasmtl_torch.export import ArtifactRegistry
 
@@ -165,18 +187,19 @@ def executor_builder(args, buckets, window, device):
                                      else args.registry_version)
             print(f"dasmtl_torch.serve: registry {args.registry} -> "
                   f"v{entry['version']} ({entry['file']})", file=sys.stderr)
-            return InferExecutor.from_exported(
+            return ExecutorPool.from_exported(
                 entry["path"], buckets, expected_hw=window, device=device,
-                precision=args.precision)
+                precision=args.precision, **pool_kw)
     elif args.model_path:
         def build(version=None):
-            return InferExecutor.from_checkpoint(
+            return ExecutorPool.from_checkpoint(
                 args.model, args.model_path, buckets, hw, device,
-                args.precision)
+                args.precision, **pool_kw)
     else:
         def build(version=None):
-            return InferExecutor.from_fresh_init(
-                args.model, buckets, hw, C.SEED, device, args.precision)
+            return ExecutorPool.from_fresh_init(
+                args.model, buckets, hw, C.SEED, device, args.precision,
+                **pool_kw)
     return build
 
 
@@ -191,6 +214,8 @@ def main(argv=None) -> int:
             return 2
     if extra:
         p.error(f"unrecognized arguments: {' '.join(extra)}")
+    if args.selftest:
+        return _selftest(args)
     if args.parity_check:
         return _parity_check(p, args)
     n_sources = sum(1 for v in (args.exported, args.model_path,
@@ -237,8 +262,10 @@ def main(argv=None) -> int:
     t.start()
     h, w = executor.input_hw
     print(f"warming {len(buckets)} bucket(s) {list(buckets)} on "
-          f"{h}x{w} windows (precision {executor.precision}) on {device}; "
-          f"liveness already up on http://{host}:{port} ...",
+          f"{h}x{w} windows (precision {executor.precision}) on a pool of "
+          f"{len(executor.executors)} ({', '.join(map(str, executor.devices))}"
+          f"{'; largest bucket sharded' if executor.shard_executor else ''}"
+          f"); liveness already up on http://{host}:{port} ...",
           file=sys.stderr)
     loop.start()
     print(f"serving {executor.source} on http://{host}:{port} "
@@ -265,6 +292,21 @@ def main(argv=None) -> int:
           f"occupancy={stats['batches']['mean_occupancy']:.2f} "
           f"generation={loop.generation}", file=sys.stderr)
     return 0 if drained else 1
+
+
+def _selftest(args) -> int:
+    """``--selftest``: the serving soak (:func:`dasmtl_torch.serve.
+    selftest.run_selftest`) on ``--device``; 0 when it passed."""
+    from dasmtl_torch.device import resolve_device
+    from dasmtl_torch.serve.selftest import run_selftest, write_job_summary
+
+    report = run_selftest(requests=args.selftest_requests,
+                          clients=args.selftest_clients,
+                          devices=args.selftest_devices,
+                          inflight=args.inflight, precision=args.precision,
+                          device=resolve_device(args.device))
+    write_job_summary(report)
+    return 0 if report["passed"] else 1
 
 
 def _parity_check(p: argparse.ArgumentParser, args) -> int:

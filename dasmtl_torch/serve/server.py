@@ -1,8 +1,10 @@
 """The drainable pipelined server loop + stdlib HTTP front end.
 
 Counterpart of ``dasmtl/serve/server.py`` (``ServeLoop`` :105-233,
-352-518, 534-551, 565+; the HTTP front end :656-849) over
-:class:`~dasmtl_torch.serve.executor.InferExecutor`:
+352-518, 534-551, 565+; the HTTP front end :656-849) over an
+:class:`~dasmtl_torch.serve.executor.ExecutorPool` or a single
+:class:`~dasmtl_torch.serve.executor.InferExecutor` (the loop reads
+``devices``, so it is device-count agnostic):
 
 - the **dispatcher** thread pulls due batches from the
   :class:`~dasmtl_torch.serve.batcher.MicroBatcher`, writes their rows
@@ -26,9 +28,12 @@ its answer and every later submit resolves at once with ``closed``.
 is 503 until warmup has run every bucket and again during drain.
 
 **Blue/green executor swap** (``swap_executor`` / ``swap_to``, JAX
-``server.py:233-318``): the incoming executor (from the artifact registry,
-a re-read checkpoint, ...) warms every bucket on its own CUDA stream while
-the outgoing one keeps serving, then the data plane flips under the lock.
+``server.py:233-318``): the incoming executor or pool (from the artifact
+registry, a re-read checkpoint, ...) warms every bucket, capturing each
+bucket's graph on each member's own CUDA stream, while the outgoing one
+keeps serving; then the data plane flips under the lock.  A swap compares
+the two pools member by member: new staging buffers when the devices or
+the staging dtype differ.
 Each dispatched batch carries the executor and the staging pool it was
 launched through, so a batch in flight at the flip collects on the
 outgoing executor's stream and its pinned slot goes back to the old pool;
@@ -58,6 +63,7 @@ from typing import Optional, Sequence
 from urllib.parse import urlsplit
 
 import numpy as np
+import torch
 
 from dasmtl_torch.config import serve_watermark
 from dasmtl_torch.serve.batcher import (BatchPlan, MicroBatcher,
@@ -92,6 +98,12 @@ def _crash_logged(fn, context: str):
             traceback.print_exc(file=sys.stderr)
 
     return runner
+
+
+def _devices(executor) -> list:
+    """The devices of a pool's members, or of a bare executor."""
+    devices = getattr(executor, "devices", None)
+    return list(devices) if devices else [torch.device(executor.device)]
 
 
 class ServeLoop:
@@ -171,10 +183,12 @@ class ServeLoop:
         return True
 
     def _staging_for(self, executor) -> StagingBuffers:
+        # Pinned when any member of the pool is on a card.
         return StagingBuffers.for_buckets(
             self.batcher.buckets, executor.input_hw,
             depth=self.inflight_window + 1,
-            pin=executor.device.type == "cuda", dtype=executor.input_dtype)
+            pin=any(d.type == "cuda" for d in _devices(executor)),
+            dtype=executor.input_dtype)
 
     def close(self) -> None:
         self.drain(timeout=30.0)
@@ -210,10 +224,12 @@ class ServeLoop:
                 f"{tuple(new_executor.buckets)}, the batcher flushes "
                 f"{tuple(self.batcher.buckets)} — rebuild with matching "
                 f"--buckets")
+        # Warmup captures every graph of the incoming pool before the
+        # flip: no capture lands after it.
         warmup_s = new_executor.warmup()
         new_staging = self._staging
         if (new_executor.input_dtype != self.executor.input_dtype
-                or new_executor.device != self.executor.device):
+                or _devices(new_executor) != _devices(self.executor)):
             # Staging in the incoming dtype; the old buffers drain back to
             # the old pool (each in-flight batch carries its own).
             new_staging = self._staging_for(new_executor)

@@ -20,6 +20,7 @@ onto ONE :class:`~dasmtl_torch.serve.server.ServeLoop`.
   neutral.  Records land in a ring (``GET /events``), optionally a JSONL
   file, and the ``dasmtl_stream_*`` metric families.
 
+``--devices`` sizes the executor pool the fibers spread over, as in JAX.
 Not ported yet (ROADMAP.md queue 1): dynamic tenancy and the fleet worker,
 the soak selftest, alerts and metrics history (``/query``), and the serve
 loop's own ``dasmtl_serve_*`` families, so ``GET /metrics`` renders the
@@ -80,7 +81,6 @@ ADAPT_MIN_WEIGHT_FRACTION = 0.25
 #: Options of ``dasmtl stream serve`` this slice does not port yet -> the
 #: ROADMAP.md item that brings each.
 NOT_YET_PORTED = {
-    "devices": "ROADMAP.md queue 1 item 4, 'Executor pool'",
     "precision": "ROADMAP.md queue 1 item 10, 'The stream tier's presets "
                  "and model C' (the resident gather and ring are f32)",
     "fleet_worker": "ROADMAP.md queue 1 item 1, 'the stream tier's "
@@ -542,6 +542,9 @@ class StreamLoop:
                     **({"resident": {
                         "device": t.resident.executor.device_name,
                         "rungs": list(t.resident.executor.rungs),
+                        "graphs": t.resident.executor.graph_count,
+                        "post_warmup_compiles":
+                            t.resident.executor.post_warmup_compiles,
                         "windows_dispatched": t.resident.windows_dispatched,
                         "dispatches": t.resident.dispatches,
                         "h2d_bytes": t.resident.feed.h2d_bytes,
@@ -661,7 +664,7 @@ def _not_ported(args) -> Optional[str]:
     """The first option given that this slice does not port yet."""
     for opt, item in NOT_YET_PORTED.items():
         value = getattr(args, opt)
-        default = {"devices": 1, "precision": "f32"}.get(opt)
+        default = {"precision": "f32"}.get(opt)
         if value and value != default:
             return f"--{opt} is not yet ported: {item}"
     return None
@@ -717,8 +720,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
                      help="micro-batching deadline for weight-1.0 tenants")
     srv.add_argument("--queue_depth", type=int, default=C.SERVE_QUEUE_DEPTH)
     srv.add_argument("--inflight", type=int, default=C.SERVE_INFLIGHT)
-    srv.add_argument("--devices", type=int, default=1,
-                     help="only 1 is ported")
+    srv.add_argument("--devices", type=int, default=C.SERVE_DEVICES,
+                     help="executor-pool size (-1 = every visible card); "
+                          "fibers round-robin over its members")
     srv.add_argument("--precision", type=str, default="f32",
                      choices=["f32", "bf16", "int8"],
                      help="only f32 is ported")
@@ -782,25 +786,27 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 
 def serve_executor(args, buckets, window, device):
-    """The executor of the model source that ``args`` names: the oracle,
-    a port artifact (its window checked against ``window``), a port
-    checkpoint or seed-deterministic fresh-init weights."""
-    from dasmtl_torch.serve.executor import InferExecutor
+    """The executor pool of the model source that ``args`` names, over
+    ``--devices``: the oracle, a port artifact (its window checked against
+    ``window``), a port checkpoint or seed-deterministic fresh-init
+    weights (JAX ``dasmtl/stream/live.py:1170-1179``)."""
+    from dasmtl_torch.serve.executor import ExecutorPool
 
     hw = window or (C.INPUT_HEIGHT, C.INPUT_WIDTH)
     if args.oracle:
         from dasmtl_torch.stream.selftest import _oracle_pool
 
-        return _oracle_pool(window, buckets, device)
+        return _oracle_pool(window, buckets, device, args.devices)
     if args.exported:
-        return InferExecutor.from_exported(
+        return ExecutorPool.from_exported(
             args.exported, buckets, expected_hw=window, device=device,
-            precision=args.precision)
+            precision=args.precision, devices=args.devices)
     if args.model_path:
-        return InferExecutor.from_checkpoint(
-            args.model, args.model_path, buckets, hw, device)
-    return InferExecutor.from_fresh_init(args.model, buckets, hw, C.SEED,
-                                         device)
+        return ExecutorPool.from_checkpoint(
+            args.model, args.model_path, buckets, hw, device,
+            devices=args.devices)
+    return ExecutorPool.from_fresh_init(args.model, buckets, hw, C.SEED,
+                                        device, devices=args.devices)
 
 
 def serve_main(argv=None) -> int:

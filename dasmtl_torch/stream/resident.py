@@ -15,14 +15,15 @@ here the steady state stays on the card:
 - :class:`ResidentExecutor` — the fused program
   (:func:`dasmtl_torch.export.make_resident_serve_fn`: window gather,
   forward, decode tail, and ``event_prob_q`` when the forward emits
-  ``log_probs_event``) over a power-of-two windows-per-dispatch ladder.
-  PyTorch has nothing to compile, so, as the serve ``InferExecutor`` does,
-  warmup runs every rung once (cuDNN picks its algorithms, the caching
-  allocator fills) and the JAX ``StepGuards`` recompile counter has no
-  counterpart.
+  ``log_probs_event``) over a power-of-two windows-per-dispatch ladder,
+  one CUDA graph per (rung, ring buffer) (:mod:`dasmtl_torch.serve.
+  graphs`), all captured at warmup, as JAX compiles every rung up front;
+  a capture after warmup is a post-warmup compile and raises.  The ring
+  append stays one eager launch per chunk, as JAX keeps it a program of
+  its own.
 - :class:`ResidentCollector` — the one thread that waits on a dispatch and
   pulls its int predictions, ``bad_rows`` and fixed-point confidences to
-  the host (:func:`collect_host`).
+  the host (:func:`~dasmtl_torch.serve.graphs.pull_outputs`).
 
 Ordering on the card: a lane's chunk copies, ring appends and dispatches
 all go on ONE CUDA stream, the executor's.  So an append is ordered after
@@ -47,12 +48,9 @@ import torch
 
 from dasmtl_torch.export import PROB_Q_SCALE, make_resident_serve_fn
 from dasmtl_torch.ops.ring import ring_append
-
-
-def collect_host(outputs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """THE device-to-host pull of the stream tier: one dispatch's small
-    decoded outputs as numpy arrays (called after the dispatch's event)."""
-    return {k: v.cpu().numpy() for k, v in outputs.items()}
+from dasmtl_torch.parallel.placement import fiber_placements
+from dasmtl_torch.serve.graphs import (GraphBook, OutputLayout, graph_mode,
+                                       pull_outputs)
 
 
 def next_pow2(n: int) -> int:
@@ -140,6 +138,11 @@ class ResidentFeed:
             ring_append(self.ring, chunk, out=self._spare)
             self.ring, self._spare = self._spare, self.ring
 
+    @property
+    def buffers(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ring's two buffers (the ring and its ping-pong spare)."""
+        return self.ring, self._spare
+
     def warmup(self) -> None:
         """Run the append once on zeros, then leave an all-zero ring."""
         self._append_chunk(np.zeros((self.channels, self.chunk_samples),
@@ -207,23 +210,39 @@ class ResidentFeed:
 
 @dataclasses.dataclass
 class ResidentBatch:
-    """One fused dispatch in flight: its device outputs and routing."""
+    """One fused dispatch in flight: its device outputs (an eager
+    dispatch's tensors, or a graph's cloned flat buffer and its layout)
+    and routing."""
 
-    outputs: Dict[str, Any]
     k: int          # real windows (<= rung; the tail rows are padding)
     rung: int
     executor: "ResidentExecutor"
+    outputs: Optional[Dict[str, Any]] = None
+    flat: Optional[torch.Tensor] = None
+    layout: Optional[OutputLayout] = None
     done: Optional[torch.cuda.Event] = None
+
+
+#: Pinned origin staging slots per executor: a slot is rewritten only
+#: after its last H2D copy has run (its event).
+ORIGIN_SLOTS = 4
 
 
 class ResidentExecutor:
     """The fused gather + forward + decode program over a rung ladder on
     one device and one CUDA stream (the serve executor's bucket
-    discipline, for window counts)."""
+    discipline, for window counts), one CUDA graph per (rung, ring
+    buffer): the feed's ring is double-buffered and a graph gathers from
+    the buffer it captured, so each buffer has its own graph per rung and
+    a dispatch picks it by the ring it is handed.  The origins of a rung
+    are a static ``(rung, 2)`` int32 buffer, filled by one H2D copy from a
+    pinned staging slot the executor owns.  ``eager`` (or the CPU without
+    a stand-in ``capture``) runs the program without graphs."""
 
     def __init__(self, infer_fn: Callable, window: Tuple[int, int],
                  max_windows: int, *, device=None, name: str = "lane",
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None,
+                 eager: bool = False, capture: Optional[Callable] = None):
         self.window = (int(window[0]), int(window[1]))
         self.rungs = rung_ladder(max_windows)
         self.max_rung = self.rungs[-1]
@@ -231,15 +250,89 @@ class ResidentExecutor:
         self.name = name
         self.stream = stream
         self._fn = make_resident_serve_fn(infer_fn, self.window)
+        on_card = self.device.type == "cuda"
+        self._capture, self._pool = graph_mode(self.device, eager, capture)
+        self.eager = self._capture is None
+        self._graphs = (None if self.eager
+                        else GraphBook(self._capture_key))
+        self._rings: Dict[int, torch.Tensor] = {}
+        self._origins: Dict[int, torch.Tensor] = {}
+        self._slots = [torch.empty((self.max_rung, 2), dtype=torch.int32,
+                                   pin_memory=on_card)
+                       for _ in range(ORIGIN_SLOTS if on_card else 0)]
+        self._slot_done: List[Optional[torch.cuda.Event]] = \
+            [None] * len(self._slots)
+        self._next_slot = 0
 
     @property
     def device_name(self) -> str:
         return str(self.device)
 
-    def warmup(self, ring: torch.Tensor) -> None:
-        """Run and collect every rung once against the ring."""
-        for rung in self.rungs:
-            self.collect(self.dispatch(ring, np.zeros((rung, 2), np.int32)))
+    @property
+    def post_warmup_compiles(self) -> int:
+        """Graph captures asked for after warmup (each raised)."""
+        return (self._graphs.post_warmup_captures
+                if self._graphs is not None else 0)
+
+    @property
+    def graph_count(self) -> int:
+        return len(self._graphs) if self._graphs is not None else 0
+
+    def _static_origins(self, rung: int) -> torch.Tensor:
+        if rung not in self._origins:
+            with _stream_ctx(self.stream), torch.inference_mode():
+                self._origins[rung] = torch.zeros(
+                    (rung, 2), dtype=torch.int32, device=self.device)
+        return self._origins[rung]
+
+    def _capture_key(self, key):
+        """Run ``(rung, ring buffer)`` eagerly once on the lane's stream,
+        then capture it."""
+        rung, ptr = key
+        ring, origins = self._rings[ptr], self._static_origins(rung)
+        with torch.inference_mode(), _stream_ctx(self.stream):
+            self._fn(ring, origins)
+        if self.stream is not None:
+            self.stream.synchronize()
+        return self._capture(self._fn, (ring, origins), stream=self.stream,
+                             pool=self._pool, device=self.device)
+
+    def warmup(self, rings: Sequence[torch.Tensor]) -> None:
+        """Capture every rung over each of the feed's ring buffers
+        (unless eager), then run and collect each once."""
+        for ring in rings:
+            self._rings[ring.data_ptr()] = ring
+            if self._graphs is not None:
+                for rung in self.rungs:
+                    self._graphs.entry((rung, ring.data_ptr()))
+            for rung in self.rungs:
+                self.collect(self.dispatch(ring,
+                                           np.zeros((rung, 2), np.int32)))
+        if self._graphs is not None:
+            self._graphs.finish_warmup()
+
+    def _stage_origins(self, origins: np.ndarray, rung: int
+                       ) -> torch.Tensor:
+        """The rung's origins on the device (queued on the lane's
+        stream): through a pinned slot on the card."""
+        src = torch.from_numpy(np.ascontiguousarray(origins, np.int32))
+        i = self._next_slot
+        if self._slots:
+            self._next_slot = (i + 1) % len(self._slots)
+            if self._slot_done[i] is not None:
+                self._slot_done[i].synchronize()
+            self._slots[i][:rung].copy_(src)
+            src = self._slots[i][:rung]
+        if self._graphs is not None:
+            dst = self._static_origins(rung)
+            dst.copy_(src, non_blocking=True)
+        else:
+            dst = src.to(self.device, non_blocking=True)
+        if self._slots:
+            done = torch.cuda.Event()
+            done.record(self.stream)
+            self._slot_done[i] = done
+        return dst
 
     def dispatch(self, ring: torch.Tensor,
                  origins: np.ndarray) -> ResidentBatch:
@@ -256,17 +349,23 @@ class ResidentExecutor:
         if rung != k:
             pad = np.repeat(origins[:1], rung - k, axis=0)
             origins = np.concatenate([origins, pad], axis=0)
-        o = torch.from_numpy(np.ascontiguousarray(origins, np.int32))
-        with _stream_ctx(self.stream):
-            if self.device.type == "cuda":
-                o = o.pin_memory().to(self.device, non_blocking=True)
-            out = dict(self._fn(ring, o))
-            done = None
+        out = flat = layout = done = None
+        with torch.inference_mode(), _stream_ctx(self.stream):
+            graph = None
+            if self._graphs is not None:
+                self._rings.setdefault(ring.data_ptr(), ring)
+                graph = self._graphs.entry((rung, ring.data_ptr()))
+            o = self._stage_origins(origins, rung)
+            if graph is not None:
+                graph.replay()
+                flat, layout = graph.flat.clone(), graph.layout
+            else:
+                out = dict(self._fn(ring, o))
             if self.stream is not None:
                 done = torch.cuda.Event()
                 done.record(self.stream)
-        return ResidentBatch(outputs=out, k=k, rung=rung, executor=self,
-                             done=done)
+        return ResidentBatch(k=k, rung=rung, executor=self, outputs=out,
+                             flat=flat, layout=layout, done=done)
 
     def collect(self, batch: ResidentBatch, want_log_probs: bool = False
                 ) -> Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray,
@@ -277,9 +376,9 @@ class ResidentExecutor:
         ``log_probs_event``."""
         if batch.done is not None:
             batch.done.synchronize()
-        host = collect_host({k: v for k, v in batch.outputs.items()
-                             if want_log_probs
-                             or not k.startswith("log_probs_")})
+        with _stream_ctx(self.stream):
+            host = pull_outputs(batch.outputs, batch.flat, batch.layout,
+                                want_log_probs)
         k = batch.k
         bad = np.asarray(host.pop("bad_rows"), bool)[:k]
         prob_q = host.pop("event_prob_q", None)
@@ -294,8 +393,12 @@ class ResidentExecutor:
         return preds, bad, prob, log_probs
 
     def close(self) -> None:
+        """Wait for the stream, then drop the graphs and their pool."""
         if self.stream is not None:
             self.stream.synchronize()
+        if self._graphs is not None:
+            self._graphs.close()
+        self._pool = None
 
 
 class ResidentLane:
@@ -313,7 +416,7 @@ class ResidentLane:
 
     def warmup(self) -> None:
         self.feed.warmup()
-        self.executor.warmup(self.feed.ring)
+        self.executor.warmup(self.feed.buffers)
 
     def dispatch_windows(self, windows: Sequence) -> ResidentBatch:
         """One fused dispatch of cut windows' metadata
@@ -426,26 +529,31 @@ def resolve_resident_mode(mode: str, pool, tenants, *,
 
 
 def build_lanes(pool, tenants, *, max_windows: int = 0) -> List[ResidentLane]:
-    """One warmed :class:`ResidentLane` per tenant, fibers round-robin
-    over the pool's executors; each lane shares its executor's CUDA
-    stream.  ``max_windows`` caps the rung ladder (0 = the tenant's
-    per-cycle quota)."""
+    """One warmed :class:`ResidentLane` per tenant, fibers placed
+    round-robin over the pool's members
+    (:func:`~dasmtl_torch.parallel.placement.fiber_placements`); each lane
+    shares its member's CUDA stream and graph mode, and warms (captures)
+    every rung over both ring buffers here, so each (rung, device) has its
+    graphs before the first cycle, as JAX compiles each rung per device.
+    ``max_windows`` caps the rung ladder (0 = the tenant's per-cycle
+    quota)."""
     members = _pool_members(pool)
     if any(ex.input_dtype != torch.float32 for ex in members):
         raise ValueError("the resident lanes take f32 executors only: "
                          "ROADMAP.md queue 1 item 10, 'The stream tier's "
                          "presets and model C'")
     lanes = []
-    for i, t in enumerate(tenants):
-        ex = members[i % len(members)]
+    for t, (i, ex) in zip(tenants,
+                          fiber_placements(len(tenants), members)):
         stream = getattr(ex, "stream", None)
         feed = ResidentFeed(t.feed.channels, t.feed.ring_samples,
                             chunk_samples=t.chunk_samples,
                             device=ex.placement, stream=stream)
         executor = ResidentExecutor(
             ex.raw_infer_fn, ex.input_hw, int(max_windows) or int(t.quota),
-            device=ex.placement, name=f"{t.name}@{i % len(members)}",
-            stream=stream)
+            device=ex.placement, name=f"{t.name}@{i}", stream=stream,
+            eager=getattr(ex, "eager", False),
+            capture=getattr(ex, "graph_capture", None))
         lane = ResidentLane(feed, executor)
         lane.warmup()
         lanes.append(lane)

@@ -16,7 +16,8 @@ from typing import Tuple
 
 import torch
 
-from dasmtl_torch.serve.executor import InferExecutor
+from dasmtl_torch.serve.executor import (ExecutorPool, InferExecutor,
+                                         _pool_devices)
 
 #: Oracle RMS thresholds: below the first is background, between is
 #: striking (A=8 -> window RMS ~5.7), above is excavating (A=16 -> ~11.4).
@@ -60,11 +61,13 @@ def _oracle_infer_fn():
 
 
 def _oracle_pool(input_hw: Tuple[int, int], buckets,
-                 device: torch.device) -> InferExecutor:
-    """An :class:`InferExecutor` running the oracle on ``device`` (the
-    port has no executor pool yet: one device, one executor)."""
+                 device: torch.device, devices=1) -> ExecutorPool:
+    """An :class:`ExecutorPool` running the oracle on ``devices`` of
+    ``device``'s kind (JAX ``_oracle_pool``)."""
     if int(input_hw[0]) % N_DISTANCE_BINS:
         raise ValueError(f"the oracle needs a window height divisible by "
                          f"{N_DISTANCE_BINS}, got {input_hw[0]}")
-    return InferExecutor(_oracle_infer_fn(), input_hw, buckets, device,
-                         source="oracle:analytic-rms")
+    return ExecutorPool([
+        InferExecutor(_oracle_infer_fn(), input_hw, buckets, d,
+                      source="oracle:analytic-rms")
+        for d in _pool_devices(devices, device)])

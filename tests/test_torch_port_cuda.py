@@ -1201,6 +1201,8 @@ def test_an_artifact_serves_the_bits_of_from_state_dict(cuda, tmp_path,
     ex = InferExecutor.from_exported(str(path), (8,), (100, 250), cuda,
                                      precision)
     assert ex.input_dtype == ref.input_dtype and ex.raw_infer_fn is None
+    ex.warmup()
+    ref.warmup()
     int8.launches.reset()
     got = ex.collect(ex.dispatch(x), want_log_probs=True)
     want = ref.collect(ref.dispatch(x), want_log_probs=True)
@@ -1567,3 +1569,208 @@ def test_cv_dispatch_equals_single_fold_dispatches(cuda):
                 assert torch.equal(gs[k], v), k
     for st in cv_states[2].optimizer.state.values():
         assert float(st["step"]) == 1.0
+
+
+# -- the executor pool: graphs per bucket and per resident rung -----------------
+
+GRAPH_CASES = [("MTL", "f32"), ("MTL", "bf16"), ("MTL", "int8"),
+               ("multi_classifier", "f32"), ("multi_classifier", "int8")]
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+
+
+def _held_graph_to_eager(got, want, margin=1e-3):
+    """A graph's answer against the eager forward's on the same input:
+    bad_rows equal, log-probs within atol 5e-4 / rtol 1e-4
+    (tests/test_torch_parity.py:76-77), ints equal on decisive rows (a
+    top-2 margin above ``margin``); True when every output is bit-equal."""
+    (gp, gb, gl), (ep, eb, el) = got, want
+    assert np.array_equal(gb, eb)
+    assert sorted(gl) == sorted(el) and sorted(gp) == sorted(ep)
+    bits = all(np.array_equal(gl[k], el[k], equal_nan=True) for k in el)
+    bits = bits and all(np.array_equal(gp[k], ep[k]) for k in ep)
+    ok = ~eb
+    decisive = ok.copy()
+    for k in el:
+        np.testing.assert_allclose(gl[k][ok], el[k][ok], atol=5e-4,
+                                   rtol=1e-4)
+        top2 = np.sort(el[k][ok], axis=-1)[:, -2:]
+        decisive[ok] &= (top2[:, 1] - top2[:, 0]) > margin
+    for k in ep:
+        assert np.array_equal(gp[k][decisive], ep[k][decisive]), k
+    return bits
+
+
+@pytest.mark.parametrize("family, precision", GRAPH_CASES,
+                         ids=[f"{f}-{p}" for f, p in GRAPH_CASES])
+def test_every_bucket_graph_answers_as_the_eager_forward(cuda, family,
+                                                         precision):
+    """Every serve bucket at 100x250, replayed from its CUDA graph,
+    against the same executor's forward run eagerly, on seeded windows
+    with a NaN row: one capture per bucket at warmup, the kernels'
+    launches added at every replay (int8_dot once per model-C int8
+    batch, the decode tail once per batch)."""
+    spec = get_model_spec(family)
+    sd = init_scaled(spec.build(), 0).state_dict()
+    graph = InferExecutor.from_state_dict(family, sd, SERVE_BUCKETS,
+                                          (100, 250), cuda, precision)
+    eager = InferExecutor.from_state_dict(family, sd, SERVE_BUCKETS,
+                                          (100, 250), cuda, precision,
+                                          eager=True)
+    graph.warmup()
+    eager.warmup()
+    summary = graph.compile_summary()
+    assert summary["graph_count"] == summary["warmup_compiles"] == 6
+    g = torch.Generator().manual_seed(3)
+    for b in SERVE_BUCKETS:
+        x = torch.randn(b, 100, 250, 1, generator=g)
+        x[0, 1, 1, 0] = float("nan")
+        decode.launches.reset()
+        int8.launches.reset()
+        got = graph.collect(graph.dispatch(x), want_log_probs=True)
+        assert decode.launches.value == 1
+        assert int8.launches.value == (
+            1 if (family, precision) == ("multi_classifier", "int8") else 0)
+        want = eager.collect(eager.dispatch(x), want_log_probs=True)
+        _held_graph_to_eager(got, want)
+    assert graph.post_warmup_compiles == 0
+    graph.close()
+    eager.close()
+
+
+def test_three_dispatches_of_one_bucket_before_any_collect(cuda):
+    """Three batches of one bucket dispatched before the first collect:
+    each graph replay's outputs are cloned at dispatch, so each answer is
+    its own batch's (against the eager forward)."""
+    graph = InferExecutor.from_fresh_init("MTL", (4,), (100, 250), 0, cuda)
+    eager = InferExecutor.from_fresh_init("MTL", (4,), (100, 250), 0, cuda,
+                                          eager=True)
+    graph.warmup()
+    g = torch.Generator().manual_seed(5)
+    xs = [(i + 1.0) * torch.randn(4, 100, 250, 1, generator=g)
+          for i in range(3)]
+    handles = [graph.dispatch(x.pin_memory()) for x in xs]
+    for h, x in zip(handles, xs):
+        got = graph.collect(h, want_log_probs=True)
+        want = eager.collect(eager.dispatch(x), want_log_probs=True)
+        _held_graph_to_eager(got, want)
+    assert graph.post_warmup_compiles == 0
+    graph.close()
+    eager.close()
+
+
+def test_no_capture_after_warmup_across_serving_and_a_swap(cuda):
+    """A one-card pool serves under 4 clients, swaps blue/green to a bf16
+    pool mid-load and serves on: every request answered, and zero
+    post-warmup captures on every member of both pools."""
+    import threading
+
+    from dasmtl_torch.serve.executor import ExecutorPool
+    from dasmtl_torch.serve.server import ServeLoop
+
+    buckets = (1, 2, 4, 8)
+    old = ExecutorPool.from_fresh_init("MTL", buckets, (100, 250), 0, cuda,
+                                       devices=1)
+    loop = ServeLoop(old, buckets=buckets, max_wait_s=0.002,
+                     queue_depth=64).start()
+    rng = np.random.default_rng(0)
+    windows = rng.normal(size=(16, 100, 250)).astype(np.float32)
+    results = []
+
+    def client(cid):
+        for k in range(cid, 160, 4):
+            results.append(loop.submit(windows[k % 16], timeout=60.0))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads:
+        t.start()
+    new = ExecutorPool.from_fresh_init("MTL", buckets, (100, 250), 0, cuda,
+                                       "bf16", devices=1)
+    loop.swap_executor(new)
+    for t in threads:
+        t.join(timeout=120)
+    stats = loop.stats()
+    loop.close()
+    assert len(results) == 160 and all(r.ok for r in results)
+    assert loop.generation == 2
+    for pool in (old, new):  # both closed: their graphs dropped
+        summary = pool.compile_summary()
+        assert summary["post_warmup_compiles"] == 0
+        for member in summary["per_device"]:
+            assert member["warmup_compiles"] == len(buckets)
+            assert member["graph_count"] == 0
+            assert member["post_warmup_compiles"] == 0
+    assert stats["executor"]["precision"] == "bf16"
+
+
+def test_resident_rung_graphs_over_both_ring_buffers(cuda):
+    """Model A's resident lane at 100x250 replayed from its (rung, ring
+    buffer) graphs against the same lane run eagerly, after every append
+    (so both ring buffers are gathered from): the same ints, bad_rows and
+    confidences, and one graph per rung and buffer."""
+    from dasmtl_torch.serve.executor import ExecutorPool
+    from dasmtl_torch.stream.feed import SyntheticSource
+    from dasmtl_torch.stream.live import StreamTenant
+    from dasmtl_torch.stream.resident import build_lanes
+    from dasmtl_torch.stream.windower import LiveWindower
+
+    lanes = []
+    for eager in (False, True):
+        pool = ExecutorPool.from_fresh_init("MTL", (1, 2, 4, 8), (100, 250),
+                                            0, cuda, devices=1, eager=eager)
+        tenant = StreamTenant("f0", SyntheticSource(100, seed=3),
+                              window=(100, 250), stride_time=125,
+                              ring_samples=2048, chunk_samples=250)
+        (lane,) = build_lanes(pool, [tenant], max_windows=8)
+        lanes.append(lane)
+    graph, eager = lanes
+    assert graph.executor.graph_count == 2 * len(graph.executor.rungs)
+    assert eager.executor.graph_count == 0
+    rng = np.random.default_rng(1)
+    data = (rng.normal(size=(100, 250 * 24))
+            * rng.uniform(0.5, 8.0, size=(100, 1))).astype(np.float32)
+    cutters = [LiveWindower(lane.feed, (100, 250), stride_time=125)
+               for lane in lanes]
+    ptrs, n = set(), 0
+    for c0 in range(0, data.shape[1], 250):
+        for lane in lanes:
+            lane.feed.append(data[:, c0:c0 + 250])
+        ptrs.add(graph.feed.ring.data_ptr())
+        cuts = [w.cut(8, pixels=False) for w in cutters]
+        if not cuts[0]:
+            continue
+        got, want = (lane.executor.collect(lane.dispatch_windows(c),
+                                           want_log_probs=True)
+                     for lane, c in zip(lanes, cuts))
+        for a, b in zip(got[0].values(), want[0].values()):
+            assert np.array_equal(a, b)
+        assert np.array_equal(got[1], want[1])
+        assert np.array_equal(got[2], want[2])
+        n += len(cuts[0])
+    assert len(ptrs) == 2 and n > 20
+    assert graph.executor.post_warmup_compiles == 0
+    for lane in lanes:
+        lane.close()
+
+
+def test_a_failed_capture_raises_and_never_runs_eagerly(cuda):
+    """A forward that syncs with the host (``.item()``) cannot be
+    captured: warmup raises GraphCaptureError, no graph is kept, and a
+    dispatch raises too instead of running the forward eagerly; the card
+    stays usable."""
+    from dasmtl_torch.serve.graphs import GraphCaptureError
+
+    def syncing(x):
+        with torch.inference_mode():
+            if x.sum().item() > 1e30:
+                x = x * 0
+            return {"event": x[:, 0, 0, 0].to(torch.int32),
+                    "bad_rows": torch.isnan(x[:, 0, 0, 0])}
+
+    ex = InferExecutor(syncing, (8, 8), (2,), cuda)
+    with pytest.raises(GraphCaptureError, match="capture"):
+        ex.warmup()
+    with pytest.raises(GraphCaptureError):
+        ex.dispatch(np.zeros((2, 8, 8, 1), np.float32))
+    assert ex.compile_summary()["graph_count"] == 0
+    ex.close()
+    assert float(torch.ones(4, device=cuda).sum()) == 4.0

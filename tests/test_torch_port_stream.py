@@ -415,7 +415,7 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--devices", "2"], "item 4"),
+    (["--devices", "1"], "item 4"),
     (["--precision", "bf16"], "item 10"),
     (["--precision", "int8"], "item 10"),
     (["--fleet_worker"], "item 1"),
@@ -425,11 +425,56 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
     (["--conc_lockdep"], "item 3"),
     (["--mem_track"], "item 3"),
 ])
-def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys):
+def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys,
+                                                     tmp_path):
+    """What the stream CLI does not port exits 2 naming its item;
+    ``--devices`` (item 4) is ported: a pool of 1 on the CPU streams and
+    drains clean."""
     argv = ["stream", "serve", "--synthetic", "1", "--fresh_init", *extra]
+    if extra[0] == "--devices":
+        assert _stream_until_sigterm(argv, tmp_path) == 0
+        err = capsys.readouterr().err
+        assert "not yet ported" not in err and "drained=clean" in err
+        return
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and item in err
+
+
+def _stream_until_sigterm(argv, tmp_path) -> int:
+    """Run the stream CLI in this process on one intra-op thread at 52x64;
+    once ``/readyz`` answers 200, SIGTERM the process (the CLI drains);
+    its exit code.  The signal handlers it installs are put back."""
+    import threading
+
+    port_file = tmp_path / "port"
+    prev = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    threads = torch.get_num_threads()
+
+    def stop_when_ready():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            try:
+                port = port_file.read_text().strip()
+                if port and _ready(f"http://127.0.0.1:{port}"):
+                    break
+            except OSError:
+                pass
+            time.sleep(0.05)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    torch.set_num_threads(1)
+    stopper = threading.Thread(target=stop_when_ready, daemon=True)
+    stopper.start()
+    try:
+        return cli.main(argv + ["--window", "52x64", "--buckets", "1,2",
+                                "--device", "cpu", "--port", "0",
+                                "--port_file", str(port_file)])
+    finally:
+        stopper.join(timeout=70)
+        for s, handler in prev.items():
+            signal.signal(s, handler)
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("argv,said", [
