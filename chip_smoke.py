@@ -221,7 +221,32 @@ Phases, each fatal on failure (no phase catches its own error):
              input_hw=(100, 250))`` passing on the card; (f) ``python -m
              dasmtl_torch.serve --fresh_init --devices 2`` exiting 2 with
              the pool's message on a one-card machine; the phase's peak
-             memory.
+             memory;
+14. obs    — observability over model A f32 at 100x250, fresh init (seed
+             0), on the server's ``ExecutorPool``: (a) 8 clients send 512
+             requests over HTTP, every 37th NaN-poisoned and every 5th
+             with its own ``X-Dasmtl-Trace``: every answer carries a
+             trace_id (the client's echoed in the answer and the header,
+             on 200 and 422; a shed 503 too), every one has its chain of
+             the six span stages in ``GET /trace``, two mid-load ``GET
+             /metrics`` scrapes and the last parse with every required
+             family and no counter going down, zero post-warmup captures
+             per member, ``GET /query`` points from a 0.5 s history, 4
+             gate + 1 decode launch a batch; (b) the seeded SLO breach
+             fires exactly one capture and no skip, a second ``POST
+             /profile`` is rate-limited, and the capture's Chrome trace
+             holds the gate and decode kernels of the graph replays by
+             name, 4 + 1 a replay; a capture over model C int8's replays
+             holds int8_dot + decode, 1 + 1 a replay; captures triggered
+             while ``POST /swap`` builds and warms a bf16 pool start once
+             it is warm, complete without a skip, and the swap lands; (c) windows/s and p50 / p99 with
+             ``trace_ring`` 4096 against 0, in turns; (d) ``stream serve
+             --history``: ``/query`` points, ``/metrics`` with the serve
+             and stream families; (e) ``train --profile_dir`` on the
+             resident path: the trace holds batch_gather and the gate's
+             forward and backward kernels (graph replays included), as
+             many as the wrappers counted; (f) ``python -m dasmtl_torch.serve --selftest``
+             passing with invariant 6.
 
 Then one JSON line lists every kernel of the port, the card's name and
 power limit follow on a line of their own, and the last line is
@@ -5271,7 +5296,612 @@ def phase_graphs(serve: dict, stream: dict, artifacts: dict) -> dict:
     return out
 
 
+# -- phase 14 -----------------------------------------------------------------
+OBS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke", "obs")
+#: Kernel-name fragments of the kernels a capture must hold by name.
+OBS_KERNELS = {"gate": "gate_fwd_kernel", "decode": "decode_heads_kernel",
+               "int8_dot": "int8_dot_kernel",
+               "batch_gather": "batch_gather_kernel",
+               "gate_backward": "gate_bwd"}
+OBS_TURNS = (4096, 0, 0, 4096)  # 14c: trace_ring per run, in turns
+
+
+def _http(url: str, body: bytes = None, headers: dict = None):
+    """``(status, headers, body bytes)`` of a GET, or a POST of ``body``."""
+    req = urllib.request.Request(url, data=body, headers=headers or {},
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _trace_kernels(path: str) -> dict:
+    """The kernels of a Chrome trace: counts by :data:`OBS_KERNELS`, the
+    per-launch groups (kernels sharing the correlation id of the runtime
+    call that launched them: a graph replay's ``cudaGraphLaunch``), the
+    runtime graph launches and the trace's size."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(frag in e.get("name", "") for e in kernels)
+              for k, frag in OBS_KERNELS.items()}
+    groups: dict = {}
+    for e in kernels:
+        corr = (e.get("args") or {}).get("correlation")
+        g = groups.setdefault(corr, {"ts": e.get("ts", 0.0),
+                                     **{k: 0 for k in OBS_KERNELS}})
+        g["ts"] = min(g["ts"], e.get("ts", 0.0))
+        for k, frag in OBS_KERNELS.items():
+            g[k] += frag in e.get("name", "")
+    cats: dict = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    return {"events": len(events), "kernels": len(kernels),
+            "counts": counts, "categories": cats,
+            "names": sorted({e.get("name", "")[:60] for e in kernels})[:8],
+            "groups": sorted(groups.values(), key=lambda g: g["ts"]),
+            "graph_launches": sum(e.get("name", "").startswith(
+                "cudaGraphLaunch") for e in events),
+            "bytes": os.path.getsize(path)}
+
+
+def _per_replay(tag: str, k: dict, want: dict) -> dict:
+    """Every replay in the capture launched ``want`` kernels (by name)
+    but at most the two the capture's start and stop cut; the totals
+    then hold ``want``'s ratio.  Returns the replays counted."""
+    mine = [g for g in k["groups"] if any(g[n] for n in want)]
+    full = [g for g in mine if all(g[n] == v for n, v in want.items())]
+    cut = len(mine) - len(full)
+    if not full or cut > 2:
+        raise AssertionError(
+            f"[obs] {tag}: {len(full)} replays with {want} of "
+            f"{len(mine)} holding any; counts {k['counts']}; "
+            f"{k['events']} events by category {k['categories']}, "
+            f"{k['graph_launches']} cudaGraphLaunch, kernels {k['names']}")
+    return {"replays": len(full), "cut_at_the_edges": cut,
+            **{n: k["counts"][n] for n in want}}
+
+
+def _obs_windows(n: int = 32):
+    return np.random.default_rng(0).normal(size=(n, H, W)).astype(np.float32)
+
+
+def _obs_traffic(url: str, windows, n_requests: int, on_sent=None):
+    """8 clients send ``n_requests`` windows over HTTP, every 37th
+    NaN-poisoned, every 5th with its own ``X-Dasmtl-Trace``; returns
+    ``[(i, poisoned, sent id, status, headers, payload)]`` and the wall
+    seconds."""
+    spoiled = windows.copy()
+    spoiled[:, H // 2, W // 2] = np.nan
+    clean = [json.dumps({"x": w.tolist()}).encode() for w in windows]
+    poisoned = [json.dumps({"x": p.tolist()}).encode() for p in spoiled]
+    sent = [0]
+    lock = threading.Lock()
+
+    def send(i):
+        poison = i % POISON_EVERY == 0
+        tid = f"client-{i}" if i % 5 == 0 else None
+        code, head, body = _http(
+            url + "/infer", (poisoned if poison else clean)[i % len(windows)],
+            {"X-Dasmtl-Trace": tid} if tid else None)
+        with lock:
+            sent[0] += 1
+            n = sent[0]
+        if on_sent is not None:
+            on_sent(n)
+        return i, poison, tid, code, head, json.loads(body)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(N_CLIENTS) as pool:
+        answers = list(pool.map(send, range(n_requests)))
+    return answers, time.perf_counter() - t0
+
+
+def _obs_front_end(pool, **kw):
+    """A started ServeLoop over ``pool`` (not closed at the end: the pool
+    outlives it) behind HTTP; ``(loop, httpd, thread, url)``."""
+    from dasmtl_torch.serve.server import ServeLoop, make_http_server
+
+    history = kw.pop("history", None)
+    loop = ServeLoop(pool, buckets=BUCKETS, max_wait_s=0.005,
+                     queue_depth=256, inflight=2, **kw)
+    httpd = make_http_server(loop, "127.0.0.1", 0, history=history)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    loop.start()
+    return loop, httpd, t, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def _obs_stop(loop, httpd, t) -> bool:
+    drained = loop.drain(timeout=60.0)
+    httpd.shutdown()
+    t.join(timeout=10.0)
+    httpd.server_close()
+    return drained
+
+
+def _obs_requests(pool) -> dict:
+    """(a) requests and traces, (b) the SLO capture during them."""
+    from dasmtl_torch.obs.history import HistorySampler, MetricsHistory
+    from dasmtl_torch.obs.profiler import TRACE_FILE, ProfilerHook
+    from dasmtl_torch.obs.registry import (monotone_regressions,
+                                           parse_exposition)
+    from dasmtl_torch.obs.trace import SPAN_STAGES, join_chains
+    from dasmtl_torch.serve.selftest import REQUIRED_METRIC_FAMILIES
+
+    hook = ProfilerHook(os.path.join(OBS_DIR, "slo"), cooldown_s=1e9,
+                        duration_s=1.0)
+    hook.prime()  # as the serve CLI does at startup
+    history = MetricsHistory(64)
+    loop, httpd, t, url = _obs_front_end(pool, slo_p99_ms=0.001,
+                                         profiler=hook, history=history)
+    sampler = HistorySampler(history, loop.metrics_text, interval_s=0.5)
+    sampler.start()
+    scrapes, marks = [], {N_REQUESTS // 3, 2 * N_REQUESTS // 3}
+
+    def on_sent(n):
+        if n in marks:
+            scrapes.append(_http(url + "/metrics")[2].decode())
+
+    try:
+        _reset_launches()
+        answers, wall = _obs_traffic(url, _obs_windows(), N_REQUESTS,
+                                     on_sent)
+        launches = {k: _launches()[k] for k in ("gate", "decode")}
+        stats = json.loads(_http(url + "/stats")[2])
+        spans = [json.loads(ln) for ln in
+                 _http(url + "/trace")[2].decode().splitlines()]
+        final = parse_exposition(_http(url + "/metrics")[2].decode())
+        hook.wait(60.0)
+        again = json.loads(_http(url + "/profile", b"")[2])
+        time.sleep(1.2)  # two more history samples
+        query = json.loads(_http(url + "/query?family="
+                                 "dasmtl_serve_requests_total")[2])
+    finally:
+        sampler.stop()
+        drained = _obs_stop(loop, httpd, t)
+
+    if not drained:
+        raise AssertionError("[obs] drain timed out")
+    # -- (a) every answer, its trace ID and its chain ----------------------
+    chains = join_chains(spans)
+    n_ok = n_nan = echoed = 0
+    for i, poison, tid, code, head, payload in answers:
+        want = 422 if poison else 200
+        if code != want or not payload.get("trace_id"):
+            raise AssertionError(f"[obs] request {i}: {code} {payload}")
+        if tid is not None and (payload["trace_id"] != tid
+                                or head.get("X-Dasmtl-Trace") != tid):
+            raise AssertionError(f"[obs] request {i} sent {tid}: answer "
+                                 f"{payload['trace_id']}, header "
+                                 f"{head.get('X-Dasmtl-Trace')}")
+        echoed += tid is not None
+        chain = chains.get(payload["trace_id"], [])
+        if [s["stage"] for s in chain] != list(SPAN_STAGES) or \
+                chain[-1]["outcome"] != ("nonfinite" if poison else "ok"):
+            raise AssertionError(f"[obs] request {i}: chain "
+                                 f"{[s['stage'] for s in chain]}")
+        n_ok += not poison
+        n_nan += poison
+    if len(scrapes) != 2:
+        raise AssertionError(f"[obs] {len(scrapes)} mid-load scrapes")
+    parsed = [parse_exposition(s) for s in scrapes] + [final]
+    for p in parsed:
+        missing = set(REQUIRED_METRIC_FAMILIES) - set(p)
+        if missing:
+            raise AssertionError(f"[obs] /metrics lacks {sorted(missing)}")
+    regressions = (monotone_regressions(parsed[0], parsed[1])
+                   + monotone_regressions(parsed[1], parsed[2]))
+    if regressions:
+        raise AssertionError(f"[obs] counters went down: {regressions}")
+    recompiles = {dict(k[1])["device"]: v for k, v in final[
+        "dasmtl_serve_post_warmup_recompiles_total"]["samples"].items()}
+    if any(recompiles.values()) or not recompiles:
+        raise AssertionError(f"[obs] post-warmup captures {recompiles}")
+    if len(query.get("points", [])) < 2:
+        raise AssertionError(f"[obs] /query gave {query}")
+    n_batches = stats["batches"]["count"]
+    if launches != {"gate": 4 * n_batches, "decode": n_batches}:
+        raise AssertionError(f"[obs] {n_batches} batches made {launches}")
+    # -- (b) the SLO capture -----------------------------------------------
+    prof = hook.summary()
+    if prof["captures"] != 1 or prof["skips"] or again["triggered"]:
+        raise AssertionError(f"[obs] SLO captures {prof}, second POST "
+                             f"/profile {again}")
+    k = _trace_kernels(os.path.join(prof["capture_dirs"][0], TRACE_FILE))
+    replay = _per_replay("SLO capture", k, {"gate": 4, "decode": 1})
+    lat = stats["latency_ms"]
+    out = {"answered": len(answers), "ok": n_ok, "nonfinite": n_nan,
+           "echoed": echoed, "chains": len(chains),
+           "spans_recorded": stats["trace"]["spans_recorded"],
+           "windows_per_s": N_REQUESTS / wall, "p50_ms": lat["p50"],
+           "p99_ms": lat["p99"], "batches": n_batches, "launches": launches,
+           "families": len(final), "post_warmup_compiles": recompiles,
+           "query_points": len(query["points"]),
+           "slo_capture": {"trace_mb": k["bytes"] / 2 ** 20,
+                           "events": k["events"], "kernels": k["kernels"],
+                           "graph_launches": k["graph_launches"],
+                           **replay},
+           "profiler": {key: prof[key] for key in
+                        ("triggers", "captures", "rate_limited")},
+           "prime_s": hook.prime_s}
+    log(f"[obs] (a) {N_REQUESTS} HTTP requests from {N_CLIENTS} clients at "
+        f"{H}x{W}: {n_ok} ok + {n_nan} nonfinite (422), each with a "
+        f"trace_id and its chain of 6 stages in /trace "
+        f"({out['spans_recorded']} spans); {echoed} client IDs echoed; "
+        f"two mid-load /metrics scrapes parse, hold the "
+        f"{len(REQUIRED_METRIC_FAMILIES)} required families ({len(final)} "
+        f"in all), no counter went down; post-warmup captures "
+        f"{recompiles}; /query {len(query['points'])} points; "
+        f"{N_REQUESTS / wall:.1f} windows/s, p50 {lat['p50']} ms, p99 "
+        f"{lat['p99']} ms; launches {launches} over {n_batches} batches")
+    log(f"[obs] (b) the profiler primed in {hook.prime_s:.2f} s; "
+        f"SLO breach: {prof['captures']} capture, no skip, a "
+        f"second POST /profile rate-limited ({prof['rate_limited']} in "
+        f"all); its Chrome trace {k['bytes'] / 2 ** 20:.1f} MB, "
+        f"{k['events']} events, {k['kernels']} kernels, "
+        f"{k['graph_launches']} cudaGraphLaunch calls: "
+        f"{replay['replays']} replays of 4 gate_fwd + 1 decode_heads "
+        f"(gate {k['counts']['gate']}, decode {k['counts']['decode']}, "
+        f"{replay['cut_at_the_edges']} replays cut at the edges)")
+    return out
+
+
+def _obs_shed(pool) -> dict:
+    """(a) a shed answer echoes the client's ID: a loop not started, one
+    request queued at watermark 1, the next over HTTP shed."""
+    from dasmtl_torch.serve.server import ServeLoop, make_http_server
+
+    loop = ServeLoop(pool, buckets=BUCKETS, queue_depth=4, watermark=1)
+    httpd = make_http_server(loop, "127.0.0.1", 0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        loop.submit_async(np.zeros((H, W), np.float32))
+        code, head, body = _http(
+            f"http://127.0.0.1:{httpd.server_address[1]}/infer",
+            json.dumps({"x": np.zeros((H, W)).tolist()}).encode(),
+            {"X-Dasmtl-Trace": "shed-me"})
+    finally:
+        httpd.shutdown()
+        t.join(timeout=10.0)
+        httpd.server_close()
+    payload = json.loads(body)
+    if code != 503 or payload["error"] != "shed" or \
+            head.get("X-Dasmtl-Trace") != "shed-me":
+        raise AssertionError(f"[obs] shed: {code} {payload} {head}")
+    log("[obs] (a) a shed request (503) echoes its X-Dasmtl-Trace")
+    return {"status": code, "trace_id": payload["trace_id"]}
+
+
+def _obs_int8_capture() -> dict:
+    """(b) a capture over model C int8's graph replays holds int8_dot and
+    the decode tail by name, one of each a replay."""
+    from dasmtl_torch.obs.profiler import TRACE_FILE, torch_capture
+    from dasmtl_torch.serve.executor import ExecutorPool
+
+    pool = ExecutorPool.from_fresh_init("multi_classifier", (32,), (H, W), 0,
+                                        torch.device("cuda", 0), "int8",
+                                        devices=1)
+    try:
+        pool.warmup()
+        x = torch.zeros((32, H, W, 1), pin_memory=True)
+        x.copy_(torch.from_numpy(_obs_windows()[..., None]))
+        path = os.path.join(OBS_DIR, "int8")
+        t = threading.Thread(target=torch_capture, args=(path, 0.5))
+        t.start()
+        n = 0
+        while t.is_alive():
+            pool.run(x)
+            n += 1
+        t.join()
+    finally:
+        pool.close()
+    k = _trace_kernels(os.path.join(path, TRACE_FILE))
+    replay = _per_replay("C int8 capture", k, {"int8_dot": 1, "decode": 1})
+    log(f"[obs] (b) model C int8, {n} batch-32 graph replays under a 0.5 s "
+        f"capture: {replay['replays']} replays of 1 int8_dot + 1 "
+        f"decode_heads by name ({k['kernels']} kernels)")
+    return {"forwards": n, **replay}
+
+
+def _obs_swap(pool) -> dict:
+    """(b) captures triggered while ``POST /swap``'s bf16 pool builds,
+    warms and captures its graphs start once it is warm (the loop holds
+    ``capture_section`` across the build: a profiler's start or stop
+    meanwhile hung on the card): every capture completes without a skip,
+    the swap lands, the incoming pool serves."""
+    from dasmtl_torch.obs.profiler import TRACE_FILE, ProfilerHook
+    from dasmtl_torch.serve.executor import ExecutorPool
+
+    hook = ProfilerHook(os.path.join(OBS_DIR, "swap"), cooldown_s=0.0,
+                        duration_s=0.3)
+    loop, httpd, t, url = _obs_front_end(pool, profiler=hook)
+    windows = _obs_windows(8)
+    incoming = []
+
+    def build(version):
+        new = ExecutorPool.from_fresh_init("MTL", BUCKETS, (H, W), 0,
+                                           torch.device("cuda", 0), "bf16",
+                                           devices=-1)
+        incoming.append(new)
+        return new
+
+    stop = threading.Event()
+
+    def client():
+        while not stop.is_set():
+            _http(url + "/infer",
+                  json.dumps({"x": windows[0].tolist()}).encode())
+
+    clients = [threading.Thread(target=client) for _ in range(2)]
+    try:
+        for c in clients:
+            c.start()
+        swap = threading.Thread(target=loop.swap_to, args=(build, 2))
+        swap.start()
+        overlapped = 0
+        while swap.is_alive():
+            if hook.maybe_trigger("during the swap") is not None:
+                overlapped += loop.swap_status.get("state") == "warming"
+            time.sleep(0.05)
+        swap.join()
+        hook.wait(60.0)
+        stop.set()
+        for c in clients:
+            c.join(timeout=60)
+        after = [_http(url + "/infer",
+                       json.dumps({"x": w.tolist()}).encode())
+                 for w in windows]
+        status = loop.swap_status
+    finally:
+        stop.set()
+        _obs_stop(loop, httpd, t)
+        loop.close()  # closes the incoming pool; the outgoing is retired
+    prof = hook.summary()
+    post = _post_warmup(incoming[0].compile_summary())
+    if status.get("state") != "done" or prof["skips"] or \
+            not prof["captures"] or not overlapped or \
+            any(code != 200 for code, _, _ in after):
+        raise AssertionError(f"[obs] capture during a swap: {status}, "
+                             f"{prof}, {overlapped} overlapped, "
+                             f"{[a[0] for a in after]}")
+    kernels = [_trace_kernels(os.path.join(d, TRACE_FILE))["kernels"]
+               for d in prof["capture_dirs"]]
+    log(f"[obs] (b) {prof['captures']} captures of 0.3 s around POST /swap "
+        f"warming bf16 graphs under 2 clients ({overlapped} triggered while "
+        f"it warmed), no skip, kernels {kernels}; swap {status['state']} "
+        f"in {status['warmup_s']} s, generation {status['generation']}, "
+        f"post-warmup captures {post}; 8 answers after it 200")
+    return {"captures": prof["captures"], "overlapped": overlapped,
+            "kernels": kernels, "swap_warmup_s": status["warmup_s"],
+            "post_warmup_compiles": post}
+
+
+def _obs_cost(pool) -> dict:
+    """(c) served windows/s and p50 / p99 with trace_ring 4096 against 0,
+    run in turns over one pool."""
+    runs = []
+    for ring in OBS_TURNS:
+        loop, httpd, t, url = _obs_front_end(pool, trace_ring=ring)
+        try:
+            answers, wall = _obs_traffic(url, _obs_windows(), N_REQUESTS)
+            stats = loop.stats()
+        finally:
+            _obs_stop(loop, httpd, t)
+        if any(a[3] not in (200, 422) for a in answers):
+            raise AssertionError(f"[obs] trace_ring {ring}: failed answers")
+        runs.append({"trace_ring": ring, "windows_per_s": N_REQUESTS / wall,
+                     "p50_ms": stats["latency_ms"]["p50"],
+                     "p99_ms": stats["latency_ms"]["p99"],
+                     "batches": stats["batches"]["count"],
+                     "stages_ms": {s: v["mean_ms"]
+                                   for s, v in stats["stages"].items()}})
+    on = [r["windows_per_s"] for r in runs if r["trace_ring"]]
+    off = [r["windows_per_s"] for r in runs if not r["trace_ring"]]
+    log("[obs] (c) tracing's cost, in turns: " + "; ".join(
+        f"trace_ring {r['trace_ring']}: {r['windows_per_s']:.1f} windows/s,"
+        f" p50 {r['p50_ms']} ms, p99 {r['p99_ms']} ms" for r in runs)
+        + f"; on/off {statistics.mean(on) / statistics.mean(off):.3f}")
+    return {"runs": runs, "on_over_off": statistics.mean(on)
+            / statistics.mean(off)}
+
+
+def _cli_until_ready(main, argv, check):
+    """``main(argv)`` in this process (its SIGTERM handler drains); once
+    ``/readyz`` answers 200, ``check(url)`` runs on a thread that then
+    SIGTERMs the process.  Returns ``(exit code, check's result)``; the
+    handlers are put back."""
+    import signal
+
+    port_file = os.path.join(OBS_DIR, "port")
+    if os.path.exists(port_file):
+        os.remove(port_file)
+    sigs = (signal.SIGTERM, signal.SIGINT, signal.SIGUSR2)
+    prev = {s: signal.getsignal(s) for s in sigs}
+    out = {}
+
+    def drive():
+        deadline = time.monotonic() + 300
+        try:
+            while time.monotonic() < deadline:
+                try:
+                    with open(port_file) as f:
+                        port = f.read().strip()
+                    if port and _http(f"http://127.0.0.1:{port}/readyz"
+                                      )[0] == 200:
+                        out["check"] = check(f"http://127.0.0.1:{port}")
+                        break
+                except (OSError, ValueError):
+                    pass
+                time.sleep(0.1)
+        except Exception as exc:  # noqa: BLE001 — raised after the drain
+            out["error"] = exc
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    t = threading.Thread(target=drive, daemon=True)
+    t.start()
+    try:
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            rc = main(argv + ["--port", "0", "--port_file", port_file])
+    finally:
+        t.join(timeout=320)
+        for s, handler in prev.items():
+            signal.signal(s, handler)
+    if "error" in out:
+        raise out["error"]
+    return rc, out.get("check"), err.getvalue()
+
+
+def _obs_stream() -> dict:
+    """(d) ``stream serve --history`` at 100x250 on the resident plane:
+    ``/query`` answers and ``/metrics`` holds the serve and stream
+    families."""
+    from dasmtl_torch import cli
+    from dasmtl_torch.obs.registry import parse_exposition
+    from dasmtl_torch.serve.selftest import REQUIRED_METRIC_FAMILIES
+    from dasmtl_torch.stream.live import REQUIRED_STREAM_METRIC_FAMILIES
+
+    def check(url):
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            stats = json.loads(_http(url + "/stats")[2])
+            if all(t["resolved"] >= 8 for t in stats["tenants"].values()):
+                break
+            time.sleep(0.2)
+        time.sleep(1.2)
+        return (stats, json.loads(_http(
+                    url + "/query?family=dasmtl_stream_windows_total")[2]),
+                parse_exposition(_http(url + "/metrics")[2].decode()))
+
+    rc, (stats, query, fams), err = _cli_until_ready(
+        cli.main, ["stream", "serve", "--synthetic", "2", "--fresh_init",
+                   "--window", f"{H}x{W}", "--device", "cuda", "--resident",
+                   "on", "--history", "32", "--history_interval_s", "0.5"],
+        check)
+    missing = (set(REQUIRED_METRIC_FAMILIES)
+               | set(REQUIRED_STREAM_METRIC_FAMILIES)) - set(fams)
+    if rc != 0 or "drained=clean" not in err or missing or \
+            len(query.get("points", [])) < 2 or not stats["resident"]:
+        raise AssertionError(f"[obs] stream serve: rc {rc}, missing "
+                             f"{sorted(missing)}, query {query}, "
+                             f"{err[-400:]}")
+    resolved = {n: t["resolved"] for n, t in stats["tenants"].items()}
+    log(f"[obs] (d) stream serve --history 32 (2 fibers, resident): "
+        f"/query {len(query['points'])} points of "
+        f"dasmtl_stream_windows_total, /metrics {len(fams)} families, the "
+        f"serve and stream ones among them; resolved {resolved}; drained "
+        f"clean")
+    return {"query_points": len(query["points"]), "families": len(fams),
+            "resolved": resolved}
+
+
+def _obs_train() -> dict:
+    """(e) ``train --profile_dir`` on the resident path, 2 epochs (the
+    first dispatch runs eagerly and captures, the second replays): the
+    trace holds batch_gather and the gate's forward and backward kernels
+    by name, and every graph replay in it a whole scan of k steps (8
+    gate_fwd + 8 gate_bwd + 1 batch_gather a step) or eval batch (4 + 0
+    + 1); the totals against the wrappers' counts show any record the
+    profiler dropped."""
+    from dasmtl_torch.data.synthetic import make_synthetic_dataset
+    from dasmtl_torch.obs.profiler import TRACE_FILE
+
+    striking, excavating = make_synthetic_dataset(
+        os.path.join(OBS_DIR, "data"), files_per_category=4, seed=0)
+    prof = os.path.join(OBS_DIR, "train_trace")
+    _, run, counts, _, console, seconds = _cli_train(
+        ["--device", "cuda", "--model", "MTL", "--batch_size", "32",
+         "--epoch_num", "2", "--device_data", "on",
+         "--trainVal_set_striking", striking,
+         "--trainVal_set_excavating", excavating, "--profile_dir", prof],
+        os.path.join(OBS_DIR, "runs"), det=False)
+    k = _trace_kernels(os.path.join(prof, TRACE_FILE))
+    got = {n: k["counts"][n] for n in ("batch_gather", "gate",
+                                       "gate_backward")}
+    want = {"batch_gather": counts["batch_gather"],
+            "gate": counts["gate_apply"],
+            "gate_backward": counts["gate_apply_backward"]}
+    # A group holding a gather and a gate is one graph replay (an eager
+    # launch has a correlation id of its own).
+    replays = [g for g in k["groups"] if g["batch_gather"] and g["gate"]]
+    bad = [g for g in replays
+           if (g["gate_backward"] and not g["gate"] == g["gate_backward"]
+               == 8 * g["batch_gather"])
+           or (not g["gate_backward"] and g["gate"] != 4 * g["batch_gather"])]
+    train = [g for g in replays if g["gate_backward"]]
+    if not all(got.values()) or not train or bad or \
+            any(got[n] > want[n] for n in got) or \
+            "resident on device" not in console:
+        raise AssertionError(f"[obs] train --profile_dir: trace {got}, "
+                             f"wrappers {want}, {len(train)} train "
+                             f"replays, inconsistent {bad[:3]}")
+    dropped = {n: want[n] - got[n] for n in got if want[n] != got[n]}
+    log(f"[obs] (e) train --profile_dir on the resident path, 2 epochs "
+        f"({seconds:.1f} s): its trace ({k['bytes'] / 2 ** 20:.1f} MB, "
+        f"{k['kernels']} kernels, {k['graph_launches']} cudaGraphLaunch) "
+        f"holds batch_gather {got['batch_gather']}, gate_fwd {got['gate']}, "
+        f"gate_bwd {got['gate_backward']} by name (the wrappers counted "
+        f"{want}; records dropped {dropped or 'none'}); {len(replays)} "
+        f"replays, {len(train)} of a whole scan step")
+    return {**got, "wrappers": want, "dropped": dropped,
+            "replays": len(replays), "kernels": k["kernels"],
+            "graph_launches": k["graph_launches"], "seconds": seconds}
+
+
+def _obs_selftest() -> dict:
+    """(f) ``python -m dasmtl_torch.serve --selftest``, invariant 6 on."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dasmtl_torch.serve", "--selftest"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or "[serve-selftest] PASSED" not in proc.stdout \
+            or "profiler:" in proc.stdout:
+        raise AssertionError(f"[obs] --selftest: rc {proc.returncode}, "
+                             f"{proc.stdout[-800:]} {proc.stderr[-800:]}")
+    line = [ln for ln in proc.stdout.splitlines() if " ok / " in ln][-1]
+    log(f"[obs] (f) python -m dasmtl_torch.serve --selftest PASSED in "
+        f"{seconds:.1f} s with invariant 6 (2 mid-load scrapes, one SLO "
+        f"capture, no skip): {line.split('] ', 1)[1]}")
+    return {"seconds": seconds, "summary": line}
+
+
+def phase_obs() -> dict:
+    """Phase 14: observability on the serve and stream tiers."""
+    from dasmtl_torch.serve.executor import ExecutorPool
+
+    t0 = time.perf_counter()
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    os.makedirs(OBS_DIR)
+    pool = ExecutorPool.from_fresh_init("MTL", BUCKETS, (H, W), 0,
+                                        torch.device("cuda", 0), devices=-1)
+    try:
+        out = {"requests": _obs_requests(pool), "shed": _obs_shed(pool),
+               "int8": _obs_int8_capture(), "cost": _obs_cost(pool)}
+        out["swap"] = _obs_swap(pool)  # retires and closes the pool
+    finally:
+        pool.close()
+    out.update(stream=_obs_stream(), train=_obs_train(),
+               selftest=_obs_selftest())
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[obs] phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
+    # CUPTI stays up between this process's profiler sessions, as the
+    # port's captures keep it (dasmtl_torch/obs/profiler.py): re-initialized
+    # after a teardown in a process holding CUDA graphs, it drops records.
+    os.environ["TEARDOWN_CUPTI"] = "0"
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None, help="write the report here")
     p.add_argument("--profile", action="store_true",
@@ -5316,6 +5946,7 @@ def main(argv=None) -> int:
     cv = phase_cv(peaks)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     graphs = phase_graphs(serve, stream, artifacts)
+    obs = phase_obs()
     sk, offline = stream["kernels"], stream["offline"]
 
     # Launches: each kernel's count over its path's run, the counters
@@ -5386,7 +6017,8 @@ def main(argv=None) -> int:
                        "stream": stream, "artifacts": artifacts,
                        "precision": precision, "dp": dp,
                        "resident": resident, "cv": cv, "graphs": graphs,
-                       "seconds": time.perf_counter() - t_start}, f,
+                       "obs": obs, "seconds": time.perf_counter() - t_start},
+                      f,
                       indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))

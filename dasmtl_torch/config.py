@@ -5,8 +5,10 @@ Own copies of ``dasmtl/config.py`` values (the port imports nothing of
 (``Config.seed``, ``:349``), the serve block (``Config.serve_*``,
 ``:161-174``) with its 90 % watermark rule (``:544-552``), and the
 train/test fields of ``Config`` (``:47-131``, ``:349-352``) with the
-``decay_at_epoch0`` / ``acc_gate`` rules (``:531-541``).  Only what the
-ported slices read is here — this is not a copy of the whole ``Config``.
+``decay_at_epoch0`` / ``acc_gate`` rules (``:531-541``), and the
+observability block (``Config.obs_*``, ``:298-317``, checked as
+``:497-520`` checks it).  Only what the ported slices read is here — this
+is not a copy of the whole ``Config``.
 
 :func:`parse_train_args` / :func:`parse_test_args` take the JAX CLI's flag
 spellings (the reference's ``--trainVal_set_*`` included).  A flag of the
@@ -63,7 +65,59 @@ STREAM_DISTANCE_EWMA = 0.3
 STREAM_RESIDENT = "auto"
 STREAM_EVENTS_RING = 1024
 
+#: The observability defaults (``Config.obs_*``, ``dasmtl/config.py:
+#: 298-317``): the serve latency histogram's bounds, the span ring, the
+#: SLO trigger (0 = off), the profiler's captures, the metrics history.
+OBS_LATENCY_BUCKETS_MS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+                          500.0, 1000.0, 2500.0)
+OBS_TRACE_RING = 4096
+OBS_SLO_P99_MS = 0.0
+OBS_PROFILE_DIR = "artifacts/obs_profiles"
+OBS_PROFILE_COOLDOWN_S = 300.0
+OBS_PROFILE_DURATION_S = 2.0
+OBS_HISTORY = 256
+OBS_HISTORY_INTERVAL_S = 5.0
+
 MODEL_TYPES = ("MTL", "single_event", "single_distance", "multi_classifier")
+
+
+def _float_list(raw) -> tuple:
+    """``"1,2.5,5"`` (or a sequence) -> ``(1.0, 2.5, 5.0)``."""
+    if isinstance(raw, str):
+        return tuple(float(b) for b in raw.split(",") if b.strip())
+    return tuple(float(b) for b in raw)
+
+
+def check_obs_flags(*, trace_ring: int, latency_buckets_ms,
+                    slo_p99_ms: float, profile_cooldown_s: float,
+                    profile_duration_s: float, history: int,
+                    history_interval_s: float) -> tuple:
+    """The JAX ``Config``'s checks of the observability block
+    (``dasmtl/config.py:499-520``); raises ``ValueError`` naming the
+    field.  Returns the latency buckets in seconds."""
+    try:
+        lat = _float_list(latency_buckets_ms)
+    except ValueError:
+        raise ValueError(f"latency_buckets_ms must be comma-separated "
+                         f"numbers, got {latency_buckets_ms!r}") from None
+    if not lat or lat[0] <= 0 or any(
+            b2 <= b1 for b1, b2 in zip(lat, lat[1:])):
+        raise ValueError(f"latency_buckets_ms must be positive and "
+                         f"strictly ascending, got {latency_buckets_ms!r}")
+    if trace_ring < 0:
+        raise ValueError("trace_ring must be >= 0 (0 disables tracing)")
+    if slo_p99_ms < 0:
+        raise ValueError("slo_p99_ms must be >= 0 (0 disables the SLO "
+                         "trigger)")
+    if profile_cooldown_s < 0:
+        raise ValueError("profile_cooldown_s must be >= 0")
+    if profile_duration_s <= 0:
+        raise ValueError("profile_duration_s must be > 0")
+    if history < 0:
+        raise ValueError("history must be >= 0 (0 disables /query)")
+    if history_interval_s <= 0:
+        raise ValueError("history_interval_s must be > 0")
+    return tuple(b / 1e3 for b in lat)
 
 
 def serve_watermark(buckets: Sequence[int], queue_depth: int,
@@ -141,6 +195,19 @@ class Config:
     sanitize_every: int = 100  # replica-fingerprint cadence (steps)
     debug_nans: bool = False
     obs_heartbeat_s: float = 0.0
+    # A torch.profiler Chrome trace of the whole fit / test (JAX:
+    # ``jax.profiler`` into the same directory, ``dasmtl/main.py:263``).
+    profile_dir: Optional[str] = None
+    # The serving tiers' observability block, recorded in config.json as
+    # the JAX train CLI records it (``dasmtl/config.py:298-317``).
+    obs_latency_buckets_ms: tuple = OBS_LATENCY_BUCKETS_MS
+    obs_trace_ring: int = OBS_TRACE_RING
+    obs_slo_p99_ms: float = OBS_SLO_P99_MS
+    obs_profile_dir: str = OBS_PROFILE_DIR
+    obs_profile_cooldown_s: float = OBS_PROFILE_COOLDOWN_S
+    obs_profile_duration_s: float = OBS_PROFILE_DURATION_S
+    obs_history: int = OBS_HISTORY
+    obs_history_interval_s: float = OBS_HISTORY_INTERVAL_S
 
     def __post_init__(self) -> None:
         if self.model not in MODEL_TYPES:
@@ -170,6 +237,19 @@ class Config:
                              "--fold_index selects a single fold — pick one")
         if self.obs_heartbeat_s < 0:
             raise ValueError("obs_heartbeat_s must be >= 0 (0 = off)")
+        try:
+            check_obs_flags(
+                trace_ring=self.obs_trace_ring,
+                latency_buckets_ms=self.obs_latency_buckets_ms,
+                slo_p99_ms=self.obs_slo_p99_ms,
+                profile_cooldown_s=self.obs_profile_cooldown_s,
+                profile_duration_s=self.obs_profile_duration_s,
+                history=self.obs_history,
+                history_interval_s=self.obs_history_interval_s)
+        except ValueError as exc:
+            raise ValueError(f"obs_{exc}") from None
+        self.obs_latency_buckets_ms = _float_list(
+            self.obs_latency_buckets_ms)
         # ``dasmtl/config.py:365-374``.
         if self.device_data not in ("auto", "on", "off"):
             raise ValueError(f"unknown device_data {self.device_data!r}")
@@ -203,6 +283,8 @@ class Config:
 
 _MULTI = ("ROADMAP.md queue 1 item 8, 'Model C, multi-device training and "
           "CV'")
+_ALERTS = ("ROADMAP.md queue 1 item 6's remainder, the alert engine "
+           "(dasmtl/obs/alerts.py)")
 
 #: Flags of the JAX train/test CLI the port does not carry yet: their JAX
 #: default and the ROADMAP.md item that brings them.
@@ -212,19 +294,31 @@ NOT_YET_PORTED = {
                                  "under --compute_dtype bfloat16'"),
     "loader_native": ("auto", "ROADMAP.md queue 1 item 15, 'The native "
                               "MAT reader'"),
-    "profile_dir": (None, "ROADMAP.md queue 1 item 6, 'Observability "
-                          "endpoints and tracing'"),
+    # The train heartbeat's anomaly rules and their sinks.
+    "obs_alerts": (True, _ALERTS),
+    "obs_alerts_interval_s": (1.0, _ALERTS),
+    "obs_alerts_webhook": ("", _ALERTS),
+    "obs_alerts_webhook_retries": (3, _ALERTS),
+    "obs_alerts_webhook_backoff_s": (0.25, _ALERTS),
 }
 #: Prefixes of the JAX CLI's flags that only record the serving and
 #: streaming tiers' geometry in a run's config.json.
-_RECORD_ONLY = ("serve_", "router_", "stream_", "obs_", "conc_", "mem_")
+_RECORD_ONLY = ("serve_", "router_", "stream_", "conc_", "mem_")
 #: Where those recording flags come from.
-_RECORD_ITEMS = ("ROADMAP.md queue 1 item 1, 'The stream tier's remainder', "
-                 "item 6, 'Observability endpoints and tracing' and item "
-                 "13, 'The serving router tier'")
+_RECORD_ITEMS = ("ROADMAP.md queue 1 item 1, 'The stream tier's remainder' "
+                 "and item 13, 'The serving router tier'")
 
 _TRUTHY = frozenset({"1", "true", "yes", "y", "t", "on"})
 _FALSY = frozenset({"0", "false", "no", "n", "f", "off"})
+
+
+def _float_list_arg(raw: str) -> tuple:
+    """``--obs_latency_buckets_ms``'s type (``Config`` checks the order)."""
+    try:
+        return _float_list(raw)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected comma-separated numbers, got {raw!r}") from None
 
 
 class _CompatBoolAction(argparse.Action):
@@ -365,6 +459,38 @@ def _add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--obs_heartbeat_s", type=float,
                    default=d.obs_heartbeat_s,
                    help="heartbeat cadence in seconds (0 = off)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the whole "
+                        "fit / test into this directory")
+    obs = p.add_argument_group(
+        "observability of the serving tiers (recorded in config.json; "
+        "python -m dasmtl_torch.serve takes its own flags)")
+    obs.add_argument("--obs_latency_buckets_ms", type=_float_list_arg,
+                     default=d.obs_latency_buckets_ms, metavar="MS1,MS2,...",
+                     help="serve latency histogram bucket bounds (ms, "
+                          "ascending) exported at GET /metrics")
+    obs.add_argument("--obs_trace_ring", type=int, default=d.obs_trace_ring,
+                     help="serve request-span ring capacity behind "
+                          "GET /trace (0 disables tracing)")
+    obs.add_argument("--obs_slo_p99_ms", type=float,
+                     default=d.obs_slo_p99_ms,
+                     help="serve p99 SLO (ms): a breach captures one "
+                          "rate-limited profiler trace (0 = off)")
+    obs.add_argument("--obs_profile_dir", type=str,
+                     default=d.obs_profile_dir,
+                     help="where SLO/on-demand profiler captures land")
+    obs.add_argument("--obs_profile_cooldown_s", type=float,
+                     default=d.obs_profile_cooldown_s,
+                     help="minimum seconds between profiler captures")
+    obs.add_argument("--obs_profile_duration_s", type=float,
+                     default=d.obs_profile_duration_s,
+                     help="seconds each profiler capture records")
+    obs.add_argument("--obs_history", type=int, default=d.obs_history,
+                     help="metrics-history snapshots kept behind "
+                          "GET /query (0 disables /query)")
+    obs.add_argument("--obs_history_interval_s", type=float,
+                     default=d.obs_history_interval_s,
+                     help="metrics-history sampling cadence in seconds")
     group = p.add_argument_group("not yet ported (exit 2 unless default)")
     for name, (default, _) in NOT_YET_PORTED.items():
         if isinstance(default, bool):

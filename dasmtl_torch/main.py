@@ -2,8 +2,12 @@
 
     Config -> (model spec, device, data sources, TrainState) -> Trainer
 
-without the JAX package's spatial axis, profiler or plots (ROADMAP.md
-names the items that bring them).  ``--cv_parallel`` trains every CV fold
+without the JAX package's spatial axis or plots (ROADMAP.md names the
+items that bring them).  ``--profile_dir`` records a ``torch.profiler``
+Chrome trace of the whole fit / test (the CPU, and the card's kernels
+when one is used) into ``<profile_dir>/trace.json``, as JAX records a
+``jax.profiler`` trace there (``dasmtl/main.py:263-273``); under ``--dp``
+rank 0 records its own process.  ``--cv_parallel`` trains every CV fold
 at once on one card (:func:`_run_cv_parallel`).  A run makes a timestamped
 run dir with ``console_output.log``, ``config.json``, the train/val
 manifests, ``metrics/`` and ``ckpts/``.
@@ -216,6 +220,30 @@ def run(cfg: Config, is_test: bool, run_dir: str,
             else:
                 print(f"--resume: no checkpoint under {cfg.output_savedir}; "
                       f"starting fresh")
-        result = trainer.test() if is_test else trainer.fit()[-1]
+        with _profiled(cfg.profile_dir if main else None):
+            result = trainer.test() if is_test else trainer.fit()[-1]
         print(f"run dir: {run_dir}")
         return result
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str]):
+    """A ``torch.profiler`` trace of the block into
+    ``<profile_dir>/trace.json`` (nothing without a directory)."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import profile
+
+    from dasmtl_torch.obs.profiler import TRACE_FILE, torch_activities
+
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, TRACE_FILE)
+    prof = profile(activities=torch_activities())
+    prof.start()
+    try:
+        yield
+    finally:  # a failed run still leaves its trace, as JAX's does
+        prof.stop()
+        prof.export_chrome_trace(path)
+        print(f"[profile] torch.profiler trace -> {path}")

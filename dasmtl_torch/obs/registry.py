@@ -1,19 +1,37 @@
-"""Thread-safe metrics registry with the Prometheus text rendering.
+"""Thread-safe metrics registry + Prometheus text exposition.
 
-A copy of the part of ``dasmtl/obs/registry.py`` (:37-290) that the
-stream tier's ``dasmtl_stream_*`` families use: :class:`Counter`
-(``inc``, ``set_total``), :class:`Gauge`, :class:`Histogram` (explicit
-buckets, ``le`` inclusive upper bounds), label values, and
-:meth:`MetricsRegistry.render` (text format 0.0.4: ``# HELP`` / ``# TYPE``
-per family, cumulative histogram buckets with ``+Inf``, ``_sum`` and
-``_count``).  Stdlib only.
+A copy of ``dasmtl/obs/registry.py`` (stdlib only; the port keeps its own
+so that it imports nothing of ``dasmtl``).  The serve loop's
+``dasmtl_serve_*`` families, the stream tier's ``dasmtl_stream_*`` ones
+and the train-time guards' counters all publish through instances of
+:class:`MetricsRegistry`, so one scrape (``GET /metrics``) covers the
+process.
+
+Three metric kinds, with Prometheus semantics:
+
+- **Counter** — monotone float; ``inc`` adds, ``set_total`` mirrors an
+  external monotone source (a staging ``acquires`` count, a pool member's
+  graph captures) without double-counting.
+- **Gauge** — a value that goes both ways (queue depth, in-flight depth).
+- **Histogram** — explicit ascending buckets; an observation lands in
+  every bucket whose upper bound is **>= the value** (``le`` bounds are
+  *inclusive upper / exclusive lower*, the Prometheus cumulative
+  convention), plus ``_sum`` and ``_count`` series.
+
+Exposition (``render_prometheus``) follows the text format version 0.0.4:
+``# HELP`` / ``# TYPE`` headers per family, label values escaped
+(``\\``, ``\"``, newline), histograms rendered cumulatively with a
+``+Inf`` bucket.  :func:`parse_exposition` is the matching parser — the
+serve soak scrapes ``/metrics`` mid-load and asserts families are
+present, parseable, and monotone through it
+(:func:`monotone_regressions`).
 """
 
 from __future__ import annotations
 
 import re
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -22,6 +40,9 @@ _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
 #: — spans sub-millisecond CPU decode up through multi-second overload.
 DEFAULT_LATENCY_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                              0.1, 0.25, 0.5, 1.0, 2.5)
+
+#: Occupancy is a fraction in (0, 1]; ten closed-upper bins.
+OCCUPANCY_BUCKETS = tuple((i + 1) / 10 for i in range(10))
 
 
 def _fmt(v: float) -> str:
@@ -112,6 +133,10 @@ class Counter(_Metric):
         with self._lock:
             self._cells[key] = max(self._cells.get(key, 0.0), float(value))
 
+    def value(self, labels: Sequence[str] = ()) -> float:
+        with self._lock:
+            return self._cells.get(self._key(labels), 0.0)
+
 
 class Gauge(_Metric):
     kind = "gauge"
@@ -120,6 +145,15 @@ class Gauge(_Metric):
         key = self._key(labels)
         with self._lock:
             self._cells[key] = float(value)
+
+    def inc(self, amount: float = 1.0, labels: Sequence[str] = ()) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._cells[key] = self._cells.get(key, 0.0) + amount
+
+    def value(self, labels: Sequence[str] = ()) -> float:
+        with self._lock:
+            return self._cells.get(self._key(labels), 0.0)
 
 
 class Histogram(_Metric):
@@ -196,6 +230,7 @@ class MetricsRegistry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._metrics: Dict[str, _Metric] = {}
+        self._callbacks: List[Callable[[], None]] = []
 
     def _get_or_create(self, cls, name, help_text, labelnames, **kw):
         labelnames = tuple(labelnames)
@@ -229,21 +264,157 @@ class MetricsRegistry:
         return self._get_or_create(Histogram, name, help_text, labelnames,
                                    buckets=buckets)
 
+    def add_collect_callback(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` at every render — for gauges mirrored from live
+        state (queue depth, staging stats) at scrape time."""
+        with self._lock:
+            self._callbacks.append(fn)
+
     def families(self) -> List[_Metric]:
         with self._lock:
             return [self._metrics[k] for k in sorted(self._metrics)]
 
     def render(self) -> str:
+        with self._lock:
+            callbacks = list(self._callbacks)
+        for fn in callbacks:
+            fn()
         lines: List[str] = []
         for metric in self.families():
             lines.extend(metric.render())
         return "\n".join(lines) + ("\n" if lines else "")
 
 
-_DEFAULT = MetricsRegistry()
+def render_prometheus(*registries: MetricsRegistry) -> str:
+    """One exposition document over several registries (the process-wide
+    default plus a serve loop's own).  Family names must be disjoint
+    across registries — each subsystem prefixes its own."""
+    return "".join(r.render() for r in registries)
+
+
+_DEFAULT_LOCK = threading.Lock()
+_DEFAULT: Optional[MetricsRegistry] = None
 
 
 def default_registry() -> MetricsRegistry:
-    """The process-wide registry (``dasmtl/obs/registry.py``
-    ``default_registry``): where the train-time guards publish."""
-    return _DEFAULT
+    """The process-wide registry: counters that belong to no one surface
+    (the train-time guards' compile totals,
+    :mod:`dasmtl_torch.analysis.guards`) land here and ride along in
+    every ``/metrics`` render."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        if _DEFAULT is None:
+            _DEFAULT = MetricsRegistry()
+        return _DEFAULT
+
+
+# -- exposition parser ---------------------------------------------------------
+
+_SAMPLE_RE = re.compile(
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(?:\{(?P<labels>.*)\})?"
+    r"\s+(?P<value>[^\s]+)\s*$")
+
+
+def _parse_labels(body: str) -> Tuple[Tuple[str, str], ...]:
+    """``a="x",b="y\\"z"`` -> (("a","x"), ("b",'y"z')) honoring escapes."""
+    out = []
+    i, n = 0, len(body)
+    while i < n:
+        j = body.index("=", i)
+        key = body[i:j].strip()
+        if not _LABEL_RE.match(key):
+            raise ValueError(f"bad label name {key!r}")
+        if j + 1 >= n or body[j + 1] != '"':
+            raise ValueError(f"unquoted label value after {key!r}")
+        i = j + 2
+        chars = []
+        while True:
+            if i >= n:
+                raise ValueError(f"unterminated label value for {key!r}")
+            c = body[i]
+            if c == "\\":
+                esc = body[i + 1]
+                chars.append({"\\": "\\", '"': '"', "n": "\n"}[esc])
+                i += 2
+            elif c == '"':
+                i += 1
+                break
+            else:
+                chars.append(c)
+                i += 1
+        out.append((key, "".join(chars)))
+        if i < n and body[i] == ",":
+            i += 1
+    return tuple(out)
+
+
+def parse_exposition(text: str) -> Dict[str, dict]:
+    """Parse Prometheus text exposition into
+    ``{family: {"type", "help", "samples": {(name, labels): value}}}``
+    where ``labels`` is a sorted tuple of (key, value) pairs.  Raises
+    ``ValueError`` on any malformed line — the selftest's "well-formed"
+    check is exactly this parser succeeding."""
+    families: Dict[str, dict] = {}
+
+    def family_of(sample_name: str) -> str:
+        for suffix in ("_bucket", "_sum", "_count"):
+            base = sample_name[:-len(suffix)] \
+                if sample_name.endswith(suffix) else None
+            if base and base in families \
+                    and families[base]["type"] == "histogram":
+                return base
+        return sample_name
+
+    for raw in text.splitlines():
+        line = raw.strip()
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            _, _, rest = line.partition("# HELP ")
+            name, _, help_text = rest.partition(" ")
+            families.setdefault(name, {"type": "untyped", "help": "",
+                                       "samples": {}})["help"] = help_text
+            continue
+        if line.startswith("# TYPE "):
+            _, _, rest = line.partition("# TYPE ")
+            name, _, kind = rest.partition(" ")
+            if kind not in ("counter", "gauge", "histogram", "untyped"):
+                raise ValueError(f"unknown metric type {kind!r}")
+            families.setdefault(name, {"type": "untyped", "help": "",
+                                       "samples": {}})["type"] = kind
+            continue
+        if line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            raise ValueError(f"malformed sample line {line!r}")
+        labels = _parse_labels(m.group("labels")) if m.group("labels") \
+            else ()
+        value = float(m.group("value"))
+        fam = family_of(m.group("name"))
+        families.setdefault(fam, {"type": "untyped", "help": "",
+                                  "samples": {}})
+        families[fam]["samples"][(m.group("name"),
+                                  tuple(sorted(labels)))] = value
+    return families
+
+
+def monotone_regressions(before: Dict[str, dict],
+                         after: Dict[str, dict]) -> List[str]:
+    """Counter samples (incl. histogram ``_bucket``/``_count``/``_sum``)
+    present in both scrapes that DECREASED — must be empty between two
+    scrapes of a live process."""
+    bad = []
+    for fam, info in before.items():
+        if info["type"] not in ("counter", "histogram"):
+            continue
+        later = after.get(fam)
+        if later is None:
+            bad.append(f"{fam}: family disappeared")
+            continue
+        for key, v0 in info["samples"].items():
+            v1 = later["samples"].get(key)
+            if v1 is not None and v1 < v0:
+                bad.append(f"{fam}{key}: {v0} -> {v1}")
+    return bad

@@ -12,6 +12,14 @@ adds them to the counters at every replay, and other threads' launches
 happen.  A train-step capture does not use it: autograd runs the
 backward's launches on its own device threads, so ``ScanTrainStep``
 takes the counters' difference across its capture back instead.
+
+:func:`capture_section` keeps a graph capture, and the eager warm run of
+a shape before it, apart from a profiler's start or stop (the serve loop
+holds it across a pool's whole build and warmup): the profiler
+synchronizes the card as it starts and stops, which is not permitted
+while another thread's stream captures (it spoils the capture and the
+profiler with it), and which hung on the card against another thread
+building and warming a pool for a blue/green swap.
 """
 
 from __future__ import annotations
@@ -23,6 +31,9 @@ import threading
 import torch
 
 _recording = threading.local()
+#: Held across every CUDA graph capture (with a graph book's eager warm
+#: run before it) and a profiler's start and stop.
+_capture_lock = threading.RLock()
 
 
 class LaunchCounter:
@@ -62,6 +73,14 @@ def recorded_launches():
         yield counts
     finally:
         _recording.counts = prev
+
+
+@contextlib.contextmanager
+def capture_section():
+    """Hold off other threads' graph captures and profiler starts and
+    stops while inside (re-entrant on one thread)."""
+    with _capture_lock:
+        yield
 
 
 @functools.lru_cache(maxsize=None)

@@ -23,8 +23,15 @@ executor pool, one warmed CUDA graph per (bucket, device), batches
 round-robin; ``--shard_largest`` splits a largest-bucket batch into one row
 block per member; ``--selftest`` runs the serving soak instead of serving
 (``--selftest_requests``, ``--selftest_clients``, ``--selftest_devices``;
-exit 0 when it passed).  ``--parity-check`` runs the precision gate
-instead of serving
+exit 0 when it passed; its invariant 6 scrapes ``/metrics`` over a real
+front end and fires one SLO capture).  Observability (JAX ``dasmtl/serve/
+__main__.py:107-135``, ``:317-398``): ``GET /metrics``, ``GET /trace``
+(``--trace_ring``, 0 disables), ``GET /query`` (``--history`` snapshots
+every ``--history_interval_s``, 0 disables), ``POST /profile`` and SIGUSR2
+(a ``torch.profiler`` Chrome trace of ``--profile_duration_s`` into
+``--profile_dir``, at most one per ``--profile_cooldown_s``, and one when
+p99 crosses ``--slo_p99_ms``), ``X-Dasmtl-Trace`` adopted and echoed.
+``--parity-check`` runs the precision gate instead of serving
 (``dasmtl/serve/__main__.py:168-238``): the ``--precision`` preset, or
 both reduced presets under ``f32``, against the f32 forward over a seeded
 eval set (52x64 unless ``--window`` says otherwise), on the weights of
@@ -43,16 +50,12 @@ import threading
 from dasmtl_torch import config as C
 
 _POOL = "ROADMAP.md queue 1 item 4, 'Executor pool'"
-_OBS = "ROADMAP.md queue 1 item 6, 'Observability endpoints and tracing'"
 _ANALYSIS = ("ROADMAP.md queue 1 item 3 (the lint, audit, conc and mem "
              "families analyse JAX code and are not ported)")
 #: Flags of ``python -m dasmtl.serve`` the port's parser does not declare,
-#: by name prefix (``history`` is ``--history`` and ``--history_interval_s``)
-#: -> the ROADMAP.md item that brings them.
+#: by name prefix -> the ROADMAP.md item that brings them.
 JAX_ONLY_FLAGS = (
     ("shard_multihost", f"{_POOL} (serving ranks on separate hosts)"),
-    ("trace_ring", _OBS), ("latency_buckets_ms", _OBS),
-    ("slo_p99_ms", _OBS), ("profile_", _OBS), ("history", _OBS),
     ("conc_", _ANALYSIS), ("mem_", _ANALYSIS),
 )
 
@@ -156,6 +159,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--selftest_clients", type=int, default=8)
     p.add_argument("--selftest_devices", type=int, default=1,
                    help="executor-pool size for the selftest")
+    obs = p.add_argument_group("observability (dasmtl_torch/obs/)")
+    obs.add_argument("--trace_ring", type=int, default=C.OBS_TRACE_RING,
+                     help="request-span ring capacity behind GET /trace "
+                          "(0 disables tracing)")
+    obs.add_argument("--latency_buckets_ms", type=str,
+                     default=",".join(f"{b:g}"
+                                      for b in C.OBS_LATENCY_BUCKETS_MS),
+                     help="latency histogram bucket bounds (ms, "
+                          "ascending) exported at GET /metrics")
+    obs.add_argument("--slo_p99_ms", type=float, default=C.OBS_SLO_P99_MS,
+                     help="p99 latency SLO (ms): a breach captures ONE "
+                          "rate-limited torch.profiler trace (0 disables)")
+    obs.add_argument("--profile_dir", type=str, default=C.OBS_PROFILE_DIR,
+                     help="where profiler captures land (POST /profile, "
+                          "SIGUSR2, or an SLO breach)")
+    obs.add_argument("--profile_cooldown_s", type=float,
+                     default=C.OBS_PROFILE_COOLDOWN_S,
+                     help="minimum seconds between profiler captures")
+    obs.add_argument("--profile_duration_s", type=float,
+                     default=C.OBS_PROFILE_DURATION_S,
+                     help="seconds each capture records")
+    obs.add_argument("--history", type=int, default=C.OBS_HISTORY,
+                     help="metrics-history snapshots kept behind "
+                          "GET /query (0 disables)")
+    obs.add_argument("--history_interval_s", type=float,
+                     default=C.OBS_HISTORY_INTERVAL_S,
+                     help="seconds between history snapshots")
     return p
 
 
@@ -214,6 +244,17 @@ def main(argv=None) -> int:
             return 2
     if extra:
         p.error(f"unrecognized arguments: {' '.join(extra)}")
+    try:
+        latency_buckets_s = C.check_obs_flags(
+            trace_ring=args.trace_ring,
+            latency_buckets_ms=args.latency_buckets_ms,
+            slo_p99_ms=args.slo_p99_ms,
+            profile_cooldown_s=args.profile_cooldown_s,
+            profile_duration_s=args.profile_duration_s,
+            history=args.history,
+            history_interval_s=args.history_interval_s)
+    except ValueError as exc:
+        p.error(str(exc))
     if args.selftest:
         return _selftest(args)
     if args.parity_check:
@@ -231,6 +272,7 @@ def main(argv=None) -> int:
     window = _parse_window(p, args.window) if args.window else None
 
     from dasmtl_torch.device import resolve_device
+    from dasmtl_torch.obs.profiler import ProfilerHook
     from dasmtl_torch.serve.server import (ServeLoop,
                                            install_signal_handlers,
                                            make_http_server)
@@ -245,14 +287,33 @@ def main(argv=None) -> int:
         # not a traceback.
         print(f"dasmtl_torch.serve: {exc}", file=sys.stderr)
         return 2
+    profiler = ProfilerHook(args.profile_dir,
+                            cooldown_s=args.profile_cooldown_s,
+                            duration_s=args.profile_duration_s)
+    # SIGUSR2 = "profile this server NOW" (still rate-limited); POST
+    # /profile and the SLO breach path share the same hook, brought up
+    # here so a capture records from its trigger on.
+    profiler.arm_signal()
+    profiler.prime()
     loop = ServeLoop(executor, buckets=buckets,
                      max_wait_s=args.max_wait_ms / 1e3,
                      queue_depth=args.queue_depth,
-                     watermark=args.watermark, inflight=args.inflight)
+                     watermark=args.watermark, inflight=args.inflight,
+                     trace_ring=args.trace_ring,
+                     latency_buckets_s=latency_buckets_s,
+                     slo_p99_ms=args.slo_p99_ms, profiler=profiler)
+    history = sampler = None
+    if args.history > 0:
+        from dasmtl_torch.obs.history import HistorySampler, MetricsHistory
+
+        history = MetricsHistory(args.history)
+        sampler = HistorySampler(history, loop.metrics_text,
+                                 interval_s=args.history_interval_s)
+        sampler.start()
     # Bind the front end BEFORE warmup: /healthz answers while buckets
     # warm, /readyz stays 503 until every bucket has run.
     httpd = make_http_server(loop, args.host, args.port,
-                             swap_builder=build_executor)
+                             swap_builder=build_executor, history=history)
     host, port = httpd.server_address[:2]
     if args.port_file:
         with open(args.port_file, "w", encoding="utf-8") as f:
@@ -269,9 +330,13 @@ def main(argv=None) -> int:
           file=sys.stderr)
     loop.start()
     print(f"serving {executor.source} on http://{host}:{port} "
-          f"(POST /infer, GET /healthz, GET /readyz, GET /stats, POST "
-          f"/swap); warmup {loop.stats()['warmup_s']:.2f}s; in-flight "
-          f"window {loop.inflight_window}; SIGTERM drains", file=sys.stderr)
+          f"(POST /infer, GET /healthz, GET /readyz, GET /stats, "
+          f"GET /metrics, GET /trace"
+          + (", GET /query" if history is not None else "")
+          + f", POST /swap, POST /profile); warmup "
+          f"{loop.stats()['warmup_s']:.2f}s; in-flight window "
+          f"{loop.inflight_window}; SIGTERM drains; SIGUSR2 profiles",
+          file=sys.stderr)
 
     # SIGTERM/SIGINT: refuse new work, let the dispatcher finish what is
     # queued, then stop accepting connections.  shutdown() must not run in
@@ -280,9 +345,14 @@ def main(argv=None) -> int:
     while not stop.wait(timeout=1.0):
         pass
     drained = loop.drain(timeout=60.0)
+    if sampler is not None:
+        sampler.stop()
     httpd.shutdown()
     t.join(timeout=10.0)
     loop.close()
+    # An in-flight capture finishes (the profiler stops and writes its
+    # trace) before the interpreter exits.
+    profiler.wait(timeout=args.profile_duration_s + 30.0)
     stats = loop.stats()
     print(f"drained={'clean' if drained else 'TIMEOUT'} "
           f"answered={stats['requests']['answered']} "

@@ -3,8 +3,11 @@ device batches under a latency deadline, assembled in staging buffers.
 
 Copied from ``dasmtl/serve/batcher.py:44-228`` (``choose_bucket``,
 ``BatchPlan``, ``MicroBatcher``) and ``dasmtl/data/staging.py:125-208``
-(``StagingBuffers`` with its ``for_buckets`` layout), without lockdep,
-leasedep and span tracing: plain ``threading`` locks take their place.
+(``StagingBuffers`` with its ``for_buckets`` layout), without lockdep and
+leasedep: plain ``threading`` locks take their place.  With a ``tracer``
+(:class:`~dasmtl_torch.obs.trace.TraceRing`) the batcher mints a trace ID
+at submit, or adopts an inbound one, and writes the ``submit`` span of
+admitted and refused requests, as JAX's does.
 
 The batcher holds an arriving request for at most ``max_wait`` while peers
 accumulate, then flushes everything pending as ONE batch padded to the
@@ -33,6 +36,7 @@ from typing import Dict, Hashable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from dasmtl_torch.obs.trace import TraceRing, make_span, mint_trace_id
 from dasmtl_torch.serve.metrics import ServeMetrics
 from dasmtl_torch.serve.queue import (QueueClosed, Request, RequestQueue,
                                       ServeResult)
@@ -153,6 +157,29 @@ class StagingBuffers:
                     "outstanding": len(self._out),
                     "peak_outstanding": self._peak_outstanding}
 
+    def publish_metrics(self, registry,
+                        prefix: str = "dasmtl_serve_staging") -> None:
+        """Mirror :meth:`stats` onto a metrics registry at scrape time
+        (``dasmtl/data/staging.py:288-310``): the monotone fields as
+        counters, ``blocked_acquires`` the consumer-bound stall signal,
+        the instantaneous ones as gauges.  The port stages through no
+        aliasing transfer, so JAX's ``replaced_aliased`` has no family."""
+        s = self.stats()
+        registry.counter(f"{prefix}_acquires_total",
+                         "Staging-buffer leases handed out"
+                         ).set_total(s["acquires"])
+        registry.counter(f"{prefix}_blocked_acquires_total",
+                         "Acquires that had to wait for a free buffer "
+                         "(consumer-bound stall signal)"
+                         ).set_total(s["blocked_acquires"])
+        registry.gauge(f"{prefix}_outstanding",
+                       "Buffers currently leased").set(s["outstanding"])
+        registry.gauge(f"{prefix}_peak_outstanding",
+                       "Deepest simultaneous lease count observed"
+                       ).set(s["peak_outstanding"])
+        registry.gauge(f"{prefix}_depth",
+                       "Freelist depth per slot").set(s["depth"])
+
 
 class MicroBatcher:
     """Thread-safe request admission + flush policy (no threads of its own).
@@ -164,13 +191,15 @@ class MicroBatcher:
 
     def __init__(self, buckets: Sequence[int], max_wait_s: float,
                  queue_depth: int, watermark: int, clock=time.monotonic,
-                 metrics: Optional[ServeMetrics] = None):
+                 metrics: Optional[ServeMetrics] = None,
+                 tracer: Optional[TraceRing] = None):
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad bucket set {buckets!r}")
         self.max_wait_s = float(max_wait_s)
         self.clock = clock
         self.metrics = metrics or ServeMetrics()
+        self.tracer = tracer
         self._queue = RequestQueue(queue_depth, watermark)
         self._lock = threading.Lock()
         self._next_id = 0
@@ -179,16 +208,23 @@ class MicroBatcher:
     # -- admission -----------------------------------------------------------
     def submit(self, x: np.ndarray, now: Optional[float] = None,
                max_wait_s: Optional[float] = None,
-               want_log_probs: bool = False) -> Request:
+               want_log_probs: bool = False,
+               trace_id: Optional[str] = None) -> Request:
         """Admit one window; the returned request's ``future`` resolves to
         a :class:`ServeResult`.  Refusals (shed / draining) resolve the
-        future before returning."""
+        future before returning.
+
+        ``trace_id``: an inbound cross-tier ID (the ``X-Dasmtl-Trace``
+        header) is adopted instead of minting, so one ID names the request
+        on every tier; refusal spans carry it too."""
         now = self.clock() if now is None else now
         wait = self.max_wait_s if max_wait_s is None else float(max_wait_s)
         self.metrics.observe_submit()
+        if not trace_id:
+            trace_id = mint_trace_id() if self.tracer is not None else ""
         with self._lock:
             req = Request(id=self._next_id, x=x, enqueue_t=now,
-                          deadline_t=now + wait,
+                          deadline_t=now + wait, trace_id=trace_id,
                           want_log_probs=want_log_probs)
             self._next_id += 1
             try:
@@ -207,12 +243,21 @@ class MicroBatcher:
             req.wake_dispatcher = (
                 len(self._queue) >= self.buckets[-1]
                 or self._queue.peek_deadline() >= req.deadline_t)
+        if self.tracer is not None:
+            self.tracer.add([make_span(trace_id, req.id, "submit",
+                                       now, 0.0, outcome="queued")])
         return req
 
     def _refuse(self, req: Request, error: str, detail: str) -> None:
         req.resolve(ServeResult(ok=False, request_id=req.id, error=error,
-                                detail=detail))
+                                detail=detail,
+                                trace_id=req.trace_id or None))
         self.metrics.observe_result(error, 0.0)
+        if self.tracer is not None:
+            # Refusals end their chain at admission: one submit span
+            # carrying the refusal outcome (shed/closed).
+            self.tracer.add([make_span(req.trace_id, req.id, "submit",
+                                       req.enqueue_t, 0.0, outcome=error)])
 
     # -- flush policy --------------------------------------------------------
     def take_batch(self, now: Optional[float] = None) -> Optional[BatchPlan]:

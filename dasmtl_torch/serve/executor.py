@@ -351,6 +351,12 @@ class InferExecutor:
         return (self._graphs.post_warmup_captures
                 if self._graphs is not None else 0)
 
+    @property
+    def device_name(self) -> str:
+        """This executor's placement: the ``device`` of its span records
+        and the label of its per-device metric samples."""
+        return str(self.device)
+
     def compile_summary(self) -> dict:
         g = self._graphs
         out = {"buckets": list(self.buckets), "warm": self._warm,

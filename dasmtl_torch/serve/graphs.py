@@ -37,7 +37,7 @@ from typing import Any, Callable, Dict, Hashable, Optional, Tuple
 import numpy as np
 import torch
 
-from dasmtl_torch.ops import _build, recorded_launches
+from dasmtl_torch.ops import _build, capture_section, recorded_launches
 
 #: Byte alignment of each output inside the flat buffer.
 ALIGN = 16
@@ -140,8 +140,8 @@ def capture_forward(fn: Callable, inputs: Tuple[torch.Tensor, ...], *,
     these inputs before (a capture runs nothing)."""
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.device(device), torch.inference_mode(), \
-                recorded_launches() as launches, \
+        with capture_section(), torch.cuda.device(device), \
+                torch.inference_mode(), recorded_launches() as launches, \
                 torch.cuda.graph(graph, pool=pool, stream=stream,
                                  capture_error_mode="thread_local"):
             out = fn(*inputs)
@@ -205,7 +205,11 @@ class GraphBook:
             raise PostWarmupCapture(
                 f"no graph for {key!r} after warmup: warmup captures every "
                 f"shape, and a capture now would be a post-warmup compile")
-        got = self._capture(key)
+        # The shape's eager warm run (cuDNN and CUDA load its
+        # kernels) and its capture, held apart from a profiler's start and
+        # stop: one that synchronizes the card meanwhile can hang both.
+        with capture_section():
+            got = self._capture(key)
         self._graphs[key] = got
         self.warmup_captures += 1
         return got

@@ -67,8 +67,10 @@ class ServeResult:
     # the request asked (``want_log_probs``) — the steady-state D2H
     # contract stays int predictions + a bool mask.
     log_probs: Optional[Dict[str, list]] = None
-    # The request's trace ID, echoed in the answer.  The port mints none
-    # until request tracing is ported, so it stays None.
+    # The request's trace ID (dasmtl_torch/obs/trace.py), minted at submit
+    # (or adopted from X-Dasmtl-Trace) and echoed in the answer so a caller
+    # can join its response to the server's span records (``GET /trace``).
+    # None when the loop traces nothing (``trace_ring=0``).
     trace_id: Optional[str] = None
 
     @property
@@ -86,7 +88,9 @@ class Request:
     x: np.ndarray
     enqueue_t: float
     deadline_t: float
-    # Trace ID (empty until request tracing is ported).
+    # Trace ID minted at submit (dasmtl_torch/obs/trace.py): threaded
+    # through batch formation -> dispatch -> collect -> resolve, labeling
+    # every span record this request produces.
     trace_id: str = ""
     # Ask for this request's per-head log-probabilities in the answer
     # (forces the batch's collect to pull the full heads across D2H).

@@ -7,7 +7,7 @@ It spins a real :class:`~dasmtl_torch.serve.server.ServeLoop` over an
 on a reduced window (52x64 by default; the batching, backpressure and
 drain machinery is production's), fires concurrent closed-loop clients,
 poisons every ``poison_every``-th request with a NaN window, SIGTERMs
-itself mid-run, and checks invariants 1-5 of the JAX soak:
+itself mid-run, and checks the JAX soak's invariants:
 
 1. every submitted request resolved — with predictions or an explicit
    shed / closed / nonfinite refusal; no drops, no timeouts;
@@ -17,13 +17,18 @@ itself mid-run, and checks invariants 1-5 of the JAX soak:
 4. a graceful drain: requests accepted before the SIGTERM (or
    ``begin_drain`` with ``use_signal=False``) all completed, batches in
    flight included; later submissions resolved ``closed``;
-5. the bounded in-flight window was honoured.
+5. the bounded in-flight window was honoured;
+6. observability (``obs_check``, on by default as in JAX): ``GET
+   /metrics`` scraped twice mid-load over a real HTTP front end on an
+   ephemeral port parses as Prometheus text exposition, carries every
+   family of :data:`REQUIRED_METRIC_FAMILIES`, and no counter decreases
+   between the scrapes; and a seeded SLO breach (a threshold below any
+   real latency) fires EXACTLY ONE rate-limited ``torch.profiler``
+   capture (or one skip with its message where capture fails).
 
-Invariant 6 (mid-load ``/metrics`` scrapes and the SLO profiler capture)
-needs ROADMAP.md queue 1 item 6: ``obs_check=True`` raises naming it, and
-the report says ``"obs_check": "not ported (item 6)"``.  The lockdep and
-leasedep legs belong to the conc and mem analysis families, which are not
-ported (item 3): their report entries say so.
+The lockdep and leasedep legs belong to the conc and mem analysis
+families, which are not ported (ROADMAP.md queue 1 item 3): their report
+entries say so.
 
 ``python -m dasmtl_torch.serve --selftest`` runs it on ``--device``.
 """
@@ -31,8 +36,11 @@ ported (item 3): their report entries say so.
 from __future__ import annotations
 
 import os
+import shutil
 import signal
+import tempfile
 import threading
+import urllib.request
 from typing import Optional
 
 import numpy as np
@@ -40,8 +48,25 @@ import torch
 
 from dasmtl_torch import config as C
 
-_OBS = "ROADMAP.md queue 1 item 6, 'Observability endpoints and tracing'"
 _ANALYSIS = "not ported (ROADMAP.md queue 1 item 3)"
+
+#: Metric families a healthy serve scrape must carry (JAX
+#: ``dasmtl/serve/selftest.py:60-74``).
+REQUIRED_METRIC_FAMILIES = (
+    "dasmtl_serve_request_latency_seconds",
+    "dasmtl_serve_requests_total",
+    "dasmtl_serve_submitted_total",
+    "dasmtl_serve_batches_total",
+    "dasmtl_serve_batch_rows_total",
+    "dasmtl_serve_batch_occupancy",
+    "dasmtl_serve_stage_seconds",
+    "dasmtl_serve_inflight",
+    "dasmtl_serve_inflight_peak",
+    "dasmtl_serve_queue_depth",
+    "dasmtl_serve_staging_acquires_total",
+    "dasmtl_serve_staging_blocked_acquires_total",
+    "dasmtl_serve_post_warmup_recompiles_total",
+)
 
 
 def run_selftest(*, requests: int = 512, clients: int = 8,
@@ -50,29 +75,40 @@ def run_selftest(*, requests: int = 512, clients: int = 8,
                  poison_every: int = 37, model: str = "MTL",
                  use_signal: bool = True, drain_frac: float = 0.7,
                  devices=1, inflight: int = 2, precision: str = "f32",
-                 obs_check: bool = False, verbose: bool = True,
+                 obs_check: bool = True, verbose: bool = True,
                  device: Optional[torch.device] = None) -> dict:
     """Returns a report dict: ``{"passed": bool, "failures": [...],
     "stats": <ServeLoop.stats()>, ...}``.  ``devices`` sizes the pool (an
     int, or a list of ``torch.device``s as it is); ``device`` is its kind
     (the card by default).  ``use_signal=False`` calls ``begin_drain``
     directly (for callers not on the main thread, where ``signal.signal``
-    is unavailable)."""
+    is unavailable).  ``obs_check`` adds the telemetry leg (invariant
+    6)."""
     from dasmtl_torch.device import resolve_device
+    from dasmtl_torch.obs.profiler import ProfilerHook
     from dasmtl_torch.serve.executor import ExecutorPool
-    from dasmtl_torch.serve.server import ServeLoop, install_signal_handlers
+    from dasmtl_torch.serve.server import (ServeLoop, install_signal_handlers,
+                                           make_http_server)
+    from dasmtl_torch.utils.threads import crash_logged
 
-    if obs_check:
-        raise NotImplementedError(
-            f"the selftest's observability leg (/metrics scrapes, the SLO "
-            f"profiler capture) is not yet ported: {_OBS}")
     device = device if device is not None else resolve_device("cuda")
     executor = ExecutorPool.from_fresh_init(
         model, buckets, input_hw, C.SEED, device, precision,
         devices=devices)
+    profiler = profile_dir = None
+    if obs_check:
+        # Seeded SLO breach: any real latency beats a 0.001 ms p99
+        # threshold, and a huge cooldown lets the breach fire the capture
+        # exactly once.
+        profile_dir = tempfile.mkdtemp(prefix="dasmtl-torch-obs-selftest-")
+        profiler = ProfilerHook(profile_dir, cooldown_s=1e9,
+                                duration_s=0.2)
+        profiler.prime()
     loop = ServeLoop(executor, buckets=buckets,
                      max_wait_s=max_wait_ms / 1e3,
-                     queue_depth=queue_depth, inflight=inflight)
+                     queue_depth=queue_depth, inflight=inflight,
+                     slo_p99_ms=0.001 if obs_check else 0.0,
+                     profiler=profiler)
     say = print if verbose else (lambda *_a, **_k: None)
     say(f"[serve-selftest] warming {len(buckets)} bucket(s) on "
         f"{input_hw[0]}x{input_hw[1]} windows (precision {precision}, "
@@ -114,16 +150,35 @@ def run_selftest(*, requests: int = 512, clients: int = 8,
             except Exception as exc:  # noqa: BLE001 — a drop IS the finding
                 record(k, poisoned, before_drain, exc)
 
-    def client_guarded(cid: int) -> None:
+    threads = [threading.Thread(
+        target=crash_logged(
+            client, "serve-selftest-client",
+            on_crash=lambda exc: failures.append(
+                f"client thread crashed: {type(exc).__name__}: {exc}")),
+        args=(c,), daemon=True)
+        for c in range(clients)]
+    prev_handlers: Optional[dict] = None
+    scrapes: list = []
+    httpd = http_thread = None
+    if obs_check:
+        # A real front end on an ephemeral port: the scrape travels the
+        # HTTP path a Prometheus server would.
+        httpd = make_http_server(loop, "127.0.0.1", 0)
+        http_thread = threading.Thread(target=httpd.serve_forever,
+                                       daemon=True)
+        http_thread.start()
+
+    def scrape() -> None:
+        host, port = httpd.server_address[:2]
         try:
-            client(cid)
-        except Exception as exc:  # noqa: BLE001 — a crash IS a finding
-            failures.append(f"client thread crashed: "
+            with urllib.request.urlopen(
+                    f"http://{host}:{port}/metrics", timeout=10.0) as resp:
+                scrapes.append(resp.read().decode("utf-8"))
+        except Exception as exc:  # noqa: BLE001 — a failed scrape is a
+            # finding
+            failures.append(f"/metrics scrape failed: "
                             f"{type(exc).__name__}: {exc}")
 
-    threads = [threading.Thread(target=client_guarded, args=(c,),
-                                daemon=True) for c in range(clients)]
-    prev_handlers: Optional[dict] = None
     if use_signal:
         prev_handlers = install_signal_handlers(
             loop, signals=(signal.SIGTERM,),
@@ -131,12 +186,18 @@ def run_selftest(*, requests: int = 512, clients: int = 8,
     try:
         for t in threads:
             t.start()
-        # Let most of the load through, then deliver a real SIGTERM while
-        # clients are still firing: the drain must finish accepted work
-        # (batches dispatched but not collected included) and refuse the
-        # rest.
-        for _ in range(drain_after):
+        # Let most of the load through — scraping /metrics twice in the
+        # middle of it — then deliver a real SIGTERM while clients are
+        # still firing: the drain must finish accepted work (batches
+        # dispatched but not collected included) and refuse the rest.
+        for _ in range(drain_after // 2):
             submitted.acquire()
+        if obs_check:
+            scrape()
+        for _ in range(drain_after - drain_after // 2):
+            submitted.acquire()
+        if obs_check:
+            scrape()
         if use_signal:
             os.kill(os.getpid(), signal.SIGTERM)
         else:
@@ -151,6 +212,15 @@ def run_selftest(*, requests: int = 512, clients: int = 8,
         if prev_handlers is not None:
             for s, h_prev in prev_handlers.items():
                 signal.signal(s, h_prev)
+        try:
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.server_close()
+                http_thread.join(timeout=10.0)
+        except Exception as exc:  # noqa: BLE001 — recorded: a raising
+            # shutdown must not replace the real finding.
+            failures.append(f"/metrics front-end shutdown failed: "
+                            f"{type(exc).__name__}: {exc}")
     stats = loop.stats()
     loop.close()
 
@@ -206,6 +276,13 @@ def run_selftest(*, requests: int = 512, clients: int = 8,
     if answered != requests:
         failures.append(f"metrics answered={answered} != {requests}")
 
+    # -- observability leg: scrape validity + SLO capture --------------------
+    scrape_report = profile_report = None
+    if obs_check:
+        scrape_report, profile_report = _obs_leg(scrapes, profiler,
+                                                 failures, say)
+        shutil.rmtree(profile_dir, ignore_errors=True)
+
     report = {
         "passed": not failures,
         "failures": failures,
@@ -224,9 +301,8 @@ def run_selftest(*, requests: int = 512, clients: int = 8,
         "inflight_window": loop.inflight_window,
         "p50_ms": stats["latency_ms"]["p50"],
         "p99_ms": stats["latency_ms"]["p99"],
-        "metrics_scrape": None,
-        "slo_profile": None,
-        "obs_check": "not ported (item 6)",
+        "metrics_scrape": scrape_report,
+        "slo_profile": profile_report,
         "stats": stats,
     }
     say(f"[serve-selftest] {n_ok} ok / {n_refused} refused over "
@@ -239,6 +315,56 @@ def run_selftest(*, requests: int = 512, clients: int = 8,
         say(f"[serve-selftest] FAIL: {f}")
     say(f"[serve-selftest] {'PASSED' if report['passed'] else 'FAILED'}")
     return report
+
+
+def _obs_leg(scrapes: list, profiler, failures: list, say) -> tuple:
+    """Invariant 6 (JAX ``selftest.py:286-320``): both scrapes parse and
+    carry every required family, no counter went down between them, and
+    the seeded breach made exactly one capture or skip.  Returns the
+    report's ``metrics_scrape`` and ``slo_profile`` entries."""
+    from dasmtl_torch.obs.registry import (monotone_regressions,
+                                           parse_exposition)
+
+    scrape_report = None
+    parsed = []
+    for i, text in enumerate(scrapes):
+        try:
+            parsed.append(parse_exposition(text))
+        except ValueError as exc:
+            failures.append(f"/metrics scrape {i} not well-formed "
+                            f"exposition text: {exc}")
+    if len(parsed) == 2:
+        for fam in REQUIRED_METRIC_FAMILIES:
+            if fam not in parsed[1]:
+                failures.append(f"/metrics missing required family {fam}")
+        regressions = monotone_regressions(parsed[0], parsed[1])
+        for r in regressions:
+            failures.append(f"counter decreased between scrapes: {r}")
+        scrape_report = {"scrapes": len(scrapes),
+                         "families": len(parsed[1]),
+                         "monotone_ok": not regressions}
+    finished = profiler.wait(timeout=30.0)
+    profile_report = profiler.summary()
+    effective = profile_report["captures"] + len(profile_report["skips"])
+    if not finished and effective == 0:
+        # A starved host can leave the short capture thread unscheduled
+        # past the join deadline; the rate limiter already proved its
+        # invariant (one capture in flight), so count it.
+        effective = 1
+        profile_report["skips"] = [
+            "capture still in flight after the 30s shutdown wait — "
+            "counted as the one effective capture (slow host)"]
+    if profile_report["triggers"] < 1:
+        failures.append("seeded SLO breach never triggered the profiler "
+                        "hook")
+    elif effective != 1:
+        failures.append(
+            f"SLO breach produced {profile_report['captures']} "
+            f"capture(s) + {len(profile_report['skips'])} skip(s); the "
+            f"rate limit requires exactly one")
+    for msg in profile_report["skips"]:
+        say(f"[serve-selftest] profiler: {msg}")
+    return scrape_report, profile_report
 
 
 def write_job_summary(report: dict, path: Optional[str] = None) -> None:

@@ -43,9 +43,23 @@ buffers.  ``POST /swap {"version": ...}`` runs one in the background
 (202; 409 while one warms; a structured 503 without a builder) and ``GET
 /swap`` and ``/healthz`` (``generation``, ``swap``) report it.
 
-Not ported yet (ROADMAP.md queue 1 item 6): request tracing
-(``trace_id`` stays null), ``GET /metrics``, ``/trace``, ``/query`` and
-``POST /profile`` with the SLO profiler.
+**Observability** (JAX ``server.py:401-631``, ``:706-804``): with
+``trace_ring`` > 0 every request carries a trace ID (minted at submit, or
+adopted from ``X-Dasmtl-Trace`` and echoed on every outcome) and each
+batch appends its members' ``queue`` / ``form`` / ``dispatch`` /
+``collect`` / ``resolve`` spans to a bounded :class:`~dasmtl_torch.obs.
+trace.TraceRing` under one lock (``GET /trace?n=``, 404 when
+``trace_ring=0``).  ``GET /metrics`` renders the process-wide default
+registry, then the loop's (:class:`~dasmtl_torch.serve.metrics.
+ServeMetrics`' families and gauges refreshed at scrape time); ``GET
+/query`` answers from a :class:`~dasmtl_torch.obs.history.MetricsHistory`
+when ``make_http_server`` gets one (404 otherwise); ``POST /profile``
+arms the :class:`~dasmtl_torch.obs.profiler.ProfilerHook` (503 without
+one), which a p99 above ``slo_p99_ms`` (checked at most once a second)
+also triggers.  Where JAX counts XLA compilations per pool device,
+``dasmtl_serve_warmup_compiles_total`` and
+``dasmtl_serve_post_warmup_recompiles_total`` count each member's CUDA
+graph captures at and after warmup, under JAX's family names.
 """
 
 from __future__ import annotations
@@ -53,23 +67,26 @@ from __future__ import annotations
 import json
 import queue as _queue
 import signal
-import sys
 import threading
 import time
-import traceback
 from concurrent.futures import TimeoutError as FuturesTimeoutError
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 import torch
 
 from dasmtl_torch.config import serve_watermark
+from dasmtl_torch.obs.history import handle_query
+from dasmtl_torch.obs.registry import default_registry, render_prometheus
+from dasmtl_torch.obs.trace import TraceRing, make_span
+from dasmtl_torch.ops import capture_section
 from dasmtl_torch.serve.batcher import (BatchPlan, MicroBatcher,
                                         StagingBuffers)
 from dasmtl_torch.serve.metrics import ServeMetrics
 from dasmtl_torch.serve.queue import ServeResult
+from dasmtl_torch.utils.threads import crash_logged
 
 #: Decoded event-head label names (index = class id), as the JAX server
 #: and the streaming CSV writer name them.
@@ -82,22 +99,6 @@ _IDLE_WAIT_S = 0.5
 #: Completion-queue end marker: the dispatcher enqueues it AFTER the last
 #: in-flight batch, so the collector drains everything before exiting.
 _SENTINEL = object()
-
-
-def _crash_logged(fn, context: str):
-    """Wrap a thread target so an escaped exception is printed with its
-    context instead of ending the thread silently (a copy of the idea of
-    ``dasmtl/utils/threads.py crash_logged``)."""
-
-    def runner():
-        try:
-            fn()
-        except Exception as exc:  # noqa: BLE001 — the recording wrapper
-            print(f"[thread-crash] {context}: {type(exc).__name__}: {exc}",
-                  file=sys.stderr)
-            traceback.print_exc(file=sys.stderr)
-
-    return runner
 
 
 def _devices(executor) -> list:
@@ -113,16 +114,30 @@ class ServeLoop:
                  max_wait_s: float = 0.005, queue_depth: int = 256,
                  watermark: Optional[int] = None, inflight: int = 2,
                  clock=time.monotonic,
-                 metrics: Optional[ServeMetrics] = None):
+                 metrics: Optional[ServeMetrics] = None,
+                 trace_ring: int = 4096,
+                 latency_buckets_s: Optional[Sequence[float]] = None,
+                 slo_p99_ms: float = 0.0, profiler=None):
         buckets = tuple(buckets or executor.buckets)
         self.executor = executor
-        self.metrics = metrics or ServeMetrics()
+        self.metrics = metrics or ServeMetrics(
+            latency_buckets_s=latency_buckets_s)
         self.clock = clock
         self.inflight_window = max(1, int(inflight))
+        # Request tracing: span records per pipeline stage in a bounded
+        # ring, dumped by GET /trace; trace_ring=0 traces nothing.
+        self._trace_ring_size = int(trace_ring)
+        self.tracer = TraceRing(trace_ring) if trace_ring else None
+        # SLO-triggered profiling: when p99 (checked at most once a
+        # second, on the resolve path) crosses slo_p99_ms, the profiler
+        # hook captures one rate-limited trace.
+        self.slo_p99_ms = float(slo_p99_ms)
+        self.profiler = profiler
+        self._slo_checked = float("-inf")
         self.batcher = MicroBatcher(
             buckets, max_wait_s, queue_depth,
             serve_watermark(buckets, queue_depth, watermark), clock=clock,
-            metrics=self.metrics)
+            metrics=self.metrics, tracer=self.tracer)
         # depth = in-flight window + 1 (one extra for the batch being
         # formed) keeps acquire effectively non-blocking; slots release at
         # collect, when the device is done with the host buffer.
@@ -149,13 +164,14 @@ class ServeLoop:
     def start(self) -> "ServeLoop":
         if self._thread is not None:
             raise RuntimeError("ServeLoop.start is once-only")
-        self._warmup_s = self.executor.warmup()
+        with capture_section():  # no profiler start or stop meanwhile
+            self._warmup_s = self.executor.warmup()
         self._collector = threading.Thread(
-            target=_crash_logged(self._collect_loop, "serve-collect"),
+            target=crash_logged(self._collect_loop, "serve-collect"),
             name="dasmtl-torch-serve-collect", daemon=True)
         self._collector.start()
         self._thread = threading.Thread(
-            target=_crash_logged(self._dispatch_loop, "serve-dispatch"),
+            target=crash_logged(self._dispatch_loop, "serve-dispatch"),
             name="dasmtl-torch-serve-dispatch", daemon=True)
         self._thread.start()
         return self
@@ -255,8 +271,13 @@ class ServeLoop:
             self._swap = {"state": "warming", "version": version,
                           "started_t": time.time()}
         try:
-            new_executor = builder(version)
-            warmup_s = self.swap_executor(new_executor)
+            # The incoming pool is built (its weights uploaded, first
+            # kernels loaded) and warmed with no profiler starting or
+            # stopping meanwhile: its synchronization hung such a build
+            # on the card.  A capture triggered now starts after the flip.
+            with capture_section():
+                new_executor = builder(version)
+                warmup_s = self.swap_executor(new_executor)
             status = {"state": "done", "version": version,
                       "generation": self.generation,
                       "warmup_s": round(warmup_s, 3),
@@ -304,13 +325,16 @@ class ServeLoop:
 
     # -- request surface -----------------------------------------------------
     def submit_async(self, x: np.ndarray, max_wait_s: Optional[float] = None,
-                     want_log_probs: bool = False):
+                     want_log_probs: bool = False,
+                     trace_id: Optional[str] = None):
         """Admit one ``(h, w)`` window; returns a Future[ServeResult].
         ``want_log_probs`` asks for the window's per-head log-probabilities
-        in the answer."""
+        in the answer; ``trace_id`` adopts an inbound cross-tier ID (the
+        ``X-Dasmtl-Trace`` header) instead of minting one."""
         req = self.batcher.submit(np.asarray(x, np.float32),
                                   max_wait_s=max_wait_s,
-                                  want_log_probs=want_log_probs)
+                                  want_log_probs=want_log_probs,
+                                  trace_id=trace_id)
         if req.wake_dispatcher:
             with self._cv:
                 self._cv.notify_all()
@@ -318,10 +342,11 @@ class ServeLoop:
 
     def submit(self, x: np.ndarray, timeout: Optional[float] = 30.0,
                max_wait_s: Optional[float] = None,
-               want_log_probs: bool = False) -> ServeResult:
+               want_log_probs: bool = False,
+               trace_id: Optional[str] = None) -> ServeResult:
         return self.submit_async(x, max_wait_s=max_wait_s,
-                                 want_log_probs=want_log_probs
-                                 ).result(timeout)
+                                 want_log_probs=want_log_probs,
+                                 trace_id=trace_id).result(timeout)
 
     # -- stage 1: dispatcher -------------------------------------------------
     def _dispatch_loop(self) -> None:
@@ -368,6 +393,21 @@ class ServeLoop:
             return
         self.metrics.observe_stage("form", t_formed - t_form)
         self.metrics.observe_stage("dispatch", handle.dispatch_s)
+        if self.tracer is not None:
+            device = getattr(handle.executor, "device_name", "default")
+            spans = []
+            for req in plan.requests:
+                spans.append(make_span(req.trace_id, req.id, "queue",
+                                       req.enqueue_t,
+                                       max(0.0, t_taken - req.enqueue_t),
+                                       bucket=plan.bucket))
+                spans.append(make_span(req.trace_id, req.id, "form",
+                                       t_form, t_formed - t_form,
+                                       bucket=plan.bucket))
+                spans.append(make_span(req.trace_id, req.id, "dispatch",
+                                       t_formed, handle.dispatch_s,
+                                       bucket=plan.bucket, device=device))
+            self.tracer.add(spans)
         with self._cv:
             self._inflight += 1
             self.metrics.observe_inflight(self._inflight)
@@ -401,12 +441,20 @@ class ServeLoop:
                 with self._cv:
                     self._inflight -= 1
                     self._cv.notify_all()
-            self.metrics.observe_stage("collect", self.clock() - t0)
+            t1 = self.clock()
+            self.metrics.observe_stage("collect", t1 - t0)
+            if self.tracer is not None:
+                device = getattr(handle.executor, "device_name", "default")
+                self.tracer.add([
+                    make_span(r.trace_id, r.id, "collect", t0, t1 - t0,
+                              bucket=plan.bucket, device=device)
+                    for r in plan.requests])
             self._resolve_plan(plan, preds, bad, log_probs)
 
     def _resolve_plan(self, plan: BatchPlan, preds, bad, log_probs) -> None:
         done = self.clock()
         observed = []
+        spans = [] if self.tracer is not None else None
         for j, req in enumerate(plan.requests):
             latency = done - req.enqueue_t
             if bad[j]:
@@ -414,7 +462,8 @@ class ServeLoop:
                     ok=False, request_id=req.id, error="nonfinite",
                     detail="model outputs for this window hold NaN/Inf — "
                            "poisoned input or weights",
-                    latency_s=latency, bucket=plan.bucket)
+                    latency_s=latency, bucket=plan.bucket,
+                    trace_id=req.trace_id or None)
             else:
                 out = {k: int(v[j]) for k, v in preds.items()}
                 if "event" in out:
@@ -425,21 +474,60 @@ class ServeLoop:
                           for k, v in log_probs.items()}
                 result = ServeResult(
                     ok=True, request_id=req.id, predictions=out,
-                    latency_s=latency, bucket=plan.bucket, log_probs=lp)
+                    latency_s=latency, bucket=plan.bucket, log_probs=lp,
+                    trace_id=req.trace_id or None)
             req.resolve(result)
             observed.append((result.outcome, latency))
+            if spans is not None:
+                spans.append(make_span(req.trace_id, req.id, "resolve",
+                                       done, latency, bucket=plan.bucket,
+                                       outcome=result.outcome))
         self.metrics.observe_results(observed)
+        if spans is not None:
+            self.tracer.add(spans)
         self.metrics.observe_stage("resolve", self.clock() - done)
+        self._maybe_slo_check(done)
+
+    def _maybe_slo_check(self, now: float) -> None:
+        """At most once a second on the resolve path: trigger ONE
+        rate-limited profiler capture when p99 crosses the SLO."""
+        if (self.slo_p99_ms <= 0 or self.profiler is None
+                or now - self._slo_checked < 1.0):
+            return
+        # Single writer: only the collector thread reaches this method.
+        self._slo_checked = now
+        p99 = self.metrics.latency_p99_ms()
+        if p99 > self.slo_p99_ms:
+            self.profiler.maybe_trigger(
+                f"serve p99 {p99:.1f}ms > SLO {self.slo_p99_ms:g}ms")
 
     def _fail_plan(self, plan: BatchPlan, exc: Exception) -> None:
         detail = f"{type(exc).__name__}: {exc}"
+        now = self.clock()
         for req in plan.requests:
             result = ServeResult(ok=False, request_id=req.id, error="error",
-                                 detail=detail, bucket=plan.bucket)
+                                 detail=detail, bucket=plan.bucket,
+                                 trace_id=req.trace_id or None)
             req.resolve(result)
             self.metrics.observe_result(result.outcome, result.latency_s)
+        if self.tracer is not None:
+            self.tracer.add([make_span(r.trace_id, r.id, "resolve", now,
+                                       0.0, bucket=plan.bucket,
+                                       outcome="error")
+                             for r in plan.requests])
 
-    # -- reporting -----------------------------------------------------------
+    # -- observability -------------------------------------------------------
+    def set_obs(self, enabled: bool) -> None:
+        """Swap full telemetry on or off consistently (the registry mirror
+        and span tracing) with fresh counters either way — A/B legs of
+        what telemetry costs, on the same warmed loop."""
+        with self._cv:  # atomic swap vs the dispatcher/collector readers
+            self.metrics = self.batcher.metrics = ServeMetrics(
+                observe_registry=enabled)
+            self.tracer = self.batcher.tracer = (
+                TraceRing(self._trace_ring_size or 4096) if enabled
+                else None)
+
     def stats(self) -> dict:
         snap = self.metrics.snapshot()
         snap["queue"] = {"depth": self.batcher.depth,
@@ -449,7 +537,63 @@ class ServeLoop:
         snap["executor"] = self.executor.compile_summary()
         snap["warmup_s"] = self._warmup_s
         snap["staging"] = self._staging.stats()
+        if self.tracer is not None:
+            snap["trace"] = {"capacity": self.tracer.capacity,
+                             "spans_held": len(self.tracer),
+                             "spans_recorded": self.tracer.recorded}
+        if self.profiler is not None:
+            snap["profiler"] = self.profiler.summary()
         return snap
+
+    def metrics_text(self) -> str:
+        """The Prometheus exposition behind ``GET /metrics``: the
+        process-wide default registry (the train-time guards' compile
+        counters), then this loop's registry (request, batch and stage
+        families, live-state gauges refreshed here at scrape time)."""
+        reg = self.metrics.registry
+        reg.gauge("dasmtl_serve_queue_depth",
+                  "Requests currently queued").set(self.batcher.depth)
+        reg.gauge("dasmtl_serve_inflight",
+                  "Batches dispatched but not yet collected"
+                  ).set(self.inflight_depth)
+        reg.gauge("dasmtl_serve_inflight_window",
+                  "Configured in-flight window").set(self.inflight_window)
+        reg.gauge("dasmtl_serve_draining",
+                  "1 while the server refuses new work (drain)"
+                  ).set(1.0 if self.batcher.draining else 0.0)
+        if self._warmup_s is not None:
+            reg.gauge("dasmtl_serve_warmup_seconds",
+                      "Wall seconds warmup (eager runs and graph captures) "
+                      "took").set(self._warmup_s)
+        self._staging.publish_metrics(reg, prefix="dasmtl_serve_staging")
+        summary = self.executor.compile_summary()
+        recompiles = reg.counter(
+            "dasmtl_serve_post_warmup_recompiles_total",
+            "Post-warmup CUDA graph captures per pool device (any nonzero "
+            "value is a bucket-ladder bug)", labelnames=("device",))
+        warmups = reg.counter(
+            "dasmtl_serve_warmup_compiles_total",
+            "Warmup CUDA graph captures per pool device",
+            labelnames=("device",))
+        per_device = summary.get("per_device") or [summary]
+        for member in per_device:
+            device = str(member.get("placement") or "default")
+            recompiles.set_total(member.get("post_warmup_compiles", 0),
+                                 (device,))
+            warmups.set_total(member.get("warmup_compiles", 0), (device,))
+        if self.tracer is not None:
+            reg.counter("dasmtl_serve_trace_spans_total",
+                        "Span records ever written to the trace ring"
+                        ).set_total(self.tracer.recorded)
+        if self.profiler is not None:
+            prof = self.profiler.summary()
+            reg.counter("dasmtl_obs_profile_captures_total",
+                        "Completed profiler captures"
+                        ).set_total(prof["captures"])
+            reg.counter("dasmtl_obs_profile_rate_limited_total",
+                        "Profiler triggers refused by the cooldown"
+                        ).set_total(prof["rate_limited"])
+        return render_prometheus(default_registry(), reg)
 
     def healthz(self) -> dict:
         """Liveness payload (``GET /healthz``) plus the ``ready`` bit that
@@ -490,10 +634,12 @@ def install_signal_handlers(loop: ServeLoop,
 
 
 def _make_handler(loop: ServeLoop, request_timeout_s: float,
-                  swap_builder=None):
+                  swap_builder=None, history=None):
     """Handler class closed over the loop (BaseHTTPRequestHandler is
     instantiated per connection, so state rides the class).
-    ``swap_builder(version) -> executor`` arms ``POST /swap``."""
+    ``swap_builder(version) -> executor`` arms ``POST /swap``; ``history``
+    (a :class:`~dasmtl_torch.obs.history.MetricsHistory`) arms ``GET
+    /query``."""
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -501,16 +647,24 @@ def _make_handler(loop: ServeLoop, request_timeout_s: float,
         def log_message(self, *args) -> None:  # quiet by default
             pass
 
-        def _reply(self, code: int, payload: dict) -> None:
-            body = json.dumps(payload).encode()
+        def _reply(self, code: int, payload: dict,
+                   headers: Optional[dict] = None) -> None:
+            self._reply_raw(code, json.dumps(payload).encode(),
+                            "application/json", headers)
+
+        def _reply_raw(self, code: int, body: bytes, content_type: str,
+                       headers: Optional[dict] = None) -> None:
             self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
         def do_GET(self) -> None:  # noqa: N802 — http.server API shape
-            path = urlsplit(self.path).path
+            url = urlsplit(self.path)
+            path = url.path
             if path == "/healthz":
                 h = loop.healthz()
                 self._reply(503 if h["status"] == "draining" else 200, h)
@@ -522,6 +676,27 @@ def _make_handler(loop: ServeLoop, request_timeout_s: float,
                                   "generation": loop.generation})
             elif path == "/stats":
                 self._reply(200, loop.stats())
+            elif path == "/metrics":
+                # Prometheus text exposition; /stats stays the JSON view.
+                self._reply_raw(200, loop.metrics_text().encode(),
+                                "text/plain; version=0.0.4; charset=utf-8")
+            elif path == "/trace":
+                tracer = loop.tracer
+                if tracer is None:
+                    self._reply(404, {"error": "tracing disabled "
+                                               "(trace_ring=0)"})
+                    return
+                n = parse_qs(url.query).get("n", [None])[0]
+                try:
+                    body = tracer.to_jsonl(int(n) if n else None)
+                except ValueError:
+                    self._reply(400, {"error": f"bad n={n!r}"})
+                    return
+                self._reply_raw(200, body.encode(), "application/x-ndjson")
+            elif path == "/query":
+                params = {k: v[0] for k, v in parse_qs(url.query).items()}
+                code, payload = handle_query(history, params)
+                self._reply(code, payload)
             else:
                 self._reply(404, {"error": f"unknown path {path}"})
 
@@ -550,21 +725,39 @@ def _make_handler(loop: ServeLoop, request_timeout_s: float,
                                   "detail": "a swap is already warming"})
                 return
             threading.Thread(
-                target=_crash_logged(
-                    lambda: loop.swap_to(swap_builder, version),
-                    "serve-swap"),
+                target=crash_logged(loop.swap_to, "serve-swap"),
+                args=(swap_builder, version),
                 name="dasmtl-torch-serve-swap", daemon=True).start()
             self._reply(202, {"swap": {"state": "started",
                                        "version": version},
                               "generation": loop.generation})
 
+        def _post_profile(self) -> None:
+            """One rate-limited capture; 200 says whether it started."""
+            if loop.profiler is None:
+                self._reply(503, {"triggered": False,
+                                  "reason": "no profiler hook configured"})
+                return
+            path = loop.profiler.maybe_trigger("POST /profile")
+            self._reply(200, {"triggered": path is not None,
+                              "capture_dir": path,
+                              "profiler": loop.profiler.summary()})
+
         def do_POST(self) -> None:  # noqa: N802 — http.server API shape
+            if self.path == "/profile":
+                self._post_profile()
+                return
             if self.path == "/swap":
                 self._post_swap()
                 return
             if self.path != "/infer":
                 self._reply(404, {"error": f"unknown path {self.path}"})
                 return
+            # Cross-tier tracing: adopt X-Dasmtl-Trace and echo it on every
+            # outcome, so the chain survives refusals and errors too.
+            inbound_trace = self.headers.get("X-Dasmtl-Trace") or None
+            echo = ({"X-Dasmtl-Trace": inbound_trace}
+                    if inbound_trace else None)
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(n))
@@ -574,7 +767,8 @@ def _make_handler(loop: ServeLoop, request_timeout_s: float,
                     json.JSONDecodeError) as exc:
                 self._reply(400, {"ok": False, "error": "bad_request",
                                   "detail": f"expected JSON "
-                                            f'{{"x": [[...]]}}: {exc}'})
+                                            f'{{"x": [[...]]}}: {exc}'},
+                            echo)
                 return
             h, w = loop.executor.input_hw
             if x.shape == (h, w, 1):
@@ -583,15 +777,16 @@ def _make_handler(loop: ServeLoop, request_timeout_s: float,
                 self._reply(400, {
                     "ok": False, "error": "bad_request",
                     "detail": f"window must be {h}x{w}, got "
-                              f"{list(x.shape)}"})
+                              f"{list(x.shape)}"}, echo)
                 return
             try:
                 res = loop.submit(x, timeout=request_timeout_s,
-                                  want_log_probs=want_log_probs)
+                                  want_log_probs=want_log_probs,
+                                  trace_id=inbound_trace)
             except FuturesTimeoutError:
                 self._reply(504, {"ok": False, "error": "timeout",
                                   "detail": f"no response within "
-                                            f"{request_timeout_s}s"})
+                                            f"{request_timeout_s}s"}, echo)
                 return
             code = {None: 200, "shed": 503, "closed": 503,
                     "nonfinite": 422}.get(res.error, 500)
@@ -603,17 +798,20 @@ def _make_handler(loop: ServeLoop, request_timeout_s: float,
                 "bucket": res.bucket, "trace_id": res.trace_id}
             if res.log_probs is not None:
                 payload["log_probs"] = res.log_probs
-            self._reply(code, payload)
+            if echo is None and res.trace_id:
+                echo = {"X-Dasmtl-Trace": res.trace_id}
+            self._reply(code, payload, echo)
 
     return Handler
 
 
 def make_http_server(loop: ServeLoop, host: str = "127.0.0.1",
                      port: int = 0, request_timeout_s: float = 30.0,
-                     swap_builder=None) -> ThreadingHTTPServer:
+                     swap_builder=None, history=None) -> ThreadingHTTPServer:
     """Bind (port 0 = ephemeral; read ``server_address[1]``) but do not
     serve — callers run ``serve_forever`` and ``shutdown`` themselves.
-    ``swap_builder(version) -> executor`` arms ``POST /swap``."""
+    ``swap_builder(version) -> executor`` arms ``POST /swap``;
+    ``history`` (MetricsHistory) arms ``GET /query``."""
     return ThreadingHTTPServer((host, port),
                                _make_handler(loop, request_timeout_s,
-                                             swap_builder))
+                                             swap_builder, history))

@@ -21,10 +21,14 @@ onto ONE :class:`~dasmtl_torch.serve.server.ServeLoop`.
   file, and the ``dasmtl_stream_*`` metric families.
 
 ``--devices`` sizes the executor pool the fibers spread over, as in JAX.
-Not ported yet (ROADMAP.md queue 1): dynamic tenancy and the fleet worker,
-the soak selftest, alerts and metrics history (``/query``), and the serve
-loop's own ``dasmtl_serve_*`` families, so ``GET /metrics`` renders the
-stream families alone.
+``GET /metrics`` renders the serve loop's exposition (the ``dasmtl_serve_*``
+families after the process-wide default registry) and then the
+``dasmtl_stream_*`` families; ``GET /query`` answers from the metrics
+history (``--history`` snapshots of that exposition every
+``--history_interval_s``) with :func:`~dasmtl_torch.obs.history.
+handle_query`'s semantics.  Not ported yet (ROADMAP.md queue 1): dynamic
+tenancy and the fleet worker, the soak selftest (item 1), and alerts (item
+6's remainder, the alert engine).
 
 ``serve_main`` is ``python -m dasmtl_torch.stream serve``, over a port
 checkpoint (``--model_path``), a port artifact (``--exported``: the host
@@ -38,7 +42,6 @@ import json
 import sys
 import threading
 import time
-import traceback
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Sequence
@@ -47,11 +50,13 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from dasmtl_torch import config as C
+from dasmtl_torch.obs.history import MetricsHistory, handle_query
 from dasmtl_torch.obs.registry import (DEFAULT_LATENCY_BUCKETS_S,
                                        MetricsRegistry)
 from dasmtl_torch.stream.feed import FiberFeed
 from dasmtl_torch.stream.tracks import TrackBook, WindowDecode
 from dasmtl_torch.stream.windower import LiveWindower
+from dasmtl_torch.utils.threads import crash_logged
 
 #: Metric families a stream scrape carries (``live.py:55-70``).
 REQUIRED_STREAM_METRIC_FAMILIES = (
@@ -87,8 +92,8 @@ NOT_YET_PORTED = {
                     "remainder' (the fleet and dynamic tenancy)",
     "selftest": "ROADMAP.md queue 1 item 1, 'the stream tier's "
                 "remainder' (the soak selftest)",
-    "alerts": "ROADMAP.md queue 1 item 6, 'Observability endpoints'",
-    "history": "ROADMAP.md queue 1 item 6, 'Observability endpoints'",
+    "alerts": "ROADMAP.md queue 1 item 6's remainder, the alert engine "
+              "(dasmtl/obs/alerts.py)",
     "conc_lockdep": "ROADMAP.md queue 1 item 3 (the lint, audit, conc "
                     "and mem families analyse JAX code and are not ported)",
     "mem_track": "ROADMAP.md queue 1 item 3 (the lint, audit, conc and "
@@ -227,6 +232,7 @@ class StreamLoop:
                  events_path: Optional[str] = None,
                  events_ring: int = 1024,
                  metrics: Optional[StreamMetrics] = None,
+                 history: Optional[MetricsHistory] = None,
                  resident: str = "off",
                  resident_max_windows: int = 0,
                  adapt_weights: bool = False, adapt_every: int = 8):
@@ -243,6 +249,8 @@ class StreamLoop:
         self.cycle_budget = int(cycle_budget)
         self.outstanding_factor = max(1, int(outstanding_factor))
         self.metrics = metrics or StreamMetrics()
+        # Behind GET /query; a HistorySampler feeds it from metrics_text.
+        self.history = history
         self.adapt_weights = bool(adapt_weights)
         self.adapt_every = max(1, int(adapt_every))
         self._apply_weights()
@@ -456,18 +464,14 @@ class StreamLoop:
     # -- pump thread ---------------------------------------------------------
     def start(self, poll_s: float = 0.002) -> "StreamLoop":
         def pump():
-            try:
-                while not self._stop.is_set():
-                    self.run_cycle()
-                    self._stop.wait(poll_s)
-            except Exception as exc:  # noqa: BLE001 — logged, pump stops
-                print(f"[thread-crash] stream-pump: {type(exc).__name__}: "
-                      f"{exc}", file=sys.stderr)
-                traceback.print_exc(file=sys.stderr)
-                self._stop.set()
+            while not self._stop.is_set():
+                self.run_cycle()
+                self._stop.wait(poll_s)
 
-        self._pump = threading.Thread(target=pump, daemon=True,
-                                      name="dasmtl-torch-stream-pump")
+        self._pump = threading.Thread(
+            target=crash_logged(pump, "stream-pump",
+                                on_crash=lambda _exc: self._stop.set()),
+            daemon=True, name="dasmtl-torch-stream-pump")
         self._pump.start()
         return self
 
@@ -572,8 +576,10 @@ class StreamLoop:
                               "fibers": hot_fibers}}
 
     def metrics_text(self) -> str:
-        """``GET /metrics``: the ``dasmtl_stream_*`` families, gauges
-        refreshed at scrape time."""
+        """The full ``GET /metrics`` exposition: the serve loop's (which
+        already holds the process-wide default registry) followed by the
+        ``dasmtl_stream_*`` families, gauges refreshed here at scrape
+        time."""
         with self._lock:
             for t in self.tenants:
                 labels = (t.name,)
@@ -593,7 +599,7 @@ class StreamLoop:
                     self.metrics.resident_ring_occupancy.set(
                         min(lane.feed.total, lane.feed.ring_samples)
                         / lane.feed.ring_samples, labels)
-        return self.metrics.registry.render()
+        return self.serve.metrics_text() + self.metrics.registry.render()
 
 
 # -- HTTP front end ------------------------------------------------------------
@@ -601,8 +607,8 @@ class StreamLoop:
 def make_stream_http_server(stream: StreamLoop, host: str = "127.0.0.1",
                             port: int = 0) -> ThreadingHTTPServer:
     """``GET /events`` (track records; ``?n=`` and ``?kind=``),
-    ``/healthz``, ``/readyz``, ``/stats`` and ``/metrics``; ``/query``
-    answers 501 until metrics history is ported."""
+    ``/healthz``, ``/readyz``, ``/stats``, ``/metrics`` (serve + stream
+    families) and ``/query`` (metrics history, 404 without one)."""
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *_a):
@@ -645,9 +651,9 @@ def make_stream_http_server(stream: StreamLoop, host: str = "127.0.0.1",
                     self._send(200, stream.metrics_text().encode(),
                                "text/plain; version=0.0.4")
                 elif url.path == "/query":
-                    self._send(501, json.dumps(
-                        {"error": "not_ported",
-                         "detail": NOT_YET_PORTED["history"]}).encode())
+                    q = {k: v[0] for k, v in parse_qs(url.query).items()}
+                    code, payload = handle_query(stream.history, q)
+                    self._send(code, json.dumps(payload).encode())
                 else:
                     self._send(404, json.dumps(
                         {"error": f"no route {url.path}"}).encode())
@@ -768,8 +774,14 @@ def build_serve_parser() -> argparse.ArgumentParser:
     st.add_argument("--events_ring", type=int, default=C.STREAM_EVENTS_RING)
     st.add_argument("--poll_ms", type=float, default=C.STREAM_POLL_MS,
                     help="pump cycle cadence")
+    obs = p.add_argument_group("observability")
+    obs.add_argument("--history", type=int, default=C.OBS_HISTORY,
+                     help="metrics-history snapshots kept behind "
+                          "GET /query (0 disables)")
+    obs.add_argument("--history_interval_s", type=float,
+                     default=C.OBS_HISTORY_INTERVAL_S,
+                     help="seconds between history snapshots")
     nyp = p.add_argument_group("not yet ported (exit 2)")
-    nyp.add_argument("--history", type=int, default=0)
     nyp.add_argument("--alerts", action=argparse.BooleanOptionalAction,
                      default=False)
     nyp.add_argument("--conc_lockdep",
@@ -819,6 +831,10 @@ def serve_main(argv=None) -> int:
     if refusal:
         print(f"dasmtl_torch.stream serve: {refusal}", file=sys.stderr)
         return 2
+    if args.history < 0:
+        p.error("--history must be >= 0 (0 disables /query)")
+    if args.history_interval_s <= 0:
+        p.error("--history_interval_s must be > 0")
     n_sources = sum(1 for v in (args.exported, args.model_path,
                                 args.fresh_init, args.oracle) if v)
     if n_sources != 1:
@@ -897,11 +913,12 @@ def serve_main(argv=None) -> int:
     loop = ServeLoop(executor, buckets=buckets,
                      max_wait_s=args.max_wait_ms / 1e3,
                      queue_depth=args.queue_depth, inflight=args.inflight)
+    history = MetricsHistory(args.history) if args.history > 0 else None
     try:
         stream = StreamLoop(loop, tenants, cycle_budget=args.cycle_budget,
                             max_wait_s=args.max_wait_ms / 1e3,
                             events_path=args.events_path,
-                            events_ring=args.events_ring,
+                            events_ring=args.events_ring, history=history,
                             resident=args.resident,
                             resident_max_windows=args.resident_max_windows,
                             adapt_weights=args.adapt_weights)
@@ -909,6 +926,13 @@ def serve_main(argv=None) -> int:
         # --resident on with an exported artifact, as JAX refuses it.
         print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
         return 2
+    sampler = None
+    if history is not None:
+        from dasmtl_torch.obs.history import HistorySampler
+
+        sampler = HistorySampler(history, stream.metrics_text,
+                                 interval_s=args.history_interval_s)
+        sampler.start()
     httpd = make_stream_http_server(stream, args.host, args.port)
     host, port = httpd.server_address[:2]
     if args.port_file:
@@ -923,7 +947,8 @@ def serve_main(argv=None) -> int:
           f" windows into {executor.source} on {device} "
           f"({'resident' if stream.resident_enabled else 'host'} data "
           f"plane) on http://{host}:{port} (GET /events, /healthz, "
-          f"/readyz, /stats, /metrics); SIGTERM drains", file=sys.stderr)
+          f"/readyz, /stats, /metrics, /query); SIGTERM drains",
+          file=sys.stderr)
     stop = threading.Event()
     install_signal_handlers(loop, on_drain=lambda _s: stop.set())
     stream.start(poll_s=args.poll_ms / 1e3)
@@ -931,6 +956,8 @@ def serve_main(argv=None) -> int:
         pass
     stream_drained = stream.drain(timeout=30.0)
     serve_drained = loop.drain(timeout=60.0)
+    if sampler is not None:
+        sampler.stop()
     httpd.shutdown()
     http_t.join(timeout=10.0)
     stream.close()

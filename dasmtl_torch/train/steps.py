@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from dasmtl_torch.models.registry import ModelSpec
-from dasmtl_torch.ops import _build, launch_counters
+from dasmtl_torch.ops import _build, capture_section, launch_counters
 from dasmtl_torch.ops.batch_gather import batch_gather, check_plan
 from dasmtl_torch.train.losses import mixed_label
 from dasmtl_torch.train.optim import set_lr
@@ -372,7 +372,7 @@ class ScanTrainStep:
         counters = launch_counters()
         before = {n: c.value for n, c in counters.items()}
         # Capture synchronizes the device: a declared sync.
-        with declared_sync(), torch.cuda.graph(
+        with capture_section(), declared_sync(), torch.cuda.graph(
                 g.graph, pool=self._pool, stream=self._stream,
                 capture_error_mode="thread_local"):
             for i in range(k):

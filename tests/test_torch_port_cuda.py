@@ -22,8 +22,13 @@ bf16 and int8, model C int8) answering with the bits of
 ``from_state_dict``, the CV step's fold_select (bit for bit against its
 plain version with and without PDL, on model A-like leaves and on the
 ring's edge cases, and replayed from a CUDA graph),
-dropout masks fresh at every graph replay, model C's resident step, and
-one CV dispatch against the folds' single-fold dispatches.
+dropout masks fresh at every graph replay, model C's resident step,
+one CV dispatch against the folds' single-fold dispatches, and the
+observability slice on the card: a ``torch.profiler`` capture holding the
+kernels of graph replays by name (4 gates + 1 decode a replay of model A,
+1 int8_dot + 1 decode of model C int8), the serve front end's trace
+chains and ``/metrics`` over the graph pool, and ``train --profile_dir``
+on the resident path.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -1774,3 +1779,152 @@ def test_a_failed_capture_raises_and_never_runs_eagerly(cuda):
     assert ex.compile_summary()["graph_count"] == 0
     ex.close()
     assert float(torch.ones(4, device=cuda).sum()) == 4.0
+
+
+# -- observability on the card --------------------------------------------------
+
+def _trace_groups(path, frags):
+    """Per launching runtime call (correlation id), the kernels of a
+    Chrome trace counted by name fragment, oldest first."""
+    import json
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    groups = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        g = groups.setdefault((e.get("args") or {}).get("correlation"),
+                              {"ts": e["ts"], **{k: 0 for k in frags}})
+        for k, frag in frags.items():
+            g[k] += frag in e["name"]
+    return [g for g in sorted(groups.values(), key=lambda g: g["ts"])
+            if any(g[k] for k in frags)]
+
+
+@pytest.mark.parametrize("family, precision, want", [
+    ("MTL", "f32", {"gate_fwd_kernel": 4, "decode_heads_kernel": 1}),
+    ("multi_classifier", "int8", {"int8_dot_kernel": 1,
+                                  "decode_heads_kernel": 1})],
+    ids=["A_f32", "C_int8"])
+def test_profiler_capture_holds_graph_replayed_kernels(cuda, tmp_path,
+                                                       family, precision,
+                                                       want):
+    """A ``torch.profiler`` capture (the ProfilerHook's) started after the
+    pool captured its graphs holds the kernels each replay launches, by
+    name: every replay but the two the capture's edges may cut."""
+    import threading
+
+    from dasmtl_torch.obs.profiler import TRACE_FILE, torch_capture
+    from dasmtl_torch.serve.executor import ExecutorPool
+
+    pool = ExecutorPool.from_fresh_init(family, (32,), (100, 250), 0, cuda,
+                                        precision, devices=1)
+    pool.warmup()
+    x = torch.zeros((32, 100, 250, 1)).pin_memory()
+    t = threading.Thread(target=torch_capture, args=(str(tmp_path), 0.3))
+    t.start()
+    n = 0
+    while t.is_alive():
+        pool.run(x)
+        n += 1
+    t.join()
+    pool.close()
+    groups = _trace_groups(str(tmp_path / TRACE_FILE),
+                           {k: k for k in want})
+    full = [g for g in groups if all(g[k] == v for k, v in want.items())]
+    assert full and len(groups) - len(full) <= 2, (n, groups[:4])
+
+
+def test_serve_http_traces_and_metrics_on_the_card(cuda):
+    """The serve front end over the card's graph pool: every answer's
+    trace ID names its six-stage chain in ``/trace``, ``/metrics`` parses
+    with the required families and zero post-warmup captures."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from dasmtl_torch.obs.registry import parse_exposition
+    from dasmtl_torch.obs.trace import SPAN_STAGES
+    from dasmtl_torch.serve.executor import ExecutorPool
+    from dasmtl_torch.serve.selftest import REQUIRED_METRIC_FAMILIES
+    from dasmtl_torch.serve.server import ServeLoop, make_http_server
+
+    pool = ExecutorPool.from_fresh_init("MTL", (1, 2, 4, 8), (100, 250), 0,
+                                        cuda, devices=-1)
+    loop = ServeLoop(pool, buckets=(1, 2, 4, 8), max_wait_s=0.002).start()
+    httpd = make_http_server(loop, port=0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    xs = np.random.default_rng(0).normal(size=(8, 100, 250)).astype(
+        np.float32)
+    xs[3, 5, 5] = np.nan
+    answers = [None] * 32
+
+    def send(i):
+        req = urllib.request.Request(
+            url + "/infer", data=json.dumps({"x": xs[i % 8].tolist()})
+            .encode(), headers={"X-Dasmtl-Trace": f"c-{i}"}, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                answers[i] = (r.status, r.headers["X-Dasmtl-Trace"])
+        except urllib.error.HTTPError as e:
+            answers[i] = (e.code, e.headers["X-Dasmtl-Trace"])
+
+    try:
+        clients = [threading.Thread(target=send, args=(i,))
+                   for i in range(32)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=120)
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            fams = parse_exposition(r.read().decode())
+        chains = loop.tracer.chains()
+    finally:
+        httpd.shutdown()
+        th.join(timeout=10)
+        httpd.server_close()
+        loop.close()
+    assert answers == [(422 if i % 8 == 3 else 200, f"c-{i}")
+                       for i in range(32)]
+    assert all([s["stage"] for s in chains[f"c-{i}"]] == list(SPAN_STAGES)
+               for i in range(32))
+    assert set(REQUIRED_METRIC_FAMILIES) <= set(fams)
+    assert set(fams["dasmtl_serve_post_warmup_recompiles_total"][
+        "samples"].values()) == {0}
+
+
+def test_train_profile_dir_trace_holds_gather_and_gate_kernels(cuda,
+                                                               tmp_path):
+    """``train --profile_dir`` on the resident path, 2 epochs (the second
+    replays the scan step's CUDA graph): the trace holds batch_gather and
+    the gate's forward and backward kernels by name, no more than the
+    wrappers counted, and each replayed scan step whole."""
+
+    from dasmtl_torch import cli
+    from dasmtl_torch.data.synthetic import make_synthetic_dataset
+    from dasmtl_torch.obs.profiler import TRACE_FILE
+
+    striking, excavating = make_synthetic_dataset(
+        str(tmp_path / "data"), files_per_category=2, shape=(52, 64))
+    batch_gather.launches.reset()
+    assert cli.main(["train", "--device", "cuda", "--device_data", "on",
+                     "--batch_size", "16", "--epoch_num", "2",
+                     "--trainVal_set_striking", striking,
+                     "--trainVal_set_excavating", excavating,
+                     "--output_savedir", str(tmp_path / "runs"),
+                     "--profile_dir", str(tmp_path / "prof")]) == 0
+    frags = {"gather": "batch_gather_kernel", "fwd": "gate_fwd_kernel",
+             "bwd": "gate_bwd"}
+    groups = _trace_groups(str(tmp_path / "prof" / TRACE_FILE), frags)
+    got = [sum(g[k] for g in groups) for k in frags]
+    want = [batch_gather.launches.value, gating.launches.value,
+            gating.backward_launches.value]
+    assert all(got) and all(a <= b for a, b in zip(got, want)), (got, want)
+    # A replayed scan step: 8 forward + 8 backward gates a gathered step.
+    train = [g for g in groups if g["gather"] and g["bwd"]]
+    assert train and all(g["fwd"] == g["bwd"] == 8 * g["gather"]
+                         for g in train), groups

@@ -2,11 +2,12 @@
 
 ``run_selftest`` passes over a pool of 1 and of 2 CPU members at JAX's
 52x64 window (every request resolved, zero post-warmup captures on every
-member, occupancy, the drain, the in-flight window), its report carries
-every key of JAX's ``run_selftest(obs_check=False)`` plus the port's
-``obs_check`` note, ``obs_check=True`` raises naming ROADMAP.md queue 1
-item 6, and ``write_job_summary`` writes JAX's table.  Each soak runs
-torch on one intra-op thread.
+member, occupancy, the drain, the in-flight window, and invariant 6: two
+mid-load ``/metrics`` scrapes over a real front end and one SLO
+capture), its report carries exactly the keys of JAX's
+``run_selftest`` (the telemetry leg's entries included), and
+``write_job_summary`` writes JAX's table.  Each soak runs torch on one
+intra-op thread.
 """
 
 import numpy as np
@@ -28,13 +29,12 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def jax_report():
-    """JAX's soak at its defaults but for a short load and no telemetry
-    leg: the report whose keys the port's must carry."""
+    """JAX's soak at its defaults (the telemetry leg included) but for a
+    short load: the report whose keys the port's must carry."""
     from dasmtl.serve.selftest import run_selftest as jax_run_selftest
 
-    return jax_run_selftest(requests=8, clients=2, buckets=(1,),
-                            use_signal=False, obs_check=False,
-                            verbose=False)
+    return jax_run_selftest(requests=16, clients=2, buckets=(1,),
+                            use_signal=False, verbose=False)
 
 
 @pytest.mark.parametrize("members", [1, 2])
@@ -56,23 +56,32 @@ def test_selftest_passes_over_a_pool(members):
     assert report["max_inflight_observed"] <= report["inflight_window"]
 
 
-def test_report_keys_are_jax_s_and_obs_check_is_not_ported(jax_report):
+def test_report_keys_are_jax_s(jax_report):
     """Without the signal (``begin_drain``) the port's report carries
-    every key JAX's does, plus ``obs_check``; the telemetry leg raises
-    naming its item."""
+    exactly JAX's keys, and the telemetry leg's two entries JAX's keys:
+    two well-formed monotone scrapes, one capture from the seeded
+    breach."""
     assert jax_report["passed"], jax_report["failures"]
     report = run_selftest(requests=48, clients=4, device=CPU,
                           use_signal=False, verbose=False)
     assert report["passed"], report["failures"]
-    assert set(report) - set(jax_report) == {"obs_check"}
-    assert set(jax_report) <= set(report)
-    assert report["obs_check"] == "not ported (item 6)"
-    assert report["metrics_scrape"] is None is report["slo_profile"]
+    assert set(report) == set(jax_report)
+    for key in ("metrics_scrape", "slo_profile"):
+        assert set(report[key]) == set(jax_report[key])
+    assert report["metrics_scrape"]["scrapes"] == 2
+    assert report["metrics_scrape"]["monotone_ok"] is True
+    prof = report["slo_profile"]
+    assert prof["captures"] == 1 and prof["skips"] == []
+    assert prof["triggers"] >= 1
     assert report["lockdep"]["enabled"] is False
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 6, 'Observability "
-                             "endpoints and tracing'"):
-        run_selftest(requests=8, device=CPU, obs_check=True)
+
+
+def test_obs_check_off_leaves_the_telemetry_entries_empty():
+    """``obs_check=False`` runs invariants 1-5 alone, as JAX's does."""
+    report = run_selftest(requests=32, clients=4, device=CPU,
+                          use_signal=False, obs_check=False, verbose=False)
+    assert report["passed"], report["failures"]
+    assert report["metrics_scrape"] is None is report["slo_profile"]
 
 
 def test_write_job_summary_appends_the_per_device_table(tmp_path):

@@ -240,7 +240,9 @@ def test_http_infer_answers_and_rejects(http_loop):
     w = _windows(2, seed=9, poison_every=0)
     code, out = _call(f"{base}/infer", json.dumps({"x": w[0].tolist()})
                       .encode())
-    assert code == 200 and out["ok"] and out["trace_id"] is None
+    assert code == 200 and out["ok"]
+    # The answer names its span chain in GET /trace.
+    assert out["trace_id"] in loop.tracer.chains()
     pred = out["predictions"]
     assert set(pred) == {"distance", "event", "event_name"}
     assert pred["event_name"] == EVENT_NAMES[pred["event"]]
@@ -342,16 +344,10 @@ def _serve_until_sigterm(argv, tmp_path) -> int:
 @pytest.mark.parametrize("argv, item", [
     (["--devices", "1"], None), (["--shard_largest"], None),
     (["--shard_multihost"], "item 4"),
-    (["--slo_p99_ms", "50"], "item 6"),
-    (["--trace_ring", "64"], "item 6"),
-    (["--latency_buckets_ms=1,5"], "item 6"),
-    (["--profile_dir", "/p"], "item 6"),
-    (["--history_interval_s", "5"], "item 6"),
     (["--conc_lockdep"], "item 3"), (["--mem_track"], "item 3"),
     (["--selftest", "--selftest_requests", "16"], None)],
-    ids=["devices", "shard_largest", "shard_multihost", "slo_p99_ms",
-         "trace_ring", "latency_buckets_ms", "profile", "history", "conc",
-         "mem", "selftest"])
+    ids=["devices", "shard_largest", "shard_multihost", "conc", "mem",
+         "selftest"])
 def test_cli_jax_only_flags_exit_2_naming_their_item(argv, item, capsys,
                                                      tmp_path):
     """A flag of the JAX server the port does not carry exits 2 naming

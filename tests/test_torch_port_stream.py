@@ -403,7 +403,10 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
         families = parse_exposition(text)
         assert code == 200 and set(REQUIRED_STREAM_METRIC_FAMILIES) <= \
             set(families)
-        assert _get(url + "/query")[0] == 501
+        assert "dasmtl_serve_requests_total" in families
+        code, body = _get(url + "/query")
+        assert code == 200 and "dasmtl_stream_windows_total" in \
+            json.loads(body)["families"]
         proc.send_signal(signal.SIGTERM)
         _, err = proc.communicate(timeout=120)
     finally:
@@ -421,7 +424,6 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
     (["--fleet_worker"], "item 1"),
     (["--selftest"], "item 1"),
     (["--alerts"], "item 6"),
-    (["--history", "64"], "item 6"),
     (["--conc_lockdep"], "item 3"),
     (["--mem_track"], "item 3"),
 ])
