@@ -246,7 +246,24 @@ Phases, each fatal on failure (no phase catches its own error):
              resident path: the trace holds batch_gather and the gate's
              forward and backward kernels (graph replays included), as
              many as the wrappers counted; (f) ``python -m dasmtl_torch.serve --selftest``
-             passing with invariant 6.
+             passing with invariant 6;
+15. router — the serving router tier over replica processes on the card:
+             two ``python -m dasmtl_torch.serve`` replicas of model A f32
+             at 100x250 (fresh init, the server's default buckets) started
+             at once; 8 clients send 512 requests (every 37th NaN, 422)
+             (a) to one replica with no router, (b) through the port's
+             ``Router`` over that replica, (c) through it over both:
+             windows/s, client p50 / p99, each replica's batches and its
+             gate and decode launches (4 + 1 a batch, read off its ``GET
+             /stats`` before and after the leg), no post-warmup capture,
+             every replica on the card, both serving in (c), the ints of
+             (b) and (c) equal to (a)'s on decisive rows, both replicas
+             draining to exit 0 on SIGTERM; then
+             ``run_router_selftest(device="cuda", hw=(100, 250))``: two
+             more replicas, a drain rollout under load, a SIGKILL, every
+             invariant, with each replica's swap warm-up, the seconds
+             until the killed replica left rotation, the retries by
+             reason and one retried request's joined chain printed.
 
 Then one JSON line lists every kernel of the port, the card's name and
 power limit follow on a line of their own, and the last line is
@@ -5897,6 +5914,255 @@ def phase_obs() -> dict:
     return out
 
 
+# -- phase 15 -----------------------------------------------------------------
+#: The replicas' device (a CPU rehearsal sets "cpu").
+ROUTER_DEVICE = "cuda"
+ROUTER_SELFTEST_REQUESTS = 200
+#: The hand-written kernels of a replica's batch: the paired gate forward
+#: (4 launches, both tasks of a stage each) and the decode tail (1).
+ROUTER_PER_BATCH = {"gate_apply": 4, "decode_heads": 1}
+
+
+def _router_replica(name: str):
+    """``python -m dasmtl_torch.serve`` of model A, f32, fresh init, at
+    H x W over the server's default buckets, on ``ROUTER_DEVICE``."""
+    from dasmtl_torch.serve.replica import ReplicaProcess
+
+    return ReplicaProcess(["--fresh_init", "--window", f"{H}x{W}",
+                           "--device", ROUTER_DEVICE], name=name,
+                          startup_timeout_s=300.0)
+
+
+def _replica_counts(transport, procs) -> dict:
+    """Each replica's batches, answers, launches and post-warmup captures,
+    read from its ``GET /stats``."""
+    out = {}
+    for pr in procs:
+        st = transport.stats(pr.address)
+        placements = [m["placement"] for m in
+                      st["executor"]["per_device"]]
+        if any(not pl.startswith(ROUTER_DEVICE) for pl in placements):
+            raise AssertionError(f"[router] {pr.name} serves on "
+                                 f"{placements}, not {ROUTER_DEVICE}")
+        out[pr.name] = {"batches": st["batches"]["count"],
+                        "answered": st["requests"]["answered"],
+                        "launches": {k: st["launches"][k]
+                                     for k in ROUTER_PER_BATCH},
+                        "post_warmup": _post_warmup(st["executor"]),
+                        "warmup_s": st["warmup_s"]}
+    return out
+
+
+def _router_launches(before: dict, after: dict) -> dict:
+    """Per replica: its batches over a leg and the launches they made,
+    ``ROUTER_PER_BATCH`` times the batches."""
+    out = {}
+    for name, a in after.items():
+        b = before[name]
+        n = a["batches"] - b["batches"]
+        got = {k: a["launches"][k] - b["launches"][k] for k in a["launches"]}
+        if got != {k: v * n for k, v in ROUTER_PER_BATCH.items()}:
+            raise AssertionError(f"[router] {name}: {n} batches made {got} "
+                                 f"launches, expected {ROUTER_PER_BATCH} "
+                                 f"per batch")
+        out[name] = {"batches": n, "answered": a["answered"] - b["answered"],
+                     "launches": got}
+    return out
+
+
+def _router_leg(tag: str, address: str, procs, bodies) -> dict:
+    """8 clients send 512 requests to ``address`` (a replica or a router),
+    every 37th window NaN; every answer 200 (or 422 for a NaN window) with
+    its log-probs; windows/s, client p50 / p99 and each replica's batches
+    and launches, read before and after."""
+    from dasmtl_torch.serve.replica import HttpTransport
+
+    transport = HttpTransport(120.0)
+    before = _replica_counts(transport, procs)
+
+    def send(i):
+        poison = i % POISON_EVERY == 0
+        t0 = time.perf_counter()
+        code, payload = transport.infer_json(
+            address, bodies[poison][i % len(bodies[poison])])
+        return i, poison, code, payload, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(N_CLIENTS) as pool:
+        answers = list(pool.map(send, range(N_REQUESTS)))
+    wall = time.perf_counter() - t0
+    per_replica = _router_launches(before, _replica_counts(transport, procs))
+    preds = {}
+    for i, poison, code, payload, _ in answers:
+        want = (422, "nonfinite") if poison else (200, None)
+        if (code, payload.get("error")) != want:
+            raise AssertionError(f"[router] ({tag}) request {i}: {code} "
+                                 f"{payload}")
+        if not poison:
+            preds[i % len(bodies[False])] = (payload["predictions"],
+                                             payload["log_probs"])
+    if sum(r["answered"] for r in per_replica.values()) != N_REQUESTS:
+        raise AssertionError(f"[router] ({tag}) replicas answered "
+                             f"{per_replica}, sent {N_REQUESTS}")
+    lat = np.array([a[4] for a in answers]) * 1e3
+    out = {"windows_per_s": N_REQUESTS / wall, "wall_s": wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "replicas": per_replica, "preds": preds}
+    log(f"[router] ({tag}) {N_REQUESTS} requests from {N_CLIENTS} clients: "
+        f"{out['windows_per_s']:.1f} windows/s, p50 {out['p50_ms']:.1f} ms, "
+        f"p99 {out['p99_ms']:.1f} ms (client side); per replica "
+        + "; ".join(f"{k}: {v['batches']} batches, {v['answered']} answered,"
+                    f" launches {v['launches']}"
+                    for k, v in per_replica.items()))
+    return out
+
+
+def _router_over(handles):
+    """A started port ``Router`` over ``handles`` behind its HTTP front
+    end; ``(router, httpd, thread, address)`` once every replica is in
+    rotation."""
+    from dasmtl_torch.serve.router import Router, make_router_http_server
+
+    router = Router(handles, request_timeout_s=120.0).start()
+    httpd = make_router_http_server(router, "127.0.0.1", 0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    deadline = time.monotonic() + 60
+    while router.healthz()["in_rotation"] < len(handles):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[router] not in rotation: "
+                                 f"{router.stats()['replicas']}")
+        time.sleep(0.05)
+    return router, httpd, t, "127.0.0.1:%d" % httpd.server_address[1]
+
+
+def _router_legs() -> dict:
+    """(a) one replica alone, (b) the router over it, (c) the router over
+    two; the ints of every leg equal on decisive rows."""
+    from dasmtl_torch.serve.parity import _decision_margins
+    from dasmtl_torch.serve.replica import HttpTransport, ReplicaHandle
+
+    windows = np.random.default_rng(0).normal(size=(32, H, W)).astype(
+        np.float32)
+    spoiled = windows.copy()
+    spoiled[:, H // 2, W // 2] = np.nan
+    bodies = {poison: [json.dumps({"x": w.tolist(), "log_probs": True}
+                                  ).encode() for w in ws]
+              for poison, ws in ((False, windows), (True, spoiled))}
+    t0 = time.perf_counter()
+    procs = [_router_replica("r0"), _router_replica("r1")]
+    legs = {}
+    try:
+        transport = HttpTransport(30.0)
+        deadline = time.monotonic() + 300
+        while not all(transport.probe(p.address).get("ready")
+                      for p in procs):
+            if time.monotonic() > deadline:
+                raise AssertionError("[router] replicas never ready: "
+                                     + " | ".join(p.log_tail(800)
+                                                  for p in procs))
+            time.sleep(0.2)
+        startup_s = time.perf_counter() - t0
+        legs["a"] = _router_leg("a: one replica, no router", procs[0].address,
+                                procs[:1], bodies)
+        for tag, members in (("b", procs[:1]), ("c", procs)):
+            router, httpd, t, addr = _router_over(
+                [ReplicaHandle(p.name, p.address) for p in members])
+            try:
+                legs[tag] = _router_leg(
+                    f"{tag}: the router over {len(members)}", addr, members,
+                    bodies)
+                stats = router.stats()
+                retries = {reason: int(router._m_retries.value((reason,)))
+                           for reason in ("shed", "closed", "unreachable")}
+            finally:
+                httpd.shutdown()
+                t.join(timeout=10.0)
+                httpd.server_close()
+                router.close()
+            legs[tag]["router"] = {
+                "retries": retries,
+                "sent": {r["name"]: r["sent"] for r in stats["replicas"]},
+                "evictions": sum(r["evictions"]
+                                 for r in stats["replicas"])}
+        if min(r["batches"] for r in legs["c"]["replicas"].values()) < 1:
+            raise AssertionError(f"[router] (c) left a replica idle: "
+                                 f"{legs['c']['replicas']}")
+    finally:
+        codes = {p.name: p.terminate() for p in procs}
+        for p in procs:
+            p.close()
+    if any(codes.values()):
+        raise AssertionError(f"[router] replicas exited {codes} after "
+                             f"SIGTERM")
+    # Every leg's ints equal leg (a)'s on rows decisive there.
+    ref = legs["a"].pop("preds")
+    margins = {j: _decision_margins(
+        {k: np.array([v]) for k, v in p.items()},
+        {k: np.array([lp]) for k, lp in l.items()})
+        for j, (p, l) in ref.items()}
+    decisive = 0
+    for tag in ("b", "c"):
+        for j, (p, _) in legs[tag].pop("preds").items():
+            for task, m in margins[j].items():
+                if m[0] > DECISIVE:
+                    decisive += 1
+                    if p[task] != ref[j][0][task]:
+                        raise AssertionError(
+                            f"[router] ({tag}) window {j} {task}="
+                            f"{p[task]}, leg (a) {ref[j][0][task]}")
+    a = legs["a"]
+    log(f"[router] replicas up and warm in {startup_s:.1f} s (two "
+        f"processes at once); (b)/(a) windows/s "
+        f"{legs['b']['windows_per_s'] / a['windows_per_s']:.3f}, (c)/(a) "
+        f"{legs['c']['windows_per_s'] / a['windows_per_s']:.3f}; p50 "
+        f"(b)-(a) {legs['b']['p50_ms'] - a['p50_ms']:+.1f} ms; {decisive} "
+        f"decisive (window, task) pairs of (b) and (c) equal to (a); "
+        f"replicas drained on SIGTERM with exit 0")
+    return {"startup_s": startup_s, "legs": legs, "decisive": decisive}
+
+
+def _router_selftest() -> dict:
+    """``run_router_selftest`` on the card at H x W: a drain rollout under
+    load, then a SIGKILL; every invariant."""
+    from dasmtl_torch.serve.selftest_router import run_router_selftest
+
+    t0 = time.perf_counter()
+    report = run_router_selftest(requests=ROUTER_SELFTEST_REQUESTS,
+                                 device=ROUTER_DEVICE, hw=(H, W))
+    seconds = time.perf_counter() - t0
+    if not report["passed"]:
+        raise AssertionError(f"[router] selftest failed: "
+                             f"{report['failures']}")
+    chain = " > ".join(
+        c["stage"] + (f"@{c['device']}" if c["device"] else "")
+        + (f":{c['outcome']}" if c["outcome"] else "")
+        for c in report["trace"]["retried_chain"])
+    log(f"[router] selftest PASSED in {seconds:.1f} s at {H}x{W} on "
+        f"{ROUTER_DEVICE}: {report['requests_served']} answered "
+        f"{report['outcomes']}; swap warmup_s {report['swap_warmup_s']}; "
+        f"killed replica out of rotation "
+        f"{report['killed_left_rotation_s']:.4f} s after the SIGKILL; "
+        f"evictions {report['evictions']}; retries by reason "
+        f"{report['retries_by_reason']}; one retried request's joined "
+        f"chain: {chain}")
+    return {"seconds": seconds, **{k: report[k] for k in (
+        "requests_served", "outcomes", "swap_warmup_s",
+        "killed_left_rotation_s", "evictions", "retries_by_reason",
+        "total_retries", "survivor_stats")},
+        "retried_chain": report["trace"]["retried_chain"]}
+
+
+def phase_router() -> dict:
+    """Phase 15: the router tier over replica processes on the card."""
+    t0 = time.perf_counter()
+    out = {"legs": _router_legs(), "selftest": _router_selftest()}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[router] phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     # CUPTI stays up between this process's profiler sessions, as the
     # port's captures keep it (dasmtl_torch/obs/profiler.py): re-initialized
@@ -5947,6 +6213,7 @@ def main(argv=None) -> int:
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     graphs = phase_graphs(serve, stream, artifacts)
     obs = phase_obs()
+    router = phase_router()
     sk, offline = stream["kernels"], stream["offline"]
 
     # Launches: each kernel's count over its path's run, the counters
@@ -6017,7 +6284,8 @@ def main(argv=None) -> int:
                        "stream": stream, "artifacts": artifacts,
                        "precision": precision, "dp": dp,
                        "resident": resident, "cv": cv, "graphs": graphs,
-                       "obs": obs, "seconds": time.perf_counter() - t_start},
+                       "obs": obs, "router": router,
+                       "seconds": time.perf_counter() - t_start},
                       f,
                       indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -7,7 +7,9 @@ Own copies of ``dasmtl/config.py`` values (the port imports nothing of
 train/test fields of ``Config`` (``:47-131``, ``:349-352``) with the
 ``decay_at_epoch0`` / ``acc_gate`` rules (``:531-541``), and the
 observability block (``Config.obs_*``, ``:298-317``, checked as
-``:497-520`` checks it).  Only what the ported slices read is here — this
+``:497-520`` checks it), and the router block (``Config.router_*``,
+``:209-218``, checked as ``:468-497`` checks it; the router CLI's
+defaults).  Only what the ported slices read is here — this
 is not a copy of the whole ``Config``.
 
 :func:`parse_train_args` / :func:`parse_test_args` take the JAX CLI's flag
@@ -77,6 +79,20 @@ OBS_PROFILE_COOLDOWN_S = 300.0
 OBS_PROFILE_DURATION_S = 2.0
 OBS_HISTORY = 256
 OBS_HISTORY_INTERVAL_S = 5.0
+
+#: The serving router tier's defaults (``Config.router_*``,
+#: ``dasmtl/config.py:209-218``): replicas behind the router, its address,
+#: fixed replica ports (empty = ephemeral, through ``--port_file``), the
+#: re-placements per request, the readiness probe cadence and its backoff
+#: cap, and the rollout policy.
+ROUTER_REPLICAS = 2
+ROUTER_HOST = "127.0.0.1"
+ROUTER_PORT = 8320
+ROUTER_REPLICA_PORTS = ()
+ROUTER_RETRY_BUDGET = 1
+ROUTER_PROBE_INTERVAL_S = 1.0
+ROUTER_PROBE_BACKOFF_MAX_S = 30.0
+ROUTER_SWAP_POLICY = "drain"  # drain | hot
 
 MODEL_TYPES = ("MTL", "single_event", "single_distance", "multi_classifier")
 
@@ -208,6 +224,17 @@ class Config:
     obs_profile_duration_s: float = OBS_PROFILE_DURATION_S
     obs_history: int = OBS_HISTORY
     obs_history_interval_s: float = OBS_HISTORY_INTERVAL_S
+    # The router tier's block, recorded in config.json as the JAX train
+    # CLI records it (``python -m dasmtl_torch.serve.router`` takes its own
+    # flags).
+    router_replicas: int = ROUTER_REPLICAS
+    router_host: str = ROUTER_HOST
+    router_port: int = ROUTER_PORT
+    router_replica_ports: tuple = ROUTER_REPLICA_PORTS
+    router_retry_budget: int = ROUTER_RETRY_BUDGET
+    router_probe_interval_s: float = ROUTER_PROBE_INTERVAL_S
+    router_probe_backoff_max_s: float = ROUTER_PROBE_BACKOFF_MAX_S
+    router_swap_policy: str = ROUTER_SWAP_POLICY
 
     def __post_init__(self) -> None:
         if self.model not in MODEL_TYPES:
@@ -250,6 +277,7 @@ class Config:
             raise ValueError(f"obs_{exc}") from None
         self.obs_latency_buckets_ms = _float_list(
             self.obs_latency_buckets_ms)
+        self._check_router()
         # ``dasmtl/config.py:365-374``.
         if self.device_data not in ("auto", "on", "off"):
             raise ValueError(f"unknown device_data {self.device_data!r}")
@@ -260,6 +288,38 @@ class Config:
                              "inline assembly)")
         if self.loader_queue_depth < 1:
             raise ValueError("loader_queue_depth must be >= 1")
+
+    def _check_router(self) -> None:
+        """``dasmtl/config.py:468-497``, with its messages."""
+        if self.router_replicas < 1:
+            raise ValueError("router_replicas must be >= 1")
+        ports = tuple(int(v) for v in self.router_replica_ports)
+        if ports:
+            if len(ports) != self.router_replicas:
+                raise ValueError(
+                    f"router_replica_ports holds {len(ports)} port(s) "
+                    f"for router_replicas={self.router_replicas} — give "
+                    f"one per replica, or none for ephemeral ports")
+            if len(set(ports)) != len(ports) or min(ports) < 1:
+                raise ValueError(
+                    f"router_replica_ports must be distinct positive "
+                    f"ports, got {self.router_replica_ports!r}")
+        self.router_replica_ports = ports
+        if self.router_retry_budget < 0:
+            raise ValueError("router_retry_budget must be >= 0 "
+                             "(0 = never re-place a request)")
+        if self.router_probe_interval_s <= 0:
+            raise ValueError("router_probe_interval_s must be > 0")
+        if self.router_probe_backoff_max_s < self.router_probe_interval_s:
+            raise ValueError(
+                f"router_probe_backoff_max_s "
+                f"({self.router_probe_backoff_max_s}) must be >= "
+                f"router_probe_interval_s "
+                f"({self.router_probe_interval_s})")
+        if self.router_swap_policy not in ("drain", "hot"):
+            raise ValueError(
+                f"unknown router_swap_policy "
+                f"{self.router_swap_policy!r}; expected drain | hot")
 
     @property
     def decay_at_epoch0(self) -> bool:
@@ -301,15 +361,26 @@ NOT_YET_PORTED = {
     "obs_alerts_webhook_retries": (3, _ALERTS),
     "obs_alerts_webhook_backoff_s": (0.25, _ALERTS),
 }
-#: Prefixes of the JAX CLI's flags that only record the serving and
-#: streaming tiers' geometry in a run's config.json.
-_RECORD_ONLY = ("serve_", "router_", "stream_", "conc_", "mem_")
-#: Where those recording flags come from.
-_RECORD_ITEMS = ("ROADMAP.md queue 1 item 1, 'The stream tier's remainder' "
-                 "and item 13, 'The serving router tier'")
+_STREAM_REST = "ROADMAP.md queue 1 item 1, 'The stream tier's remainder'"
+_ANALYSIS = ("ROADMAP.md queue 1 item 3 (the lint, audit, conc and mem "
+             "families analyse JAX code and are not ported)")
+#: Prefixes of the JAX CLI's flags that only record the serving,
+#: streaming and analysis tiers' settings in a run's config.json, and the
+#: ROADMAP.md item that brings each (the ``router_*`` block is ported).
+_RECORD_ONLY = {"serve_": _STREAM_REST, "stream_": _STREAM_REST,
+                "conc_": _ANALYSIS, "mem_": _ANALYSIS}
 
 _TRUTHY = frozenset({"1", "true", "yes", "y", "t", "on"})
 _FALSY = frozenset({"0", "false", "no", "n", "f", "off"})
+
+
+def _int_list_arg(raw: str) -> tuple:
+    """``--router_replica_ports``'s type (``Config`` checks the ports)."""
+    try:
+        return tuple(int(b) for b in str(raw).split(",") if b.strip())
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected comma-separated ints, got {raw!r}") from None
 
 
 def _float_list_arg(raw: str) -> tuple:
@@ -491,6 +562,34 @@ def _add_args(p: argparse.ArgumentParser) -> None:
     obs.add_argument("--obs_history_interval_s", type=float,
                      default=d.obs_history_interval_s,
                      help="metrics-history sampling cadence in seconds")
+    router = p.add_argument_group(
+        "the router tier (recorded in config.json; python -m "
+        "dasmtl_torch.serve.router takes its own flags)")
+    router.add_argument("--router_replicas", type=int,
+                        default=d.router_replicas,
+                        help="replica processes behind the router")
+    router.add_argument("--router_host", type=str, default=d.router_host)
+    router.add_argument("--router_port", type=int, default=d.router_port)
+    router.add_argument("--router_replica_ports", type=_int_list_arg,
+                        default=d.router_replica_ports, metavar="P1,P2,...",
+                        help="fixed replica ports, one per replica (empty "
+                             "= ephemeral via --port_file)")
+    router.add_argument("--router_retry_budget", type=int,
+                        default=d.router_retry_budget,
+                        help="bounded re-placements per routed request on "
+                             "shed/closed/transport failure")
+    router.add_argument("--router_probe_interval_s", type=float,
+                        default=d.router_probe_interval_s,
+                        help="replica /readyz probe cadence (seconds)")
+    router.add_argument("--router_probe_backoff_max_s", type=float,
+                        default=d.router_probe_backoff_max_s,
+                        help="cap on the exponential re-probe backoff of a "
+                             "failing replica")
+    router.add_argument("--router_swap_policy", type=str,
+                        default=d.router_swap_policy,
+                        choices=["drain", "hot"],
+                        help="blue/green rollout default: cordon+drain "
+                             "each replica before its swap, or swap hot")
     group = p.add_argument_group("not yet ported (exit 2 unless default)")
     for name, (default, _) in NOT_YET_PORTED.items():
         if isinstance(default, bool):
@@ -506,15 +605,15 @@ def _parse(argv, description: str) -> Config:
     p = argparse.ArgumentParser(description=description)
     _add_args(p)
     ns, extra = p.parse_known_args(argv)
-    record_only = [a for a in extra
-                   if a.startswith("--") and a[2:].startswith(_RECORD_ONLY)]
-    if record_only:
-        print(f"dasmtl_torch: {record_only[0].split('=')[0]} is not yet "
-              f"ported: the JAX CLI records it in config.json for the "
-              f"serving and streaming tiers ({_RECORD_ITEMS}); the port's "
-              f"server takes its own flags, python -m dasmtl_torch.serve "
-              f"--help", file=sys.stderr)
-        raise SystemExit(2)
+    for arg in extra:
+        item = next((item for prefix, item in _RECORD_ONLY.items()
+                     if arg.startswith("--" + prefix)), None)
+        if item is not None:
+            print(f"dasmtl_torch: {arg.split('=')[0]} is not yet ported: "
+                  f"the JAX CLI records it in config.json ({item}); the "
+                  f"port's server takes its own flags, python -m "
+                  f"dasmtl_torch.serve --help", file=sys.stderr)
+            raise SystemExit(2)
     if extra:
         p.error(f"unrecognized arguments: {' '.join(extra)}")
     kw = vars(ns)

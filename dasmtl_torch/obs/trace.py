@@ -40,7 +40,7 @@ from typing import Iterable, List, Optional
 SPAN_STAGES = ("submit", "queue", "form", "dispatch", "collect", "resolve")
 
 #: Router-tier stages, recorded by the router tier
-#: (``dasmtl/serve/router.py``, not ported yet) under the SAME trace ID
+#: (:mod:`dasmtl_torch.serve.router`) under the SAME trace ID
 #: the replica sees (the ``X-Dasmtl-Trace`` header):
 #: ``router_recv`` = request accepted at the router, ``place`` = replica
 #: chosen (``device`` carries the replica name), ``forward`` = one

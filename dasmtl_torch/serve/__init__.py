@@ -7,6 +7,9 @@ HTTP front end (:mod:`dasmtl_torch.serve.server`) over a
 :class:`~dasmtl_torch.serve.executor.ExecutorPool` (one warmed CUDA graph
 per bucket and device, :mod:`dasmtl_torch.serve.graphs`);
 ``--selftest`` runs the serving soak (:mod:`dasmtl_torch.serve.selftest`).
-Modules are imported where they are used; importing this package builds
-nothing.
+``python -m dasmtl_torch.serve.router`` puts N such replica processes
+behind one endpoint (:mod:`dasmtl_torch.serve.router` over
+:mod:`dasmtl_torch.serve.replica`; ``--selftest`` runs
+:mod:`dasmtl_torch.serve.selftest_router`).  Modules are imported where
+they are used; importing this package builds nothing.
 """

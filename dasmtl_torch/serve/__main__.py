@@ -60,12 +60,13 @@ JAX_ONLY_FLAGS = (
 )
 
 
-def _jax_only_item(arg: str):
-    """The ROADMAP.md item of a JAX-only flag, or None."""
+def _jax_only_item(arg: str, flags=JAX_ONLY_FLAGS):
+    """The ROADMAP.md item of a JAX-only flag (``flags``: name prefix ->
+    item), or None."""
     if not arg.startswith("--"):
         return None
     name = arg[2:].split("=")[0]
-    return next((item for flag, item in JAX_ONLY_FLAGS
+    return next((item for flag, item in flags
                  if name.startswith(flag)), None)
 
 

@@ -60,6 +60,9 @@ also triggers.  Where JAX counts XLA compilations per pool device,
 ``dasmtl_serve_warmup_compiles_total`` and
 ``dasmtl_serve_post_warmup_recompiles_total`` count each member's CUDA
 graph captures at and after warmup, under JAX's family names.
+``GET /stats`` also carries ``launches``, this process's hand-written
+kernel launches by kernel name (a graph replay adds what its capture
+recorded): the router tier reads them off each replica process.
 """
 
 from __future__ import annotations
@@ -81,7 +84,7 @@ from dasmtl_torch.config import serve_watermark
 from dasmtl_torch.obs.history import handle_query
 from dasmtl_torch.obs.registry import default_registry, render_prometheus
 from dasmtl_torch.obs.trace import TraceRing, make_span
-from dasmtl_torch.ops import capture_section
+from dasmtl_torch.ops import capture_section, launch_counts
 from dasmtl_torch.serve.batcher import (BatchPlan, MicroBatcher,
                                         StagingBuffers)
 from dasmtl_torch.serve.metrics import ServeMetrics
@@ -536,6 +539,7 @@ class ServeLoop:
                          "inflight_window": self.inflight_window}
         snap["executor"] = self.executor.compile_summary()
         snap["warmup_s"] = self._warmup_s
+        snap["launches"] = launch_counts()
         snap["staging"] = self._staging.stats()
         if self.tracer is not None:
             snap["trace"] = {"capacity": self.tracer.capacity,

@@ -28,7 +28,10 @@ history (``--history`` snapshots of that exposition every
 ``--history_interval_s``) with :func:`~dasmtl_torch.obs.history.
 handle_query`'s semantics.  Not ported yet (ROADMAP.md queue 1): dynamic
 tenancy and the fleet worker, the soak selftest (item 1), and alerts (item
-6's remainder, the alert engine).
+6's remainder, the alert engine).  JAX runs its default stream alert rules
+unless ``--no-alerts``; the port says at startup that it does not
+(:data:`ALERTS_NOTICE`), and refuses JAX's other flags of those items by
+name prefix (:data:`JAX_ONLY_PREFIXES`).
 
 ``serve_main`` is ``python -m dasmtl_torch.stream serve``, over a port
 checkpoint (``--model_path``), a port artifact (``--exported``: the host
@@ -99,6 +102,23 @@ NOT_YET_PORTED = {
     "mem_track": "ROADMAP.md queue 1 item 3 (the lint, audit, conc and "
                  "mem families analyse JAX code and are not ported)",
 }
+
+
+_ALERTS_ITEM = NOT_YET_PORTED["alerts"]
+_ANALYSIS_ITEM = NOT_YET_PORTED["conc_lockdep"]
+#: Flags of JAX's ``stream serve`` this parser does not declare, by name
+#: prefix -> the ROADMAP.md item that brings them.
+JAX_ONLY_PREFIXES = (
+    ("alerts_", _ALERTS_ITEM),
+    ("selftest_", "ROADMAP.md queue 1 item 1, 'the stream tier's "
+                  "remainder' (the soak selftest)"),
+    ("conc_", _ANALYSIS_ITEM), ("mem_", _ANALYSIS_ITEM),
+)
+#: The startup line when ``--alerts`` is left at JAX's default (on):
+#: JAX then runs ``default_stream_rules()`` to stderr, the port does not.
+ALERTS_NOTICE = (f"dasmtl_torch.stream serve: JAX's default stream alerts "
+                 f"(--alerts, default_stream_rules() to stderr) are not run: "
+                 f"{_ALERTS_ITEM}; --no-alerts silences this line")
 
 
 class StreamMetrics:
@@ -783,7 +803,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
                      help="seconds between history snapshots")
     nyp = p.add_argument_group("not yet ported (exit 2)")
     nyp.add_argument("--alerts", action=argparse.BooleanOptionalAction,
-                     default=False)
+                     default=None,
+                     help="JAX's default is on; the port says so at "
+                          "startup, --no-alerts silences it")
     nyp.add_argument("--conc_lockdep",
                      action=argparse.BooleanOptionalAction, default=False)
     nyp.add_argument("--mem_track", action=argparse.BooleanOptionalAction,
@@ -825,12 +847,24 @@ def serve_main(argv=None) -> int:
     """``python -m dasmtl_torch.stream serve`` — continuous inference over
     live fibers."""
     p = build_serve_parser()
-    args = p.parse_args(argv)
+    from dasmtl_torch.serve.__main__ import _jax_only_item, _parse_window
+
+    args, extra = p.parse_known_args(argv)
+    for arg in extra:
+        item = _jax_only_item(arg, JAX_ONLY_PREFIXES)
+        if item is not None:
+            print(f"dasmtl_torch.stream serve: {arg.split('=')[0]} is not "
+                  f"yet ported: {item}", file=sys.stderr)
+            return 2
+    if extra:
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
 
     refusal = _not_ported(args)
     if refusal:
         print(f"dasmtl_torch.stream serve: {refusal}", file=sys.stderr)
         return 2
+    if args.alerts is None:
+        print(ALERTS_NOTICE, file=sys.stderr)
     if args.history < 0:
         p.error("--history must be >= 0 (0 disables /query)")
     if args.history_interval_s <= 0:
@@ -845,8 +879,6 @@ def serve_main(argv=None) -> int:
     except ValueError:
         p.error(f"--buckets must be comma-separated ints, "
                 f"got {args.buckets!r}")
-    from dasmtl_torch.serve.__main__ import _parse_window
-
     window = _parse_window(p, args.window) if args.window else None
     if args.oracle and window is None:
         p.error("--oracle needs an explicit --window HxW")

@@ -94,6 +94,14 @@ from dasmtl_torch.train.state import TrainState
 from dasmtl_torch.train.steps import (ScanTrainStep, make_eval_step,
                                       make_gather_eval_step, make_train_step)
 
+#: Printed when the heartbeat arms: JAX arms its ``HeartbeatWatch`` too
+#: (``dasmtl/train/loop.py:495-512``, on by ``--obs_alerts``' default),
+#: whose rules the port does not have yet.
+HEARTBEAT_ALERTS_NOTICE = (
+    "[heartbeat] the heartbeat's alert rules (JAX --obs_alerts: MFU drop "
+    "/ samples-per-s stall -> metrics/alerts.jsonl) are not run yet: "
+    "ROADMAP.md queue 1 item 6's remainder, the alert engine")
+
 
 def resident_eval_outputs(gather_eval_step, state, data,
                           indices: np.ndarray, distance: np.ndarray,
@@ -690,6 +698,7 @@ class Trainer:
         print(f"[heartbeat] armed: every {self.cfg.obs_heartbeat_s:g}s -> "
               f"{self._heartbeat.out_path} (MFU vs peak {peak:.3g} "
               f"FLOP/s, {peak_source})")
+        print(HEARTBEAT_ALERTS_NOTICE)
 
     def run_summary(self) -> Dict[str, Any]:
         """This rank's kernel launches and guard / sanitizer summaries."""

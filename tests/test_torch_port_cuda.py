@@ -28,7 +28,8 @@ observability slice on the card: a ``torch.profiler`` capture holding the
 kernels of graph replays by name (4 gates + 1 decode a replay of model A,
 1 int8_dot + 1 decode of model C int8), the serve front end's trace
 chains and ``/metrics`` over the graph pool, and ``train --profile_dir``
-on the resident path.
+on the resident path; and the router selftest over two replica
+processes on the card.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -1928,3 +1929,17 @@ def test_train_profile_dir_trace_holds_gather_and_gate_kernels(cuda,
     train = [g for g in groups if g["gather"] and g["bwd"]]
     assert train and all(g["fwd"] == g["bwd"] == 8 * g["gather"]
                          for g in train), groups
+
+
+def test_router_selftest_on_the_card(cuda):
+    """The router tier over two replica processes on the card at 52x64:
+    a drain rollout under load, a real SIGKILL, every invariant; the
+    survivor swapped and captured no graph after warmup."""
+    from dasmtl_torch.serve.selftest_router import run_router_selftest
+
+    report = run_router_selftest(requests=120, device="cuda", hw=(52, 64),
+                                 verbose=False)
+    assert report["passed"], report["failures"]
+    assert report["dropped"] == 0 and report["closed_to_accepted"] == 0
+    assert report["evictions"] >= 1 and report["rollout"]["state"] == "done"
+    assert report["survivor_stats"]["post_warmup_compiles"] == 0

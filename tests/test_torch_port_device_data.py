@@ -270,6 +270,23 @@ def _trainer(tmp_path, name, train_src, val_src, world=None, spec="MTL",
                    val_src, run_dir, world=world)
 
 
+def test_heartbeat_says_its_alert_rules_are_not_run(tmp_path, capsys):
+    """JAX arms its heartbeat alert rules with the heartbeat (its
+    ``--obs_alerts`` defaults on); the port has no alert engine yet and
+    says so when the heartbeat arms, naming the item."""
+    from dasmtl.config import Config as JaxConfig
+    from dasmtl_torch.train.loop import HEARTBEAT_ALERTS_NOTICE
+
+    assert JaxConfig().obs_alerts is True
+    train, val = ArraySource(*_arrays(8, 1)), ArraySource(*_arrays(4, 2))
+    trainer = _trainer(tmp_path, "hb", train, val, obs_heartbeat_s=1.0)
+    trainer._arm_heartbeat()
+    out = capsys.readouterr().out
+    assert "[heartbeat] armed: every 1s" in out
+    assert HEARTBEAT_ALERTS_NOTICE in out
+    assert "item 6's remainder" in HEARTBEAT_ALERTS_NOTICE
+
+
 def test_trainer_uses_device_path_when_forced(tmp_path, capsys):
     # 14 windows in batches of 4: 4 steps an epoch, the last ragged.
     train, val = ArraySource(*_arrays(14, 1)), ArraySource(*_arrays(6, 2))

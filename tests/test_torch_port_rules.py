@@ -84,6 +84,22 @@ def test_sanitizer_and_dp_entry_points_load_no_jax_and_build_nothing():
     _assert_imports_clean(ANALYSIS_MODULES)
 
 
+def test_router_tier_loads_no_jax_and_builds_nothing():
+    """The router tier's modules load nothing of JAX and build nothing;
+    the router moves no tensors, so it does not even load torch."""
+    modules = ["dasmtl_torch.serve.replica", "dasmtl_torch.serve.router",
+               "dasmtl_torch.serve.selftest_router"]
+    _assert_imports_clean(modules)
+    code = ("import sys\n"
+            f"for m in {modules[:2]!r}:\n"
+            "    __import__(m)\n"
+            "print('torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+
+
 def _assert_imports_clean(modules):
     """Importing ``modules`` in a fresh interpreter loads nothing of JAX,
     the JAX package, sklearn or matplotlib, and builds no kernel."""

@@ -426,6 +426,20 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
     (["--alerts"], "item 6"),
     (["--conc_lockdep"], "item 3"),
     (["--mem_track"], "item 3"),
+    # JAX's flags the parser does not declare, refused by name prefix.
+    (["--alerts_interval_s", "2"], "item 6"),
+    (["--alerts_path", "alerts.jsonl"], "item 6"),
+    (["--alerts_webhook=http://127.0.0.1:9/hook"], "item 6"),
+    (["--alerts_webhook_retries", "1"], "item 6"),
+    (["--alerts_webhook_backoff_s", "0.5"], "item 6"),
+    (["--selftest_cycles", "40"], "item 1"),
+    (["--selftest_devices", "1"], "item 1"),
+    (["--selftest_fibers", "2"], "item 1"),
+    (["--selftest_resident", "on"], "item 1"),
+    (["--conc_dump_path", "conc.json"], "item 3"),
+    (["--conc_hold_warn_ms", "5"], "item 3"),
+    (["--mem_canary"], "item 3"),
+    (["--mem_dump_path", "mem.json"], "item 3"),
 ])
 def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys,
                                                      tmp_path):
@@ -441,6 +455,25 @@ def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys,
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and item in err
+
+
+@pytest.mark.parametrize("alerts", [[], ["--no-alerts"]])
+def test_stream_serve_says_jax_s_default_alerts_are_not_run(alerts, capsys):
+    """JAX's ``stream serve`` runs its default stream alert rules unless
+    ``--no-alerts``; the port does not have them, says so in one startup
+    line naming the item, and keeps quiet once alerts are declined."""
+    from dasmtl.config import Config as JaxConfig
+    from dasmtl_torch.stream.live import ALERTS_NOTICE
+
+    assert JaxConfig().obs_alerts is True
+    # Two model sources: refused right after the startup line.
+    with pytest.raises(SystemExit) as info:
+        cli.main(["stream", "serve", "--synthetic", "1", "--fresh_init",
+                  "--model_path", "ckpt", "--device", "cpu", *alerts])
+    assert info.value.code == 2
+    err = capsys.readouterr().err
+    assert (ALERTS_NOTICE in err) == (not alerts)
+    assert "item 6's remainder" in ALERTS_NOTICE
 
 
 def _stream_until_sigterm(argv, tmp_path) -> int:

@@ -287,15 +287,68 @@ def test_device_cuda_without_a_card_names_device_cpu(tmp_path):
     (["--cv_parallel", "--dp", "2"],
      "item 8, 'Model C, multi-device training and CV'"),
     (["--compute_dtype", "bfloat16"], "item 11"),
-    (["--serve_buckets", "1,2"], "item 1, 'The stream tier's remainder' "
-                                 "and item 13, 'The serving router "
-                                 "tier'")])
+    (["--serve_buckets", "1,2"], "item 1, 'The stream tier's remainder'"),
+    (["--stream_stride_time", "5"],
+     "item 1, 'The stream tier's remainder'"),
+    (["--conc_lockdep"], "item 3"),
+    (["--mem_track"], "item 3")])
 def test_flags_not_yet_ported_exit_2_naming_their_item(argv, item, capsys):
     with pytest.raises(SystemExit) as info:
         parse_train_args(argv)
     assert info.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md queue 1" in err and item in err
+    assert "item 13" not in err  # the router block is ported
+
+
+ROUTER_FIELDS = ("router_replicas", "router_host", "router_port",
+                 "router_replica_ports", "router_retry_budget",
+                 "router_probe_interval_s", "router_probe_backoff_max_s",
+                 "router_swap_policy")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--router_replicas", "3", "--router_replica_ports", "8401,8402,8403",
+     "--router_retry_budget", "2", "--router_swap_policy", "hot"],
+    ["--router_host", "0.0.0.0", "--router_port", "9000",
+     "--router_probe_interval_s", "0.5", "--router_probe_backoff_max_s",
+     "4", "--router_retry_budget", "0"]])
+def test_router_flags_parse_to_jax_s_values(argv):
+    """The train CLI's ``--router_*`` block parses to JAX's values and is
+    recorded in config.json as JAX records it."""
+    ours = parse_train_args(argv + ["--device", "cpu"])
+    want = jax_parse_train_args(argv + ["--device", "cpu"])
+    ours_json, want_json = json.loads(ours.to_json()), \
+        json.loads(want.to_json())
+    for field in ROUTER_FIELDS:
+        assert getattr(ours, field) == getattr(want, field), field
+        assert ours_json[field] == want_json[field], field
+
+
+@pytest.mark.parametrize("argv", [
+    ["--router_replicas", "0"],
+    ["--router_replicas", "2", "--router_replica_ports", "8401"],
+    ["--router_replica_ports", "8401,8401"],
+    ["--router_replica_ports", "0,8402"],
+    ["--router_retry_budget", "-1"],
+    ["--router_probe_interval_s", "0"],
+    ["--router_probe_interval_s", "5", "--router_probe_backoff_max_s", "1"],
+    ["--router_swap_policy", "yolo"]])
+def test_router_flags_are_refused_as_jax_refuses(argv, capsys):
+    """A bad ``--router_*`` value fails in both CLIs the same way: the
+    same ValueError message from the Config check, or argparse's exit 2
+    for a policy outside ``drain | hot``."""
+    errors = []
+    for parse in (parse_train_args, jax_parse_train_args):
+        with pytest.raises((ValueError, SystemExit)) as info:
+            parse(argv)
+        errors.append((type(info.value), str(info.value)))
+    assert errors[0] == errors[1]
+    if errors[0][0] is SystemExit:
+        assert "invalid choice: 'yolo'" in capsys.readouterr().err
+    else:
+        assert "router_" in errors[0][1]
 
 
 @pytest.mark.parametrize("argv, field", [
