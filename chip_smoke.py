@@ -28,7 +28,7 @@ Phases, each fatal on failure (no phase catches its own error):
 5. serve   — ``ServeLoop`` + HTTP on 127.0.0.1 at 100x250, buckets
              1..32, fresh init (seed 0), over the server's
              ``ExecutorPool`` (every visible card, one CUDA graph per
-             bucket); 8 clients send 512 requests,
+             bucket); 8 clients send 256 requests,
              every 37th NaN-poisoned; every request answered, the poisoned
              ones with 422, predictions equal to a direct ``executor.run``
              of the same windows, drain clean, no graph captured after
@@ -63,7 +63,7 @@ Phases, each fatal on failure (no phase catches its own error):
              decisive rows, 19 gathers with resident on and 0 off,
              windows/s, device idle share and kernel ms per dispatch by
              layer; (c) the live tier of model A at 100x250 (4 fibers x
-             400 channels, chunk 500, ring 16384, 200 paced cycles) on both
+             400 channels, chunk 500, ring 16384, 100 paced cycles) on both
              data planes, each run over a pool of its own (the resident
              lanes replay one graph per rung and ring buffer): every
              window's ints equal on decisive rows, ring
@@ -146,7 +146,7 @@ Phases, each fatal on failure (no phase catches its own error):
              gate launches per step, 4 paired + 0 per eval batch, 1 gather
              per step and per resident eval batch, 0 gathers with ``off``, 0 post-warmup compiles; (c)
              each run's checkpoint resumed for a 4th epoch on the other
-             path; (d) 4,096 in-memory windows, 2 epochs at batch 32, K = 8,
+             path; (d) 2,048 in-memory windows, 2 epochs at batch 32, K = 8,
              on both paths: examples/s, wall and device ms per step,
              launches per step, device idle share, peak memory;
 11. artifacts — run right after phase 7, on phase 6e's checkpoint: (a)
@@ -223,7 +223,7 @@ Phases, each fatal on failure (no phase catches its own error):
              the pool's message on a one-card machine; the phase's peak
              memory;
 14. obs    — observability over model A f32 at 100x250, fresh init (seed
-             0), on the server's ``ExecutorPool``: (a) 8 clients send 512
+             0), on the server's ``ExecutorPool``: (a) 8 clients send 256
              requests over HTTP, every 37th NaN-poisoned and every 5th
              with its own ``X-Dasmtl-Trace``: every answer carries a
              trace_id (the client's echoed in the answer and the header,
@@ -250,7 +250,7 @@ Phases, each fatal on failure (no phase catches its own error):
 15. router — the serving router tier over replica processes on the card:
              two ``python -m dasmtl_torch.serve`` replicas of model A f32
              at 100x250 (fresh init, the server's default buckets) started
-             at once; 8 clients send 512 requests (every 37th NaN, 422)
+             at once; 8 clients send 256 requests (every 37th NaN, 422)
              (a) to one replica with no router, (b) through the port's
              ``Router`` over that replica, (c) through it over both:
              windows/s, client p50 / p99, each replica's batches and its
@@ -263,11 +263,36 @@ Phases, each fatal on failure (no phase catches its own error):
              more replicas, a drain rollout under load, a SIGKILL, every
              invariant, with each replica's swap warm-up, the seconds
              until the killed replica left rotation, the retries by
-             reason and one retried request's joined chain printed.
+             reason and one retried request's joined chain printed;
+16. alerts — the alert engine, every verdict read off an explicit clock:
+             (a) ``run_alert_selftest()`` returns 0; (b) the live tier of
+             model A (``init_scaled`` weights, seed 0) at 100x250 on the
+             resident plane over a pool of its own, 4 fibers x 400
+             channels, the last fed twice its share so that the fairness
+             gate sheds half of it, 80 cycles 0.5 s apart on a synthetic
+             clock (the loop's, the engine's and ``run_cycle``'s ``now``),
+             ``default_stream_rules()`` into a JSONL sink and a webhook
+             sink to a localhost receiver: each open and close record
+             gives exactly one alert at both sinks, ``stream_shed_burn``
+             fires exactly once, on the overdriven fiber alone, the
+             webhook delivers what the receiver counts, ring appends =
+             chunks, gathers = dispatches, 4 gate + 1 decode launches a
+             forward replay, no capture after warmup; the host ms of one
+             ``evaluate`` at the live tier's families; (c) ``python -m
+             dasmtl_torch.stream serve`` in process with ``--alerts`` at
+             its default and ``--alerts_path``, until ``/readyz``, then
+             SIGTERM: a clean drain, the JSONL (and stderr) holding
+             exactly the open/close records of ``--events_path``, those
+             of ``GET /events`` among them; (d) phase 9b's dp run: rank
+             0's ``metrics/alerts.jsonl`` holds only events of
+             ``default_heartbeat_rules()``, its watch evaluated once per
+             heartbeat record, rank 1 runs none.
 
-Then one JSON line lists every kernel of the port, the card's name and
-power limit follow on a line of their own, and the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+Each phase's seconds are printed as one ``[timing] {"device": s, ...,
+"alerts": s, "total": s}`` line (and kept in the ``--out`` report with
+each part's seconds).  Then one JSON line lists every kernel of the port,
+the card's name and power limit follow on a line of their own, and the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.  ``--parent DIR`` names a ``git archive`` of the parent commit's
 tree; its gate, window-gather, int8_dot, batch_gather, decode,
@@ -317,10 +342,40 @@ PARAM_ATOL, PARAM_RTOL, PARAM_OUTLIER = 5e-5, 1e-3, 2.5e-3
 BN_ATOL, BN_RTOL = 1e-5, 1e-3
 TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build", "chip_smoke")
-N_REQUESTS, N_CLIENTS, POISON_EVERY = 512, 8, 37
+N_REQUESTS, N_CLIENTS, POISON_EVERY = 256, 8, 37
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: Seconds of each phase (``main``, the ``[timing]`` line) and of each call
+#: of a part a phase runs (:func:`_part`, logged as it ends).
+PHASE_SECONDS: dict = {}
+PART_SECONDS: dict = {}
+
+
+def _part(fn):
+    """Time every call of one part of a phase into ``PART_SECONDS``."""
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds = time.perf_counter() - t0
+            PART_SECONDS.setdefault(fn.__name__.lstrip("_"), []).append(
+                round(seconds, 1))
+            log(f"[time] {fn.__name__} {seconds:.1f} s")
+    return timed
+
+
+def _phase(name: str, fn, *args):
+    """Run one phase, its seconds into ``PHASE_SECONDS``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    log(f"[time] phase {name} {PHASE_SECONDS[name]:.1f} s")
+    return out
 
 
 def card_peaks(name: str):
@@ -1324,6 +1379,7 @@ def _new_state(net):
     return TrainState(model=net, optimizer=coupled_adam(net.parameters()))
 
 
+@_part
 def _check_backward(g):
     """(a) the backward kernel against its plain version; max abs err."""
     from dasmtl_torch.ops import gating
@@ -1358,6 +1414,7 @@ def _check_backward(g):
     return worst
 
 
+@_part
 def _time_backward(g, peaks):
     """The backward's timing at batch 32, operands rotating through
     >= 128 MB per stage (HBM, not L2), unit: the 8 launches of a train
@@ -1411,6 +1468,7 @@ def _time_backward(g, peaks):
             "per_stage": per_stage}
 
 
+@_part
 def _compare_step(spec, step, batch):
     """(b) one full-width train step on the card against the CPU."""
     from dasmtl_torch.models.weights import init_fresh
@@ -1465,6 +1523,7 @@ def _compare_step(spec, step, batch):
                        "bn_max_abs_err": worst_bn}
 
 
+@_part
 def _entry_points():
     """(e) the train then test entry points on a synthetic tree; the
     launch counts of the run, and its checks."""
@@ -1747,7 +1806,7 @@ STRIDE_T = 125
 SWEEP_BATCH = 256
 #: The live model-A cell: 4 fibers x 400 channels (4 tiles) at 100x250.
 LIVE_FIBERS, LIVE_CHANNELS, LIVE_CHUNK, LIVE_RING = 4, 400, 500, 16384
-LIVE_CYCLES, LIVE_BUDGET = 200, 64
+LIVE_CYCLES, LIVE_BUDGET = 100, 64
 PROFILED_CYCLES = 20
 #: The oracle soak at the JAX selftest's geometry (selftest.py:137-178).
 ORACLE_HW, ORACLE_CHANNELS, ORACLE_STRIDE = (64, 64), 160, 32
@@ -1766,6 +1825,7 @@ def _rotating(sets, fn):
     return run
 
 
+@_part
 def _stream_kernels(peaks):
     """(a) the window gather, ring append and event_prob_q kernels against
     their plain versions at the stream path's shapes, then timed."""
@@ -1999,6 +2059,7 @@ def _reset_launches():
         c.reset()
 
 
+@_part
 def _offline(ckpt: str):
     """(b) ``python -m dasmtl_torch.stream`` in process on the record, with
     the resident path on and off; a CPU run of the same checkpoint on 256
@@ -2223,6 +2284,7 @@ def _live_executor(eager: bool = False):
                                         eager=eager)
 
 
+@_part
 def _live_model_a():
     """(c) the live tier of model A at 100x250 on both data planes."""
     runs = {}
@@ -2333,6 +2395,7 @@ def _oracle_soak(resident: str):
         loop.close()
 
 
+@_part
 def _live_oracle():
     """(d) the oracle soak on both planes: same tracks, every planted event
     one closed track of its type (the 2-window blip debounced away, as in
@@ -2394,6 +2457,7 @@ def phase_stream(peaks, ckpt: str):
 SWAP_REQUESTS = 256  # requests of the checkpoint and the registry runs
 
 
+@_part
 def _export_and_publish(ckpt: str, reg: str) -> dict:
     """(a) ``python -m dasmtl_torch.export`` in process: model A's f32 and
     bf16 artifacts of the checkpoint, published as registry v1 and v2."""
@@ -2433,6 +2497,7 @@ def _test_windows(striking: str, excavating: str) -> np.ndarray:
                            for b in eval_batches(source, 32)])
 
 
+@_part
 def _serve_checkpoint(entry: dict) -> dict:
     """(b) ``python -m dasmtl_torch.serve --model_path`` (the CLI's
     builder) over HTTP on the test run's 256 windows, every 37th NaN: its
@@ -2474,6 +2539,7 @@ def _serve_checkpoint(entry: dict) -> dict:
     return r
 
 
+@_part
 def _swap_run(reg: str) -> dict:
     """(c) serve ``--registry --registry_version 1`` (f32) and ``POST /swap
     {"version": 2}`` (bf16) after a quarter of ``SWAP_REQUESTS``, the
@@ -2729,6 +2795,7 @@ def _cli_swap(loop, cli_build, registry, bodies) -> dict:
     return {"warmup_s": swap["swap"]["warmup_s"], "answers": answers}
 
 
+@_part
 def _model_c_int8_artifact() -> dict:
     """(d) model C int8 from ``init_scaled`` weights through
     ``export_infer``: ``from_exported`` bit-equal to ``from_state_dict(...,
@@ -2778,6 +2845,7 @@ def _model_c_int8_artifact() -> dict:
             "batches": len(BUCKETS)}
 
 
+@_part
 def _stream_artifacts(stream: dict, paths: dict, ckpt: str) -> dict:
     """(e) the offline sweep of phase 7b's record with ``--exported`` (its
     rows equal the checkpoint sweep's), then 50 paced cycles of ``stream
@@ -2950,6 +3018,7 @@ def _int8_no_pdl(int8, x, q, scale, bias):
     return y
 
 
+@_part
 def _int8_kernel(peaks):
     """(a) int8_dot against its plain version bit for bit at every B from
     1 to 33 with planted rows, then timed at B = 1, 8 and 32, the parent's
@@ -3107,6 +3176,7 @@ def _held_to_cpu(tag, out, ref, atol, rtol, margin, spread_ulps=0.0):
     return stats
 
 
+@_part
 def _model_c_on_card():
     """(b) model C's f32 serve forward, (c) its int8 and bf16 forwards: the
     card against the CPU at batch 32, 100x250, row 5 NaN.  The f32 forward
@@ -3170,6 +3240,7 @@ def _model_c_on_card():
     return out
 
 
+@_part
 def _parity_gate():
     """(d) the parity gate on model A at 100x250 for bf16 and int8, on two
     sets of weights.  At fresh init (the weights the JAX CI gates) every
@@ -3227,6 +3298,7 @@ def _parity_gate():
     return out
 
 
+@_part
 def _http_presets():
     """(e) model C int8 and (f) model A bf16 over HTTP, both on
     :func:`init_scaled` weights (seed 0): an answer is held to a direct run
@@ -3268,6 +3340,7 @@ def _http_presets():
     return runs
 
 
+@_part
 def _preset_times():
     """(g) a batch-32 forward per model and preset: its kernel time (the
     profiler's sum over 5 forwards), its time from CUDA events with the
@@ -3474,6 +3547,7 @@ def _digest_trace(leaves, parent, n: int = 20) -> dict:
     return out
 
 
+@_part
 def _digest_kernel(peaks):
     """(a) digest_vector on the card bit for bit against its plain version
     and the known answers; model A's train state in one launch; timed
@@ -3593,6 +3667,7 @@ def _digest_kernel(peaks):
     return k
 
 
+@_part
 def _dp_train():
     """(b) ``python -m dasmtl_torch train --dp 2 --bn_sync per_replica
     --sanitize --sanitize_every 1 --tracing_guards --obs_heartbeat_s 1`` on
@@ -3618,7 +3693,7 @@ def _dp_train():
                 "--bn_sync", "per_replica", "--sanitize",
                 "--sanitize_every", "1", "--tracing_guards",
                 "--obs_heartbeat_s", "1", "--batch_size", "32",
-                "--epoch_num", "3", "--log_every_steps", "1",
+                "--epoch_num", "2", "--log_every_steps", "1",
                 "--trainVal_set_striking", striking,
                 "--trainVal_set_excavating", excavating,
                 "--output_savedir", runs])
@@ -3650,6 +3725,10 @@ def _dp_train():
         raise AssertionError(f"post-warmup compiles: {ranks}")
     if not beats or any(b["mfu"] is None for b in beats):
         raise AssertionError(f"heartbeat records without MFU: {beats}")
+    # Phase 16d: rank 0's HeartbeatWatch (--obs_alerts, on by default)
+    # saw every heartbeat record; whether an MFU or stall alert fires with
+    # two ranks on one card is noise, and not checked.
+    alerts = _dp_alerts(run, ranks, beats)
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
     log(f"[dp] python -m dasmtl_torch train --dp {DP_RANKS} --bn_sync "
@@ -3660,7 +3739,34 @@ def _dp_train():
         f"(MFU {[b['mfu'] for b in beats]}, step_wall_ms "
         f"{[b['step_wall_ms'] for b in beats]}); launches {launches}")
     return {"steps": steps, "wall_s": wall, "checks": checks,
-            "launches": launches, "heartbeat": beats, "ranks": ranks}
+            "launches": launches, "heartbeat": beats, "ranks": ranks,
+            "alerts": alerts}
+
+
+def _dp_alerts(run: str, ranks: list, beats: list) -> dict:
+    """Rank 0's ``metrics/alerts.jsonl``: there, every line an event of a
+    rule of ``default_heartbeat_rules()``, one engine evaluation per
+    heartbeat record, no watch on rank 1."""
+    from dasmtl_torch.obs.alerts import default_heartbeat_rules
+
+    path = os.path.join(run, "metrics", "alerts.jsonl")
+    if not os.path.exists(path):
+        raise AssertionError(f"no {path}")
+    with open(path) as f:
+        events = [json.loads(line) for line in f]
+    names = {r.name for r in default_heartbeat_rules()}
+    if any(e["rule"] not in names for e in events):
+        raise AssertionError(f"alerts.jsonl events outside {names}: "
+                             f"{events}")
+    stats = ranks[0]["alerts"]
+    if stats is None or stats["evaluations"] != len(beats) or \
+            stats["rules"] != len(names) or \
+            any(r["alerts"] is not None for r in ranks[1:]):
+        raise AssertionError(f"the heartbeat watch: "
+                             f"{[r['alerts'] for r in ranks]} for "
+                             f"{len(beats)} heartbeat records")
+    return {"events": [(e["kind"], e["rule"]) for e in events],
+            "evaluations": stats["evaluations"], "heartbeats": len(beats)}
 
 
 def _dp_step_rank(world, sd, batch, bn_sync, device):
@@ -3720,6 +3826,7 @@ def _held(tag, got, want, loss_got, loss_want):
             "param_outliers": outliers}
 
 
+@_part
 def _dp_parity():
     """(b) the dp2 global step on the card against a dp1 step on the
     concatenated batch; the dp2 per_replica step on the card against the
@@ -3775,6 +3882,7 @@ def _dp_parity():
     return out
 
 
+@_part
 def _self_test():
     """(c) ``python -m dasmtl_torch.sanitize --self-test`` on the card."""
     from dasmtl_torch.analysis.sanitize import runner
@@ -3795,6 +3903,7 @@ def _self_test():
             "lines": [line for line in out.splitlines() if "caught" in line]}
 
 
+@_part
 def _determinism():
     """(d) MTL-f32-dp1 and MTL-f32-dp2 twice each: identical chains and
     tree digests, held to the committed baseline (SAN203; the digests when
@@ -3923,6 +4032,7 @@ def _cost_rank(world):
     return out
 
 
+@_part
 def _costs():
     """(e) what sanitizing costs a batch-32 model-A step, dp 1 and dp 2."""
     from dasmtl_torch.analysis.sanitize.checks import StepSanitizer
@@ -3982,8 +4092,10 @@ def phase_dp(peaks):
 
 # -- phase 10 -----------------------------------------------------------------
 RESIDENT_DIR = os.path.join(TRAIN_DIR, "resident")
-#: The timing cell: an in-memory set of 4,096 windows (410 MB resident).
-TIMING_N, TIMING_EPOCHS, TIMING_K = 4096, 2, 8
+#: The timing cell: an in-memory set of 2,048 windows (205 MB resident);
+#: batch_gather is timed on a set of GATHER_N windows (410 MB).
+TIMING_N, TIMING_EPOCHS, TIMING_K = 2048, 2, 8
+GATHER_N = 4096
 
 
 def _gather_no_pdl(x, d, e, idx, w, out):
@@ -4018,6 +4130,7 @@ def _graph_ms(fn, sets, launches: int = 32) -> float:
     return ms
 
 
+@_part
 def _gather_kernel(peaks):
     """(a) the batch gather against its plain version bit for bit (B = 1,
     7, 32, 33 at 100x250, B = 32 at 7x13, and 4-byte offset views of x
@@ -4082,7 +4195,7 @@ def _gather_kernel(peaks):
     # (410 MB, beyond L2), a fresh index row per call; this tree's kernel,
     # the same launched without PDL, and the parent's, in turns, eagerly
     # and replayed from a CUDA graph.
-    b, n = 32, TIMING_N
+    b, n = 32, GATHER_N
     x = torch.randn((n, H, W, 1), device="cuda", generator=g)
     d = torch.randint(0, 16, (n,), device="cuda", generator=g,
                       dtype=torch.int32)
@@ -4210,6 +4323,7 @@ def _cli_train(argv, savedir, entry: str = "train", det: bool = True):
     return result, run, counts, summary, console, seconds
 
 
+@_part
 def _both_paths():
     """(b) the same run on both paths, (c) resume across them."""
     from dasmtl_torch.data.synthetic import make_synthetic_dataset
@@ -4298,9 +4412,10 @@ def _both_paths():
     return report
 
 
+@_part
 def _timing_cell(family: str = "MTL", n: int = None, tag: str = "resident"
                  ):
-    """(d) ``n`` in-memory windows (4,096 by default), 2 epochs at batch
+    """(d) ``n`` in-memory windows (2,048 by default), 2 epochs at batch
     32, K = 8, on both paths: examples/s, wall and device ms per step,
     launches per step, device idle share, peak memory."""
     from dasmtl_torch.config import Config
@@ -4569,6 +4684,7 @@ SELECT_TURNS = ("parent", "new", "parent_no_pdl", "no_pdl", "no_pdl",
                 "parent_no_pdl", "new", "parent")
 
 
+@_part
 def _fold_select_kernel(peaks):
     """(a) fold_select over 5 folds of model A's full-width train state
     (694 leaves each, Adam's state included): save, the step's in-place
@@ -4768,6 +4884,7 @@ def _fold_select_kernel(peaks):
     return k
 
 
+@_part
 def _model_c_step_compare():
     """(b) one model C train step at 100x250, batch 8, on ``init_scaled``
     weights with dropout off, card against CPU at the one-step tolerances,
@@ -4817,6 +4934,7 @@ def _model_c_step_compare():
     return report
 
 
+@_part
 def _model_c_entry_points():
     """(b) ``python -m dasmtl_torch train`` then ``test --model
     multi_classifier`` on the card (no ``--device``: cuda is the
@@ -4886,6 +5004,7 @@ def _cv_tree():
     return striking, excavating
 
 
+@_part
 def _cv_run():
     """(c) ``train --cv_parallel --model MTL`` over 5 folds for one epoch,
     under deterministic algorithms, against 5 single-fold resident runs
@@ -4934,6 +5053,7 @@ def _cv_run():
     return report
 
 
+@_part
 def _cv_timing():
     """(d) the CV epoch: 5 folds of 800 in-memory windows, 2 epochs at
     batch 32, K = 8, against one fold's resident run of the same 800 in
@@ -5139,6 +5259,7 @@ def _graph_times(graph, eager, b: int) -> dict:
     return out
 
 
+@_part
 def _graph_configs() -> dict:
     """(a) every bucket of A f32, A bf16 and C int8 replayed from its
     graph against the eager forward, (b) the eager-against-graph timing
@@ -5211,6 +5332,7 @@ def _three_inflight(graph, eager) -> dict:
     return {"held": held}
 
 
+@_part
 def _graph_live() -> dict:
     """(d) the live resident tier of model A (phase 7c's 4 fibers x 400
     channels), graph lanes against eager lanes: the same decodes and
@@ -5251,6 +5373,7 @@ def _graph_live() -> dict:
     return {"windows": len(seen["graph"]), "graph": g, "eager": e}
 
 
+@_part
 def _graph_selftest() -> dict:
     """(e) the serving soak on the card at 100x250."""
     from dasmtl_torch.serve.selftest import run_selftest
@@ -5271,6 +5394,7 @@ def _graph_selftest() -> dict:
                               "per_device_compiles")}
 
 
+@_part
 def _graph_pool_refusal() -> dict:
     """(f) ``python -m dasmtl_torch.serve --fresh_init --devices 2`` on
     this one-card machine exits 2 with the pool's message."""
@@ -5321,7 +5445,7 @@ OBS_KERNELS = {"gate": "gate_fwd_kernel", "decode": "decode_heads_kernel",
                "int8_dot": "int8_dot_kernel",
                "batch_gather": "batch_gather_kernel",
                "gate_backward": "gate_bwd"}
-OBS_TURNS = (4096, 0, 0, 4096)  # 14c: trace_ring per run, in turns
+OBS_TURNS = (4096, 0)  # 14c: trace_ring per run, in turns
 
 
 def _http(url: str, body: bytes = None, headers: dict = None):
@@ -5440,6 +5564,7 @@ def _obs_stop(loop, httpd, t) -> bool:
     return drained
 
 
+@_part
 def _obs_requests(pool) -> dict:
     """(a) requests and traces, (b) the SLO capture during them."""
     from dasmtl_torch.obs.history import HistorySampler, MetricsHistory
@@ -5567,6 +5692,7 @@ def _obs_requests(pool) -> dict:
     return out
 
 
+@_part
 def _obs_shed(pool) -> dict:
     """(a) a shed answer echoes the client's ID: a loop not started, one
     request queued at watermark 1, the next over HTTP shed."""
@@ -5594,6 +5720,7 @@ def _obs_shed(pool) -> dict:
     return {"status": code, "trace_id": payload["trace_id"]}
 
 
+@_part
 def _obs_int8_capture() -> dict:
     """(b) a capture over model C int8's graph replays holds int8_dot and
     the decode tail by name, one of each a replay."""
@@ -5625,6 +5752,7 @@ def _obs_int8_capture() -> dict:
     return {"forwards": n, **replay}
 
 
+@_part
 def _obs_swap(pool) -> dict:
     """(b) captures triggered while ``POST /swap``'s bf16 pool builds,
     warms and captures its graphs start once it is warm (the loop holds
@@ -5698,6 +5826,7 @@ def _obs_swap(pool) -> dict:
             "post_warmup_compiles": post}
 
 
+@_part
 def _obs_cost(pool) -> dict:
     """(c) served windows/s and p50 / p99 with trace_ring 4096 against 0,
     run in turns over one pool."""
@@ -5727,14 +5856,14 @@ def _obs_cost(pool) -> dict:
             / statistics.mean(off)}
 
 
-def _cli_until_ready(main, argv, check):
+def _cli_until_ready(main, argv, check, workdir=None):
     """``main(argv)`` in this process (its SIGTERM handler drains); once
-    ``/readyz`` answers 200, ``check(url)`` runs on a thread that then
-    SIGTERMs the process.  Returns ``(exit code, check's result)``; the
-    handlers are put back."""
+    ``/readyz`` answers 200 and the CLI has installed its SIGTERM handler,
+    ``check(url)`` runs on a thread that then SIGTERMs the process.
+    Returns ``(exit code, check's result)``; the handlers are put back."""
     import signal
 
-    port_file = os.path.join(OBS_DIR, "port")
+    port_file = os.path.join(workdir or OBS_DIR, "port")
     if os.path.exists(port_file):
         os.remove(port_file)
     sigs = (signal.SIGTERM, signal.SIGINT, signal.SIGUSR2)
@@ -5749,7 +5878,8 @@ def _cli_until_ready(main, argv, check):
                     with open(port_file) as f:
                         port = f.read().strip()
                     if port and _http(f"http://127.0.0.1:{port}/readyz"
-                                      )[0] == 200:
+                                      )[0] == 200 and signal.getsignal(
+                            signal.SIGTERM) is not prev[signal.SIGTERM]:
                         out["check"] = check(f"http://127.0.0.1:{port}")
                         break
                 except (OSError, ValueError):
@@ -5774,6 +5904,7 @@ def _cli_until_ready(main, argv, check):
     return rc, out.get("check"), err.getvalue()
 
 
+@_part
 def _obs_stream() -> dict:
     """(d) ``stream serve --history`` at 100x250 on the resident plane:
     ``/query`` answers and ``/metrics`` holds the serve and stream
@@ -5817,6 +5948,7 @@ def _obs_stream() -> dict:
             "resolved": resolved}
 
 
+@_part
 def _obs_train() -> dict:
     """(e) ``train --profile_dir`` on the resident path, 2 epochs (the
     first dispatch runs eagerly and captures, the second replays): the
@@ -5870,6 +6002,7 @@ def _obs_train() -> dict:
             "graph_launches": k["graph_launches"], "seconds": seconds}
 
 
+@_part
 def _obs_selftest() -> dict:
     """(f) ``python -m dasmtl_torch.serve --selftest``, invariant 6 on."""
     import subprocess
@@ -5917,7 +6050,7 @@ def phase_obs() -> dict:
 # -- phase 15 -----------------------------------------------------------------
 #: The replicas' device (a CPU rehearsal sets "cpu").
 ROUTER_DEVICE = "cuda"
-ROUTER_SELFTEST_REQUESTS = 200
+ROUTER_SELFTEST_REQUESTS = 100
 #: The hand-written kernels of a replica's batch: the paired gate forward
 #: (4 launches, both tasks of a stage each) and the decode tail (1).
 ROUTER_PER_BATCH = {"gate_apply": 4, "decode_heads": 1}
@@ -5971,7 +6104,7 @@ def _router_launches(before: dict, after: dict) -> dict:
 
 
 def _router_leg(tag: str, address: str, procs, bodies) -> dict:
-    """8 clients send 512 requests to ``address`` (a replica or a router),
+    """8 clients send 256 requests to ``address`` (a replica or a router),
     every 37th window NaN; every answer 200 (or 422 for a NaN window) with
     its log-probs; windows/s, client p50 / p99 and each replica's batches
     and launches, read before and after."""
@@ -6037,6 +6170,7 @@ def _router_over(handles):
     return router, httpd, t, "127.0.0.1:%d" % httpd.server_address[1]
 
 
+@_part
 def _router_legs() -> dict:
     """(a) one replica alone, (b) the router over it, (c) the router over
     two; the ints of every leg equal on decisive rows."""
@@ -6123,6 +6257,7 @@ def _router_legs() -> dict:
     return {"startup_s": startup_s, "legs": legs, "decisive": decisive}
 
 
+@_part
 def _router_selftest() -> dict:
     """``run_router_selftest`` on the card at H x W: a drain rollout under
     load, then a SIGKILL; every invariant."""
@@ -6163,6 +6298,315 @@ def phase_router() -> dict:
     return out
 
 
+# -- phase 16 -----------------------------------------------------------------
+ALERTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke", "alerts")
+#: The live leg: model A on ``init_scaled`` weights (seed 0; decisive
+#: decodes, so a CPU run makes the same tracks) over the live cell's
+#: fibers, the last fed ALERT_HOT_CHUNK samples a cycle (twice its share:
+#: the fairness gate sheds half), ALERT_CYCLES cycles ALERT_DT_S apart on
+#: a synthetic clock (40 s: past the 30 s long window of
+#: ``default_stream_rules``), rules evaluated every second of it.
+ALERT_CYCLES, ALERT_DT_S, ALERT_HOT_CHUNK = 80, 0.5, 2 * LIVE_CHUNK
+ALERT_EVALUATE_REPS = 50
+
+
+class SyntheticClock:
+    """The clock of a leg's loop and engine: the current cycle's ``now``,
+    set by :func:`_paced` through :meth:`at`."""
+
+    def __init__(self, dt: float):
+        self.dt, self.t = float(dt), 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def at(self, cycle: int) -> float:
+        self.t = cycle * self.dt
+        return self.t
+
+
+def _webhook_receiver():
+    """A localhost webhook that answers 200 and keeps every body."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    got = []
+
+    class Hook(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802 — http.server convention
+            n = int(self.headers.get("Content-Length", 0))
+            got.append(json.loads(self.rfile.read(n).decode()))
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *_a):
+            pass
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Hook)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, got
+
+
+def _event_key(e: dict) -> str:
+    return json.dumps(e, sort_keys=True)
+
+
+def alert_leg(device: str, cycles: int = ALERT_CYCLES) -> dict:
+    """The live tier of model A at 100x250 on the resident plane over a
+    pool of its own, ``default_stream_rules()`` into a JSONL sink and a
+    webhook sink to a localhost receiver, every verdict on the synthetic
+    clock.  Returns the run's records, alert events (JSONL and webhook)
+    and counts; the caller checks them (``tests/test_torch_port_cuda.py``
+    runs it on the card and on the CPU)."""
+    from dasmtl_torch.device import set_f32_numerics
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_scaled
+    from dasmtl_torch.obs.alerts import AlertEngine, JsonlSink, WebhookSink
+    from dasmtl_torch.serve.executor import ExecutorPool
+    from dasmtl_torch.serve.server import ServeLoop
+    from dasmtl_torch.stream.live import (StreamLoop, StreamTenant,
+                                          default_stream_rules)
+
+    set_f32_numerics()
+    os.makedirs(ALERTS_DIR, exist_ok=True)
+    jsonl_path = os.path.join(ALERTS_DIR, f"alerts_{device}.jsonl")
+    if os.path.exists(jsonl_path):
+        os.remove(jsonl_path)
+    sd = init_scaled(get_model_spec("MTL").build(), 0).state_dict()
+    pool = ExecutorPool.from_state_dict("MTL", sd, BUCKETS, (H, W),
+                                        torch.device(device),
+                                        source="scaled-init")
+    loop = ServeLoop(pool, buckets=BUCKETS, max_wait_s=0.005,
+                     queue_depth=256, inflight=2).start()
+    clock = SyntheticClock(ALERT_DT_S)
+    httpd, received = _webhook_receiver()
+    jsonl = JsonlSink(jsonl_path)
+    hook = WebhookSink(f"http://127.0.0.1:{httpd.server_address[1]}/hook",
+                       retries=3, backoff_s=0.01)
+    engine = AlertEngine(default_stream_rules(), [jsonl, hook], clock=clock)
+    tenants = [StreamTenant(
+        f"f{i}", src, window=(H, W), stride_time=STRIDE_T,
+        ring_samples=LIVE_RING,
+        chunk_samples=ALERT_HOT_CHUNK if i == LIVE_FIBERS - 1
+        else LIVE_CHUNK)
+        for i, src in enumerate(_live_sources(LIVE_FIBERS, LIVE_CHANNELS))]
+    stream = StreamLoop(loop, tenants, cycle_budget=LIVE_BUDGET,
+                        max_wait_s=0.005, clock=clock, events_ring=100_000,
+                        resident="on", alerts=engine, alerts_interval_s=1.0)
+    engine.add_exposition(stream.metrics_text)
+    try:
+        if not stream.resident_enabled:
+            raise AssertionError("[alerts] the resident plane did not engage")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        _paced(stream, tenants, cycles, now=clock.at)
+        wall = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = _launches()
+        if not stream.drain(timeout=30.0):
+            raise AssertionError("[alerts] the live loop did not drain")
+        # One evaluate at the live tier's families, on an engine of its
+        # own (the run's engine and sinks stay as the run left them).
+        probe = AlertEngine(default_stream_rules(), [])
+        probe.add_exposition(stream.metrics_text)
+        evaluate_ms = []
+        for i in range(ALERT_EVALUATE_REPS):
+            t1 = time.perf_counter()
+            probe.evaluate(float(i))
+            evaluate_ms.append((time.perf_counter() - t1) * 1e3)
+        out = {"device": device, "cycles": cycles, "wall_s": wall,
+               "launches": launches,
+               "records": stream.events(100_000),
+               "shed": {t.name: t.shed for t in tenants},
+               "chunks": sum(t.resident.feed.h2d_chunks for t in tenants),
+               "dispatches": sum(t.resident.dispatches for t in tenants),
+               "post_warmup_compiles": _post_warmup(pool.compile_summary())
+               + [t.resident.executor.post_warmup_compiles
+                  for t in tenants],
+               "stats": engine.stats(),
+               "webhook": {"delivered": hook.delivered,
+                           "failed": hook.failed,
+                           "attempts": hook.attempts},
+               "evaluate_ms": statistics.median(evaluate_ms),
+               "families": len(probe.history.families())}
+    finally:
+        stream.close()
+        loop.close()
+        jsonl.close()
+        httpd.shutdown()
+        httpd.server_close()
+    with open(jsonl_path) as f:
+        out["jsonl"] = sorted((json.loads(line) for line in f),
+                              key=_event_key)
+    out["received"] = sorted(received, key=_event_key)
+    return out
+
+
+def _alert_leg_checks(leg: dict) -> dict:
+    """(b)'s verdicts, all on the leg's synthetic clock."""
+    jsonl, received = leg["jsonl"], leg["received"]
+    if jsonl != received:
+        raise AssertionError(f"[alerts] the JSONL ({len(jsonl)}) and the "
+                             f"webhook ({len(received)}) saw different events")
+    hook = leg["webhook"]
+    if not (hook["delivered"] == len(received) == leg["stats"][
+            "events_emitted"] and hook["failed"] == 0):
+        raise AssertionError(f"[alerts] webhook {hook}, receiver "
+                             f"{len(received)}, emitted {leg['stats']}")
+    tracks = sorted(
+        (r["fiber"], f"track {r['track_id']} {r['kind']} at fiber_pos "
+                     f"{r['fiber_pos']}", f"stream_track_{r['kind']}")
+        for r in leg["records"] if r["kind"] in ("open", "close"))
+    got = sorted((e["labels"]["fiber"], e["description"], e["rule"])
+                 for e in jsonl if e["kind"] == "event")
+    opens = sum(r["kind"] == "open" for r in leg["records"])
+    if got != tracks or not opens:
+        raise AssertionError(f"[alerts] {len(got)} track alerts for "
+                             f"{len(tracks)} open/close records ({opens} "
+                             f"opens): each must give exactly one")
+    hot = f"f{LIVE_FIBERS - 1}"
+    burns = [(e["kind"], e["labels"]) for e in jsonl
+             if e["rule"] == "stream_shed_burn"]
+    if burns != [("firing", {"fiber": hot})]:
+        raise AssertionError(f"[alerts] stream_shed_burn events {burns}: "
+                             f"it must fire once, on {hot} alone")
+    if any(v for k, v in leg["shed"].items() if k != hot) or \
+            not leg["shed"][hot]:
+        raise AssertionError(f"[alerts] shed {leg['shed']}: only {hot} "
+                             f"runs over its share")
+    if {e["kind"] for e in jsonl} - {"event", "firing"}:
+        raise AssertionError(f"[alerts] unexpected events {jsonl}")
+    return {"track_alerts": len(got), "opens": opens,
+            "closes": len(got) - opens, "burn": burns}
+
+
+@_part
+def _alerts_live() -> dict:
+    """(b) the live leg on the card."""
+    leg = alert_leg(DEV)
+    verdict = _alert_leg_checks(leg)
+    lo = leg["launches"]
+    if lo["ring_append"] != leg["chunks"] or \
+            lo["window_gather"] != leg["dispatches"] or \
+            lo["decode"] != leg["dispatches"] or \
+            lo["gate"] != 4 * leg["dispatches"]:
+        raise AssertionError(f"[alerts] launches {lo} for {leg['chunks']} "
+                             f"chunks and {leg['dispatches']} dispatches")
+    if any(leg["post_warmup_compiles"]):
+        raise AssertionError(f"[alerts] post-warmup captures "
+                             f"{leg['post_warmup_compiles']}")
+    log(f"[alerts] (b) live model A (scaled init), {LIVE_FIBERS} fibers x "
+        f"{LIVE_CHANNELS} channels, f{LIVE_FIBERS - 1} fed "
+        f"{ALERT_HOT_CHUNK} samples a cycle, {leg['cycles']} cycles "
+        f"{ALERT_DT_S} s apart on the synthetic clock in "
+        f"{leg['wall_s']:.2f} s: {verdict['opens']} opens and "
+        f"{verdict['closes']} closes, one alert each at the JSONL and the "
+        f"webhook ({leg['webhook']['delivered']} delivered, 0 failed, "
+        f"{leg['webhook']['attempts']} attempts); stream_shed_burn fired "
+        f"once, on f{LIVE_FIBERS - 1} alone (shed {leg['shed']}); "
+        f"{leg['stats']['evaluations']} evaluations; launches "
+        f"{leg['launches']} for {leg['chunks']} chunks and "
+        f"{leg['dispatches']} dispatches (4 gate + 1 decode a forward "
+        f"replay); post-warmup captures 0")
+    log(f"[alerts] one evaluate at the live tier's {leg['families']} "
+        f"families: {leg['evaluate_ms']:.3f} ms host (median of "
+        f"{ALERT_EVALUATE_REPS})")
+    for k in ("records", "jsonl", "received"):
+        leg[k] = len(leg[k])
+    return {**leg, **verdict}
+
+
+@_part
+def _alerts_cli() -> dict:
+    """(c) ``python -m dasmtl_torch.stream serve`` with ``--alerts`` at its
+    default and ``--alerts_path``, in process on the card until
+    ``/readyz``, then SIGTERM: a clean drain, and the JSONL holds exactly
+    the open/close records of ``GET /events`` and ``--events_path``."""
+    from dasmtl_torch import cli
+
+    alerts_path = os.path.join(ALERTS_DIR, "cli_alerts.jsonl")
+    events_path = os.path.join(ALERTS_DIR, "cli_events.jsonl")
+    for path in (alerts_path, events_path):
+        if os.path.exists(path):
+            os.remove(path)
+
+    def check(url):
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            stats = json.loads(_http(url + "/stats")[2])
+            if stats["alerts"]["events_emitted"] and \
+                    stats["alerts"]["evaluations"] >= 2:
+                break
+            time.sleep(0.2)
+        return stats, json.loads(_http(url + "/events?n=100000")[2])
+
+    rc, (stats, events), err = _cli_until_ready(cli.main, [
+        "stream", "serve", "--synthetic", "2", "--fresh_init", "--window",
+        f"{H}x{W}", "--resident", "on", "--alerts_path", alerts_path,
+        "--events_path", events_path], check, workdir=ALERTS_DIR)
+    if rc != 0 or "drained=clean" not in err or "alerts=on" not in err:
+        raise AssertionError(f"[alerts] stream serve exit {rc}:\n{err}")
+    if "are not run" in err or "not yet ported" in err:
+        raise AssertionError(f"[alerts] stream serve refused:\n{err}")
+    with open(alerts_path) as f:
+        alerts = [json.loads(line) for line in f]
+    with open(events_path) as f:
+        records = [json.loads(line) for line in f]
+
+    def tracks(recs):
+        return sorted((r["fiber"], r["track_id"], r["kind"]) for r in recs
+                      if r["kind"] in ("open", "close"))
+
+    def alerted(evs):
+        return sorted((e["labels"]["fiber"],
+                       int(e["description"].split()[1]),
+                       e["rule"][len("stream_track_"):])
+                      for e in evs if e["kind"] == "event")
+    got = alerted(alerts)
+    if got != tracks(records) or not set(tracks(events)) <= set(got) \
+            or not got:
+        raise AssertionError(f"[alerts] {len(got)} track alerts in the "
+                             f"JSONL; {len(tracks(records))} open/close "
+                             f"records in --events_path, "
+                             f"{len(tracks(events))} in GET /events")
+    stderr_alerts = err.count("[alert] ")
+    if stderr_alerts != len(alerts):
+        raise AssertionError(f"[alerts] stderr {stderr_alerts} events, "
+                             f"JSONL {len(alerts)}")
+    log(f"[alerts] (c) python -m dasmtl_torch.stream serve --alerts_path "
+        f"(alerts on by default) on the card: {stats['alerts']['rules']} "
+        f"rule, {stats['alerts']['evaluations']} evaluations before "
+        f"SIGTERM, {len(got)} track alerts in the JSONL and on stderr = "
+        f"the open/close records of --events_path ({len(tracks(events))} "
+        f"in GET /events at the check), drained clean")
+    return {"track_alerts": len(got), "events_at_check": len(events),
+            "stats": stats["alerts"]}
+
+
+def phase_alerts(dp: dict) -> dict:
+    """Phase 16: the alert engine (run last)."""
+    from dasmtl_torch.obs.alerts import run_alert_selftest
+
+    t0 = time.perf_counter()
+    shutil.rmtree(ALERTS_DIR, ignore_errors=True)
+    os.makedirs(ALERTS_DIR)
+    said = []
+    if run_alert_selftest(say=said.append) != 0:
+        raise AssertionError("[alerts] run_alert_selftest failed:\n"
+                             + "\n".join(said))
+    log(f"[alerts] (a) {said[-1]}")
+    out = {"selftest": said[-1], "live": _alerts_live(),
+           "cli": _alerts_cli(), "dp": dp["train"]["alerts"]}
+    log(f"[alerts] (d) phase 9b's dp run: {out['dp']}")
+    shutil.rmtree(ALERTS_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[alerts] phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     # CUPTI stays up between this process's profiler sessions, as the
     # port's captures keep it (dasmtl_torch/obs/profiler.py): re-initialized
@@ -6192,28 +6636,31 @@ def main(argv=None) -> int:
     global PARENT
     PARENT = args.parent
     t_start = time.perf_counter()
-    device = phase_device()
+    device = _phase("device", phase_device)
     peaks = card_peaks(device["name"])
-    build = phase_build()
-    kernels = phase_kernels(peaks)
-    model = phase_model(args.profile)
-    serve = phase_serve()
-    train = phase_train(peaks, args.profile)
-    stream = phase_stream(peaks, train["entry"]["checkpoint"])
-    artifacts = phase_artifacts(train["entry"], stream)
+    build = _phase("build", phase_build)
+    kernels = _phase("kernels", phase_kernels, peaks)
+    model = _phase("model", phase_model, args.profile)
+    serve = _phase("serve", phase_serve)
+    train = _phase("train", phase_train, peaks, args.profile)
+    stream = _phase("stream", phase_stream, peaks,
+                    train["entry"]["checkpoint"])
+    artifacts = _phase("artifacts", phase_artifacts, train["entry"], stream)
     for k in ("checkpoint", "data", "test_predictions"):
         train["entry"].pop(k)
     for k in ("record_path", "rows_csv"):
         stream["offline"].pop(k)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    precision = phase_precision(peaks)
-    dp = phase_dp(peaks)
-    resident = phase_resident(peaks)
-    cv = phase_cv(peaks)
+    precision = _phase("precision", phase_precision, peaks)
+    dp = _phase("dp", phase_dp, peaks)
+    resident = _phase("resident", phase_resident, peaks)
+    cv = _phase("cv", phase_cv, peaks)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    graphs = phase_graphs(serve, stream, artifacts)
-    obs = phase_obs()
-    router = phase_router()
+    graphs = _phase("graphs", phase_graphs, serve, stream, artifacts)
+    obs = _phase("obs", phase_obs)
+    router = _phase("router", phase_router)
+    alerts = _phase("alerts", phase_alerts, dp)
+    PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 1)
     sk, offline = stream["kernels"], stream["offline"]
 
     # Launches: each kernel's count over its path's run, the counters
@@ -6284,11 +6731,13 @@ def main(argv=None) -> int:
                        "stream": stream, "artifacts": artifacts,
                        "precision": precision, "dp": dp,
                        "resident": resident, "cv": cv, "graphs": graphs,
-                       "obs": obs, "router": router,
+                       "obs": obs, "router": router, "alerts": alerts,
+                       "timing": PHASE_SECONDS, "parts": PART_SECONDS,
                        "seconds": time.perf_counter() - t_start},
                       f,
                       indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print("[timing] " + json.dumps(PHASE_SECONDS))
     print(json.dumps(line))
     print(device["label"])
     print(json.dumps({"ok": True, "device": {

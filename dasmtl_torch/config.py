@@ -6,8 +6,8 @@ Own copies of ``dasmtl/config.py`` values (the port imports nothing of
 ``:161-174``) with its 90 % watermark rule (``:544-552``), and the
 train/test fields of ``Config`` (``:47-131``, ``:349-352``) with the
 ``decay_at_epoch0`` / ``acc_gate`` rules (``:531-541``), and the
-observability block (``Config.obs_*``, ``:298-317``, checked as
-``:497-520`` checks it), and the router block (``Config.router_*``,
+observability block (``Config.obs_*``, ``:298-327``, checked as
+``:497-526`` checks it), and the router block (``Config.router_*``,
 ``:209-218``, checked as ``:468-497`` checks it; the router CLI's
 defaults).  Only what the ported slices read is here — this
 is not a copy of the whole ``Config``.
@@ -79,6 +79,15 @@ OBS_PROFILE_COOLDOWN_S = 300.0
 OBS_PROFILE_DURATION_S = 2.0
 OBS_HISTORY = 256
 OBS_HISTORY_INTERVAL_S = 5.0
+#: The alert engine's defaults (``Config.obs_alerts*``, ``dasmtl/config.py:
+#: 318-327``): training arms the heartbeat's anomaly rules with the
+#: heartbeat, the in-loop evaluation cadence, and the webhook sink ("" =
+#: JSONL / stderr only) with its bounded retry.
+OBS_ALERTS = True
+OBS_ALERTS_INTERVAL_S = 1.0
+OBS_ALERTS_WEBHOOK = ""
+OBS_ALERTS_WEBHOOK_RETRIES = 3
+OBS_ALERTS_WEBHOOK_BACKOFF_S = 0.25
 
 #: The serving router tier's defaults (``Config.router_*``,
 #: ``dasmtl/config.py:209-218``): replicas behind the router, its address,
@@ -224,6 +233,14 @@ class Config:
     obs_profile_duration_s: float = OBS_PROFILE_DURATION_S
     obs_history: int = OBS_HISTORY
     obs_history_interval_s: float = OBS_HISTORY_INTERVAL_S
+    # The alert engine (``dasmtl/config.py:318-327``): with the heartbeat
+    # on, rank 0 runs the heartbeat's anomaly rules into
+    # metrics/alerts.jsonl (and the webhook, if one is named).
+    obs_alerts: bool = OBS_ALERTS
+    obs_alerts_interval_s: float = OBS_ALERTS_INTERVAL_S
+    obs_alerts_webhook: str = OBS_ALERTS_WEBHOOK
+    obs_alerts_webhook_retries: int = OBS_ALERTS_WEBHOOK_RETRIES
+    obs_alerts_webhook_backoff_s: float = OBS_ALERTS_WEBHOOK_BACKOFF_S
     # The router tier's block, recorded in config.json as the JAX train
     # CLI records it (``python -m dasmtl_torch.serve.router`` takes its own
     # flags).
@@ -277,6 +294,13 @@ class Config:
             raise ValueError(f"obs_{exc}") from None
         self.obs_latency_buckets_ms = _float_list(
             self.obs_latency_buckets_ms)
+        # ``dasmtl/config.py:521-526``, with its messages.
+        if self.obs_alerts_interval_s <= 0:
+            raise ValueError("obs_alerts_interval_s must be > 0")
+        if self.obs_alerts_webhook_retries < 0:
+            raise ValueError("obs_alerts_webhook_retries must be >= 0")
+        if self.obs_alerts_webhook_backoff_s < 0:
+            raise ValueError("obs_alerts_webhook_backoff_s must be >= 0")
         self._check_router()
         # ``dasmtl/config.py:365-374``.
         if self.device_data not in ("auto", "on", "off"):
@@ -343,8 +367,6 @@ class Config:
 
 _MULTI = ("ROADMAP.md queue 1 item 8, 'Model C, multi-device training and "
           "CV'")
-_ALERTS = ("ROADMAP.md queue 1 item 6's remainder, the alert engine "
-           "(dasmtl/obs/alerts.py)")
 
 #: Flags of the JAX train/test CLI the port does not carry yet: their JAX
 #: default and the ROADMAP.md item that brings them.
@@ -354,12 +376,6 @@ NOT_YET_PORTED = {
                                  "under --compute_dtype bfloat16'"),
     "loader_native": ("auto", "ROADMAP.md queue 1 item 15, 'The native "
                               "MAT reader'"),
-    # The train heartbeat's anomaly rules and their sinks.
-    "obs_alerts": (True, _ALERTS),
-    "obs_alerts_interval_s": (1.0, _ALERTS),
-    "obs_alerts_webhook": ("", _ALERTS),
-    "obs_alerts_webhook_retries": (3, _ALERTS),
-    "obs_alerts_webhook_backoff_s": (0.25, _ALERTS),
 }
 _STREAM_REST = "ROADMAP.md queue 1 item 1, 'The stream tier's remainder'"
 _ANALYSIS = ("ROADMAP.md queue 1 item 3 (the lint, audit, conc and mem "
@@ -533,6 +549,26 @@ def _add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the whole "
                         "fit / test into this directory")
+    p.add_argument("--obs_alerts", action=argparse.BooleanOptionalAction,
+                   default=d.obs_alerts,
+                   help="arm the default train heartbeat anomaly rules "
+                        "(MFU drop vs run median, samples/s stall) "
+                        "through the alert engine when the heartbeat "
+                        "is on")
+    p.add_argument("--obs_alerts_interval_s", type=float,
+                   default=d.obs_alerts_interval_s,
+                   help="alert engine evaluation cadence in seconds")
+    p.add_argument("--obs_alerts_webhook", type=str,
+                   default=d.obs_alerts_webhook,
+                   help="webhook URL alert events POST to ('' = JSONL/"
+                        "stderr sinks only)")
+    p.add_argument("--obs_alerts_webhook_retries", type=int,
+                   default=d.obs_alerts_webhook_retries,
+                   help="bounded webhook delivery retries per event")
+    p.add_argument("--obs_alerts_webhook_backoff_s", type=float,
+                   default=d.obs_alerts_webhook_backoff_s,
+                   help="initial webhook retry backoff (doubles per "
+                        "attempt)")
     obs = p.add_argument_group(
         "observability of the serving tiers (recorded in config.json; "
         "python -m dasmtl_torch.serve takes its own flags)")

@@ -236,14 +236,17 @@ def _profiled(profile_dir: Optional[str]):
     from torch.profiler import profile
 
     from dasmtl_torch.obs.profiler import TRACE_FILE, torch_activities
+    from dasmtl_torch.ops import profiler_section
 
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, TRACE_FILE)
     prof = profile(activities=torch_activities())
-    prof.start()
+    with profiler_section():
+        prof.start()
     try:
         yield
     finally:  # a failed run still leaves its trace, as JAX's does
-        prof.stop()
+        with profiler_section():
+            prof.stop()
         prof.export_chrome_trace(path)
         print(f"[profile] torch.profiler trace -> {path}")

@@ -17,14 +17,15 @@
   scrape snapshots, served as ``GET /query?family=&since=``.
 
 The JAX package's catalog (``docs/OBSERVABILITY.md``) holds for the port
-with three differences: a capture is a Chrome trace (``trace.json``), not
-an xplane; ``dasmtl_serve_warmup_compiles_total`` and
+with two differences: a capture is a Chrome trace (``trace.json``), not
+an xplane; and ``dasmtl_serve_warmup_compiles_total`` and
 ``dasmtl_serve_post_warmup_recompiles_total`` count a pool member's CUDA
-graph captures, not XLA compilations; and the alert engine
-(``dasmtl/obs/alerts.py``) is not ported (ROADMAP.md queue 1 item 6's
-remainder).
+graph captures, not XLA compilations.
 """
 
+from dasmtl_torch.obs.alerts import (AlertEngine, AlertRule, HeartbeatWatch,
+                                     JsonlSink, StderrSink, WebhookSink,
+                                     default_heartbeat_rules)
 from dasmtl_torch.obs.history import (HistorySampler, MetricsHistory,
                                       handle_query)
 from dasmtl_torch.obs.registry import (MetricsRegistry, default_registry,
@@ -44,6 +45,13 @@ __all__ = [
     "ALL_SPAN_STAGES",
     "join_chains",
     "mint_trace_id",
+    "AlertEngine",
+    "AlertRule",
+    "HeartbeatWatch",
+    "JsonlSink",
+    "StderrSink",
+    "WebhookSink",
+    "default_heartbeat_rules",
     "MetricsHistory",
     "HistorySampler",
     "handle_query",

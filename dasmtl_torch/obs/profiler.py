@@ -174,11 +174,11 @@ def prime_torch_profiler() -> float:
     a card)."""
     from torch.profiler import profile
 
-    from dasmtl_torch.ops import capture_section
+    from dasmtl_torch.ops import profiler_section
 
     t0 = time.perf_counter()
     prof = profile(activities=torch_activities())
-    with capture_section():
+    with profiler_section():
         prof.start()
         prof.stop()
     return time.perf_counter() - t0
@@ -195,20 +195,22 @@ def torch_capture(out_dir: str, duration_s: float) -> str:
     blue/green swap's), does not bear: they wait for each other in
     :func:`~dasmtl_torch.ops.capture_section`, so a capture triggered
     during a swap starts once the incoming pool is warm.  Graphs replayed
-    meanwhile are traced kernel by kernel."""
+    meanwhile are traced kernel by kernel; a replay's launch and the
+    start or stop wait for each other (:func:`~dasmtl_torch.ops.
+    profiler_section`)."""
     from torch.profiler import profile
 
-    from dasmtl_torch.ops import capture_section
+    from dasmtl_torch.ops import profiler_section
 
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, TRACE_FILE)
     prof = profile(activities=torch_activities())
-    with capture_section():
+    with profiler_section():
         prof.start()
     try:
         time.sleep(duration_s)
     finally:
-        with capture_section():
+        with profiler_section():
             prof.stop()
     prof.export_chrome_trace(path)
     return path

@@ -19,7 +19,11 @@ holds it across a pool's whole build and warmup): the profiler
 synchronizes the card as it starts and stops, which is not permitted
 while another thread's stream captures (it spoils the capture and the
 profiler with it), and which hung on the card against another thread
-building and warming a pool for a blue/green swap.
+building and warming a pool for a blue/green swap.  A profiler's start
+and stop also take :func:`replay_section`, which every CUDA graph replay
+holds around its launch: CUPTI's start or stop beside another thread's
+graph launch deadlocked both on the card (a serve loop replaying its
+buckets while an SLO capture stopped).
 """
 
 from __future__ import annotations
@@ -34,6 +38,9 @@ _recording = threading.local()
 #: Held across every CUDA graph capture (with a graph book's eager warm
 #: run before it) and a profiler's start and stop.
 _capture_lock = threading.RLock()
+#: Held around every CUDA graph replay's launch and across a profiler's
+#: start and stop (taken after ``_capture_lock``, never before it).
+_replay_lock = threading.RLock()
 
 
 class LaunchCounter:
@@ -80,6 +87,22 @@ def capture_section():
     """Hold off other threads' graph captures and profiler starts and
     stops while inside (re-entrant on one thread)."""
     with _capture_lock:
+        yield
+
+
+@contextlib.contextmanager
+def replay_section():
+    """Hold off a profiler's start and stop while a CUDA graph is
+    launched (re-entrant on one thread)."""
+    with _replay_lock:
+        yield
+
+
+@contextlib.contextmanager
+def profiler_section():
+    """Where a profiler starts or stops: no graph capture and no graph
+    replay on any other thread meanwhile."""
+    with _capture_lock, _replay_lock:
         yield
 
 

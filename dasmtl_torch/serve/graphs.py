@@ -37,7 +37,8 @@ from typing import Any, Callable, Dict, Hashable, Optional, Tuple
 import numpy as np
 import torch
 
-from dasmtl_torch.ops import _build, capture_section, recorded_launches
+from dasmtl_torch.ops import (_build, capture_section, recorded_launches,
+                               replay_section)
 
 #: Byte alignment of each output inside the flat buffer.
 ALIGN = 16
@@ -120,7 +121,8 @@ class CapturedForward:
         self.graph = graph
 
     def replay(self) -> None:
-        self._replay()
+        with replay_section():
+            self._replay()
         for counter, n in self.launches.items():
             counter.add(n)
 

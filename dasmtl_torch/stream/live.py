@@ -26,11 +26,14 @@ families after the process-wide default registry) and then the
 ``dasmtl_stream_*`` families; ``GET /query`` answers from the metrics
 history (``--history`` snapshots of that exposition every
 ``--history_interval_s``) with :func:`~dasmtl_torch.obs.history.
-handle_query`'s semantics.  Not ported yet (ROADMAP.md queue 1): dynamic
-tenancy and the fleet worker, the soak selftest (item 1), and alerts (item
-6's remainder, the alert engine).  JAX runs its default stream alert rules
-unless ``--no-alerts``; the port says at startup that it does not
-(:data:`ALERTS_NOTICE`), and refuses JAX's other flags of those items by
+handle_query`'s semantics.  The alert engine
+(:mod:`dasmtl_torch.obs.alerts`) rides the loop as in JAX: track open/close
+records become alert events as they resolve, and ``run_cycle`` evaluates
+the rules (``--alerts``, on by default: :func:`default_stream_rules` to
+stderr, ``--alerts_path`` JSONL, ``--alerts_webhook``) every
+``--alerts_interval_s`` on the cycle's own ``now``.  Not ported yet
+(ROADMAP.md queue 1): dynamic tenancy and the fleet worker and the soak
+selftest (item 1); the parser refuses JAX's other flags of those items by
 name prefix (:data:`JAX_ONLY_PREFIXES`).
 
 ``serve_main`` is ``python -m dasmtl_torch.stream serve``, over a port
@@ -53,6 +56,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from dasmtl_torch import config as C
+from dasmtl_torch.obs.alerts import AlertEngine, AlertRule
 from dasmtl_torch.obs.history import MetricsHistory, handle_query
 from dasmtl_torch.obs.registry import (DEFAULT_LATENCY_BUCKETS_S,
                                        MetricsRegistry)
@@ -95,8 +99,6 @@ NOT_YET_PORTED = {
                     "remainder' (the fleet and dynamic tenancy)",
     "selftest": "ROADMAP.md queue 1 item 1, 'the stream tier's "
                 "remainder' (the soak selftest)",
-    "alerts": "ROADMAP.md queue 1 item 6's remainder, the alert engine "
-              "(dasmtl/obs/alerts.py)",
     "conc_lockdep": "ROADMAP.md queue 1 item 3 (the lint, audit, conc "
                     "and mem families analyse JAX code and are not ported)",
     "mem_track": "ROADMAP.md queue 1 item 3 (the lint, audit, conc and "
@@ -104,21 +106,14 @@ NOT_YET_PORTED = {
 }
 
 
-_ALERTS_ITEM = NOT_YET_PORTED["alerts"]
 _ANALYSIS_ITEM = NOT_YET_PORTED["conc_lockdep"]
 #: Flags of JAX's ``stream serve`` this parser does not declare, by name
 #: prefix -> the ROADMAP.md item that brings them.
 JAX_ONLY_PREFIXES = (
-    ("alerts_", _ALERTS_ITEM),
     ("selftest_", "ROADMAP.md queue 1 item 1, 'the stream tier's "
                   "remainder' (the soak selftest)"),
     ("conc_", _ANALYSIS_ITEM), ("mem_", _ANALYSIS_ITEM),
 )
-#: The startup line when ``--alerts`` is left at JAX's default (on):
-#: JAX then runs ``default_stream_rules()`` to stderr, the port does not.
-ALERTS_NOTICE = (f"dasmtl_torch.stream serve: JAX's default stream alerts "
-                 f"(--alerts, default_stream_rules() to stderr) are not run: "
-                 f"{_ALERTS_ITEM}; --no-alerts silences this line")
 
 
 class StreamMetrics:
@@ -252,6 +247,8 @@ class StreamLoop:
                  events_path: Optional[str] = None,
                  events_ring: int = 1024,
                  metrics: Optional[StreamMetrics] = None,
+                 alerts: Optional[AlertEngine] = None,
+                 alerts_interval_s: float = 1.0,
                  history: Optional[MetricsHistory] = None,
                  resident: str = "off",
                  resident_max_windows: int = 0,
@@ -305,6 +302,12 @@ class StreamLoop:
         self._pump: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self.cycles = 0
+        # The alert engine is fed directly from this loop: track records
+        # become alert events as they resolve, and rule evaluation rides
+        # the pump cycle through maybe_evaluate (no thread, no clock of
+        # its own).
+        self.alerts = alerts
+        self.alerts_interval_s = float(alerts_interval_s)
 
     def _apply_weights(self) -> None:
         """Quota, outstanding budget and deadline from the current
@@ -385,6 +388,8 @@ class StreamLoop:
                     t._rate_marks.append((now, t.shed))
         if self.adapt_weights and self.cycles % self.adapt_every == 0:
             self._adapt_weights()
+        if self.alerts is not None:
+            self.alerts.maybe_evaluate(now, self.alerts_interval_s)
         return {"submitted": submitted, "shed": shed}
 
     def _pump_resident(self, t: StreamTenant) -> "tuple[int, int]":
@@ -405,9 +410,9 @@ class StreamLoop:
         return len(admitted), shed
 
     def _resolve(self, tenant: StreamTenant, wdw, d: WindowDecode,
-                 now: float) -> None:
+                 now: float) -> List[dict]:
         """One resolved window into the tenant's track book (caller holds
-        the loop lock)."""
+        the loop lock); returns the track records it emitted."""
         records = tenant.book.update(wdw.tile, d, now)
         lat = max(0.0, now - wdw.arrival_s)
         tenant.latencies.append(lat)
@@ -422,6 +427,29 @@ class StreamLoop:
                 self._events_f.write(json.dumps(rec) + "\n")
         if records and self._events_f is not None:
             self._events_f.flush()
+        return records
+
+    def _emit_alert_records(self, records) -> None:
+        """Track records -> alert events, outside the loop lock: sink I/O
+        (webhook POSTs) must never stall the pump.  Records are already
+        debounced by the TrackBook hysteresis; the dedupe key makes a
+        replayed record deliver exactly once."""
+        if self.alerts is None:
+            return
+        for rec in records:
+            if rec["kind"] not in ("open", "close"):
+                continue
+            self.alerts.emit_event(
+                f"stream_track_{rec['kind']}",
+                labels={"fiber": rec["fiber"],
+                        "type": rec["event_name"]},
+                value=rec["confidence"],
+                severity="page" if rec["kind"] == "open" else "info",
+                dedupe_key=f"{rec['fiber']}:{rec['track_id']}:"
+                           f"{rec['kind']}",
+                description=f"track {rec['track_id']} "
+                            f"{rec['kind']} at fiber_pos "
+                            f"{rec['fiber_pos']}")
 
     def _on_resident_batch(self, tenant: StreamTenant, windows,
                            preds, bad, prob) -> None:
@@ -430,6 +458,7 @@ class StreamLoop:
         and ``event_prob_q`` for the host path's log-prob confidence.
         ``preds`` None marks a failed dispatch."""
         now = self.clock()
+        emitted: List[dict] = []
         with self._lock:
             for j, wdw in enumerate(windows):
                 tenant.outstanding -= 1
@@ -446,10 +475,11 @@ class StreamLoop:
                          if ok and "event" in preds else -1)
                 distance = (int(preds["distance"][j])
                             if ok and "distance" in preds else -1)
-                self._resolve(tenant, wdw, WindowDecode(
+                emitted.extend(self._resolve(tenant, wdw, WindowDecode(
                     t_origin=wdw.t_origin, t_end=wdw.t_end, ok=ok,
                     event=event, distance=distance,
-                    event_prob=float(prob[j]) if ok else 0.0), now)
+                    event_prob=float(prob[j]) if ok else 0.0), now))
+        self._emit_alert_records(emitted)
 
     def _on_result(self, tenant: StreamTenant, wdw, fut) -> None:
         now = self.clock()
@@ -477,9 +507,10 @@ class StreamLoop:
                 distance = int(res.predictions.get("distance", -1))
                 lp = (res.log_probs or {}).get("log_probs_event")
                 prob = float(np.exp(max(lp))) if lp else 1.0
-            self._resolve(tenant, wdw, WindowDecode(
+            records = self._resolve(tenant, wdw, WindowDecode(
                 t_origin=wdw.t_origin, t_end=wdw.t_end, ok=bool(res.ok),
                 event=event, distance=distance, event_prob=prob), now)
+        self._emit_alert_records(records)
 
     # -- pump thread ---------------------------------------------------------
     def start(self, poll_s: float = 0.002) -> "StreamLoop":
@@ -588,12 +619,15 @@ class StreamLoop:
                 }
                 if rate > hottest_rate:
                     hottest, hottest_rate = t.name, rate
-        return {"cycles": self.cycles, "resident": self.resident_enabled,
-                "tenants": tenants, "events_held": len(self._events),
-                "hot_shard": {"hottest": hottest,
-                              "hottest_shed_rate_per_s":
-                                  round(hottest_rate, 3),
-                              "fibers": hot_fibers}}
+        out = {"cycles": self.cycles, "resident": self.resident_enabled,
+               "tenants": tenants, "events_held": len(self._events),
+               "hot_shard": {"hottest": hottest,
+                             "hottest_shed_rate_per_s":
+                                 round(hottest_rate, 3),
+                             "fibers": hot_fibers}}
+        if self.alerts is not None:
+            out["alerts"] = self.alerts.stats()
+        return out
 
     def metrics_text(self) -> str:
         """The full ``GET /metrics`` exposition: the serve loop's (which
@@ -620,6 +654,24 @@ class StreamLoop:
                         min(lane.feed.total, lane.feed.ring_samples)
                         / lane.feed.ring_samples, labels)
         return self.serve.metrics_text() + self.metrics.registry.render()
+
+
+def default_stream_rules(*, shed_rate_per_s: float = 1.0,
+                         window_s: float = 5.0,
+                         long_window_s: float = 30.0
+                         ) -> "tuple[AlertRule, ...]":
+    """The shipped stream alerting default (``live.py:773-789``): a
+    sustained per-fiber shed burn (the fairness gate rejecting one fiber's
+    own excess, breaching in both the short and the long window) pages on
+    that fiber's label only; a neighbor under its share never pages
+    because of it."""
+    return (AlertRule(name="stream_shed_burn",
+                      family="dasmtl_stream_shed_total",
+                      kind="burn_rate", op=">", threshold=shed_rate_per_s,
+                      window_s=window_s, long_window_s=long_window_s,
+                      severity="page",
+                      description="sustained fairness-gate shedding on "
+                                  "this fiber"),)
 
 
 # -- HTTP front end ------------------------------------------------------------
@@ -801,11 +853,27 @@ def build_serve_parser() -> argparse.ArgumentParser:
     obs.add_argument("--history_interval_s", type=float,
                      default=C.OBS_HISTORY_INTERVAL_S,
                      help="seconds between history snapshots")
+    obs.add_argument("--alerts", action=argparse.BooleanOptionalAction,
+                     default=C.OBS_ALERTS,
+                     help="evaluate the default stream alert rules and "
+                          "forward track open/close records as alert "
+                          "events")
+    obs.add_argument("--alerts_interval_s", type=float,
+                     default=C.OBS_ALERTS_INTERVAL_S,
+                     help="rule-evaluation cadence (rides the pump "
+                          "cycle)")
+    obs.add_argument("--alerts_path", type=str, default="",
+                     metavar="PATH",
+                     help="append alert events here as JSONL")
+    obs.add_argument("--alerts_webhook", type=str,
+                     default=C.OBS_ALERTS_WEBHOOK, metavar="URL",
+                     help="POST each alert event to this webhook "
+                          "(bounded retry + backoff)")
+    obs.add_argument("--alerts_webhook_retries", type=int,
+                     default=C.OBS_ALERTS_WEBHOOK_RETRIES)
+    obs.add_argument("--alerts_webhook_backoff_s", type=float,
+                     default=C.OBS_ALERTS_WEBHOOK_BACKOFF_S)
     nyp = p.add_argument_group("not yet ported (exit 2)")
-    nyp.add_argument("--alerts", action=argparse.BooleanOptionalAction,
-                     default=None,
-                     help="JAX's default is on; the port says so at "
-                          "startup, --no-alerts silences it")
     nyp.add_argument("--conc_lockdep",
                      action=argparse.BooleanOptionalAction, default=False)
     nyp.add_argument("--mem_track", action=argparse.BooleanOptionalAction,
@@ -863,8 +931,6 @@ def serve_main(argv=None) -> int:
     if refusal:
         print(f"dasmtl_torch.stream serve: {refusal}", file=sys.stderr)
         return 2
-    if args.alerts is None:
-        print(ALERTS_NOTICE, file=sys.stderr)
     if args.history < 0:
         p.error("--history must be >= 0 (0 disables /query)")
     if args.history_interval_s <= 0:
@@ -946,11 +1012,28 @@ def serve_main(argv=None) -> int:
                      max_wait_s=args.max_wait_ms / 1e3,
                      queue_depth=args.queue_depth, inflight=args.inflight)
     history = MetricsHistory(args.history) if args.history > 0 else None
+    engine = None
+    if args.alerts:
+        from dasmtl_torch.obs.alerts import (JsonlSink, StderrSink,
+                                             WebhookSink)
+
+        sinks: list = [StderrSink()]
+        if args.alerts_path:
+            sinks.append(JsonlSink(args.alerts_path))
+        if args.alerts_webhook:
+            sinks.append(WebhookSink(
+                args.alerts_webhook,
+                retries=args.alerts_webhook_retries,
+                backoff_s=args.alerts_webhook_backoff_s))
+        engine = AlertEngine(default_stream_rules(), sinks,
+                             history=history)
     try:
         stream = StreamLoop(loop, tenants, cycle_budget=args.cycle_budget,
                             max_wait_s=args.max_wait_ms / 1e3,
                             events_path=args.events_path,
-                            events_ring=args.events_ring, history=history,
+                            events_ring=args.events_ring, alerts=engine,
+                            alerts_interval_s=args.alerts_interval_s,
+                            history=history,
                             resident=args.resident,
                             resident_max_windows=args.resident_max_windows,
                             adapt_weights=args.adapt_weights)
@@ -958,8 +1041,12 @@ def serve_main(argv=None) -> int:
         # --resident on with an exported artifact, as JAX refuses it.
         print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
         return 2
+    if engine is not None:
+        engine.add_exposition(stream.metrics_text)
     sampler = None
-    if history is not None:
+    if history is not None and engine is None:
+        # With the alert engine on, every evaluation already records a
+        # snapshot; only an alert-less front end needs its own sampler.
         from dasmtl_torch.obs.history import HistorySampler
 
         sampler = HistorySampler(history, stream.metrics_text,
@@ -979,7 +1066,8 @@ def serve_main(argv=None) -> int:
           f" windows into {executor.source} on {device} "
           f"({'resident' if stream.resident_enabled else 'host'} data "
           f"plane) on http://{host}:{port} (GET /events, /healthz, "
-          f"/readyz, /stats, /metrics, /query); SIGTERM drains",
+          f"/readyz, /stats, /metrics, /query); "
+          f"alerts={'on' if engine is not None else 'off'}; SIGTERM drains",
           file=sys.stderr)
     stop = threading.Event()
     install_signal_handlers(loop, on_drain=lambda _s: stop.set())
@@ -994,6 +1082,9 @@ def serve_main(argv=None) -> int:
     http_t.join(timeout=10.0)
     stream.close()
     loop.close()
+    for sink in (engine.sinks if engine is not None else ()):
+        if hasattr(sink, "close"):
+            sink.close()
     stats = stream.stats()
     total_sub = sum(t["submitted"] for t in stats["tenants"].values())
     total_shed = sum(t["shed"] for t in stats["tenants"].values())

@@ -28,7 +28,8 @@ them after the same step (``DataParallelStep.stop_agreed``).
 ``fit`` arms, as ``dasmtl/train/loop.py:160-175, 470-520, 720-745`` do:
 the SAN202 sanitizer and the SAN201 replica monitor (``--sanitize``), the
 step guards (``--tracing_guards``), NaN watching (``--guard_nan_check``,
-``--debug_nans``) and the heartbeat (``--obs_heartbeat_s``).  It ends with
+``--debug_nans``) and the heartbeat (``--obs_heartbeat_s``) with its
+anomaly rules (``--obs_alerts``, ``HeartbeatWatch``).  It ends with
 one ``{"kind": "summary"}`` record in ``metrics.jsonl``: every rank's
 kernel launches and the guards' and sanitizers' summaries.
 
@@ -93,15 +94,6 @@ from dasmtl_torch.train.optim import stepped_lr
 from dasmtl_torch.train.state import TrainState
 from dasmtl_torch.train.steps import (ScanTrainStep, make_eval_step,
                                       make_gather_eval_step, make_train_step)
-
-#: Printed when the heartbeat arms: JAX arms its ``HeartbeatWatch`` too
-#: (``dasmtl/train/loop.py:495-512``, on by ``--obs_alerts``' default),
-#: whose rules the port does not have yet.
-HEARTBEAT_ALERTS_NOTICE = (
-    "[heartbeat] the heartbeat's alert rules (JAX --obs_alerts: MFU drop "
-    "/ samples-per-s stall -> metrics/alerts.jsonl) are not run yet: "
-    "ROADMAP.md queue 1 item 6's remainder, the alert engine")
-
 
 def resident_eval_outputs(gather_eval_step, state, data,
                           indices: np.ndarray, distance: np.ndarray,
@@ -228,6 +220,10 @@ class Trainer:
         self.guards: Optional[StepGuards] = None
         self._nan_watch: Optional[NanWatch] = None
         self._heartbeat: Optional[Heartbeat] = None
+        # With cfg.obs_alerts, every emitted heartbeat record runs through
+        # a HeartbeatWatch -> AlertEngine tick (MFU drop and samples/s
+        # stall against the run's own median).
+        self._hb_watch = None  # Optional[dasmtl_torch.obs.HeartbeatWatch]
         self._hb_h2d_s = 0.0  # cumulative seconds spent in _place
         self._first_batch: Optional[Dict[str, torch.Tensor]] = None
         self._assembler: Optional[BatchAssembler] = None
@@ -634,8 +630,10 @@ class Trainer:
         if self._heartbeat is not None:
             # Fed here because the window was just read back: the
             # heartbeat adds no device sync of its own.
-            self._heartbeat.observe(epoch=epoch, step=step_in_epoch,
-                                    samples=n, elapsed_s=elapsed)
+            hb_rec = self._heartbeat.observe(epoch=epoch, step=step_in_epoch,
+                                             samples=n, elapsed_s=elapsed)
+            if hb_rec is not None and self._hb_watch is not None:
+                self._hb_watch.observe(hb_rec)
 
     # -- guards, sanitizers, heartbeat -----------------------------------------
     def _step_guard(self, n: int = 1):
@@ -698,7 +696,24 @@ class Trainer:
         print(f"[heartbeat] armed: every {self.cfg.obs_heartbeat_s:g}s -> "
               f"{self._heartbeat.out_path} (MFU vs peak {peak:.3g} "
               f"FLOP/s, {peak_source})")
-        print(HEARTBEAT_ALERTS_NOTICE)
+        if self.cfg.obs_alerts:
+            from dasmtl_torch.obs.alerts import (AlertEngine, HeartbeatWatch,
+                                                 JsonlSink, WebhookSink,
+                                                 default_heartbeat_rules)
+
+            alerts_path = os.path.join(self.metrics_dir, "alerts.jsonl")
+            sinks: list = [JsonlSink(alerts_path)]
+            if self.cfg.obs_alerts_webhook:
+                sinks.append(WebhookSink(
+                    self.cfg.obs_alerts_webhook,
+                    retries=self.cfg.obs_alerts_webhook_retries,
+                    backoff_s=self.cfg.obs_alerts_webhook_backoff_s))
+            self._hb_watch = HeartbeatWatch(
+                AlertEngine(default_heartbeat_rules(), sinks))
+            print(f"[heartbeat] anomaly rules armed: MFU drop >30% / "
+                  f"samples-per-s stall vs run median -> {alerts_path}"
+                  + (f" + webhook {self.cfg.obs_alerts_webhook}"
+                     if self.cfg.obs_alerts_webhook else ""))
 
     def run_summary(self) -> Dict[str, Any]:
         """This rank's kernel launches and guard / sanitizer summaries."""
@@ -713,6 +728,8 @@ class Trainer:
             "heartbeat": ({"emitted": self._heartbeat.emitted,
                            "cost_s": self._heartbeat.cost_s}
                           if self._heartbeat else None),
+            "alerts": (self._hb_watch.engine.stats()
+                       if self._hb_watch else None),
         }
 
     def _log_summary(self) -> None:
@@ -781,7 +798,10 @@ class Trainer:
         finally:
             if self._heartbeat is not None:
                 # A run shorter than the cadence still leaves one line.
-                self._heartbeat.finish(epoch=self.state.epoch, step=-1)
+                hb_rec = self._heartbeat.finish(epoch=self.state.epoch,
+                                                step=-1)
+                if hb_rec is not None and self._hb_watch is not None:
+                    self._hb_watch.observe(hb_rec)
             if self._nan_watch is not None:
                 self._nan_watch.remove()
                 self._nan_watch = None

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from dasmtl_torch.models.registry import ModelSpec
-from dasmtl_torch.ops import _build, capture_section, launch_counters
+from dasmtl_torch.ops import (_build, capture_section, launch_counters,
+                               replay_section)
 from dasmtl_torch.ops.batch_gather import batch_gather, check_plan
 from dasmtl_torch.train.losses import mixed_label
 from dasmtl_torch.train.optim import set_lr
@@ -415,7 +416,8 @@ class ScanTrainStep:
         g = self._graphs.get(k) or self._capture(states, k)
         g.idx.copy_(idx, non_blocking=True)
         g.weight.copy_(weight, non_blocking=True)
-        g.graph.replay()
+        with replay_section():
+            g.graph.replay()
         for c, n in g.launches.items():
             c.add(n)
         return g.metrics.clone()

@@ -28,8 +28,11 @@ observability slice on the card: a ``torch.profiler`` capture holding the
 kernels of graph replays by name (4 gates + 1 decode a replay of model A,
 1 int8_dot + 1 decode of model C int8), the serve front end's trace
 chains and ``/metrics`` over the graph pool, and ``train --profile_dir``
-on the resident path; and the router selftest over two replica
-processes on the card.
+on the resident path; the router selftest over two replica
+processes on the card; profiler captures started and stopped beside
+graph replays on another thread (neither stalls); and the alert engine's
+live leg (``chip_smoke.py`` phase 16b), whose events on the synthetic
+clock equal its CPU run's.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -1943,3 +1946,70 @@ def test_router_selftest_on_the_card(cuda):
     assert report["dropped"] == 0 and report["closed_to_accepted"] == 0
     assert report["evictions"] >= 1 and report["rollout"]["state"] == "done"
     assert report["survivor_stats"]["post_warmup_compiles"] == 0
+
+
+def test_alert_leg_events_on_the_card_equal_the_cpu_s(cuda, tmp_path,
+                                                      monkeypatch):
+    """``chip_smoke.py``'s phase 16 live leg (model A on ``init_scaled``
+    weights at 100x250, the resident plane, 4 fibers, one overdriven,
+    ``default_stream_rules()`` into a JSONL and a webhook sink) on the card
+    and on the CPU: on the synthetic clock the two runs give the same alert
+    events, and the same ones at both sinks."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "ALERTS_DIR", str(tmp_path))
+    legs = {dev: chip_smoke.alert_leg(dev) for dev in ("cuda", "cpu")}
+    for leg in legs.values():
+        assert leg["jsonl"] == leg["received"]
+        assert leg["webhook"]["failed"] == 0
+    card, cpu = legs["cuda"]["jsonl"], legs["cpu"]["jsonl"]
+    assert card == cpu
+    assert [e["rule"] for e in card].count("stream_shed_burn") == 1
+    assert any(e["rule"] == "stream_track_open" for e in card)
+
+
+def test_profiler_start_stop_beside_graph_replays(cuda, tmp_path):
+    """Profiler captures started and stopped again and again on one thread
+    while another replays a serve bucket's CUDA graph: both go on (a
+    replay's launch and a start or stop wait for each other in
+    ``ops.profiler_section``; CUPTI's start or stop beside a graph launch
+    deadlocked both), and the replays answer as the eager forward."""
+    import threading
+
+    from dasmtl_torch.obs.profiler import prime_torch_profiler, torch_capture
+
+    made = [InferExecutor.from_fresh_init("MTL", (4,), (52, 64), 0,
+                                          torch.device("cuda"), eager=eager)
+            for eager in (False, True)]
+    for ex in made:
+        ex.warmup()
+    prime_torch_profiler()
+    x = np.random.default_rng(0).standard_normal(
+        (4, 52, 64, 1)).astype(np.float32)
+    want, _ = made[1].run(x)
+    done, errors = threading.Event(), []
+
+    def captures():
+        try:
+            for i in range(40):
+                torch_capture(str(tmp_path / f"c{i % 2}"), 0.005)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+        finally:
+            done.set()
+
+    t = threading.Thread(target=captures, daemon=True)
+    t.start()
+    replays = 0
+    while not done.is_set():
+        got, _ = made[0].run(x)
+        replays += 1
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors and replays > 0
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])

@@ -272,10 +272,14 @@ def _trainer(tmp_path, name, train_src, val_src, world=None, spec="MTL",
 
 def test_heartbeat_says_its_alert_rules_are_not_run(tmp_path, capsys):
     """JAX arms its heartbeat alert rules with the heartbeat (its
-    ``--obs_alerts`` defaults on); the port has no alert engine yet and
-    says so when the heartbeat arms, naming the item."""
+    ``--obs_alerts`` defaults on), and so does the port: the armed line,
+    then every heartbeat record through ``HeartbeatWatch``, whose events
+    land in ``metrics/alerts.jsonl``.  A planted stall after four steady
+    records fires ``train_samples_stall`` there; ``--no-obs_alerts`` arms
+    no watch."""
+
     from dasmtl.config import Config as JaxConfig
-    from dasmtl_torch.train.loop import HEARTBEAT_ALERTS_NOTICE
+    from dasmtl_torch.obs.alerts import default_heartbeat_rules
 
     assert JaxConfig().obs_alerts is True
     train, val = ArraySource(*_arrays(8, 1)), ArraySource(*_arrays(4, 2))
@@ -283,8 +287,24 @@ def test_heartbeat_says_its_alert_rules_are_not_run(tmp_path, capsys):
     trainer._arm_heartbeat()
     out = capsys.readouterr().out
     assert "[heartbeat] armed: every 1s" in out
-    assert HEARTBEAT_ALERTS_NOTICE in out
-    assert "item 6's remainder" in HEARTBEAT_ALERTS_NOTICE
+    path = os.path.join(trainer.metrics_dir, "alerts.jsonl")
+    assert f"[heartbeat] anomaly rules armed: MFU drop >30% / " \
+           f"samples-per-s stall vs run median -> {path}" in out
+    watch = trainer._hb_watch
+    assert tuple(watch.engine.rules) == default_heartbeat_rules()
+    for i, sps in enumerate((100.0, 101.0, 99.0, 100.0, 5.0)):
+        watch.observe({"mfu": 0.5, "samples_per_s": sps}, now=float(i))
+    with open(path) as f:
+        events = [json.loads(line) for line in f]
+    assert [(e["kind"], e["rule"]) for e in events] == \
+        [("firing", "train_samples_stall")]
+    assert trainer.run_summary()["alerts"]["evaluations"] == 5
+    off = _trainer(tmp_path, "hb_off", train, val, obs_heartbeat_s=1.0,
+                   obs_alerts=False)
+    off._arm_heartbeat()
+    assert off._hb_watch is None and "anomaly rules" not in \
+        capsys.readouterr().out
+    assert not os.path.exists(os.path.join(off.metrics_dir, "alerts.jsonl"))
 
 
 def test_trainer_uses_device_path_when_forced(tmp_path, capsys):
@@ -294,11 +314,14 @@ def test_trainer_uses_device_path_when_forced(tmp_path, capsys):
                    steps_per_dispatch=2, obs_heartbeat_s=1e-3)
     dev.fit()
     # The heartbeat's FLOP count takes the batch shapes from the resident
-    # data.
+    # data; its alert watch (on by default) saw every record.
     with open(os.path.join(dev.metrics_dir, "heartbeat.jsonl")) as f:
-        beat = json.loads(f.readline())
+        beats = [json.loads(line) for line in f]
+    beat = beats[0]
     assert beat["flops_per_step"] > 0 and beat["loader_blocked_acquires"] \
         == 0
+    assert dev.run_summary()["alerts"]["evaluations"] == len(beats) == \
+        dev._heartbeat.emitted
     assert dev._device_data is not None and dev._val_device is not None
     out = capsys.readouterr().out
     assert ("[device-data] training set resident on device: n=14, "

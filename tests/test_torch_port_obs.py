@@ -35,7 +35,7 @@ from dasmtl_torch import obs
 from dasmtl_torch.obs import history, registry, trace
 from dasmtl_torch.obs.profiler import (TRACE_FILE, ProfilerHook,
                                        torch_capture)
-from dasmtl_torch.ops import capture_section
+from dasmtl_torch.ops import capture_section, replay_section
 from dasmtl_torch.serve.batcher import MicroBatcher
 from dasmtl_torch.serve.executor import InflightBatch
 from dasmtl_torch.serve.metrics import OUTCOMES, ServeMetrics
@@ -592,6 +592,38 @@ def test_torch_capture_waits_for_a_graph_capture_to_finish(tmp_path):
         t.start()
         assert not done.wait(0.3)
         assert not os.path.exists(os.path.join(out, TRACE_FILE))
+    t.join(timeout=60)
+    assert done.is_set()
+    with open(os.path.join(out, TRACE_FILE)) as f:
+        assert "traceEvents" in json.load(f)
+
+
+def test_torch_capture_waits_for_a_graph_replay_to_launch(tmp_path):
+    """The profiler's start and stop wait while another thread is inside
+    ``replay_section`` (a CUDA graph's launch: CUPTI's start or stop beside
+    it deadlocked both on the card), and a replay launched while a
+    capture runs waits only for the start or stop, not the capture."""
+    out = str(tmp_path / "c")
+    done = threading.Event()
+
+    def run():
+        torch_capture(out, 1.0)
+        done.set()
+
+    with replay_section():
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        assert not done.wait(0.3)
+        assert not os.path.exists(os.path.join(out, TRACE_FILE))
+    time.sleep(0.1)  # the capture starts, then sleeps its 1 s
+    launched = threading.Event()
+
+    def replay():
+        with replay_section():
+            launched.set()
+
+    threading.Thread(target=replay, daemon=True).start()
+    assert launched.wait(10) and not done.is_set()
     t.join(timeout=60)
     assert done.is_set()
     with open(os.path.join(out, TRACE_FILE)) as f:

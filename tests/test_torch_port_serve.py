@@ -301,11 +301,24 @@ def test_cli_refuses_what_is_not_ported(argv, said, tmp_path, monkeypatch,
     assert said in capsys.readouterr().err
 
 
+#: How long the serve CLI gets to answer ``/readyz`` and install its drain
+#: handler: ~3 s alone on the CPU, far more beside a loaded test run's
+#: other workers.
+READY_DEADLINE_S = 120.0
+
+
+class _ReadyzMissed(Exception):
+    pass
+
+
 def _serve_until_sigterm(argv, tmp_path) -> int:
     """Run the serve CLI in this process on one intra-op thread; once
-    ``/readyz`` answers 200, SIGTERM the process (the CLI's handler
-    drains); its exit code.  The signal handlers it installs are put
-    back."""
+    ``/readyz`` answers 200 and the CLI has installed its SIGTERM handler,
+    SIGTERM the process (the handler drains); its exit code.  A SIGTERM
+    between the two would take the process down, so until the CLI's
+    handler is in place this helper's own stands: if ``/readyz`` misses
+    its deadline, the signal it then sends fails the test naming the
+    missed ``/readyz``.  The signal handlers are put back."""
     import os
     import signal
     import time
@@ -313,32 +326,47 @@ def _serve_until_sigterm(argv, tmp_path) -> int:
     port_file = tmp_path / "port"
     prev = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
     threads = torch.get_num_threads()
+    missed = []
+
+    def not_ready(_signum, _frame):
+        raise _ReadyzMissed
 
     def stop_when_ready():
-        deadline = time.monotonic() + 60
+        deadline = time.monotonic() + READY_DEADLINE_S
         while time.monotonic() < deadline:
             try:
                 port = port_file.read_text().strip()
-                if port and _call(f"http://127.0.0.1:{port}/readyz")[0] \
-                        == 200:
-                    break
+                ready = bool(port) and _call(
+                    f"http://127.0.0.1:{port}/readyz")[0] == 200
             except (OSError, ValueError):
-                pass
+                ready = False
+            if ready and signal.getsignal(signal.SIGTERM) is not not_ready:
+                break
             time.sleep(0.05)
+        else:
+            missed.append(True)
         os.kill(os.getpid(), signal.SIGTERM)
 
     torch.set_num_threads(1)
+    signal.signal(signal.SIGTERM, not_ready)
     stopper = threading.Thread(target=stop_when_ready, daemon=True)
     stopper.start()
     try:
-        return serve_main(argv + ["--window", "52x64", "--buckets", "1,2",
+        code = serve_main(argv + ["--window", "52x64", "--buckets", "1,2",
                                   "--port", "0", "--port_file",
                                   str(port_file), "--device", "cpu"])
+    except _ReadyzMissed:
+        code = None
     finally:
-        stopper.join(timeout=70)
+        stopper.join(timeout=READY_DEADLINE_S + 10)
         for s, handler in prev.items():
             signal.signal(s, handler)
         torch.set_num_threads(threads)
+    if missed:
+        pytest.fail(f"the serve CLI's /readyz did not answer 200 (with its "
+                    f"SIGTERM handler installed) within {READY_DEADLINE_S:g}"
+                    f" s; SIGTERM sent then")
+    return code
 
 
 @pytest.mark.parametrize("argv, item", [

@@ -289,14 +289,24 @@ def test_slo_breach_fires_one_capture(pool, tmp_path):
 
 # -- the serve CLI -------------------------------------------------------------
 
+class _ReadyzMissed(Exception):
+    pass
+
+
 def _cli_until_ready(main, argv, port_file, check):
-    """Run ``main(argv)`` in this process; once ``/readyz`` answers 200,
-    run ``check(url)`` and SIGTERM the process (the CLI drains).  Returns
-    the exit code and ``check``'s result; the signal handlers it installs
-    are put back."""
+    """Run ``main(argv)`` in this process; once ``/readyz`` answers 200
+    and the CLI has installed its SIGTERM handler, run ``check(url)`` and
+    SIGTERM the process (the CLI drains).  Until the CLI's handler is in
+    place this helper's own stands, so a ``/readyz`` missing its deadline
+    fails the test naming it instead of taking the process down.  Returns
+    the exit code and ``check``'s result; the signal handlers are put
+    back."""
     sigs = (signal.SIGTERM, signal.SIGINT, signal.SIGUSR2)
     prev = {s: signal.getsignal(s) for s in sigs}
     out = {}
+
+    def not_ready(_signum, _frame):
+        raise _ReadyzMissed
 
     def drive():
         deadline = time.monotonic() + 90
@@ -304,24 +314,36 @@ def _cli_until_ready(main, argv, port_file, check):
             while time.monotonic() < deadline:
                 try:
                     port = port_file.read_text().strip()
-                    if port and _call(f"http://127.0.0.1:{port}/readyz"
-                                      )[0] == 200:
-                        out["check"] = check(f"http://127.0.0.1:{port}")
-                        break
+                    ready = bool(port) and _call(
+                        f"http://127.0.0.1:{port}/readyz")[0] == 200
                 except (OSError, ValueError):
-                    pass
+                    ready = False
+                if ready and signal.getsignal(signal.SIGTERM) \
+                        is not not_ready:
+                    out["check"] = check(f"http://127.0.0.1:{port}")
+                    break
                 time.sleep(0.05)
+        except Exception as exc:  # noqa: BLE001 — raised after the drain
+            out["error"] = exc
         finally:
             os.kill(os.getpid(), signal.SIGTERM)
 
+    signal.signal(signal.SIGTERM, not_ready)
     t = threading.Thread(target=drive, daemon=True)
     t.start()
     try:
         rc = main(argv + ["--port", "0", "--port_file", str(port_file)])
+    except _ReadyzMissed:
+        rc = None
     finally:
         t.join(timeout=100)
         for s, handler in prev.items():
             signal.signal(s, handler)
+    if "error" in out:
+        raise out["error"]
+    if "check" not in out:
+        pytest.fail("the CLI's /readyz did not answer 200 (with its "
+                    "SIGTERM handler installed) within 90 s")
     return rc, out.get("check")
 
 
@@ -511,6 +533,8 @@ def test_stream_query_and_metrics_carry_the_serve_families(with_history):
 
 
 def test_stream_serve_cli_history_answers_query(tmp_path, capsys):
+    """``--history`` without the alert engine: a ``HistorySampler``
+    snapshots the exposition every ``--history_interval_s``."""
     def check(url):
         time.sleep(0.5)
         return (json.loads(_call(url + "/query")[2]),
@@ -519,13 +543,37 @@ def test_stream_serve_cli_history_answers_query(tmp_path, capsys):
     rc, (query, fams) = _cli_until_ready(
         cli.main, ["stream", "serve", "--synthetic", "1", "--fresh_init",
                    "--window", "52x64", "--buckets", "1,2", "--device",
-                   "cpu", "--history", "5", "--history_interval_s", "0.1"],
+                   "cpu", "--history", "5", "--history_interval_s", "0.1",
+                   "--no-alerts"],
         tmp_path / "port", check)
     assert rc == 0 and "drained=clean" in capsys.readouterr().err
     assert query["capacity"] == 5 and query["snapshots"] >= 2
     assert "dasmtl_stream_windows_total" in query["families"]
     assert "dasmtl_serve_requests_total" in query["families"]
     assert set(REQUIRED_METRIC_FAMILIES) <= set(fams)
+
+
+def test_stream_serve_cli_alert_evaluations_feed_query(tmp_path, capsys):
+    """With the alert engine on (JAX's default), its evaluations record
+    the history behind ``/query`` (``dasmtl/stream/live.py:1269-1279``):
+    no sampler runs, and the snapshots follow ``--alerts_interval_s``."""
+    def check(url):
+        time.sleep(0.5)
+        return (json.loads(_call(url + "/query")[2]),
+                json.loads(_call(url + "/stats")[2]))
+
+    rc, (query, stats) = _cli_until_ready(
+        cli.main, ["stream", "serve", "--synthetic", "1", "--fresh_init",
+                   "--window", "52x64", "--buckets", "1,2", "--device",
+                   "cpu", "--history", "5", "--history_interval_s", "60",
+                   "--alerts_interval_s", "0.1"],
+        tmp_path / "port", check)
+    assert rc == 0 and "drained=clean" in capsys.readouterr().err
+    assert query["capacity"] == 5 and query["snapshots"] >= 2
+    assert "dasmtl_stream_windows_total" in query["families"]
+    alerts = stats["alerts"]
+    assert alerts["rules"] == 1 and alerts["evaluations"] >= \
+        query["snapshots"] and alerts["source_errors"] == 0
 
 
 # -- train / test --------------------------------------------------------------
@@ -615,11 +663,24 @@ def test_train_config_refuses_what_jax_refuses(kw):
     ["--obs_alerts_interval_s", "2"]],
     ids=["alerts_off", "webhook", "interval"])
 def test_train_cli_alert_flags_exit_2_naming_the_alert_engine(argv, capsys):
-    """The alert engine is item 6's remainder: its flags pass at JAX's
-    defaults and exit 2 otherwise."""
-    assert parse_train_args(["--obs_alerts"]).model == "MTL"
-    with pytest.raises(SystemExit) as info:
-        parse_train_args(argv)
-    assert info.value.code == 2
-    err = capsys.readouterr().err
-    assert "item 6's remainder, the alert engine" in err
+    """The alert engine (item 6's remainder) is ported: its flags parse to
+    the JAX CLI's values, into the ``Config`` that ``config.json``
+    records, and what JAX's ``Config`` refuses the port refuses with
+    JAX's message."""
+    assert parse_train_args(["--obs_alerts"]).obs_alerts is True
+    got, want = parse_train_args(argv), jax_parse_train_args(argv)
+    recorded = json.loads(got.to_json())
+    for name in ("obs_alerts", "obs_alerts_interval_s", "obs_alerts_webhook",
+                 "obs_alerts_webhook_retries",
+                 "obs_alerts_webhook_backoff_s"):
+        assert getattr(got, name) == getattr(want, name) == recorded[name]
+    assert "not yet ported" not in capsys.readouterr().err
+    bad = {"--no-obs_alerts": {"obs_alerts_webhook_retries": -1},
+           "--obs_alerts_webhook": {"obs_alerts_webhook_backoff_s": -0.5},
+           "--obs_alerts_interval_s": {"obs_alerts_interval_s": 0.0}}[
+        argv[0]]
+    with pytest.raises(ValueError) as jax_info:
+        JaxConfig(**bad)
+    with pytest.raises(ValueError) as info:
+        Config(**bad)
+    assert str(info.value) == str(jax_info.value)

@@ -9,13 +9,16 @@
 - The live tier: the oracle soak at the JAX selftest's geometry driven by
   ``run_cycle(now=...)`` through the port's ``StreamLoop`` with the
   resident plane on and off and through the JAX package's: the same track
-  records.  Model A's confidence is 1.0 on both planes, because its heads
+  records, and each package's alert engine (``default_stream_rules()``
+  on the soak's clock) the same alert events.  Model A's confidence is 1.0 on both planes, because its heads
   are ``log_probs_0`` / ``log_probs_1`` and never ``log_probs_event``
   (``dasmtl/export.py:188``, ``dasmtl/stream/live.py:599-600``).
 - The copies (feed, windower, tracks) against their sources, and the
   entry points: ``python -m dasmtl_torch.stream`` writes the JAX rows,
   ``... serve`` answers ``/events``, ``/stats``, ``/metrics`` and drains
-  clean on SIGTERM, and what is not ported exits 2 naming its ROADMAP item.
+  clean on SIGTERM, runs JAX's default alerts unless ``--no-alerts``,
+  parses the ``--alerts_*`` flags to JAX's values, and what is not ported
+  exits 2 naming its ROADMAP item.
 """
 
 import csv
@@ -59,7 +62,8 @@ from dasmtl_torch.serve.server import ServeLoop
 from dasmtl_torch.stream import feed, tracks
 from dasmtl_torch.stream.__main__ import main as stream_main
 from dasmtl_torch.stream.live import (REQUIRED_STREAM_METRIC_FAMILIES,
-                                      StreamLoop, StreamTenant)
+                                      StreamLoop, StreamTenant,
+                                      build_serve_parser)
 from dasmtl_torch.stream.offline import stream_predict
 from dasmtl_torch.stream.selftest import _oracle_pool
 from dasmtl_torch.stream.windower import LiveWindower
@@ -241,6 +245,8 @@ def _soak(serve, loop_cls, tenant_cls, sources, cycles=140, **kw):
                for i, src in enumerate(sources)]
     stream = loop_cls(serve, tenants, cycle_budget=48, max_wait_s=0.002,
                       clock=lambda: 0.0, **kw)
+    if kw.get("alerts") is not None:
+        kw["alerts"].add_exposition(stream.metrics_text)
     try:
         for c in range(cycles):
             stream.run_cycle(now=float(c))
@@ -255,7 +261,38 @@ def _soak(serve, loop_cls, tenant_cls, sources, cycles=140, **kw):
         stream.close()
 
 
+class _ListSink:
+    def __init__(self):
+        self.events = []
+
+    def emit(self, event):
+        self.events.append(event)
+
+
+def _alert_engine(mod, rules):
+    """An engine of ``mod`` (either package's ``obs.alerts``) on the
+    soak's fixed clock, its events kept in a list."""
+    return mod.AlertEngine(rules, [_ListSink()], clock=lambda: 0.0)
+
+
+def _alert_events(engine):
+    """The engine's events in a canonical order: the track events of two
+    windows resolved on two threads may reach it in either order."""
+    return sorted(engine.sinks[0].events,
+                  key=lambda e: (e["rule"], json.dumps(e["labels"]),
+                                 e["t"], e["kind"], e["description"]))
+
+
 def test_oracle_soak_matches_jax_on_both_planes():
+    """The JAX selftest's soak through both packages' stream tiers, with
+    each package's alert engine running its default stream rules on the
+    soak's clock: the same track records and the same alert events (the
+    burn rates at atol 1e-9)."""
+    from dasmtl.obs import alerts as jax_alerts
+    from dasmtl.stream.live import default_stream_rules as jax_rules
+    from dasmtl_torch.obs import alerts
+    from dasmtl_torch.stream.live import default_stream_rules
+
     port_serve = ServeLoop(_oracle_pool(ORACLE_HW, (1, 2, 4, 8), CPU),
                            buckets=(1, 2, 4, 8), max_wait_s=0.002,
                            queue_depth=256).start()
@@ -264,12 +301,16 @@ def test_oracle_soak_matches_jax_on_both_planes():
                              queue_depth=256)
     jax_serve.start()
     try:
+        jax_engine = _alert_engine(jax_alerts, jax_rules())
         ref, ref_tenants, _ = _soak(jax_serve, JaxStreamLoop,
-                                    JaxStreamTenant, _soak_sources(jax_feed))
-        runs = {}
+                                    JaxStreamTenant, _soak_sources(jax_feed),
+                                    alerts=jax_engine)
+        runs, engines = {}, {}
         for resident in ("off", "on"):
+            engines[resident] = _alert_engine(alerts, default_stream_rules())
             runs[resident] = _soak(port_serve, StreamLoop, StreamTenant,
-                                   _soak_sources(feed), resident=resident)
+                                   _soak_sources(feed), resident=resident,
+                                   alerts=engines[resident])
     finally:
         port_serve.close()
         jax_serve.drain(timeout=10.0)
@@ -293,6 +334,23 @@ def test_oracle_soak_matches_jax_on_both_planes():
             assert lane.windows_dispatched == tenants[0].submitted
             assert stream.stats()["tenants"]["f0"]["resident"][
                 "dispatches"] == lane.dispatches > 0
+    want_alerts = _alert_events(jax_engine)
+    tracks = [e for e in want_alerts if e["kind"] == "event"]
+    assert len(tracks) == sum(r["kind"] in ("open", "close") for r in ref)
+    burns = [e for e in want_alerts if e["rule"] == "stream_shed_burn"]
+    assert [(e["kind"], e["labels"]) for e in burns] == \
+        [("firing", {"fiber": "f2"})]
+    for resident, engine in engines.items():
+        got = _alert_events(engine)
+        assert [{k: v for k, v in e.items() if k != "value"}
+                for e in got] == \
+            [{k: v for k, v in e.items() if k != "value"}
+             for e in want_alerts], resident
+        np.testing.assert_allclose([e["value"] for e in got],
+                                   [e["value"] for e in want_alerts],
+                                   rtol=0, atol=1e-9)
+        assert runs[resident][2].stats()["alerts"]["evaluations"] == \
+            jax_engine.evaluations == 140
 
 
 def _spy_confidence(tenants):
@@ -423,15 +481,17 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
     (["--precision", "int8"], "item 10"),
     (["--fleet_worker"], "item 1"),
     (["--selftest"], "item 1"),
+    # The alert engine's flags (item 6) are ported: each parses to JAX's
+    # value.
     (["--alerts"], "item 6"),
     (["--conc_lockdep"], "item 3"),
     (["--mem_track"], "item 3"),
-    # JAX's flags the parser does not declare, refused by name prefix.
     (["--alerts_interval_s", "2"], "item 6"),
     (["--alerts_path", "alerts.jsonl"], "item 6"),
     (["--alerts_webhook=http://127.0.0.1:9/hook"], "item 6"),
     (["--alerts_webhook_retries", "1"], "item 6"),
     (["--alerts_webhook_backoff_s", "0.5"], "item 6"),
+    # JAX's flags the parser does not declare, refused by name prefix.
     (["--selftest_cycles", "40"], "item 1"),
     (["--selftest_devices", "1"], "item 1"),
     (["--selftest_fibers", "2"], "item 1"),
@@ -442,11 +502,22 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
     (["--mem_dump_path", "mem.json"], "item 3"),
 ])
 def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys,
-                                                     tmp_path):
+                                                     tmp_path, monkeypatch):
     """What the stream CLI does not port exits 2 naming its item;
     ``--devices`` (item 4) is ported: a pool of 1 on the CPU streams and
-    drains clean."""
+    drains clean; the alert engine's flags (item 6's remainder) are
+    ported: each parses to the value JAX's ``stream serve`` parses it
+    to."""
     argv = ["stream", "serve", "--synthetic", "1", "--fresh_init", *extra]
+    if extra[0].startswith("--alerts"):
+        want = _jax_stream_serve_args(argv[2:], monkeypatch)
+        got = build_serve_parser().parse_args(argv[2:])
+        for name in ("alerts", "alerts_interval_s", "alerts_path",
+                     "alerts_webhook", "alerts_webhook_retries",
+                     "alerts_webhook_backoff_s"):
+            assert (getattr(got, name), type(getattr(got, name))) == \
+                (getattr(want, name), type(getattr(want, name))), name
+        return
     if extra[0] == "--devices":
         assert _stream_until_sigterm(argv, tmp_path) == 0
         err = capsys.readouterr().err
@@ -457,59 +528,133 @@ def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys,
     assert "not yet ported" in err and item in err
 
 
+class _Parsed(Exception):
+    pass
+
+
+def _jax_stream_serve_args(argv, monkeypatch):
+    """The namespace JAX's ``stream serve`` parses ``argv`` into (its
+    parser is built inside ``serve_main``: stopped right after parsing)."""
+    import argparse
+
+    from dasmtl.stream.live import serve_main as jax_serve_main
+
+    real = argparse.ArgumentParser.parse_args
+    seen = {}
+
+    def parse_and_stop(self, args=None, namespace=None):
+        seen["args"] = real(self, args, namespace)
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args",
+                        parse_and_stop)
+    with pytest.raises(_Parsed):
+        jax_serve_main(argv)
+    monkeypatch.undo()
+    return seen["args"]
+
+
 @pytest.mark.parametrize("alerts", [[], ["--no-alerts"]])
-def test_stream_serve_says_jax_s_default_alerts_are_not_run(alerts, capsys):
+def test_stream_serve_says_jax_s_default_alerts_are_not_run(alerts, capsys,
+                                                            tmp_path):
     """JAX's ``stream serve`` runs its default stream alert rules unless
-    ``--no-alerts``; the port does not have them, says so in one startup
-    line naming the item, and keeps quiet once alerts are declined."""
+    ``--no-alerts``, and so does the port's: ``default_stream_rules()``
+    with a stderr sink (the startup line says ``alerts=on``), and with
+    ``--no-alerts`` no engine at all (``alerts=off``, no ``alerts`` block
+    in ``/stats``)."""
     from dasmtl.config import Config as JaxConfig
-    from dasmtl_torch.stream.live import ALERTS_NOTICE
+    from dasmtl_torch.stream import live
 
     assert JaxConfig().obs_alerts is True
-    # Two model sources: refused right after the startup line.
-    with pytest.raises(SystemExit) as info:
-        cli.main(["stream", "serve", "--synthetic", "1", "--fresh_init",
-                  "--model_path", "ckpt", "--device", "cpu", *alerts])
-    assert info.value.code == 2
+    built = []
+    real = live.AlertEngine
+
+    class Spy(real):
+        def __init__(self, rules, sinks, **kw):
+            super().__init__(rules, sinks, **kw)
+            built.append(self)
+
+    live.AlertEngine = Spy
+    try:
+        assert _stream_until_sigterm(["stream", "serve", "--synthetic", "1",
+                                      "--fresh_init", *alerts],
+                                     tmp_path) == 0
+    finally:
+        live.AlertEngine = real
     err = capsys.readouterr().err
-    assert (ALERTS_NOTICE in err) == (not alerts)
-    assert "item 6's remainder" in ALERTS_NOTICE
+    assert "drained=clean" in err
+    if alerts:
+        assert built == [] and "alerts=off" in err
+        return
+    (engine,) = built
+    assert "alerts=on" in err
+    assert tuple(engine.rules) == live.default_stream_rules()
+    assert [type(s).__name__ for s in engine.sinks] == ["StderrSink"]
+    assert engine.evaluations > 0 and engine.source_errors == 0
+
+
+#: How long the stream CLI gets to answer ``/readyz`` and install its
+#: drain handler: seconds alone on the CPU, far more beside a loaded test
+#: run's other workers.
+READY_DEADLINE_S = 120.0
+
+
+class _ReadyzMissed(Exception):
+    pass
 
 
 def _stream_until_sigterm(argv, tmp_path) -> int:
     """Run the stream CLI in this process on one intra-op thread at 52x64;
-    once ``/readyz`` answers 200, SIGTERM the process (the CLI drains);
-    its exit code.  The signal handlers it installs are put back."""
+    once ``/readyz`` answers 200 and the CLI has installed its SIGTERM
+    handler, SIGTERM the process (the CLI drains); its exit code.  Until
+    the CLI's handler is in place this helper's own stands: if ``/readyz``
+    misses its deadline, the signal it then sends fails the test naming
+    the missed ``/readyz``.  The signal handlers are put back."""
     import threading
 
     port_file = tmp_path / "port"
     prev = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
     threads = torch.get_num_threads()
+    missed = []
+
+    def not_ready(_signum, _frame):
+        raise _ReadyzMissed
 
     def stop_when_ready():
-        deadline = time.monotonic() + 60
+        deadline = time.monotonic() + READY_DEADLINE_S
         while time.monotonic() < deadline:
             try:
                 port = port_file.read_text().strip()
-                if port and _ready(f"http://127.0.0.1:{port}"):
-                    break
+                ready = bool(port) and _ready(f"http://127.0.0.1:{port}")
             except OSError:
-                pass
+                ready = False
+            if ready and signal.getsignal(signal.SIGTERM) is not not_ready:
+                break
             time.sleep(0.05)
+        else:
+            missed.append(True)
         os.kill(os.getpid(), signal.SIGTERM)
 
     torch.set_num_threads(1)
+    signal.signal(signal.SIGTERM, not_ready)
     stopper = threading.Thread(target=stop_when_ready, daemon=True)
     stopper.start()
     try:
-        return cli.main(argv + ["--window", "52x64", "--buckets", "1,2",
+        code = cli.main(argv + ["--window", "52x64", "--buckets", "1,2",
                                 "--device", "cpu", "--port", "0",
                                 "--port_file", str(port_file)])
+    except _ReadyzMissed:
+        code = None
     finally:
-        stopper.join(timeout=70)
+        stopper.join(timeout=READY_DEADLINE_S + 10)
         for s, handler in prev.items():
             signal.signal(s, handler)
         torch.set_num_threads(threads)
+    if missed:
+        pytest.fail(f"the stream CLI's /readyz did not answer 200 (with its "
+                    f"SIGTERM handler installed) within {READY_DEADLINE_S:g}"
+                    f" s; SIGTERM sent then")
+    return code
 
 
 @pytest.mark.parametrize("argv,said", [
