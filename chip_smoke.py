@@ -70,10 +70,17 @@ Phases, each fatal on failure (no phase catches its own error):
              appends = chunks flushed, gathers = dispatches, windows/s,
              sample-to-event p50/p99, no post-warmup capture, then 20
              cycles under the profiler;
-             (d) the oracle soak at the JAX selftest's 64x64 geometry on
-             both planes: the same open/close records, every planted event
-             (but the 2-window blip, which must debounce away) one closed
-             track of its type, event_prob_q launched;
+             (d) the stream soak, ``run_selftest(device="cuda",
+             resident=..., clock=...)``, at the JAX selftest's 64x64
+             geometry on both planes, its clock stepping 0.125 s a cycle
+             (the loop's, the engine's and ``run_cycle``'s time): passing
+             (its six invariants, the HTTP front end, the webhook), the
+             per-tenant counts of JAX's soak (f0 837/0/0/3, f1 837/0/2/2,
+             f2 2240/1117/0/0: submitted/shed/rejected/closes), the same
+             open/close records on both planes (read from each report's
+             events JSONL), every planted event (but the 2-window blip,
+             which must debounce away) one closed track of its type, the
+             overlap merged on tiles [1, 2], event_prob_q launched;
 8. precision — (a) int8_dot against its plain version bit for bit at
              every B from 1 to 33 (K 2048, N 32) with all-NaN, one-NaN,
              +-Inf and zero rows, then timed at B = 1, 8 and 32, also
@@ -120,9 +127,10 @@ Phases, each fatal on failure (no phase catches its own error):
              clean, leaf_digest launches = checks x ranks (the ranks'
              counts, fresh processes, read from the run's summary), no
              post-warmup compile, heartbeat records with MFU; one dp2
-             ``global`` step held against a dp1 step on the concatenated
-             batch and one dp2 ``per_replica`` step against the same two
-             ranks on the CPU, at the one-step tolerances; (c) ``python -m
+             ``global`` step (16 rows per replica, 4 padded) held against
+             a dp1 step on the concatenated batch and one dp2
+             ``per_replica`` step against the same two ranks on the CPU,
+             at the one-step tolerances; (c) ``python -m
              dasmtl_torch.sanitize --self-test``: the NaN blamed on the
              poisoned convolution, grad_desync and the forked seed caught
              by SAN201; (d) MTL-f32-dp1 and MTL-f32-dp2 twice each with
@@ -286,10 +294,22 @@ Phases, each fatal on failure (no phase catches its own error):
              of ``GET /events`` among them; (d) phase 9b's dp run: rank
              0's ``metrics/alerts.jsonl`` holds only events of
              ``default_heartbeat_rules()``, its watch evaluated once per
-             heartbeat record, rank 1 runs none.
+             heartbeat record, rank 1 runs none;
+17. worker — the fleet worker: ``python -m dasmtl_torch.stream serve
+             --fleet_worker --fresh_init --window 100x250 --channels 400
+             --device cuda`` in process, started with 0 fibers; over HTTP
+             two fibers assigned from synthetic specs (4 tiles each), a
+             duplicate answered 409 ``exists`` and an unknown release 404
+             ``unknown_fiber``; one fiber released after 64 resolved
+             windows (drained) and re-assigned at the released offset:
+             the reply's ``resume_offset`` and ``/stats``' ``next_origin``
+             equal to it, the fiber windowed on from there on the stride
+             grid; both released; 4 gate + 1 decode launches per batch
+             (a forward replay) over the run, no capture after warmup;
+             SIGTERM drains clean.
 
 Each phase's seconds are printed as one ``[timing] {"device": s, ...,
-"alerts": s, "total": s}`` line (and kept in the ``--out`` report with
+"worker": s, "total": s}`` line (and kept in the ``--out`` report with
 each part's seconds).  Then one JSON line lists every kernel of the port,
 the card's name and power limit follow on a line of their own, and the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -311,6 +331,7 @@ import csv
 import dataclasses
 import functools
 import io
+import itertools
 import json
 import os
 import re
@@ -1808,9 +1829,10 @@ SWEEP_BATCH = 256
 LIVE_FIBERS, LIVE_CHANNELS, LIVE_CHUNK, LIVE_RING = 4, 400, 500, 16384
 LIVE_CYCLES, LIVE_BUDGET = 100, 64
 PROFILED_CYCLES = 20
-#: The oracle soak at the JAX selftest's geometry (selftest.py:137-178).
-ORACLE_HW, ORACLE_CHANNELS, ORACLE_STRIDE = (64, 64), 160, 32
-ORACLE_CYCLES, ORACLE_DUR = 140, 512
+#: The stream soak's geometry (``run_selftest``, JAX selftest.py:137-178)
+#: and its synthetic clock's step.
+ORACLE_HW, ORACLE_STRIDE = (64, 64), 32
+ORACLE_CYCLES, ORACLE_DUR, ORACLE_DT_S = 140, 512, 0.125
 #: Where phases 7b-7d run (the CPU only for rehearsing the script).
 DEV = "cuda"
 
@@ -2354,94 +2376,114 @@ def _live_model_a():
             "resident": runs["on"], "host": runs["off"]}
 
 
-def _oracle_soak(resident: str):
-    from dasmtl_torch.serve.server import ServeLoop
-    from dasmtl_torch.stream.feed import PlantedEvent, SyntheticSource
-    from dasmtl_torch.stream.live import StreamLoop, StreamTenant
-    from dasmtl_torch.stream.selftest import _oracle_pool
+#: The soak's per-tenant (submitted, shed, rejected, track closes), as the
+#: JAX package's ``run_selftest()`` gives them on the CPU.
+SOAK_COUNTS = {"f0": (837, 0, 0, 3), "f1": (837, 0, 2, 2),
+               "f2": (2240, 1117, 0, 0)}
 
-    dur = ORACLE_DUR
-    events = {"f0": (PlantedEvent(1216, dur, 0, 72),
-                     PlantedEvent(3200, dur, 1, 128),
-                     PlantedEvent(5216, dur, 0, 100)),
-              "f1": (PlantedEvent(1600, dur, 1, 32),
-                     PlantedEvent(3616, dur, 0, 32),
-                     PlantedEvent(5600, 32, 0, 72))}
-    sources = [SyntheticSource(ORACLE_CHANNELS, seed=0, events=events["f0"]),
-               SyntheticSource(ORACLE_CHANNELS, seed=1, events=events["f1"],
-                               nan_samples=(3800, 3801), nan_channel=40),
-               SyntheticSource(ORACLE_CHANNELS, seed=2)]
-    executor = _oracle_pool(ORACLE_HW, (1, 2, 4, 8), torch.device(DEV))
-    loop = ServeLoop(executor, buckets=(1, 2, 4, 8), max_wait_s=0.002,
-                     queue_depth=256, inflight=2).start()
-    tenants = [StreamTenant(f"f{i}", src, window=ORACLE_HW,
-                            stride_time=ORACLE_STRIDE, stride_channels=48,
-                            ring_samples=4096,
-                            chunk_samples=256 if i == 2 else 64)
-               for i, src in enumerate(sources)]
-    stream = StreamLoop(loop, tenants, cycle_budget=48, max_wait_s=0.002,
-                        resident=resident, clock=lambda: 0.0)
-    try:
-        _reset_launches()
-        _paced(stream, tenants, ORACLE_CYCLES, now=float)
-        launches = _launches()
-        if not stream.drain(timeout=30.0):
-            raise AssertionError("the oracle soak did not drain")
-        records = [{k: v for k, v in r.items() if k != "t"}
-                   for r in stream.events(100_000)]
-        return tenants, events, records, launches
-    finally:
-        stream.close()
-        loop.close()
+
+def soak_clock():
+    """The soak's synthetic clock: read once a cycle, 0.125 s a step (17.5
+    s over 140 cycles, past the burn rule's 7.5 s long window; exact in
+    binary, so an evaluation every 0.2 s lands on every second cycle)."""
+    return itertools.count(0.0, ORACLE_DT_S).__next__
+
+
+def _soak_closed(report: dict) -> dict:
+    """A soak's open and close records by fiber, read from its events
+    JSONL: ``{fiber: [(kind, track_id, event, onset, end, tiles), ...]}``
+    in the order written."""
+    out = {}
+    with open(report["events_jsonl"], encoding="utf-8") as f:
+        for line in f:
+            r = json.loads(line)
+            if r["kind"] in ("open", "close"):
+                out.setdefault(r["fiber"], []).append(
+                    (r["kind"], r["track_id"], r["event"], r["onset_sample"],
+                     r["end_sample"], tuple(r["tiles"])))
+    return out
 
 
 @_part
 def _live_oracle():
-    """(d) the oracle soak on both planes: same tracks, every planted event
-    one closed track of its type (the 2-window blip debounced away, as in
-    the JAX soak), event_prob_q launched on the resident plane."""
+    """(d) the stream soak (``run_selftest``) at the JAX selftest's 64x64
+    geometry on both planes, on the synthetic clock: passing, JAX's
+    per-tenant counts, every planted event one closed track of its type
+    (the 2-window blip debounced away, the overlap merged on tiles [1, 2]),
+    the same open/close records on both planes, event_prob_q launched on
+    the resident plane."""
+    from dasmtl_torch.stream.feed import PlantedEvent
+    from dasmtl_torch.stream.selftest import run_selftest
+
+    planted = {"f0": (PlantedEvent(1216, ORACLE_DUR, 0, 72),
+                      PlantedEvent(3200, ORACLE_DUR, 1, 128),
+                      PlantedEvent(5216, ORACLE_DUR, 0, 100)),
+               "f1": (PlantedEvent(1600, ORACLE_DUR, 1, 32),
+                      PlantedEvent(3616, ORACLE_DUR, 0, 32))}
     out = {}
     for mode in ("on", "off"):
-        tenants, events, records, launches = _oracle_soak(mode)
-        f0, f1, over = tenants
-        closed = {t.name: sorted(((tr.event, tr.onset_sample, tr.end_sample,
-                                   tuple(sorted(tr.tiles)), tr.n_windows)
-                                  for tr in t.book.closed_tracks),
-                                 key=lambda c: c[1])
-                  for t in tenants}
-        for name, expect in (("f0", events["f0"]), ("f1", events["f1"][:2])):
-            got = closed[name]
-            if [c[0] for c in got] != [e.event for e in expect] or any(
-                    abs(c[1] - e.onset) > 6 * ORACLE_STRIDE
-                    for c, e in zip(got, expect)):
+        said = []
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        report = run_selftest(device=DEV, resident=mode == "on",
+                              clock=soak_clock(), say=said.append)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        if not report["passed"]:
+            raise AssertionError(f"oracle soak {mode}: "
+                                 + "\n".join(said))
+        counts = {n: (t["submitted"], t["shed"], t["rejected"],
+                      t["track_closes"])
+                  for n, t in report["tenants"].items()}
+        if counts != SOAK_COUNTS:
+            raise AssertionError(f"oracle soak {mode}: per-tenant counts "
+                                 f"{counts}, JAX's {SOAK_COUNTS}")
+        records = _soak_closed(report)
+        for name, expect in planted.items():
+            closes = sorted((r for r in records[name] if r[0] == "close"),
+                            key=lambda r: r[3])
+            if [c[2] for c in closes] != [e.event for e in expect] or any(
+                    abs(c[3] - e.onset) > 6 * ORACLE_STRIDE
+                    for c, e in zip(closes, expect)):
                 raise AssertionError(f"oracle {mode} {name}: closed tracks "
-                                     f"{got}, planted {expect}")
-        if closed["f0"][2][3] != (1, 2) or closed["f2"] or \
-                f1.rejected != 2 or over.shed == 0 or f0.shed or f1.shed:
-            raise AssertionError(f"oracle {mode}: merge {closed['f0']}, "
-                                 f"f2 {closed['f2']}, rejected {f1.rejected},"
-                                 f" shed {[t.shed for t in tenants]}")
-        if mode == "on" and launches["event_prob_q"] == 0:
+                                     f"{closes}, planted {expect}")
+        f0_closes = sorted((r for r in records["f0"] if r[0] == "close"),
+                           key=lambda r: r[3])
+        if f0_closes[2][5] != (1, 2) or records.get("f2"):
+            raise AssertionError(f"oracle {mode}: merge {f0_closes}, f2 "
+                                 f"{records.get('f2')}")
+        if mode == "on" and DEV == "cuda" and launches["event_prob_q"] == 0:
             raise AssertionError("the resident oracle made no event_prob_q "
                                  "launch")
-        out[mode] = {"closed": closed, "records": records,
-                     "launches": launches,
-                     "shed": [t.shed for t in tenants]}
-    if out["on"]["closed"] != out["off"]["closed"]:
-        raise AssertionError(f"oracle tracks differ: {out['on']['closed']} "
-                             f"vs {out['off']['closed']}")
-    opens = [(r["fiber"], r["track_id"], r["kind"], r["onset_sample"])
-             for r in out["on"]["records"] if r["kind"] != "update"]
-    if opens != [(r["fiber"], r["track_id"], r["kind"], r["onset_sample"])
-                 for r in out["off"]["records"] if r["kind"] != "update"]:
-        raise AssertionError("oracle open/close records differ")
-    log(f"[stream] oracle soak at {ORACLE_HW[0]}x{ORACLE_HW[1]}, 3 fibers x "
-        f"{ORACLE_CYCLES} cycles: opens/closes identical on both planes "
-        f"({len(opens)} records), 5 planted events -> 5 closed tracks (the "
+        out[mode] = {"records": records, "launches": launches,
+                     "counts": counts, "wall_s": wall,
+                     "alerts": report["alerts"],
+                     "warmup_s": report["warmup_s"]}
+    if out["on"]["records"] != out["off"]["records"]:
+        raise AssertionError(f"oracle open/close records differ: "
+                             f"{out['on']['records']} vs "
+                             f"{out['off']['records']}")
+    n_records = sum(len(v) for v in out["on"]["records"].values())
+    for mode in ("on", "off"):
+        r = out[mode]
+        log(f"[stream] oracle soak (run_selftest, resident {mode}) at "
+            f"{ORACLE_HW[0]}x{ORACLE_HW[1]}, 3 fibers x {ORACLE_CYCLES} "
+            f"cycles on the synthetic clock in {r['wall_s']:.2f} s: passed, "
+            f"counts {r['counts']}, {r['alerts']['events_emitted']} alert "
+            f"events (burn fired {r['alerts']['burn_firing']}x, "
+            f"{r['alerts']['evaluations']} evaluations); launches "
+            f"{r['launches']}")
+    log(f"[stream] oracle soak: opens/closes identical on both planes "
+        f"({n_records} records), 5 planted events -> 5 closed tracks (the "
         f"blip debounced, the overlap merged on tiles 1+2), 2 NaN windows "
-        f"rejected; resident launches {out['on']['launches']}")
-    return {"track_records": len(opens), "launches": out["on"]["launches"],
-            "shed": out["on"]["shed"]}
+        f"rejected")
+    return {"track_records": n_records, "launches": out["on"]["launches"],
+            "host_launches": out["off"]["launches"],
+            "counts": out["on"]["counts"],
+            "wall_s": {m: out[m]["wall_s"] for m in out},
+            "alerts": {m: out[m]["alerts"] for m in out}}
 
 
 def phase_stream(peaks, ckpt: str):
@@ -3394,6 +3436,8 @@ def phase_precision(peaks):
 # -- phase 9 ------------------------------------------------------------------
 #: Ranks of the data-parallel path; both share the card when there is one.
 DP_RANKS = 2
+#: Rows of the dp2 parity step (phase 9b), both ranks' shards together.
+DP_PARITY_ROWS = 32
 DP_DIR = os.path.join(TRAIN_DIR, "dp")
 DIGEST_SIZES = (0, 1, 3, 4097, 2 ** 20 + 3)
 DIGEST_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8,
@@ -3845,10 +3889,10 @@ def _dp_parity():
     sd = {k: v.numpy() for k, v in
           init_fresh(spec.build(), seed=0).state_dict().items()}
     rng = np.random.default_rng(5)
-    batch = {k: v.numpy() for k, v in _train_batch(64).items()}
+    batch = {k: v.numpy() for k, v in _train_batch(DP_PARITY_ROWS).items()}
     batch["x"] = batch["x"] + 0.1 * rng.normal(size=batch["x"].shape)\
         .astype(np.float32)
-    batch["weight"][60:] = 0.0  # padding in the second shard
+    batch["weight"][DP_PARITY_ROWS - 4:] = 0.0  # padding in the 2nd shard
     work = os.path.join(DP_DIR, "parity")
     ref = _new_state(spec.build().to(DEV))
     ref.model.load_state_dict({k: torch.from_numpy(v) for k, v in
@@ -3875,8 +3919,9 @@ def _dp_parity():
     same = all(np.array_equal(g0[k], g1[k]) for k in g0)
     if not same:
         raise AssertionError("the two ranks of the global step differ")
-    log(f"[dp] one dp2 step at {H}x{W}, 32 rows per replica (4 padded): "
-        f"global on the card == dp1 on the 64-row batch "
+    log(f"[dp] one dp2 step at {H}x{W}, {DP_PARITY_ROWS // DP_RANKS} rows "
+        f"per replica (4 padded): global on the card == dp1 on the "
+        f"{DP_PARITY_ROWS}-row batch "
         f"{out['global_vs_dp1']}; per_replica card == CPU "
         f"{out['per_replica_card_vs_cpu']}; ranks bit-identical")
     return out
@@ -6607,6 +6652,184 @@ def phase_alerts(dp: dict) -> dict:
     return out
 
 
+# -- phase 17 -----------------------------------------------------------------
+WORKER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke", "worker")
+#: The fleet worker's two fibers: ``p`` with two planted events, released
+#: after WORKER_WINDOWS resolved windows and re-assigned at its offset; the
+#: background fiber ``b``.  A re-assigned fiber polls WORKER_RESUME_CHUNK
+#: samples a cycle, so ``/stats`` reads its offset before its first cut.
+WORKER_SPECS = {"p": {"kind": "synthetic", "seed": 0,
+                      "events": [[4000, 2048, 0, 133],
+                                 [12000, 2048, 1, 266]]},
+                "b": {"kind": "synthetic", "seed": 1}}
+WORKER_WINDOWS, WORKER_RESUME_CHUNK = 64, 1
+
+
+def _post_json(url: str, body: dict):
+    code, _, raw = _http(url, json.dumps(body).encode(),
+                         {"Content-Type": "application/json"})
+    return code, json.loads(raw)
+
+
+def _stats_until(url: str, what: str, done, seconds: float = 120):
+    """``GET /stats`` every 0.05 s until ``done(stats)``; raises after
+    ``seconds``."""
+    deadline = time.monotonic() + seconds
+    while True:
+        stats = json.loads(_http(url + "/stats")[2])
+        if done(stats):
+            return stats
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[worker] {what}: not in {seconds} s "
+                                 f"({stats['tenants']})")
+        time.sleep(0.05)
+
+
+def _served(url: str) -> tuple:
+    """(batches served, post-warmup captures) off ``GET /metrics``."""
+    from dasmtl_torch.obs.registry import parse_exposition
+
+    fams = parse_exposition(_http(url + "/metrics")[2].decode())
+    return tuple(int(sum(fams[f]["samples"].values())) for f in (
+        "dasmtl_serve_batches_total",
+        "dasmtl_serve_post_warmup_recompiles_total"))
+
+
+def worker_leg(device: str, window=(H, W), channels: int = 400,
+               model=("--fresh_init",)) -> dict:
+    """``python -m dasmtl_torch.stream serve --fleet_worker`` in process
+    until ``/readyz``, driven over HTTP: two fibers assigned, a duplicate
+    and an unknown release refused, ``p`` released after WORKER_WINDOWS
+    resolved windows and re-assigned at the released offset, then both
+    released and the process SIGTERMed.  Returns every reply, the
+    resumed fiber's stats, the launches and the batches served between
+    the first assignment and the last release; the caller checks them
+    (``tests/test_torch_port_fleet_worker.py`` runs it on the CPU)."""
+    from dasmtl_torch import cli
+
+    os.makedirs(WORKER_DIR, exist_ok=True)
+
+    def check(url):
+        out = {"healthz": json.loads(_http(url + "/healthz")[2])}
+        batches0 = _served(url)[0]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        _reset_launches()
+        out["assign"] = [_post_json(url + "/fibers",
+                                    {"fiber": n, "spec": spec})
+                         for n, spec in WORKER_SPECS.items()]
+        out["duplicate"] = _post_json(url + "/fibers", {
+            "fiber": "p", "spec": WORKER_SPECS["p"]})
+        out["unknown"] = _post_json(url + "/fibers/release",
+                                    {"fiber": "nope"})
+        _stats_until(url, f"{WORKER_WINDOWS} windows resolved per fiber",
+                     lambda st: len(st["tenants"]) == 2 and all(
+                         t["resolved"] >= WORKER_WINDOWS
+                         for t in st["tenants"].values()))
+        out["release"] = _post_json(url + "/fibers/release", {"fiber": "p"})
+        offset = out["release"][1].get("resume_offset")
+        out["reassign"] = _post_json(url + "/fibers", {
+            "fiber": "p", "spec": WORKER_SPECS["p"], "resume_offset": offset,
+            "chunk_samples": WORKER_RESUME_CHUNK})
+        out["resumed_at"] = json.loads(_http(url + "/stats")[2])[
+            "tenants"]["p"]
+        out["resumed"] = _stats_until(
+            url, "2 windows of the re-assigned fiber resolved",
+            lambda st: st["tenants"]["p"]["resolved"] >= 2)["tenants"]["p"]
+        out["final"] = [_post_json(url + "/fibers/release", {"fiber": n})
+                        for n in ("p", "b")]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["launches"] = _launches()
+        batches, out["post_warmup"] = _served(url)
+        out["batches"] = batches - batches0
+        out["stats"] = json.loads(_http(url + "/stats")[2])
+        return out
+
+    rc, out, err = _cli_until_ready(cli.main, [
+        "stream", "serve", "--fleet_worker", *model, "--window",
+        f"{window[0]}x{window[1]}", "--channels", str(channels),
+        "--device", device], check, workdir=WORKER_DIR)
+    return {**out, "rc": rc, "err": err}
+
+
+def _worker_checks(leg: dict, device: str, tiles: int, stride: int) -> dict:
+    """Phase 17's verdicts: the re-assigned fiber windowed on from the
+    released offset on the ``stride`` grid; the launch counts only on the
+    card (the CPU runs the plain versions, which count nothing)."""
+    bad = []
+    hz = leg["healthz"]["stream"]
+    if not hz["dynamic"] or hz["tenants"] != 0:
+        bad.append(f"healthz {hz}")
+    for code, body in leg["assign"]:
+        if code != 200 or not body["assigned"] or body["resume_offset"] \
+                or body["tiles"] != tiles:
+            bad.append(f"assign {code} {body}")
+    if leg["duplicate"][0] != 409 or leg["duplicate"][1]["error"] != \
+            "exists":
+        bad.append(f"duplicate {leg['duplicate']}")
+    if leg["unknown"][0] != 404 or leg["unknown"][1]["error"] != \
+            "unknown_fiber":
+        bad.append(f"unknown release {leg['unknown']}")
+    code, rel = leg["release"]
+    if code != 200 or not rel["drained"] or rel["resume_offset"] <= 0:
+        bad.append(f"release {code} {rel}")
+    code, re_ = leg["reassign"]
+    at, resumed = leg["resumed_at"], leg["resumed"]
+    if code != 200 or re_["resume_offset"] != rel["resume_offset"] or \
+            at["next_origin"] != rel["resume_offset"]:
+        bad.append(f"re-assign {code} {re_}, /stats {at}, released "
+                   f"{rel['resume_offset']}")
+    moved = resumed["next_origin"] - rel["resume_offset"]
+    if resumed["resolved"] < 2 or moved <= 0 or moved % stride:
+        bad.append(f"the re-assigned fiber {resumed}")
+    if any(c != 200 or not b["drained"] for c, b in leg["final"]) or \
+            leg["stats"]["tenants"]:
+        bad.append(f"final releases {leg['final']}, left "
+                   f"{leg['stats']['tenants']}")
+    if leg["rc"] != 0 or "drained=clean" not in leg["err"] or \
+            "0 fibers (awaiting POST /fibers)" not in leg["err"]:
+        bad.append(f"exit {leg['rc']}: {leg['err'][-600:]}")
+    lo = leg["launches"]
+    if device == "cuda" and (lo["decode"] != leg["batches"] or
+                             lo["gate"] != 4 * leg["batches"] or
+                             not leg["batches"]):
+        bad.append(f"launches {lo} for {leg['batches']} batches")
+    if leg["post_warmup"]:
+        bad.append(f"post-warmup captures {leg['post_warmup']}")
+    if bad:
+        raise AssertionError("[worker] " + "; ".join(bad))
+    return {"released_at": rel["resume_offset"], "moved": moved}
+
+
+def phase_worker() -> dict:
+    """Phase 17: the fleet worker (run last)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(WORKER_DIR, ignore_errors=True)
+    leg = worker_leg(DEV)
+    verdict = _worker_checks(leg, DEV, tiles=4, stride=W)
+    rel, resumed = leg["release"][1], leg["resumed"]
+    log(f"[worker] python -m dasmtl_torch.stream serve --fleet_worker "
+        f"--fresh_init --window {H}x{W} --channels 400 on the card: "
+        f"started with 0 fibers, assigned p and b (4 tiles each), a "
+        f"duplicate answered 409 exists, an unknown release 404; p "
+        f"released after >= {WORKER_WINDOWS} windows at offset "
+        f"{rel['resume_offset']} (drained, {rel['track_closes']} tracks "
+        f"closed), re-assigned there (reply and /stats next_origin "
+        f"{leg['resumed_at']['next_origin']}), windowed on to "
+        f"{resumed['next_origin']} ({resumed['resolved']} resolved); "
+        f"{leg['batches']} batches served with launches {leg['launches']} "
+        f"(4 gate + 1 decode a forward replay), post-warmup captures "
+        f"{leg['post_warmup']}; SIGTERM drained clean")
+    shutil.rmtree(WORKER_DIR, ignore_errors=True)
+    out = {k: leg[k] for k in ("assign", "release", "reassign", "resumed",
+                               "launches", "batches", "post_warmup")}
+    out.update(verdict, seconds=time.perf_counter() - t0)
+    log(f"[worker] phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     # CUPTI stays up between this process's profiler sessions, as the
     # port's captures keep it (dasmtl_torch/obs/profiler.py): re-initialized
@@ -6660,6 +6883,7 @@ def main(argv=None) -> int:
     obs = _phase("obs", phase_obs)
     router = _phase("router", phase_router)
     alerts = _phase("alerts", phase_alerts, dp)
+    worker = _phase("worker", phase_worker)
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 1)
     sk, offline = stream["kernels"], stream["offline"]
 
@@ -6732,6 +6956,7 @@ def main(argv=None) -> int:
                        "precision": precision, "dp": dp,
                        "resident": resident, "cv": cv, "graphs": graphs,
                        "obs": obs, "router": router, "alerts": alerts,
+                       "worker": worker,
                        "timing": PHASE_SECONDS, "parts": PART_SECONDS,
                        "seconds": time.perf_counter() - t_start},
                       f,

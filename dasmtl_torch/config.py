@@ -7,10 +7,12 @@ Own copies of ``dasmtl/config.py`` values (the port imports nothing of
 train/test fields of ``Config`` (``:47-131``, ``:349-352``) with the
 ``decay_at_epoch0`` / ``acc_gate`` rules (``:531-541``), and the
 observability block (``Config.obs_*``, ``:298-327``, checked as
-``:497-526`` checks it), and the router block (``Config.router_*``,
+``:497-526`` checks it), the router block (``Config.router_*``,
 ``:209-218``, checked as ``:468-497`` checks it; the router CLI's
-defaults).  Only what the ported slices read is here — this
-is not a copy of the whole ``Config``.
+defaults), and the serve and stream recording blocks (``Config.serve_*``
+and ``Config.stream_*`` but ``stream_fleet_*``, ``:161-190``, ``:220-261``,
+checked as ``:388-450`` checks them).  Only what the ported slices read
+is here — this is not a copy of the whole ``Config``.
 
 :func:`parse_train_args` / :func:`parse_test_args` take the JAX CLI's flag
 spellings (the reference's ``--trainVal_set_*`` included).  A flag of the
@@ -252,6 +254,38 @@ class Config:
     router_probe_interval_s: float = ROUTER_PROBE_INTERVAL_S
     router_probe_backoff_max_s: float = ROUTER_PROBE_BACKOFF_MAX_S
     router_swap_policy: str = ROUTER_SWAP_POLICY
+    # The serving and live-streaming blocks, recorded in config.json as the
+    # JAX train CLI records them (``python -m dasmtl_torch.serve`` and
+    # ``... stream serve`` take their own flags).
+    serve_buckets: tuple = SERVE_BUCKETS
+    serve_max_wait_ms: float = SERVE_MAX_WAIT_MS
+    serve_queue_depth: int = SERVE_QUEUE_DEPTH
+    serve_watermark: Optional[int] = None  # None = 90 % of the queue depth
+    serve_host: str = SERVE_HOST
+    serve_port: int = SERVE_PORT
+    serve_inflight: int = SERVE_INFLIGHT
+    serve_devices: int = SERVE_DEVICES
+    serve_shard_largest: bool = SERVE_SHARD_LARGEST
+    serve_shard_multihost: bool = False
+    serve_registry_dir: Optional[str] = None
+    serve_precision: str = SERVE_PRECISION  # f32 | bf16 | int8
+    stream_stride_time: int = STREAM_STRIDE_TIME
+    stream_stride_channels: int = STREAM_STRIDE_CHANNELS
+    stream_ring_samples: int = STREAM_RING_SAMPLES
+    stream_chunk_samples: int = STREAM_CHUNK_SAMPLES
+    stream_cycle_budget: int = STREAM_CYCLE_BUDGET
+    stream_max_wait_ms: float = SERVE_MAX_WAIT_MS
+    stream_poll_ms: float = STREAM_POLL_MS
+    stream_open_windows: int = STREAM_OPEN_WINDOWS
+    stream_close_windows: int = STREAM_CLOSE_WINDOWS
+    stream_min_event_prob: float = STREAM_MIN_EVENT_PROB
+    stream_track_merge_bins: float = STREAM_TRACK_MERGE_BINS
+    stream_distance_ewma: float = STREAM_DISTANCE_EWMA
+    stream_resident: str = STREAM_RESIDENT  # auto | on | off
+    stream_resident_max_windows: int = 0
+    stream_adapt_weights: bool = False
+    stream_events_ring: int = STREAM_EVENTS_RING
+    stream_events_path: Optional[str] = None
 
     def __post_init__(self) -> None:
         if self.model not in MODEL_TYPES:
@@ -301,6 +335,7 @@ class Config:
             raise ValueError("obs_alerts_webhook_retries must be >= 0")
         if self.obs_alerts_webhook_backoff_s < 0:
             raise ValueError("obs_alerts_webhook_backoff_s must be >= 0")
+        self._check_serve_and_stream()
         self._check_router()
         # ``dasmtl/config.py:365-374``.
         if self.device_data not in ("auto", "on", "off"):
@@ -312,6 +347,73 @@ class Config:
                              "inline assembly)")
         if self.loader_queue_depth < 1:
             raise ValueError("loader_queue_depth must be >= 1")
+
+    def _check_serve_and_stream(self) -> None:
+        """``dasmtl/config.py:386-450``, with its messages."""
+        # From JSON the buckets come back as a list: one sorted tuple.
+        buckets = tuple(sorted(set(int(b) for b in self.serve_buckets)))
+        if not buckets or buckets[0] < 1:
+            raise ValueError(f"serve_buckets must be a non-empty set of "
+                             f"positive sizes, got {self.serve_buckets!r}")
+        self.serve_buckets = buckets
+        if self.serve_max_wait_ms < 0:
+            raise ValueError("serve_max_wait_ms must be >= 0")
+        if self.serve_queue_depth < buckets[-1]:
+            raise ValueError(
+                f"serve_queue_depth {self.serve_queue_depth} cannot hold "
+                f"one full batch of the largest bucket ({buckets[-1]})")
+        if self.serve_watermark is not None and not (
+                1 <= self.serve_watermark <= self.serve_queue_depth):
+            raise ValueError(
+                f"serve_watermark {self.serve_watermark} outside "
+                f"[1, serve_queue_depth={self.serve_queue_depth}]")
+        if self.serve_inflight < 1:
+            raise ValueError("serve_inflight must be >= 1 (1 = serial "
+                             "dispatch, >= 2 pipelines)")
+        if self.serve_devices < 1 and self.serve_devices != -1:
+            raise ValueError(f"serve_devices must be a positive device "
+                             f"count or -1 (all visible), got "
+                             f"{self.serve_devices}")
+        if self.serve_precision not in ("f32", "bf16", "int8"):
+            raise ValueError(
+                f"unknown serve_precision {self.serve_precision!r}; "
+                f"expected f32 | bf16 | int8")
+        if self.stream_stride_time < 0 or self.stream_stride_channels < 0:
+            raise ValueError("stream strides must be >= 0 (0 = the "
+                             "window dimension, non-overlapping)")
+        if self.stream_ring_samples < 1:
+            raise ValueError("stream_ring_samples must be >= 1")
+        if self.stream_chunk_samples < 0:
+            raise ValueError("stream_chunk_samples must be >= 0 "
+                             "(0 = one temporal stride per pump cycle)")
+        if self.stream_cycle_budget < 1:
+            raise ValueError("stream_cycle_budget must be >= 1")
+        if self.stream_max_wait_ms < 0:
+            raise ValueError("stream_max_wait_ms must be >= 0")
+        if self.stream_poll_ms <= 0:
+            raise ValueError("stream_poll_ms must be > 0")
+        if self.stream_open_windows < 1 or self.stream_close_windows < 1:
+            raise ValueError("stream_open_windows and "
+                             "stream_close_windows must be >= 1")
+        if not 0.0 < self.stream_min_event_prob <= 1.0:
+            raise ValueError(
+                f"stream_min_event_prob {self.stream_min_event_prob} "
+                f"outside (0, 1]")
+        if self.stream_track_merge_bins < 0:
+            raise ValueError("stream_track_merge_bins must be >= 0")
+        if not 0.0 < self.stream_distance_ewma <= 1.0:
+            raise ValueError(
+                f"stream_distance_ewma {self.stream_distance_ewma} "
+                f"outside (0, 1]")
+        if self.stream_resident not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unknown stream_resident {self.stream_resident!r}; "
+                f"expected auto | on | off")
+        if self.stream_resident_max_windows < 0:
+            raise ValueError("stream_resident_max_windows must be >= 0 "
+                             "(0 = the tenant's fairness quota)")
+        if self.stream_events_ring < 1:
+            raise ValueError("stream_events_ring must be >= 1")
 
     def _check_router(self) -> None:
         """``dasmtl/config.py:468-497``, with its messages."""
@@ -377,26 +479,30 @@ NOT_YET_PORTED = {
     "loader_native": ("auto", "ROADMAP.md queue 1 item 15, 'The native "
                               "MAT reader'"),
 }
-_STREAM_REST = "ROADMAP.md queue 1 item 1, 'The stream tier's remainder'"
+_FLEET = ("ROADMAP.md queue 1 item 1, 'The stream tier's remainder' (the "
+          "fleet controller)")
 _ANALYSIS = ("ROADMAP.md queue 1 item 3 (the lint, audit, conc and mem "
              "families analyse JAX code and are not ported)")
-#: Prefixes of the JAX CLI's flags that only record the serving,
-#: streaming and analysis tiers' settings in a run's config.json, and the
-#: ROADMAP.md item that brings each (the ``router_*`` block is ported).
-_RECORD_ONLY = {"serve_": _STREAM_REST, "stream_": _STREAM_REST,
-                "conc_": _ANALYSIS, "mem_": _ANALYSIS}
+#: Prefixes of the JAX CLI's flags that only record the fleet controller's
+#: and the analysis tiers' settings in a run's config.json, and the
+#: ROADMAP.md item that brings each (the ``serve_*``, ``router_*`` and
+#: other ``stream_*`` blocks are ported).
+_RECORD_ONLY = {"stream_fleet_": _FLEET, "conc_": _ANALYSIS,
+                "mem_": _ANALYSIS}
 
 _TRUTHY = frozenset({"1", "true", "yes", "y", "t", "on"})
 _FALSY = frozenset({"0", "false", "no", "n", "f", "off"})
 
 
 def _int_list_arg(raw: str) -> tuple:
-    """``--router_replica_ports``'s type (``Config`` checks the ports)."""
+    """``"1,2,4,8"`` -> ``(1, 2, 4, 8)``: the type of ``--serve_buckets``
+    and ``--router_replica_ports`` (JAX ``_parse_bucket_list``; ``Config``
+    checks the values)."""
     try:
         return tuple(int(b) for b in str(raw).split(",") if b.strip())
     except ValueError:
         raise argparse.ArgumentTypeError(
-            f"expected comma-separated ints, got {raw!r}") from None
+            f"expected comma-separated batch sizes, got {raw!r}") from None
 
 
 def _float_list_arg(raw: str) -> tuple:
@@ -626,6 +732,7 @@ def _add_args(p: argparse.ArgumentParser) -> None:
                         choices=["drain", "hot"],
                         help="blue/green rollout default: cordon+drain "
                              "each replica before its swap, or swap hot")
+    _add_serve_and_stream_args(p, d)
     group = p.add_argument_group("not yet ported (exit 2 unless default)")
     for name, (default, _) in NOT_YET_PORTED.items():
         if isinstance(default, bool):
@@ -637,6 +744,92 @@ def _add_args(p: argparse.ArgumentParser) -> None:
                                default=argparse.SUPPRESS)
 
 
+def _add_serve_and_stream_args(p: argparse.ArgumentParser,
+                               d: Config) -> None:
+    """The JAX CLI's ``--serve_*`` and ``--stream_*`` flags
+    (``dasmtl/config.py:793-940``), with its types."""
+    serve = p.add_argument_group(
+        "the serving tier (recorded in config.json; python -m "
+        "dasmtl_torch.serve takes its own flags)")
+    serve.add_argument("--serve_buckets", type=_int_list_arg,
+                       default=d.serve_buckets, metavar="B1,B2,...",
+                       help="serving batch-shape ladder warmed at startup")
+    serve.add_argument("--serve_max_wait_ms", type=float,
+                       default=d.serve_max_wait_ms,
+                       help="serving micro-batch deadline (ms)")
+    serve.add_argument("--serve_queue_depth", type=int,
+                       default=d.serve_queue_depth,
+                       help="serving queue hard bound (requests)")
+    serve.add_argument("--serve_watermark", type=int,
+                       default=d.serve_watermark,
+                       help="shed arrivals beyond this queue depth "
+                            "(default: 90%% of --serve_queue_depth)")
+    serve.add_argument("--serve_host", type=str, default=d.serve_host)
+    serve.add_argument("--serve_port", type=int, default=d.serve_port)
+    serve.add_argument("--serve_inflight", type=int,
+                       default=d.serve_inflight,
+                       help="batches dispatched but not yet collected")
+    serve.add_argument("--serve_devices", type=int,
+                       default=d.serve_devices,
+                       help="serving executor-pool size (-1 = every "
+                            "visible card)")
+    serve.add_argument("--serve_shard_largest", action=_CompatBoolAction,
+                       default=d.serve_shard_largest,
+                       help="split largest-bucket batches over the pool")
+    serve.add_argument("--serve_shard_multihost", action=_CompatBoolAction,
+                       default=d.serve_shard_multihost,
+                       help="span the shard over every serving process's "
+                            "devices")
+    serve.add_argument("--serve_registry_dir", type=str,
+                       default=d.serve_registry_dir, metavar="DIR",
+                       help="versioned serving-artifact registry directory")
+    serve.add_argument("--serve_precision", type=str,
+                       default=d.serve_precision,
+                       choices=["f32", "bf16", "int8"],
+                       help="serving precision preset")
+    st = p.add_argument_group(
+        "the live stream tier (recorded in config.json; python -m "
+        "dasmtl_torch.stream serve takes its own flags)")
+    for name, kind, help_ in (
+            ("stride_time", int, "temporal window stride in samples (0 = "
+                                 "window width)"),
+            ("stride_channels", int, "spatial tile stride in channels (0 = "
+                                     "window height)"),
+            ("ring_samples", int, "per-fiber ring capacity in samples"),
+            ("chunk_samples", int, "samples polled per fiber per cycle (0 "
+                                   "= one temporal stride)"),
+            ("cycle_budget", int, "windows all fibers may submit per "
+                                  "cycle, split by weight"),
+            ("max_wait_ms", float, "serve micro-batch deadline of a "
+                                   "weight-1.0 fiber"),
+            ("poll_ms", float, "pump cycle cadence (ms)"),
+            ("open_windows", int, "consecutive confident decodes that open "
+                                  "a track"),
+            ("close_windows", int, "consecutive negatives that close a "
+                                   "track"),
+            ("min_event_prob", float, "event probability of a confident "
+                                      "positive"),
+            ("track_merge_bins", float, "distance-bin tolerance of a "
+                                        "cross-tile merge"),
+            ("distance_ewma", float, "EWMA weight of a track's position"),
+            ("resident_max_windows", int, "cap of the resident "
+                                          "windows-per-dispatch ladder "
+                                          "(0 = the quota)"),
+            ("events_ring", int, "track records held for GET /events")):
+        st.add_argument(f"--stream_{name}", type=kind,
+                        default=getattr(d, f"stream_{name}"), help=help_)
+    st.add_argument("--stream_resident", type=str, default=d.stream_resident,
+                    choices=["auto", "on", "off"],
+                    help="the device-resident live data plane")
+    st.add_argument("--stream_adapt_weights",
+                    action=argparse.BooleanOptionalAction,
+                    default=d.stream_adapt_weights,
+                    help="feed each fiber's shed rate back into its weight")
+    st.add_argument("--stream_events_path", type=str,
+                    default=d.stream_events_path, metavar="PATH",
+                    help="append every track record as JSONL here")
+
+
 def _parse(argv, description: str) -> Config:
     p = argparse.ArgumentParser(description=description)
     _add_args(p)
@@ -646,9 +839,8 @@ def _parse(argv, description: str) -> Config:
                      if arg.startswith("--" + prefix)), None)
         if item is not None:
             print(f"dasmtl_torch: {arg.split('=')[0]} is not yet ported: "
-                  f"the JAX CLI records it in config.json ({item}); the "
-                  f"port's server takes its own flags, python -m "
-                  f"dasmtl_torch.serve --help", file=sys.stderr)
+                  f"the JAX CLI records it in config.json ({item})",
+                  file=sys.stderr)
             raise SystemExit(2)
     if extra:
         p.error(f"unrecognized arguments: {' '.join(extra)}")

@@ -4,9 +4,11 @@ Counterpart of ``dasmtl/stream/__init__.py``:
 
 - **offline** (:mod:`dasmtl_torch.stream.offline`) — sweep a
   ``(channels, time)`` record and write per-window predictions to CSV;
+  :mod:`dasmtl_torch.stream.merge` recombines its multi-host shards;
 - **live** (:mod:`dasmtl_torch.stream.live` with ``feed``, ``windower``,
   ``tracks`` and ``resident``) — continuous inference over unbounded
-  multi-fiber feeds into the serve data plane, fused into event tracks.
+  multi-fiber feeds into the serve data plane, fused into event tracks;
+  :mod:`dasmtl_torch.stream.selftest` is its soak.
 
 ``python -m dasmtl_torch.stream`` is the entry point.  Importing the
 package loads the offline surface and the pure-Python ingestion and track
@@ -19,6 +21,7 @@ from __future__ import annotations
 from dasmtl_torch.stream.feed import (FiberFeed, FileTailSource,
                                       PlantedEvent, SocketSource,
                                       SyntheticSource, source_from_spec)
+from dasmtl_torch.stream.merge import find_shards, merge_shards
 from dasmtl_torch.stream.offline import (EVENT_NAMES, main, shard_csv_path,
                                          stream_predict)
 from dasmtl_torch.stream.tracks import (Track, TrackBook, TrackFuser,
@@ -31,10 +34,13 @@ _LIVE_EXPORTS = {
     "StreamTenant": "dasmtl_torch.stream.live",
     "make_stream_http_server": "dasmtl_torch.stream.live",
     "serve_main": "dasmtl_torch.stream.live",
+    "run_selftest": "dasmtl_torch.stream.selftest",
+    "write_stream_job_summary": "dasmtl_torch.stream.selftest",
 }
 
 __all__ = [
     "EVENT_NAMES", "stream_predict", "shard_csv_path", "main",
+    "find_shards", "merge_shards",
     "FiberFeed", "SyntheticSource", "FileTailSource", "SocketSource",
     "PlantedEvent", "source_from_spec", "LiveWindower", "CutWindow",
     "TrackFuser", "TrackBook", "Track", "WindowDecode",

@@ -1,8 +1,8 @@
 """``python -m dasmtl_torch.stream`` — the stream tier's entry point.
 
 ``serve`` as the first argument routes to the live tier
-(:func:`dasmtl_torch.stream.live.serve_main`); ``fleet`` exits 2 (not yet
-ported); anything else is the offline record sweep
+(:func:`dasmtl_torch.stream.live.serve_main`); ``fleet``, the fleet
+controller, exits 2 (not yet ported); anything else is the offline record sweep
 (:func:`dasmtl_torch.stream.offline.main`).
 """
 
@@ -20,7 +20,8 @@ def main(argv=None) -> int:
     if argv[:1] == ["fleet"]:
         print("dasmtl_torch.stream: fleet is not yet ported: ROADMAP.md "
               "queue 1 item 1, 'the stream tier's remainder' (the fleet "
-              "and dynamic tenancy)", file=sys.stderr)
+              "controller; its worker is python -m dasmtl_torch.stream "
+              "serve --fleet_worker)", file=sys.stderr)
         return 2
     from dasmtl_torch.stream.offline import main as offline_main
 

@@ -1,8 +1,8 @@
 """Continuous multi-fiber streaming over the serve data plane.
 
-Counterpart of ``dasmtl/stream/live.py`` (:55-1322) for static tenancy:
-N fibers (each a chunk source, ring, windower and track book) multiplex
-onto ONE :class:`~dasmtl_torch.serve.server.ServeLoop`.
+Counterpart of ``dasmtl/stream/live.py`` (:55-1322): N fibers (each a
+chunk source, ring, windower and track book) multiplex onto ONE
+:class:`~dasmtl_torch.serve.server.ServeLoop`.
 
 - **Weighted fairness** — each tenant gets a per-cycle submission quota and
   an outstanding-window budget in proportion to its weight; a fiber over
@@ -19,6 +19,13 @@ onto ONE :class:`~dasmtl_torch.serve.server.ServeLoop`.
   :class:`~dasmtl_torch.stream.tracks.TrackBook`; rejected windows are
   neutral.  Records land in a ring (``GET /events``), optionally a JSONL
   file, and the ``dasmtl_stream_*`` metric families.
+- **Dynamic tenancy** (the fleet worker, ``--fleet_worker``) — a loop built
+  with ``dynamic=True`` starts with any number of fibers, none included,
+  and takes fibers over HTTP: ``POST /fibers`` attaches one from its
+  portable spec at a ``resume_offset`` (source and ring repositioned
+  there), ``POST /fibers/release`` stops cutting it, lets its outstanding
+  windows resolve and detaches it, reporting the offset the next owner
+  resumes from.  It runs the host data plane only, as in JAX.
 
 ``--devices`` sizes the executor pool the fibers spread over, as in JAX.
 ``GET /metrics`` renders the serve loop's exposition (the ``dasmtl_serve_*``
@@ -31,10 +38,10 @@ handle_query`'s semantics.  The alert engine
 records become alert events as they resolve, and ``run_cycle`` evaluates
 the rules (``--alerts``, on by default: :func:`default_stream_rules` to
 stderr, ``--alerts_path`` JSONL, ``--alerts_webhook``) every
-``--alerts_interval_s`` on the cycle's own ``now``.  Not ported yet
-(ROADMAP.md queue 1): dynamic tenancy and the fleet worker and the soak
-selftest (item 1); the parser refuses JAX's other flags of those items by
-name prefix (:data:`JAX_ONLY_PREFIXES`).
+``--alerts_interval_s`` on the cycle's own ``now``.  ``--selftest`` runs
+the soak (:func:`dasmtl_torch.stream.selftest.run_selftest`) and exits 0
+when it passed.  The parser refuses JAX's flags of the analysis families
+by name prefix (:data:`JAX_ONLY_PREFIXES`).
 
 ``serve_main`` is ``python -m dasmtl_torch.stream serve``, over a port
 checkpoint (``--model_path``), a port artifact (``--exported``: the host
@@ -95,10 +102,6 @@ ADAPT_MIN_WEIGHT_FRACTION = 0.25
 NOT_YET_PORTED = {
     "precision": "ROADMAP.md queue 1 item 10, 'The stream tier's presets "
                  "and model C' (the resident gather and ring are f32)",
-    "fleet_worker": "ROADMAP.md queue 1 item 1, 'the stream tier's "
-                    "remainder' (the fleet and dynamic tenancy)",
-    "selftest": "ROADMAP.md queue 1 item 1, 'the stream tier's "
-                "remainder' (the soak selftest)",
     "conc_lockdep": "ROADMAP.md queue 1 item 3 (the lint, audit, conc "
                     "and mem families analyse JAX code and are not ported)",
     "mem_track": "ROADMAP.md queue 1 item 3 (the lint, audit, conc and "
@@ -109,11 +112,7 @@ NOT_YET_PORTED = {
 _ANALYSIS_ITEM = NOT_YET_PORTED["conc_lockdep"]
 #: Flags of JAX's ``stream serve`` this parser does not declare, by name
 #: prefix -> the ROADMAP.md item that brings them.
-JAX_ONLY_PREFIXES = (
-    ("selftest_", "ROADMAP.md queue 1 item 1, 'the stream tier's "
-                  "remainder' (the soak selftest)"),
-    ("conc_", _ANALYSIS_ITEM), ("mem_", _ANALYSIS_ITEM),
-)
+JAX_ONLY_PREFIXES = (("conc_", _ANALYSIS_ITEM), ("mem_", _ANALYSIS_ITEM))
 
 
 class StreamMetrics:
@@ -185,7 +184,7 @@ class StreamTenant:
                  open_windows: int = 3, close_windows: int = 3,
                  min_event_prob: float = 0.9, merge_bins: float = 2.0,
                  distance_ewma: float = 0.3, n_distance_bins: int = 16,
-                 track_ids=None):
+                 track_ids=None, resume_offset: int = 0):
         if weight <= 0:
             raise ValueError(f"tenant {name}: weight must be > 0")
         self.name = name
@@ -195,6 +194,12 @@ class StreamTenant:
         # [ADAPT_MIN_WEIGHT_FRACTION * base, base].
         self.base_weight = float(weight)
         self.feed = FiberFeed(source.channels, ring_samples)
+        if resume_offset:
+            # The handoff of a migration or failover: source and ring
+            # repositioned at the absolute sample, so the windower (which
+            # starts at the feed's head) cuts from exactly there.
+            self.source.resume_from(resume_offset)
+            self.feed.resume_from(resume_offset)
         self.windower = LiveWindower(self.feed, window,
                                      stride_time=stride_time,
                                      stride_channels=stride_channels)
@@ -224,6 +229,9 @@ class StreamTenant:
         self.latencies: deque = deque(maxlen=100_000)
         self._adapt_shed0 = 0
         self._adapt_sub0 = 0
+        # Draining for release: run_cycle stops polling and cutting, the
+        # outstanding tail resolves, then the loop detaches the tenant.
+        self.draining = False
         # (now, shed) marks the /stats hot-shard block derives a shed rate
         # from.
         self._rate_marks: deque = deque(maxlen=8)
@@ -252,15 +260,28 @@ class StreamLoop:
                  history: Optional[MetricsHistory] = None,
                  resident: str = "off",
                  resident_max_windows: int = 0,
-                 adapt_weights: bool = False, adapt_every: int = 8):
-        if not tenants:
-            raise ValueError("a stream loop needs at least one tenant")
-        if cycle_budget < len(tenants):
+                 adapt_weights: bool = False, adapt_every: int = 8,
+                 dynamic: bool = False,
+                 tenant_kwargs: Optional[dict] = None):
+        if not tenants and not dynamic:
+            raise ValueError("a stream loop needs at least one tenant "
+                             "(or dynamic=True — the fleet-worker mode, "
+                             "fibers assigned over HTTP)")
+        if tenants and cycle_budget < len(tenants):
             raise ValueError(f"cycle_budget {cycle_budget} < "
                              f"{len(tenants)} tenants — every tenant "
                              f"needs at least one slot")
+        if dynamic and resident != "off":
+            raise ValueError("dynamic tenancy (fleet worker) runs the "
+                             "host data plane only — resident lanes "
+                             "cannot yet be attached mid-stream")
         self.serve = serve
         self.tenants = list(tenants)
+        self.dynamic = bool(dynamic)
+        # The geometry and hysteresis of fibers assigned over HTTP
+        # (StreamTenant's keywords but name, source, weight and
+        # resume_offset; ``channels`` defaults to the window height).
+        self.tenant_kwargs = dict(tenant_kwargs or {})
         self.clock = clock
         self.max_wait_s = float(max_wait_s)
         self.cycle_budget = int(cycle_budget)
@@ -311,8 +332,11 @@ class StreamLoop:
 
     def _apply_weights(self) -> None:
         """Quota, outstanding budget and deadline from the current
-        weights."""
+        weights (recomputed by adaptive weighting and by dynamic assign
+        and release, under the loop lock once the loop runs)."""
         total_w = sum(t.weight for t in self.tenants)
+        if not total_w:
+            return  # a dynamic loop with no fiber assigned yet
         for t in self.tenants:
             t.quota = max(1, int(self.cycle_budget * t.weight / total_w))
             t.max_outstanding = t.quota * self.outstanding_factor
@@ -340,6 +364,76 @@ class StreamLoop:
             if changed:
                 self._apply_weights()
 
+    # -- dynamic tenancy (the fleet worker's control surface) ----------------
+    def assign_fiber(self, name: str, spec: dict, *, weight: float = 1.0,
+                     resume_offset: int = 0,
+                     chunk_samples: int = 0) -> dict:
+        """Attach one fiber mid-stream from its portable spec
+        (:func:`~dasmtl_torch.stream.feed.source_from_spec`), its source
+        and ring resumed at ``resume_offset``: the receiving half of a
+        migration or failover.  Geometry and hysteresis come from
+        ``tenant_kwargs``, so every fiber of a worker rides the same warmed
+        buckets.  Raises ``RuntimeError`` on a static loop and
+        ``ValueError`` for a name already assigned."""
+        if not self.dynamic:
+            raise RuntimeError("static stream loop: the fiber set is "
+                               "fixed at startup (run the worker with "
+                               "--fleet_worker for dynamic assignment)")
+        with self._lock:
+            if any(t.name == name for t in self.tenants):
+                raise ValueError(f"fiber {name!r} already assigned")
+        from dasmtl_torch.stream.feed import source_from_spec
+
+        kw = dict(self.tenant_kwargs)
+        channels = int(kw.pop("channels", 0)) or kw["window"][0]
+        if chunk_samples:
+            kw["chunk_samples"] = int(chunk_samples)
+        tenant = StreamTenant(name, source_from_spec(spec, channels),
+                              weight=weight,
+                              resume_offset=int(resume_offset), **kw)
+        with self._lock:
+            dup = any(t.name == name for t in self.tenants)
+            if not dup:
+                self.tenants.append(tenant)
+                self._apply_weights()
+        if dup:
+            tenant.source.close()
+            raise ValueError(f"fiber {name!r} already assigned")
+        return {"fiber": name, "resume_offset": tenant.windower.next_origin,
+                "tiles": tenant.windower.n_tiles}
+
+    def release_fiber(self, name: str, timeout_s: float = 10.0) -> dict:
+        """Detach one fiber: stop cutting it (``draining``), let its
+        outstanding windows resolve (bounded by ``timeout_s``), remove it
+        and report the absolute offset the next owner resumes from:
+        drain on the old owner before resuming on the new, so at most one
+        worker cuts a fiber's windows.  Raises ``KeyError`` for a fiber
+        not assigned here."""
+        with self._lock:
+            tenant = next((t for t in self.tenants if t.name == name), None)
+            if tenant is None:
+                raise KeyError(f"fiber {name!r} not assigned here")
+            tenant.draining = True
+        deadline = time.monotonic() + float(timeout_s)
+        while time.monotonic() < deadline:
+            with self._lock:
+                if tenant.outstanding == 0:
+                    break
+            time.sleep(0.005)
+        with self._lock:
+            drained = tenant.outstanding == 0
+            self.tenants = [t for t in self.tenants if t is not tenant]
+            self._apply_weights()
+        try:
+            tenant.source.close()
+        except Exception as exc:  # noqa: BLE001 — recorded, not fatal
+            print(f"[stream-release] fiber {name}: source.close failed: "
+                  f"{type(exc).__name__}: {exc}", file=sys.stderr)
+        return {"fiber": name, "drained": drained,
+                "resume_offset": tenant.windower.next_origin,
+                "open_tracks": tenant.book.open_track_count,
+                "track_closes": tenant.book.closes}
+
     # -- steady state --------------------------------------------------------
     def _admit(self, t: StreamTenant, sent_this_cycle: int) -> bool:
         """The fairness gate for one window (counts it either way)."""
@@ -360,7 +454,11 @@ class StreamLoop:
         windows, gate and submit.  Returns per-cycle counts."""
         now = self.clock() if now is None else now
         submitted = shed = 0
-        for t in self.tenants:
+        with self._lock:  # assign and release change the list mid-stream
+            tenants = list(self.tenants)
+        for t in tenants:
+            if t.draining:
+                continue  # a release in progress: its outstanding drains
             chunk = t.source.poll(t.chunk_samples)
             if chunk is not None and chunk.size:
                 t.feed.append(chunk, now=now)
@@ -384,7 +482,7 @@ class StreamLoop:
         with self._lock:  # stats() reads cycles off the HTTP thread
             self.cycles += 1
             if self.cycles % self.adapt_every == 0:
-                for t in self.tenants:
+                for t in tenants:
                     t._rate_marks.append((now, t.shed))
         if self.adapt_weights and self.cycles % self.adapt_every == 0:
             self._adapt_weights()
@@ -589,6 +687,7 @@ class StreamLoop:
                     "rejected": t.rejected,
                     "ring_overrun_windows": t.windower.overrun_windows,
                     "next_origin": t.windower.next_origin,
+                    "draining": t.draining,
                     "tiles": t.windower.n_tiles,
                     "open_tracks": t.book.open_track_count,
                     "track_opens": t.book.opens,
@@ -620,7 +719,8 @@ class StreamLoop:
                 if rate > hottest_rate:
                     hottest, hottest_rate = t.name, rate
         out = {"cycles": self.cycles, "resident": self.resident_enabled,
-               "tenants": tenants, "events_held": len(self._events),
+               "dynamic": self.dynamic, "tenants": tenants,
+               "events_held": len(self._events),
                "hot_shard": {"hottest": hottest,
                              "hottest_shed_rate_per_s":
                                  round(hottest_rate, 3),
@@ -680,7 +780,11 @@ def make_stream_http_server(stream: StreamLoop, host: str = "127.0.0.1",
                             port: int = 0) -> ThreadingHTTPServer:
     """``GET /events`` (track records; ``?n=`` and ``?kind=``),
     ``/healthz``, ``/readyz``, ``/stats``, ``/metrics`` (serve + stream
-    families) and ``/query`` (metrics history, 404 without one)."""
+    families) and ``/query`` (metrics history, 404 without one); ``POST
+    /fibers`` and ``POST /fibers/release``, the fleet worker's placement
+    surface, with JAX's statuses and bodies (``live.py:821-885``): 200, 400
+    ``bad_request``, 409 ``static`` on a static loop, 409 ``exists``, 404
+    ``unknown_fiber``."""
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *_a):
@@ -698,8 +802,71 @@ def make_stream_http_server(stream: StreamLoop, host: str = "127.0.0.1",
             payload = stream.serve.healthz()
             payload["stream"] = {"cycles": stream.cycles,
                                  "tenants": len(stream.tenants),
+                                 "dynamic": stream.dynamic,
                                  "resident": stream.resident_enabled}
             return payload
+
+        def _send_json(self, code: int, payload: dict) -> None:
+            self._send(code, json.dumps(payload).encode())
+
+        def _assign(self, req: dict) -> None:
+            if not isinstance(req.get("fiber"), str) \
+                    or not isinstance(req.get("spec"), dict):
+                self._send_json(400, {"error": "bad_request",
+                                      "detail": "need fiber (str) + spec "
+                                                "(dict)"})
+                return
+            try:
+                out = stream.assign_fiber(
+                    req["fiber"], req["spec"],
+                    weight=float(req.get("weight", 1.0)),
+                    resume_offset=int(req.get("resume_offset", 0)),
+                    chunk_samples=int(req.get("chunk_samples", 0)))
+            except RuntimeError as exc:
+                self._send_json(409, {"error": "static", "detail": str(exc)})
+                return
+            except ValueError as exc:
+                self._send_json(409, {"error": "exists", "detail": str(exc)})
+                return
+            self._send_json(200, {"fiber": out["fiber"], "assigned": True,
+                                  "resume_offset": out["resume_offset"],
+                                  "tiles": out["tiles"]})
+
+        def _release(self, req: dict) -> None:
+            try:
+                out = stream.release_fiber(
+                    str(req.get("fiber", "")),
+                    timeout_s=float(req.get("timeout_s", 10.0)))
+            except KeyError as exc:
+                self._send_json(404, {"error": "unknown_fiber",
+                                      "detail": str(exc)})
+                return
+            self._send_json(200, {"fiber": out["fiber"], "released": True,
+                                  **{k: out[k] for k in (
+                                      "drained", "resume_offset",
+                                      "open_tracks", "track_closes")}})
+
+        def do_POST(self):  # noqa: N802 — http.server convention
+            url = urlparse(self.path)
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                try:
+                    req = json.loads(self.rfile.read(n).decode("utf-8")
+                                     or "{}")
+                except (json.JSONDecodeError, UnicodeDecodeError) as exc:
+                    self._send_json(400, {"error": "bad_request",
+                                          "detail": f"body is not JSON: "
+                                                    f"{exc}"})
+                    return
+                if url.path == "/fibers":
+                    self._assign(req)
+                elif url.path == "/fibers/release":
+                    self._release(req)
+                else:
+                    self._send_json(404, {"error": f"no route {url.path}"})
+            except Exception as exc:  # noqa: BLE001 — answer, don't die
+                self._send_json(500, {"error": f"{type(exc).__name__}: "
+                                               f"{exc}"})
 
         def do_GET(self):  # noqa: N802 — http.server convention
             url = urlparse(self.path)
@@ -792,7 +959,10 @@ def build_serve_parser() -> argparse.ArgumentParser:
                      help="comma-separated per-fiber weights (default "
                           "all 1)")
     fib.add_argument("--fleet_worker", action="store_true",
-                     help="not yet ported")
+                     help="dynamic tenancy: start with the configured "
+                          "fibers (possibly none) and accept POST /fibers "
+                          "assignments and releases from a fleet "
+                          "controller; forces the host data plane")
     srv = p.add_argument_group("serve loop")
     srv.add_argument("--max_wait_ms", type=float, default=C.SERVE_MAX_WAIT_MS,
                      help="micro-batching deadline for weight-1.0 tenants")
@@ -878,12 +1048,24 @@ def build_serve_parser() -> argparse.ArgumentParser:
                      action=argparse.BooleanOptionalAction, default=False)
     nyp.add_argument("--mem_track", action=argparse.BooleanOptionalAction,
                      default=False)
-    nyp.add_argument("--selftest", action="store_true")
     p.add_argument("--host", type=str, default=C.SERVE_HOST)
     p.add_argument("--port", type=int, default=C.SERVE_PORT)
     p.add_argument("--port_file", type=str, default=None, metavar="PATH")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
+    p.add_argument("--selftest", action="store_true",
+                   help="run the in-process streaming soak (synthetic "
+                        "fibers, one overdriven; fairness / hysteresis / "
+                        "latency / recompile / observability / alerting "
+                        "invariants) on --device and exit 0/1")
+    p.add_argument("--selftest_fibers", type=int, default=3)
+    p.add_argument("--selftest_cycles", type=int, default=140)
+    p.add_argument("--selftest_devices", type=int, default=1,
+                   help="executor-pool size for the selftest")
+    p.add_argument("--selftest_resident",
+                   action=argparse.BooleanOptionalAction, default=False,
+                   help="run the selftest on the device-resident data "
+                        "plane")
     return p
 
 
@@ -911,6 +1093,29 @@ def serve_executor(args, buckets, window, device):
                                         device, devices=args.devices)
 
 
+def _selftest(args) -> int:
+    """``--selftest``: the stream soak on ``--device``; 0 when it passed,
+    2 when its pool asks for more cards than are visible."""
+    from dasmtl_torch.device import resolve_device
+    from dasmtl_torch.serve.executor import _pool_devices
+    from dasmtl_torch.stream.selftest import (run_selftest,
+                                              write_stream_job_summary)
+
+    device = resolve_device(args.device)
+    try:
+        _pool_devices(args.selftest_devices, device)
+    except ValueError as exc:
+        print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
+        return 2
+    report = run_selftest(fibers=args.selftest_fibers,
+                          cycles=args.selftest_cycles,
+                          devices=args.selftest_devices,
+                          inflight=args.inflight,
+                          resident=args.selftest_resident, device=device)
+    write_stream_job_summary(report)
+    return 0 if report["passed"] else 1
+
+
 def serve_main(argv=None) -> int:
     """``python -m dasmtl_torch.stream serve`` — continuous inference over
     live fibers."""
@@ -935,11 +1140,13 @@ def serve_main(argv=None) -> int:
         p.error("--history must be >= 0 (0 disables /query)")
     if args.history_interval_s <= 0:
         p.error("--history_interval_s must be > 0")
+    if args.selftest:
+        return _selftest(args)
     n_sources = sum(1 for v in (args.exported, args.model_path,
                                 args.fresh_init, args.oracle) if v)
     if n_sources != 1:
         p.error("exactly one of --exported / --model_path / --fresh_init "
-                "/ --oracle is required")
+                "/ --oracle is required (or --selftest)")
     try:
         buckets = tuple(int(b) for b in args.buckets.split(",") if b)
     except ValueError:
@@ -984,9 +1191,10 @@ def serve_main(argv=None) -> int:
         host, _, port = spec.rpartition(":")
         sources.append(SocketSource(host or "127.0.0.1", int(port),
                                     channels))
-    if not sources:
+    if not sources and not args.fleet_worker:
         p.error("no fibers: pass --synthetic N, --tail PATH or --connect "
-                "HOST:PORT")
+                "HOST:PORT (or --fleet_worker to accept assignments over "
+                "HTTP)")
     weights = [1.0] * len(sources)
     if args.weights:
         try:
@@ -1027,6 +1235,13 @@ def serve_main(argv=None) -> int:
                 backoff_s=args.alerts_webhook_backoff_s))
         engine = AlertEngine(default_stream_rules(), sinks,
                              history=history)
+    tenant_kwargs = dict(
+        channels=channels, window=window, stride_time=args.stride_time,
+        stride_channels=args.stride_channels,
+        ring_samples=args.ring_samples, chunk_samples=args.chunk_samples,
+        open_windows=args.open_windows, close_windows=args.close_windows,
+        min_event_prob=args.min_event_prob,
+        merge_bins=args.track_merge_bins, distance_ewma=args.distance_ewma)
     try:
         stream = StreamLoop(loop, tenants, cycle_budget=args.cycle_budget,
                             max_wait_s=args.max_wait_ms / 1e3,
@@ -1034,9 +1249,12 @@ def serve_main(argv=None) -> int:
                             events_ring=args.events_ring, alerts=engine,
                             alerts_interval_s=args.alerts_interval_s,
                             history=history,
-                            resident=args.resident,
+                            resident=("off" if args.fleet_worker
+                                      else args.resident),
                             resident_max_windows=args.resident_max_windows,
-                            adapt_weights=args.adapt_weights)
+                            adapt_weights=args.adapt_weights,
+                            dynamic=args.fleet_worker,
+                            tenant_kwargs=tenant_kwargs)
     except ValueError as exc:
         # --resident on with an exported artifact, as JAX refuses it.
         print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
@@ -1061,12 +1279,15 @@ def serve_main(argv=None) -> int:
     http_t.start()
     # Liveness answers while the serve buckets warm; /readyz waits.
     loop.start()
-    print(f"streaming {len(tenants)} fiber(s) x "
-          f"{tenants[0].windower.n_tiles} tile(s) of {window[0]}x{window[1]}"
-          f" windows into {executor.source} on {device} "
+    fibers_desc = (f"{len(tenants)} fiber(s) x "
+                   f"{tenants[0].windower.n_tiles} tile(s)"
+                   if tenants else "0 fibers (awaiting POST /fibers)")
+    print(f"streaming {fibers_desc} of {window[0]}x{window[1]} windows "
+          f"into {executor.source} on {device} "
           f"({'resident' if stream.resident_enabled else 'host'} data "
           f"plane) on http://{host}:{port} (GET /events, /healthz, "
-          f"/readyz, /stats, /metrics, /query); "
+          f"/readyz, /stats, /metrics, /query"
+          f"{'; POST /fibers[,/release]' if args.fleet_worker else ''}); "
           f"alerts={'on' if engine is not None else 'off'}; SIGTERM drains",
           file=sys.stderr)
     stop = threading.Event()

@@ -32,7 +32,10 @@ on the resident path; the router selftest over two replica
 processes on the card; profiler captures started and stopped beside
 graph replays on another thread (neither stalls); and the alert engine's
 live leg (``chip_smoke.py`` phase 16b), whose events on the synthetic
-clock equal its CPU run's.
+clock equal its CPU run's; the stream soak (``run_selftest``) on both
+planes on the synthetic clock with JAX's per-tenant counts, ``stream serve
+--selftest --selftest_resident`` on the wall clock, and the fleet worker's
+handoff (``chip_smoke.py`` phase 17's leg at 52x64).
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -2013,3 +2016,58 @@ def test_profiler_start_stop_beside_graph_replays(cuda, tmp_path):
     assert not t.is_alive() and not errors and replays > 0
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+#: The soak's per-tenant (submitted, shed, rejected, track closes), as the
+#: JAX package's ``run_selftest()`` gives them on the CPU.
+SOAK_COUNTS = {"f0": (837, 0, 0, 3), "f1": (837, 0, 2, 2),
+               "f2": (2240, 1117, 0, 0)}
+
+
+@pytest.mark.parametrize("resident", [False, True], ids=["host", "resident"])
+def test_stream_soak_on_the_card_on_a_synthetic_clock(cuda, resident):
+    """The soak on the card, its clock stepping 0.125 s a cycle: passing,
+    with the counts of the JAX soak on the CPU; the resident plane runs
+    the window gather, the ring append and event_prob_q."""
+    import itertools
+
+    from dasmtl_torch.stream.selftest import run_selftest
+
+    report = run_selftest(device="cuda", resident=resident,
+                          clock=itertools.count(0.0, 0.125).__next__,
+                          say=lambda _m: None)
+    assert report["passed"], report["failures"]
+    assert {n: (t["submitted"], t["shed"], t["rejected"], t["track_closes"])
+            for n, t in report["tenants"].items()} == SOAK_COUNTS
+    assert report["alerts"]["burn_firing"] == 1
+    assert report["alerts"]["evaluations"] == 70
+    if resident:
+        assert window.launches.value > 0 and ring.launches.value > 0
+        assert decode.prob_q_launches.value > 0
+
+
+def test_stream_serve_selftest_resident_on_the_wall_clock(cuda, capsys):
+    """``python -m dasmtl_torch.stream serve --selftest --selftest_resident``
+    on the card, on the wall clock as JAX runs it."""
+    from dasmtl_torch import cli
+
+    assert cli.main(["stream", "serve", "--selftest",
+                     "--selftest_resident"]) == 0
+    assert "[stream-selftest] PASSED" in capsys.readouterr().out
+
+
+def test_fleet_worker_handoff_on_the_card(cuda, tmp_path, monkeypatch):
+    """``chip_smoke.py``'s phase 17 leg at 52x64 over 104 channels: every
+    reply, the handoff at the released offset, 4 gate + 1 decode launches
+    a batch, no capture after warmup, a clean drain."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "WORKER_DIR", str(tmp_path))
+    leg = chip_smoke.worker_leg("cuda", window=(52, 64), channels=104)
+    chip_smoke._worker_checks(leg, "cuda", tiles=2, stride=64)
+    assert leg["batches"] > 0

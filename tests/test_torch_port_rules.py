@@ -58,6 +58,7 @@ def test_stream_entry_points_load_no_jax_and_build_nothing():
     _assert_imports_clean(["dasmtl_torch.stream",
                            "dasmtl_torch.stream.__main__",
                            "dasmtl_torch.stream.live",
+                           "dasmtl_torch.stream.merge",
                            "dasmtl_torch.stream.offline",
                            "dasmtl_torch.stream.resident",
                            "dasmtl_torch.stream.selftest"])

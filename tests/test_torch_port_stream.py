@@ -17,8 +17,9 @@
   entry points: ``python -m dasmtl_torch.stream`` writes the JAX rows,
   ``... serve`` answers ``/events``, ``/stats``, ``/metrics`` and drains
   clean on SIGTERM, runs JAX's default alerts unless ``--no-alerts``,
-  parses the ``--alerts_*`` flags to JAX's values, and what is not ported
-  exits 2 naming its ROADMAP item.
+  parses the ``--alerts_*``, ``--selftest*`` and ``--fleet_worker`` flags
+  to JAX's values, and what is not ported (the fleet controller among
+  it) exits 2 naming its ROADMAP item.
 """
 
 import csv
@@ -479,10 +480,11 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
     (["--devices", "1"], "item 4"),
     (["--precision", "bf16"], "item 10"),
     (["--precision", "int8"], "item 10"),
+    # The fleet worker and the soak's flags (item 1 but the fleet
+    # controller) and the alert engine's flags (item 6) are ported: each
+    # parses to JAX's value.
     (["--fleet_worker"], "item 1"),
     (["--selftest"], "item 1"),
-    # The alert engine's flags (item 6) are ported: each parses to JAX's
-    # value.
     (["--alerts"], "item 6"),
     (["--conc_lockdep"], "item 3"),
     (["--mem_track"], "item 3"),
@@ -491,11 +493,11 @@ def test_stream_serve_cli_answers_and_drains_clean(tmp_path):
     (["--alerts_webhook=http://127.0.0.1:9/hook"], "item 6"),
     (["--alerts_webhook_retries", "1"], "item 6"),
     (["--alerts_webhook_backoff_s", "0.5"], "item 6"),
-    # JAX's flags the parser does not declare, refused by name prefix.
     (["--selftest_cycles", "40"], "item 1"),
     (["--selftest_devices", "1"], "item 1"),
     (["--selftest_fibers", "2"], "item 1"),
-    (["--selftest_resident", "on"], "item 1"),
+    (["--selftest_resident"], "item 1"),
+    # JAX's flags the parser does not declare, refused by name prefix.
     (["--conc_dump_path", "conc.json"], "item 3"),
     (["--conc_hold_warn_ms", "5"], "item 3"),
     (["--mem_canary"], "item 3"),
@@ -505,16 +507,20 @@ def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys,
                                                      tmp_path, monkeypatch):
     """What the stream CLI does not port exits 2 naming its item;
     ``--devices`` (item 4) is ported: a pool of 1 on the CPU streams and
-    drains clean; the alert engine's flags (item 6's remainder) are
-    ported: each parses to the value JAX's ``stream serve`` parses it
-    to."""
+    drains clean; the alert engine's flags (item 6's remainder), the
+    soak's ``--selftest*`` and ``--fleet_worker`` (item 1 but the fleet
+    controller) are ported: each parses to the value JAX's ``stream
+    serve`` parses it to."""
     argv = ["stream", "serve", "--synthetic", "1", "--fresh_init", *extra]
-    if extra[0].startswith("--alerts"):
+    if extra[0].startswith(("--alerts", "--selftest", "--fleet_worker")):
         want = _jax_stream_serve_args(argv[2:], monkeypatch)
         got = build_serve_parser().parse_args(argv[2:])
         for name in ("alerts", "alerts_interval_s", "alerts_path",
                      "alerts_webhook", "alerts_webhook_retries",
-                     "alerts_webhook_backoff_s"):
+                     "alerts_webhook_backoff_s", "selftest",
+                     "selftest_fibers", "selftest_cycles",
+                     "selftest_devices", "selftest_resident",
+                     "fleet_worker"):
             assert (getattr(got, name), type(getattr(got, name))) == \
                 (getattr(want, name), type(getattr(want, name))), name
         return
@@ -694,7 +700,8 @@ def test_stream_refuses_model_c(argv, capsys):
 
 def test_stream_fleet_and_cuda_without_a_card(capsys):
     assert stream_main(["fleet", "--workers", "2"]) == 2
-    assert "item 1" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "item 1" in err and "fleet controller" in err
     with pytest.raises(RuntimeError, match="--device cpu"):
         stream_main(["serve", "--synthetic", "1", "--fresh_init"])
     assert "stream" in cli._SUBCOMMANDS
