@@ -28,7 +28,7 @@ Phases, each fatal on failure (no phase catches its own error):
 5. serve   — ``ServeLoop`` + HTTP on 127.0.0.1 at 100x250, buckets
              1..32, fresh init (seed 0), over the server's
              ``ExecutorPool`` (every visible card, one CUDA graph per
-             bucket); 8 clients send 256 requests,
+             bucket); 8 clients send 128 requests,
              every 37th NaN-poisoned; every request answered, the poisoned
              ones with 422, predictions equal to a direct ``executor.run``
              of the same windows, drain clean, no graph captured after
@@ -154,7 +154,7 @@ Phases, each fatal on failure (no phase catches its own error):
              gate launches per step, 4 paired + 0 per eval batch, 1 gather
              per step and per resident eval batch, 0 gathers with ``off``, 0 post-warmup compiles; (c)
              each run's checkpoint resumed for a 4th epoch on the other
-             path; (d) 2,048 in-memory windows, 2 epochs at batch 32, K = 8,
+             path; (d) 1,024 in-memory windows, 2 epochs at batch 32, K = 8,
              on both paths: examples/s, wall and device ms per step,
              launches per step, device idle share, peak memory;
 11. artifacts — run right after phase 7, on phase 6e's checkpoint: (a)
@@ -209,7 +209,7 @@ Phases, each fatal on failure (no phase catches its own error):
              fold_select launches a step, the counters zeroed just before
              the run; (d) the CV epoch timed (5 folds x 800 in-memory
              windows, batch 32) against one fold's resident run, and
-             model C's host and resident train steps (1,024 windows);
+             model C's host and resident train steps (512 windows);
 13. graphs — the executor pool's CUDA graphs: zero post-warmup captures
              on every member after phase 5's HTTP run, 11c's swap and 7c's
              live run; (a) model A f32, model A bf16 and model C int8 at
@@ -258,7 +258,7 @@ Phases, each fatal on failure (no phase catches its own error):
 15. router — the serving router tier over replica processes on the card:
              two ``python -m dasmtl_torch.serve`` replicas of model A f32
              at 100x250 (fresh init, the server's default buckets) started
-             at once; 8 clients send 256 requests (every 37th NaN, 422)
+             at once; 8 clients send 128 requests (every 37th NaN, 422)
              (a) to one replica with no router, (b) through the port's
              ``Router`` over that replica, (c) through it over both:
              windows/s, client p50 / p99, each replica's batches and its
@@ -306,10 +306,29 @@ Phases, each fatal on failure (no phase catches its own error):
              equal to it, the fiber windowed on from there on the stride
              grid; both released; 4 gate + 1 decode launches per batch
              (a forward replay) over the run, no capture after warmup;
-             SIGTERM drains clean.
+             SIGTERM drains clean;
+18. fleet  — the fleet controller: (a) ``python -m dasmtl_torch.stream
+             fleet --selftest --device cuda`` in process at JAX's
+             defaults (3 oracle workers at 32x32 on the card, 102 fibers,
+             a hot fiber, two planted ones, a SIGKILL of the worker
+             holding p0): exit 0, every invariant, at least one migration
+             and one failover, every orphaned fiber re-placed within 15
+             s, no worker capturing a graph after warmup before the kill;
+             (b) a full-width fleet built from ``FleetCore``, ``Fleet``
+             and ``StreamWorkerProcess``: two workers of model A
+             (``--fleet_worker --fresh_init --window 100x250 --channels
+             400``), phase 17's planted fiber and three background ones
+             placed; fleet-wide resolved windows/s; every fiber drained
+             and resumed at its exact offset; a SIGKILL of the worker
+             holding the planted fiber, the survivor taking every
+             orphaned fiber within 15 s at the cached offset less the
+             replay margin and resolving 2 more windows on each; 4 gate +
+             1 decode launches per batch on each worker (read off its
+             ``/stats`` at quiet points), no capture after warmup, no
+             stitched record twice.
 
 Each phase's seconds are printed as one ``[timing] {"device": s, ...,
-"worker": s, "total": s}`` line (and kept in the ``--out`` report with
+"fleet": s, "total": s}`` line (and kept in the ``--out`` report with
 each part's seconds).  Then one JSON line lists every kernel of the port,
 the card's name and power limit follow on a line of their own, and the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -363,7 +382,7 @@ PARAM_ATOL, PARAM_RTOL, PARAM_OUTLIER = 5e-5, 1e-3, 2.5e-3
 BN_ATOL, BN_RTOL = 1e-5, 1e-3
 TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build", "chip_smoke")
-N_REQUESTS, N_CLIENTS, POISON_EVERY = 256, 8, 37
+N_REQUESTS, N_CLIENTS, POISON_EVERY = 128, 8, 37
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -3988,7 +4007,7 @@ def _determinism():
     return out
 
 
-def _median_ms(fn, reps: int = 15) -> float:
+def _median_ms(fn, reps: int = 9) -> float:
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -4137,9 +4156,9 @@ def phase_dp(peaks):
 
 # -- phase 10 -----------------------------------------------------------------
 RESIDENT_DIR = os.path.join(TRAIN_DIR, "resident")
-#: The timing cell: an in-memory set of 2,048 windows (205 MB resident);
+#: The timing cell: an in-memory set of 1,024 windows (102 MB resident);
 #: batch_gather is timed on a set of GATHER_N windows (410 MB).
-TIMING_N, TIMING_EPOCHS, TIMING_K = 2048, 2, 8
+TIMING_N, TIMING_EPOCHS, TIMING_K = 1024, 2, 8
 GATHER_N = 4096
 
 
@@ -4460,7 +4479,7 @@ def _both_paths():
 @_part
 def _timing_cell(family: str = "MTL", n: int = None, tag: str = "resident"
                  ):
-    """(d) ``n`` in-memory windows (2,048 by default), 2 epochs at batch
+    """(d) ``n`` in-memory windows (1,024 by default), 2 epochs at batch
     32, K = 8, on both paths: examples/s, wall and device ms per step,
     launches per step, device idle share, peak memory."""
     from dasmtl_torch.config import Config
@@ -4519,8 +4538,8 @@ def _timing_cell(family: str = "MTL", n: int = None, tag: str = "resident"
             def dispatch():
                 for _ in range(TIMING_K):
                     tr.train_step(tr.state, batch, 1e-3)
-        event_ms = device_ms(dispatch, inner=1, reps=5) / TIMING_K
-        layers, _, prof_wall, launches = _kernel_ms(dispatch, 2)
+        event_ms = device_ms(dispatch, inner=1, reps=3) / TIMING_K
+        layers, _, prof_wall, launches = _kernel_ms(dispatch, 1)
         kernel_ms = sum(layers.values()) / TIMING_K
         wall_ms = epoch_s[-1] / steps * 1e3
         # A replay is one launch queued ahead, so events time the device;
@@ -4572,8 +4591,8 @@ CV_DIR = os.path.join(TRAIN_DIR, "cv")
 #: Folds of the reference protocol, and the step's batch.
 CV_FOLDS, CV_BATCH = 5, 32
 #: The CV timing cell: 1,000 in-memory windows, 5 folds of 800 training
-#: windows, 2 epochs at batch 32, K = 8; model C's timing cell: 1,024.
-CV_TIMING_N, CV_TIMING_EPOCHS, MODEL_C_TIMING_N = 1000, 2, 1024
+#: windows, 2 epochs at batch 32, K = 8; model C's timing cell: 512.
+CV_TIMING_N, CV_TIMING_EPOCHS, MODEL_C_TIMING_N = 1000, 2, 512
 
 
 def _leaf_bits(t: torch.Tensor) -> torch.Tensor:
@@ -4860,7 +4879,7 @@ def _fold_select_kernel(peaks):
     k["ms"], k["no_pdl_ms"] = k["save_new_ms"], k["save_no_pdl_ms"]
     k["restore_ms"], k["normal_ms"] = k["restore_new_ms"], k["normal_new_ms"]
     k["plain_ms"] = device_ms(_rotating(pads, lambda w: fs.fold_select_plain(
-        live, old, w)), inner=2, reps=10)
+        live, old, w)), inner=2, reps=5)
     # The library calls, every operand rotating over 5 sets so that the
     # writes reach DRAM as the kernel's do (5 x 27 MB > the 50 MB L2).
     stride = fs.snapshot_bytes(live[0])
@@ -4871,7 +4890,7 @@ def _fold_select_kernel(peaks):
                       .view(t.dtype).view(t.shape)
                       for t, o in zip(live[f], plan.offsets)])
     lib = {"foreach_copy_ms": device_ms(_rotating(
-        list(zip(views, live)), torch._foreach_copy_), inner=10)}
+        list(zip(views, live)), torch._foreach_copy_), inner=10, reps=10)}
     del views
     flat = [(torch.empty(state_bytes, dtype=torch.uint8, device=DEV),
              torch.empty(state_bytes, dtype=torch.uint8, device=DEV))
@@ -5442,21 +5461,21 @@ def _graph_selftest() -> dict:
 @_part
 def _graph_pool_refusal() -> dict:
     """(f) ``python -m dasmtl_torch.serve --fresh_init --devices 2`` on
-    this one-card machine exits 2 with the pool's message."""
-    import subprocess
+    this one-card machine exits 2 with the pool's message (the CLI's
+    ``main`` in process: it refuses before it binds or serves)."""
+    from dasmtl_torch.serve.__main__ import main as serve_main
 
-    proc = subprocess.run(
-        [sys.executable, "-m", "dasmtl_torch.serve", "--fresh_init",
-         "--devices", "2"], cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=300)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = serve_main(["--fresh_init", "--devices", "2"])
     want = (f"pool of 2 devices requested, {torch.cuda.device_count()} "
             f"visible")
-    if proc.returncode != 2 or want not in proc.stderr:
-        raise AssertionError(f"[graphs] --devices 2: rc {proc.returncode}, "
-                             f"{proc.stderr[-500:]}")
+    if rc != 2 or want not in err.getvalue():
+        raise AssertionError(f"[graphs] --devices 2: rc {rc}, "
+                             f"{err.getvalue()[-500:]}")
     log(f"[graphs] python -m dasmtl_torch.serve --fresh_init --devices 2: "
-        f"exit 2, '{proc.stderr.strip()}'")
-    return {"rc": proc.returncode, "stderr": proc.stderr.strip()}
+        f"exit 2, '{err.getvalue().strip()}'")
+    return {"rc": rc, "stderr": err.getvalue().strip()}
 
 
 def phase_graphs(serve: dict, stream: dict, artifacts: dict) -> dict:
@@ -6149,7 +6168,7 @@ def _router_launches(before: dict, after: dict) -> dict:
 
 
 def _router_leg(tag: str, address: str, procs, bodies) -> dict:
-    """8 clients send 256 requests to ``address`` (a replica or a router),
+    """8 clients send 128 requests to ``address`` (a replica or a router),
     every 37th window NaN; every answer 200 (or 422 for a NaN window) with
     its log-probs; windows/s, client p50 / p99 and each replica's batches
     and launches, read before and after."""
@@ -6804,7 +6823,7 @@ def _worker_checks(leg: dict, device: str, tiles: int, stride: int) -> dict:
 
 
 def phase_worker() -> dict:
-    """Phase 17: the fleet worker (run last)."""
+    """Phase 17: the fleet worker."""
     t0 = time.perf_counter()
     shutil.rmtree(WORKER_DIR, ignore_errors=True)
     leg = worker_leg(DEV)
@@ -6827,6 +6846,277 @@ def phase_worker() -> dict:
                                "launches", "batches", "post_warmup")}
     out.update(verdict, seconds=time.perf_counter() - t0)
     log(f"[worker] phase done in {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 18 -----------------------------------------------------------------
+#: Phase 18b's fibers: phase 17's planted ``p`` and three background ones.
+FLEET_SPECS = {"p": WORKER_SPECS["p"],
+               **{f"b{i}": {"kind": "synthetic", "seed": 1 + i}
+                  for i in range(3)}}
+#: Seconds of 18b's throughput window, its failover budget and margin.
+FLEET_MEASURE_S, FLEET_BUDGET_S, FLEET_REPLAY_MARGIN = 5.0, 15.0, 2048
+FLEET_PER_BATCH = {"gate_apply": 4, "decode_heads": 1}
+
+
+def _fleet_soak(device: str) -> dict:
+    """(a) ``python -m dasmtl_torch.stream fleet --selftest`` through
+    ``cli.main``; the soak's report and its one fleet ``/metrics`` scrape
+    (taken before the kill) are read off the module in this process."""
+    from dasmtl_torch import cli
+    from dasmtl_torch.obs.registry import parse_exposition
+    from dasmtl_torch.stream import fleet as F
+
+    reports, scrapes = [], []
+    run, text = F.run_fleet_selftest, F.Fleet.metrics_text
+
+    def keep_report(**kw):
+        reports.append(run(**kw))
+        return reports[-1]
+
+    def keep_scrape(self):
+        scrapes.append(text(self))
+        return scrapes[-1]
+
+    F.run_fleet_selftest, F.Fleet.metrics_text = keep_report, keep_scrape
+    try:
+        rc = cli.main(["stream", "fleet", "--selftest", "--device", device])
+    finally:
+        F.run_fleet_selftest, F.Fleet.metrics_text = run, text
+    report = reports[0]
+    fams = parse_exposition(scrapes[0])
+    post = {}
+    for (_, labels), v in fams["dasmtl_serve_post_warmup_recompiles_total"][
+            "samples"].items():
+        worker = dict(labels)["worker"]
+        post[worker] = post.get(worker, 0) + int(v)
+    lat = report["reassign_latency_s_max"]
+    if rc != 0 or not report["passed"] or report["migrations"] < 1 or \
+            report["failovers"] < 1 or lat is None or \
+            lat > report["reassign_budget_s"] or \
+            sorted(post) != [f"w{i}" for i in range(report["workers"])] or \
+            any(post.values()):
+        raise AssertionError(f"[fleet] soak rc {rc}, post-warmup captures "
+                             f"{post}, report {report}")
+    keys = ("workers", "fibers", "killed", "victim_fibers", "migrations",
+            "failovers", "reassignments", "reassign_latency_s_max",
+            "reassign_budget_s", "events_stitched", "hot_shed_rate_per_s_max",
+            "hot_weight_fraction_min", "per_worker_load", "elapsed_s")
+    out = {k: report[k] for k in keys}
+    out["post_warmup_before_kill"] = post
+    log(f"[fleet] (a) stream fleet --selftest --device {device}: "
+        f"{report['workers']} oracle workers, {report['fibers']} fibers, "
+        f"{report['migrations']} migration(s), {report['failovers']} "
+        f"failover(s) (SIGKILL {report['killed']}, "
+        f"{report['victim_fibers']} fibers), {report['reassignments']} "
+        f"reassignment(s), largest reassignment {lat} s against the "
+        f"{report['reassign_budget_s']} s budget, {report['events_stitched']}"
+        f" stitched closes, hot fiber shed up to "
+        f"{report['hot_shed_rate_per_s_max']}/s at weight fraction down to "
+        f"{report['hot_weight_fraction_min']}, {report['elapsed_s']} s; "
+        f"post-warmup captures before the kill {post}")
+    return out
+
+
+def _fleet_counts(fleet, address: str) -> dict:
+    """A worker's launch counts off its ``/stats`` and its batches served
+    and post-warmup captures off its ``/metrics``."""
+    stats = fleet.transport.stats(address)
+    batches, post = _served("http://" + address)
+    return {"launches": stats["launches"], "batches": batches,
+            "post_warmup": post, "tenants": stats["tenants"]}
+
+
+def _fleet_per_batch(name: str, a: dict, b: dict) -> dict:
+    """Between two quiet reads of one worker: its batches and launches,
+    FLEET_PER_BATCH times the batches (every other kernel none)."""
+    n = b["batches"] - a["batches"]
+    got = {k: b["launches"][k] - a["launches"][k] for k in b["launches"]}
+    want = {k: FLEET_PER_BATCH.get(k, 0) * n for k in got}
+    if not n or got != want or b["post_warmup"]:
+        raise AssertionError(f"[fleet] {name}: {n} batches made {got} "
+                             f"launches (expected {FLEET_PER_BATCH} a "
+                             f"batch), post-warmup captures "
+                             f"{b['post_warmup']}")
+    return {"batches": n, "gate": got["gate_apply"],
+            "decode": got["decode_heads"]}
+
+
+def fleet_leg(device: str, window=(H, W), channels: int = 400,
+              measure_s: float = FLEET_MEASURE_S) -> dict:
+    """(b) Two ``--fleet_worker`` processes of model A under a ``Fleet``
+    the caller ticks (no control thread), so the leg can hold the fleet
+    still at its quiet points: before any fiber, after every fiber is
+    drained, and at the end."""
+    from dasmtl_torch.stream.fleet import (FiberSpec, Fleet, FleetCore,
+                                           _spawn_workers)
+
+    procs = _spawn_workers(2, [
+        "--fleet_worker", "--fresh_init", "--window",
+        f"{window[0]}x{window[1]}", "--channels", str(channels), "--device",
+        device, "--adapt_weights", "--no-alerts", "--events_ring", "4096"],
+        say=log)
+    core = FleetCore(probe_interval_s=0.5, backoff_max_s=5.0,
+                     stats_interval_s=0.4, replay_margin=FLEET_REPLAY_MARGIN)
+    for name, proc in procs.items():
+        core.add_worker(name, proc.address)
+    fleet = Fleet(core, procs=procs)
+    executed = []
+
+    def drive(done, seconds: float, what: str) -> float:
+        deadline = time.monotonic() + seconds
+        while True:
+            executed.extend((time.monotonic(), a) for a in fleet.tick())
+            if done():
+                return time.monotonic()
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[fleet] {what}: not in {seconds} s "
+                                     f"({fleet.stats()})")
+            time.sleep(0.05)
+
+    def placed() -> bool:
+        return all(o is not None for o in core.owner.values())
+
+    def release_all(owners) -> dict:
+        out = {}
+        for fiber in sorted(owners):
+            code, body = fleet.transport.request_json(
+                procs[owners[fiber]].address, "POST", "/fibers/release",
+                {"fiber": fiber, "timeout_s": 10.0}, timeout_s=25.0)
+            if code != 200 or not body.get("drained"):
+                raise AssertionError(f"[fleet] release {fiber}: {code} "
+                                     f"{body}")
+            out[fiber] = int(body["resume_offset"])
+        return out
+
+    out = {}
+    try:
+        t0 = time.monotonic()
+        drive(lambda: len(core.ready_workers()) == 2, 300.0,
+              "both workers ready")
+        out["ready_s"] = round(time.monotonic() - t0, 1)
+        base = {n: _fleet_counts(fleet, p.address) for n, p in procs.items()}
+        for fiber, spec in FLEET_SPECS.items():
+            core.add_fiber(FiberSpec(fiber, spec))
+        drive(placed, 60.0, "every fiber placed")
+        owners = dict(core.owner)
+
+        # Throughput, as run_fleet_bench measures it.
+        def resolved() -> dict:
+            return {n: sum(t["resolved"] for t in fleet.transport.stats(
+                p.address)["tenants"].values()) for n, p in procs.items()}
+        r0, t_a = resolved(), time.monotonic()
+        drive(lambda: time.monotonic() - t_a >= measure_s, measure_s + 30,
+              "the throughput window")
+        r1, wall = resolved(), time.monotonic() - t_a
+        out["per_worker_windows_per_s"] = {
+            n: round((r1[n] - r0[n]) / wall, 2) for n in sorted(r1)}
+        out["windows_per_s"] = round(sum(
+            out["per_worker_windows_per_s"].values()), 2)
+        out["load"] = {n: sum(1 for o in owners.values() if o == n)
+                       for n in procs}
+
+        # Quiet point: every fiber drained; each worker's launches are
+        # 4 gate + 1 decode per batch it served since it was empty.
+        released = release_all(owners)
+        mid = {n: _fleet_counts(fleet, p.address) for n, p in procs.items()}
+        out["before_kill"] = {n: _fleet_per_batch(n, base[n], mid[n])
+                              for n in procs}
+        now = time.monotonic()
+        for fiber, offset in released.items():
+            core.on_release_ok(fiber, owners[fiber], offset, now)
+        n_exec = len(executed)
+        drive(placed, 60.0, "every fiber resumed")
+        resumed = {a["fiber"]: a["resume_offset"]
+                   for _, a in executed[n_exec:] if a["kind"] == "assign"}
+        if resumed != released or dict(core.owner) != owners:
+            raise AssertionError(f"[fleet] resumed at {resumed}, released "
+                                 f"at {released}; owners {core.owner}, "
+                                 f"before {owners}")
+        drive(lambda: all(core.offsets[f] > released[f] for f in released),
+              60.0, "every resumed fiber windowed on")
+
+        # Failover: SIGKILL the planted fiber's worker with the fleet held
+        # still, so the cached offsets are the ones the failover replays.
+        victim = core.owner["p"]
+        survivor = next(n for n in procs if n != victim)
+        orphans = sorted(f for f, o in core.owner.items() if o == victim)
+        cached = {f: core.offsets[f] for f in orphans}
+        n_exec, t_kill = len(executed), time.monotonic()
+        procs[victim].kill()
+        t_done = drive(lambda: not core._orphaned_at and all(
+            core.owner[f] == survivor for f in orphans),
+            FLEET_BUDGET_S + 30.0, "failover to the survivor")
+        replays = {a["fiber"]: a["resume_offset"]
+                   for _, a in executed[n_exec:] if a["kind"] == "assign"}
+        want = {f: max(0, cached[f] - FLEET_REPLAY_MARGIN) for f in orphans}
+        lat = max(core.reassign_latencies)
+        if replays != want or lat > FLEET_BUDGET_S or \
+                core.reassignments != len(orphans):
+            raise AssertionError(f"[fleet] failover replayed {replays}, "
+                                 f"expected {want}; largest reassignment "
+                                 f"{lat} s, {core.reassignments} "
+                                 f"reassignments")
+        addr = procs[survivor].address
+        drive(lambda: all(fleet.transport.stats(addr)["tenants"].get(
+            f, {}).get("resolved", 0) >= 2 for f in orphans), 60.0,
+            "2 windows of every orphaned fiber on the survivor")
+        out.update(victim=victim, survivor=survivor, orphans=orphans,
+                   cached=cached, replayed_from=replays,
+                   reassign_latency_s_max=round(lat, 3),
+                   kill_to_reassigned_s=round(t_done - t_kill, 3),
+                   failovers=core.failovers)
+
+        # Quiet point: the survivor's fibers drained.
+        release_all(dict(core.owner))
+        end = _fleet_counts(fleet, addr)
+        out["after_kill"] = {survivor: _fleet_per_batch(survivor, mid[survivor],
+                                                        end)}
+        records = fleet.events(n=4096)
+        keys = [json.dumps(r, sort_keys=True) for r in records]
+        if len(set(keys)) != len(keys):
+            raise AssertionError(f"[fleet] a stitched record twice: "
+                                 f"{len(keys)} records, {len(set(keys))} "
+                                 f"distinct")
+        out["stitched"] = len(records)
+        out["deduped"] = int(fleet.metrics.deduped.value())
+        out["survivor_rc"] = procs[survivor].terminate()
+        if out["survivor_rc"] != 0:
+            raise AssertionError(f"[fleet] the survivor exited "
+                                 f"{out['survivor_rc']}: "
+                                 f"{procs[survivor].log_tail()}")
+    finally:
+        fleet.close()
+    return out
+
+
+def phase_fleet() -> dict:
+    """Phase 18: the fleet controller (run last)."""
+    t0 = time.perf_counter()
+    out = {"soak": _fleet_soak(DEV)}
+    out["soak"]["seconds"] = round(time.perf_counter() - t0, 1)
+    t1 = time.perf_counter()
+    leg = fleet_leg(DEV)
+    leg["seconds"] = round(time.perf_counter() - t1, 1)
+    out["full_width"] = leg
+    log(f"[fleet] (b) a fleet of 2 workers of model A (--fresh_init "
+        f"--window {H}x{W} --channels 400) on the card: ready in "
+        f"{leg['ready_s']} s, {len(FLEET_SPECS)} fibers placed "
+        f"{leg['load']}, {leg['windows_per_s']} resolved windows/s "
+        f"fleet-wide over {FLEET_MEASURE_S} s "
+        f"{leg['per_worker_windows_per_s']}; every fiber drained and "
+        f"resumed at its exact offset; SIGKILL {leg['victim']} (holding "
+        f"{leg['orphans']}): {leg['survivor']} took them in "
+        f"{leg['kill_to_reassigned_s']} s (largest reassignment "
+        f"{leg['reassign_latency_s_max']} s, budget {FLEET_BUDGET_S} s) "
+        f"from the cached offsets {leg['cached']} less "
+        f"{FLEET_REPLAY_MARGIN}, and resolved >= 2 windows of each; "
+        f"launches a worker {leg['before_kill']}, after the kill "
+        f"{leg['after_kill']} (4 gate + 1 decode a batch), no capture "
+        f"after warmup; {leg['stitched']} stitched records, none twice "
+        f"({leg['deduped']} deduped); the survivor drained clean")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[fleet] phase done in {out['seconds']:.1f} s")
     return out
 
 
@@ -6884,6 +7174,7 @@ def main(argv=None) -> int:
     router = _phase("router", phase_router)
     alerts = _phase("alerts", phase_alerts, dp)
     worker = _phase("worker", phase_worker)
+    fleet = _phase("fleet", phase_fleet)
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 1)
     sk, offline = stream["kernels"], stream["offline"]
 
@@ -6956,7 +7247,7 @@ def main(argv=None) -> int:
                        "precision": precision, "dp": dp,
                        "resident": resident, "cv": cv, "graphs": graphs,
                        "obs": obs, "router": router, "alerts": alerts,
-                       "worker": worker,
+                       "worker": worker, "fleet": fleet,
                        "timing": PHASE_SECONDS, "parts": PART_SECONDS,
                        "seconds": time.perf_counter() - t_start},
                       f,

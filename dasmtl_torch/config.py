@@ -10,8 +10,9 @@ observability block (``Config.obs_*``, ``:298-327``, checked as
 ``:497-526`` checks it), the router block (``Config.router_*``,
 ``:209-218``, checked as ``:468-497`` checks it; the router CLI's
 defaults), and the serve and stream recording blocks (``Config.serve_*``
-and ``Config.stream_*`` but ``stream_fleet_*``, ``:161-190``, ``:220-261``,
-checked as ``:388-450`` checks them).  Only what the ported slices read
+and ``Config.stream_*`` with the fleet controller's ``stream_fleet_*``,
+``:161-190``, ``:220-291``, checked as ``:388-467`` checks them; the
+fleet CLI's defaults).  Only what the ported slices read
 is here — this is not a copy of the whole ``Config``.
 
 :func:`parse_train_args` / :func:`parse_test_args` take the JAX CLI's flag
@@ -286,6 +287,17 @@ class Config:
     stream_adapt_weights: bool = False
     stream_events_ring: int = STREAM_EVENTS_RING
     stream_events_path: Optional[str] = None
+    # The fleet controller (python -m dasmtl_torch.stream fleet's
+    # defaults): workers, probe and stats cadences, the failover replay
+    # margin, the rebalance threshold (0 = off) and cooldown, the drain
+    # deadline of a migration's release.
+    stream_fleet_workers: int = 2
+    stream_fleet_probe_interval_s: float = 0.5
+    stream_fleet_stats_interval_s: float = 0.5
+    stream_fleet_replay_margin: int = 2048
+    stream_fleet_rebalance_shed_rate: float = 0.0
+    stream_fleet_rebalance_cooldown_s: float = 3.0
+    stream_fleet_release_timeout_s: float = 10.0
 
     def __post_init__(self) -> None:
         if self.model not in MODEL_TYPES:
@@ -414,6 +426,23 @@ class Config:
                              "(0 = the tenant's fairness quota)")
         if self.stream_events_ring < 1:
             raise ValueError("stream_events_ring must be >= 1")
+        if self.stream_fleet_workers < 1:
+            raise ValueError("stream_fleet_workers must be >= 1")
+        if self.stream_fleet_probe_interval_s <= 0:
+            raise ValueError("stream_fleet_probe_interval_s must be > 0")
+        if self.stream_fleet_stats_interval_s <= 0:
+            raise ValueError("stream_fleet_stats_interval_s must be > 0")
+        if self.stream_fleet_replay_margin < 0:
+            raise ValueError("stream_fleet_replay_margin must be >= 0 "
+                             "(0 = resume exactly at the cached offset)")
+        if self.stream_fleet_rebalance_shed_rate < 0:
+            raise ValueError("stream_fleet_rebalance_shed_rate must be "
+                             ">= 0 (0 = rebalancing off)")
+        if self.stream_fleet_rebalance_cooldown_s < 0:
+            raise ValueError("stream_fleet_rebalance_cooldown_s must "
+                             "be >= 0")
+        if self.stream_fleet_release_timeout_s <= 0:
+            raise ValueError("stream_fleet_release_timeout_s must be > 0")
 
     def _check_router(self) -> None:
         """``dasmtl/config.py:468-497``, with its messages."""
@@ -479,16 +508,12 @@ NOT_YET_PORTED = {
     "loader_native": ("auto", "ROADMAP.md queue 1 item 15, 'The native "
                               "MAT reader'"),
 }
-_FLEET = ("ROADMAP.md queue 1 item 1, 'The stream tier's remainder' (the "
-          "fleet controller)")
 _ANALYSIS = ("ROADMAP.md queue 1 item 3 (the lint, audit, conc and mem "
              "families analyse JAX code and are not ported)")
-#: Prefixes of the JAX CLI's flags that only record the fleet controller's
-#: and the analysis tiers' settings in a run's config.json, and the
-#: ROADMAP.md item that brings each (the ``serve_*``, ``router_*`` and
-#: other ``stream_*`` blocks are ported).
-_RECORD_ONLY = {"stream_fleet_": _FLEET, "conc_": _ANALYSIS,
-                "mem_": _ANALYSIS}
+#: Prefixes of the JAX CLI's flags that only record the analysis tiers'
+#: settings in a run's config.json, and the ROADMAP.md item that brings
+#: them (the ``serve_*``, ``router_*`` and ``stream_*`` blocks are ported).
+_RECORD_ONLY = {"conc_": _ANALYSIS, "mem_": _ANALYSIS}
 
 _TRUTHY = frozenset({"1", "true", "yes", "y", "t", "on"})
 _FALSY = frozenset({"0", "false", "no", "n", "f", "off"})
@@ -747,7 +772,8 @@ def _add_args(p: argparse.ArgumentParser) -> None:
 def _add_serve_and_stream_args(p: argparse.ArgumentParser,
                                d: Config) -> None:
     """The JAX CLI's ``--serve_*`` and ``--stream_*`` flags
-    (``dasmtl/config.py:793-940``), with its types."""
+    (``dasmtl/config.py:793-971``, ``--stream_fleet_*`` included), with
+    its types."""
     serve = p.add_argument_group(
         "the serving tier (recorded in config.json; python -m "
         "dasmtl_torch.serve takes its own flags)")
@@ -828,6 +854,29 @@ def _add_serve_and_stream_args(p: argparse.ArgumentParser,
     st.add_argument("--stream_events_path", type=str,
                     default=d.stream_events_path, metavar="PATH",
                     help="append every track record as JSONL here")
+    fleet = p.add_argument_group(
+        "the stream fleet (recorded in config.json; python -m "
+        "dasmtl_torch.stream fleet takes its own flags)")
+    for name, kind, help_ in (
+            ("workers", int, "stream worker processes behind the fleet "
+                             "controller"),
+            ("probe_interval_s", float, "/readyz probe cadence per worker "
+                                        "(the router's eviction contract)"),
+            ("stats_interval_s", float, "/stats + /events poll cadence per "
+                                        "ready worker"),
+            ("replay_margin", int, "samples replayed before the cached "
+                                   "offset on failover resume"),
+            ("rebalance_shed_rate", float, "per-fiber shed windows/s that "
+                                           "triggers a migration (0 = "
+                                           "rebalancing off)"),
+            ("rebalance_cooldown_s", float, "minimum gap between "
+                                            "migrations"),
+            ("release_timeout_s", float, "drain deadline granted to the "
+                                         "old owner during a migration "
+                                         "release")):
+        fleet.add_argument(f"--stream_fleet_{name}", type=kind,
+                           default=getattr(d, f"stream_fleet_{name}"),
+                           help=help_)
 
 
 def _parse(argv, description: str) -> Config:

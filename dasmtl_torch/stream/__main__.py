@@ -1,9 +1,9 @@
 """``python -m dasmtl_torch.stream`` — the stream tier's entry point.
 
 ``serve`` as the first argument routes to the live tier
-(:func:`dasmtl_torch.stream.live.serve_main`); ``fleet``, the fleet
-controller, exits 2 (not yet ported); anything else is the offline record sweep
-(:func:`dasmtl_torch.stream.offline.main`).
+(:func:`dasmtl_torch.stream.live.serve_main`); ``fleet`` to the fleet
+controller (:func:`dasmtl_torch.stream.fleet.fleet_main`); anything else
+is the offline record sweep (:func:`dasmtl_torch.stream.offline.main`).
 """
 
 from __future__ import annotations
@@ -18,11 +18,9 @@ def main(argv=None) -> int:
 
         return serve_main(argv[1:])
     if argv[:1] == ["fleet"]:
-        print("dasmtl_torch.stream: fleet is not yet ported: ROADMAP.md "
-              "queue 1 item 1, 'the stream tier's remainder' (the fleet "
-              "controller; its worker is python -m dasmtl_torch.stream "
-              "serve --fleet_worker)", file=sys.stderr)
-        return 2
+        from dasmtl_torch.stream.fleet import fleet_main
+
+        return fleet_main(argv[1:])
     from dasmtl_torch.stream.offline import main as offline_main
 
     return offline_main(argv)

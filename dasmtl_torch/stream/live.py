@@ -67,6 +67,7 @@ from dasmtl_torch.obs.alerts import AlertEngine, AlertRule
 from dasmtl_torch.obs.history import MetricsHistory, handle_query
 from dasmtl_torch.obs.registry import (DEFAULT_LATENCY_BUCKETS_S,
                                        MetricsRegistry)
+from dasmtl_torch.ops import launch_counts
 from dasmtl_torch.stream.feed import FiberFeed
 from dasmtl_torch.stream.tracks import TrackBook, WindowDecode
 from dasmtl_torch.stream.windower import LiveWindower
@@ -779,7 +780,8 @@ def default_stream_rules(*, shed_rate_per_s: float = 1.0,
 def make_stream_http_server(stream: StreamLoop, host: str = "127.0.0.1",
                             port: int = 0) -> ThreadingHTTPServer:
     """``GET /events`` (track records; ``?n=`` and ``?kind=``),
-    ``/healthz``, ``/readyz``, ``/stats``, ``/metrics`` (serve + stream
+    ``/healthz``, ``/readyz``, ``/stats`` (with ``launches``, this
+    process's kernel launch counts), ``/metrics`` (serve + stream
     families) and ``/query`` (metrics history, 404 without one); ``POST
     /fibers`` and ``POST /fibers/release``, the fleet worker's placement
     surface, with JAX's statuses and bodies (``live.py:821-885``): 200, 400
@@ -885,7 +887,12 @@ def make_stream_http_server(stream: StreamLoop, host: str = "127.0.0.1",
                     self._send(200 if payload.get("ready") else 503,
                                json.dumps(payload).encode())
                 elif url.path == "/stats":
-                    self._send(200, json.dumps(stream.stats()).encode())
+                    # With this process's kernel launch counts, as the
+                    # serve loop's /stats carries them (a fleet reads
+                    # them off each worker).
+                    self._send(200, json.dumps(
+                        {**stream.stats(),
+                         "launches": launch_counts()}).encode())
                 elif url.path == "/metrics":
                     self._send(200, stream.metrics_text().encode(),
                                "text/plain; version=0.0.4")

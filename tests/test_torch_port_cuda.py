@@ -34,8 +34,9 @@ graph replays on another thread (neither stalls); and the alert engine's
 live leg (``chip_smoke.py`` phase 16b), whose events on the synthetic
 clock equal its CPU run's; the stream soak (``run_selftest``) on both
 planes on the synthetic clock with JAX's per-tenant counts, ``stream serve
---selftest --selftest_resident`` on the wall clock, and the fleet worker's
-handoff (``chip_smoke.py`` phase 17's leg at 52x64).
+--selftest --selftest_resident`` on the wall clock, the fleet worker's handoff
+(``chip_smoke.py`` phase 17's leg at 52x64), and the fleet soak at JAX's
+defaults with ``run_fleet_bench`` at 1 and 2 oracle workers.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -45,6 +46,7 @@ package, so it runs on the machine with the card:
 """
 
 import copy
+import json
 
 import pytest
 import torch
@@ -2071,3 +2073,25 @@ def test_fleet_worker_handoff_on_the_card(cuda, tmp_path, monkeypatch):
     leg = chip_smoke.worker_leg("cuda", window=(52, 64), channels=104)
     chip_smoke._worker_checks(leg, "cuda", tiles=2, stride=64)
     assert leg["batches"] > 0
+
+
+def test_fleet_selftest_on_the_card(cuda):
+    """The fleet soak at JAX's defaults (3 oracle workers on the card,
+    102 fibers, a SIGKILL of the worker holding p0) passes every
+    invariant; then ``run_fleet_bench`` at 1 and 2 workers gives a
+    fleet-wide windows/s row each (run with ``-s`` to read them)."""
+    from dasmtl_torch.stream.fleet import run_fleet_bench, run_fleet_selftest
+
+    report = run_fleet_selftest(device="cuda")
+    assert report["passed"], report["failures"]
+    assert report["migrations"] >= 1 and report["failovers"] >= 1
+    assert report["reassign_latency_s_max"] <= report["reassign_budget_s"]
+    rows = [run_fleet_bench(workers=n, device="cuda") for n in (1, 2)]
+    for row in rows:
+        assert row["value"] > 0 and row["unit"] == "windows/s"
+    assert rows[1]["killed"] and rows[1]["reassign_latency_s_max"] <= 15.0
+    print("[fleet-card] " + json.dumps(
+        {"selftest": {k: report[k] for k in (
+            "migrations", "failovers", "reassignments",
+            "reassign_latency_s_max", "events_stitched", "elapsed_s")},
+         "bench": rows}))

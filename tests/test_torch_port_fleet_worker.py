@@ -16,8 +16,8 @@ stream recording flags, held to the JAX package on the CPU.
 - ``dasmtl_torch.stream.merge``: JAX's ``tests/test_merge_shards.py``
   cases through both merges, with equal bytes and equal errors.
 - ``--serve_*`` / ``--stream_*`` parse to JAX's values, with JAX's checks
-  and messages, and reach ``config.json``; ``--stream_fleet_*`` exits 2
-  naming the fleet controller.
+  and messages, and reach ``config.json`` (``--stream_fleet_*`` too; the
+  fleet controller itself is ``tests/test_torch_port_fleet.py``).
 
 Everything runs on one intra-op thread.
 """
@@ -337,7 +337,10 @@ SERVE_STREAM_FIELDS = (
     "stream_open_windows", "stream_close_windows", "stream_min_event_prob",
     "stream_track_merge_bins", "stream_distance_ewma", "stream_resident",
     "stream_resident_max_windows", "stream_adapt_weights",
-    "stream_events_ring", "stream_events_path")
+    "stream_events_ring", "stream_events_path", "stream_fleet_workers",
+    "stream_fleet_probe_interval_s", "stream_fleet_stats_interval_s",
+    "stream_fleet_replay_margin", "stream_fleet_rebalance_shed_rate",
+    "stream_fleet_rebalance_cooldown_s", "stream_fleet_release_timeout_s")
 
 
 @pytest.mark.parametrize("argv", [
@@ -356,7 +359,13 @@ SERVE_STREAM_FIELDS = (
      "--stream_track_merge_bins", "1.5", "--stream_distance_ewma", "0.5",
      "--stream_resident", "off", "--stream_resident_max_windows", "8",
      "--stream_adapt_weights", "--stream_events_ring", "16",
-     "--stream_events_path", "events.jsonl"]])
+     "--stream_events_path", "events.jsonl"],
+    ["--stream_fleet_workers", "4", "--stream_fleet_probe_interval_s",
+     "0.25", "--stream_fleet_stats_interval_s", "2",
+     "--stream_fleet_replay_margin", "0",
+     "--stream_fleet_rebalance_shed_rate", "20",
+     "--stream_fleet_rebalance_cooldown_s", "0",
+     "--stream_fleet_release_timeout_s", "5"]])
 def test_serve_and_stream_flags_parse_to_jax_s_values(argv):
     ours = parse_train_args(argv + ["--device", "cpu"])
     want = jax_parse_train_args(argv + ["--device", "cpu"])
@@ -383,7 +392,15 @@ def test_serve_and_stream_flags_parse_to_jax_s_values(argv):
     ["--stream_min_event_prob", "1.5"],
     ["--stream_distance_ewma", "0"],
     ["--stream_resident", "maybe"],
-    ["--stream_events_ring", "0"]])
+    ["--stream_events_ring", "0"],
+    ["--stream_fleet_workers", "0"],
+    ["--stream_fleet_probe_interval_s", "0"],
+    ["--stream_fleet_stats_interval_s", "-1"],
+    ["--stream_fleet_replay_margin", "-1"],
+    ["--stream_fleet_rebalance_shed_rate", "-0.5"],
+    ["--stream_fleet_rebalance_cooldown_s", "-1"],
+    ["--stream_fleet_release_timeout_s", "0"],
+    ["--stream_fleet_workers", "two"]])
 def test_serve_and_stream_flags_are_refused_as_jax_refuses(argv, capsys):
     errors = []
     for parse in (parse_train_args, jax_parse_train_args):

@@ -57,6 +57,7 @@ RUN_MODULES = ["dasmtl_torch.cli", "dasmtl_torch.__main__",
 def test_stream_entry_points_load_no_jax_and_build_nothing():
     _assert_imports_clean(["dasmtl_torch.stream",
                            "dasmtl_torch.stream.__main__",
+                           "dasmtl_torch.stream.fleet",
                            "dasmtl_torch.stream.live",
                            "dasmtl_torch.stream.merge",
                            "dasmtl_torch.stream.offline",
@@ -99,6 +100,16 @@ def test_router_tier_loads_no_jax_and_builds_nothing():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+def test_fleet_controller_imports_no_torch():
+    """The fleet controller moves no tensors: its module imports no torch
+    (the ``dasmtl_torch.stream`` package around it does, for the live
+    tier)."""
+    path = ROOT / "dasmtl_torch" / "stream" / "fleet.py"
+    roots = set(_imported_roots(path))
+    assert "torch" not in roots and "numpy" not in roots
+    assert {"dasmtl_torch"} <= roots
 
 
 def _assert_imports_clean(modules):

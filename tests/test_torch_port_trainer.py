@@ -298,13 +298,13 @@ def test_device_cuda_without_a_card_names_device_cpu(tmp_path):
      "item 1, 'The stream tier's remainder' (the fleet controller)")])
 def test_flags_not_yet_ported_exit_2_naming_their_item(argv, item, capsys):
     """What the port does not carry exits 2 naming its item; the serve and
-    stream recording blocks (item 1 but the fleet controller's
-    ``--stream_fleet_*``) are ported: each parses to JAX's value."""
-    if argv[0].startswith(("--serve_", "--stream_")) and \
-            not argv[0].startswith("--stream_fleet_"):
+    stream recording blocks (item 1, the fleet controller's
+    ``--stream_fleet_*`` included) are ported: each parses to JAX's
+    value."""
+    if argv[0].startswith(("--serve_", "--stream_")):
         ours = parse_train_args(argv + ["--device", "cpu"])
         want = jax_parse_train_args(argv + ["--device", "cpu"])
-        field = argv[0][2:]
+        field = argv[0][2:].split("=")[0]
         assert getattr(ours, field) == getattr(want, field)
         assert json.loads(ours.to_json())[field] == \
             json.loads(want.to_json())[field]
