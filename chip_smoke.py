@@ -2081,6 +2081,153 @@ def _stream_kernels(peaks):
             "ring_append_100": appends[(100, 125)], "event_prob_q": probq}
 
 
+#: The bf16 ring appends held and timed: (channels, w_c) over a ring of
+#: LIVE_RING samples; w_c 500 shifts 1,000 bytes (8-byte units), 1,000
+#: shifts 2,000 (16-byte units), 125 shifts 250 (2-byte units).
+BF16_RINGS = ((400, 500), (400, 1000), (100, 125))
+
+
+@_part
+def _stream_kernels_bf16(peaks):
+    """(a, bf16) the window gather and the ring append on bf16 records and
+    rings, a reduced preset's: bit for bit against their plain versions in
+    every gather branch (rows at k = 1, bulk at k = 16 and 256, scalar on
+    a record whose T is not a multiple of 8, on one whose T is a multiple
+    of 4 but not of 8, and on a view 2 bytes off), and over 200 appends at
+    each of ``BF16_RINGS``; then timed beside their plain versions, the
+    ring beside ``torch.cat``."""
+    from dasmtl_torch.ops import ring, window
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rec = torch.randn(REC_SHAPE, device="cuda", generator=g).to(
+        torch.bfloat16)
+    C, T = REC_SHAPE
+
+    def origins(k):
+        o = torch.stack([torch.randint(0, C - H + 1, (k,), device="cuda",
+                                       generator=g),
+                         torch.randint(0, T - W + 1, (k,), device="cuda",
+                                       generator=g)], 1)
+        return o.to(torch.int32)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    odd = rec.view(-1)[:C * (T - 1)].view(C, T - 1)
+    four = rec.view(-1)[:C * (T - 4)].view(C, T - 4)
+    shifted = rec.view(-1)[1:1 + (C - 1) * T].view(C - 1, T)
+    branches = {}
+    for name, r in (("record", rec), ("T % 8 != 0", odd),
+                    ("T % 8 == 4", four), ("offset base", shifted)):
+        for k in (1, 16, 256):
+            o = origins(k)
+            o[0] = torch.tensor([-5, r.shape[1] + 100], device="cuda")
+            if k > 1:
+                o[1] = torch.tensor([r.shape[0], -1], device="cuda")
+            if k > 2:
+                o[2] = torch.tensor([r.shape[0] - H, r.shape[1] - W],
+                                    device="cuda")
+            plan = window.gather_plan(r.shape[1], r.data_ptr(), H, W, k, sms,
+                                      r.element_size())
+            branches[(name, k)] = plan.branch
+            got = window.window_gather(r, o, (H, W))
+            torch.cuda.synchronize()
+            if got.dtype != torch.bfloat16 or not torch.equal(
+                    got, window.window_gather_plain(r, o, (H, W))):
+                raise AssertionError(f"bf16 window gather differs ({name}, "
+                                     f"k={k}, {plan.branch} branch)")
+    want = {k: ("rows" if k == 1 else "bulk") for k in (1, 16, 256)}
+    for name in ("T % 8 != 0", "T % 8 == 4", "offset base"):
+        if {k: branches[(name, k)] for k in (16, 256)} != \
+                {16: "scalar", 256: "scalar"}:
+            raise AssertionError(f"bf16 {name}: branches {branches}")
+    if {k: branches[("record", k)] for k in want} != want:
+        raise AssertionError(f"bf16 record: branches {branches}")
+    log(f"[stream] bf16 window gather == plain, bit for bit, clamped origins "
+        f"and t0 = T - w included: the {C}x{T} record at k = 1 (rows), 16 "
+        f"and 256 (bulk); {C}x{T - 1}, {C}x{T - 4} and a view 2 bytes off "
+        f"(scalar at k = 16 and 256)")
+
+    vecs = {}
+    for ch, w_c in BF16_RINGS:
+        r_k = torch.randn((ch, LIVE_RING), device="cuda", generator=g).to(
+            torch.bfloat16)
+        r_p, spare = r_k.clone(), torch.empty_like(r_k)
+        for _ in range(200):
+            chunk = torch.randn((ch, w_c), device="cuda", generator=g).to(
+                torch.bfloat16)
+            spare = ring.ring_append(r_k, chunk, out=spare)
+            r_k, spare = spare, r_k
+            r_p = ring.ring_append_plain(r_p, chunk)
+        torch.cuda.synchronize()
+        if not torch.equal(r_k, r_p):
+            raise AssertionError(f"bf16 ring append differs at "
+                                 f"{ch}x{LIVE_RING}, w_c {w_c}")
+        vecs[(ch, w_c)] = ring.ring_plan(LIVE_RING, w_c, r_k.data_ptr(),
+                                         chunk.data_ptr(), spare.data_ptr())
+    log(f"[stream] bf16 ring append == plain over 200 appends at "
+        + ", ".join(f"{ch}x{LIVE_RING} w_c {w_c} ({2 * vecs[(ch, w_c)]}-byte "
+                    f"units)" for ch, w_c in BF16_RINGS) + ": bit-exact")
+
+    gathers = {}
+    for k in (256, 16, 1):
+        sets = [(rec, origins(k)) for _ in range(8)]
+        gathers[k] = {
+            "ms": device_ms(_rotating(sets, lambda r, o: window.window_gather(
+                r, o, (H, W))), inner=10),
+            "plain_ms": device_ms(_rotating(
+                sets, lambda r, o: window.window_gather_plain(r, o, (H, W))),
+                inner=10),
+            "library_ms": None, "max_abs_err": 0.0,
+            "branch": branches[("record", k)],
+            "unit": f"1 launch, k={k} at {H}x{W} from a bf16 {C}x{T}"}
+        gathers[k]["bound_ms"], gathers[k]["bound_by"] = bound(
+            2 * k * H * W * 2, 0, peaks)
+        del sets
+    odd_sets = [(odd, origins(256)) for _ in range(8)]
+    gathers["scalar"] = {
+        "ms": device_ms(_rotating(odd_sets, lambda r, o: window.window_gather(
+            r, o, (H, W))), inner=10),
+        "bound_ms": gathers[256]["bound_ms"],
+        "unit": f"1 launch, k=256 at {H}x{W} from a bf16 {C}x{T - 1} "
+                f"(scalar branch)"}
+    del odd_sets
+    for gk in gathers.values():
+        plain = ("" if "plain_ms" not in gk
+                 else f", plain {gk['plain_ms'] * 1e3:.2f} us")
+        log(f"[stream] bf16 window gather, {gk['unit']}: "
+            f"{gk['ms'] * 1e3:.2f} us{plain}, bound "
+            f"{gk['bound_ms'] * 1e3:.4f} us")
+
+    appends = {}
+    for ch, w_c in BF16_RINGS:
+        rings = [torch.randn((ch, LIVE_RING), device="cuda", generator=g).to(
+            torch.bfloat16) for _ in range(5)]
+        chunk = torch.randn((ch, w_c), device="cuda", generator=g).to(
+            torch.bfloat16)
+        pairs = [(rings[i], chunk, rings[(i + 1) % 5]) for i in range(5)]
+        a = {"ms": device_ms(_rotating(pairs, ring.ring_append), inner=20),
+             "plain_ms": device_ms(_rotating(
+                 pairs, lambda r, c, _o: ring.ring_append_plain(r, c)),
+                 inner=20),
+             "library_ms": device_ms(_rotating(
+                 pairs, lambda r, c, _o: torch.cat([r[:, c.shape[1]:], c],
+                                                   1)), inner=20),
+             "max_abs_err": 0.0, "unit_bytes": 2 * vecs[(ch, w_c)],
+             "unit": f"1 launch, bf16 ring {ch}x{LIVE_RING}, w_c {w_c}"}
+        a["bound_ms"], a["bound_by"] = bound(2 * ch * LIVE_RING * 2, 0, peaks)
+        appends[(ch, w_c)] = a
+        log(f"[stream] bf16 ring append {ch}x{LIVE_RING}/{w_c} "
+            f"({a['unit_bytes']}-byte units): {a['ms'] * 1e3:.2f} us, plain "
+            f"{a['plain_ms'] * 1e3:.2f} us, torch.cat "
+            f"{a['library_ms'] * 1e3:.2f} us, bound "
+            f"{a['bound_ms'] * 1e3:.4f} us ({a['bound_by']})")
+        del rings, pairs
+    del rec
+    return {"window_gather": dict(gathers[256], sizes=gathers),
+            "ring_append": appends[(400, 500)],
+            "ring_appends": {f"{ch}x{LIVE_RING}/{w_c}": a
+                             for (ch, w_c), a in appends.items()}}
+
+
 def _launches():
     from dasmtl_torch.ops import decode, gating, int8, ring, window
 
@@ -2213,6 +2360,132 @@ def _offline(ckpt: str):
             "device_idle_share": idle, "kernel_ms_per_batch": layers_ms}
 
 
+#: Model C's offline sweeps (7f): the record of 7b, and a short slice of
+#: it for the --sanitize sweeps.
+SANITIZE_T = 6000
+
+
+def _model_c_checkpoint(path: str, poison: bool = False) -> str:
+    """A port checkpoint of model C on ``init_scaled`` weights (seed 0),
+    with one NaN in a backbone convolution when ``poison``."""
+    from dasmtl_torch.analysis.sanitize.faults import poison_param_nan
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_scaled
+    from dasmtl_torch.train.checkpoint import CheckpointManager
+    from dasmtl_torch.train.optim import coupled_adam
+    from dasmtl_torch.train.state import TrainState
+
+    net = init_scaled(get_model_spec("multi_classifier").build(), 0)
+    state = TrainState(model=net, optimizer=coupled_adam(net.parameters()))
+    if poison:
+        poison_param_nan(state, match="Mixed_5b")
+    return CheckpointManager(path).save(state)
+
+
+@_part
+def _offline_model_c(record_path: str):
+    """(f) ``python -m dasmtl_torch.stream --model multi_classifier`` on
+    7b's record, resident on and off: identical rows carrying the distance
+    and event model C's mixed head derives, ints equal to a CPU run on
+    decisive rows; then ``--sanitize`` on a slice of it: clean rows equal
+    to the unsanitized sweep's, and a poisoned checkpoint raising SAN202
+    on both planes."""
+    from dasmtl_torch.analysis.sanitize.common import NonFiniteError
+    from dasmtl_torch.data import matio
+    from dasmtl_torch.data.windowing import plan_windows
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_scaled
+    from dasmtl_torch.stream.__main__ import main as stream_main
+    from dasmtl_torch.stream.offline import EVENT_NAMES
+
+    ckpt = _model_c_checkpoint(os.path.join(TRAIN_DIR, "model_c"))
+    bad = _model_c_checkpoint(os.path.join(TRAIN_DIR, "model_c_nan"),
+                              poison=True)
+    record = matio.load_mat(record_path, key_list=("data",))
+    plan = plan_windows(REC_SHAPE, window=(H, W), stride=(H, STRIDE_T))
+    n = plan.n_windows
+    n_batches = -(-n // SWEEP_BATCH)
+
+    def sweep(path, model_path, mode, *extra):
+        out = os.path.join(TRAIN_DIR, f"c_{mode}_{len(extra)}.csv")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = stream_main(["--device", DEV, "--record", path,
+                              "--model", "multi_classifier", "--model_path",
+                              model_path, "--stride_time", str(STRIDE_T),
+                              "--batch_size", str(SWEEP_BATCH),
+                              "--resident", mode, "--out", out, *extra])
+        if rc != 0:
+            raise AssertionError(f"model C sweep --resident {mode} {extra} "
+                                 f"gave {rc}")
+        with open(out, newline="") as f:
+            return list(csv.DictReader(f))
+
+    csvs, launches, rates = {}, {}, {}
+    for mode in ("on", "off"):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        csvs[mode] = sweep(record_path, ckpt, mode)
+        torch.cuda.synchronize()
+        rates[mode] = n / (time.perf_counter() - t0)
+        launches[mode] = _launches()
+    if csvs["on"] != csvs["off"] or len(csvs["on"]) != n or \
+            list(csvs["on"][0])[-2:] != ["pred_distance_m", "pred_event"]:
+        raise AssertionError(f"model C sweeps: {len(csvs['on'])} / "
+                             f"{len(csvs['off'])} rows of {n}, identical "
+                             f"{csvs['on'] == csvs['off']}")
+    for mode, gathers in (("on", n_batches), ("off", 0)):
+        got = launches[mode]
+        if got["window_gather"] != gathers or got["decode"] != n_batches or \
+                got["gate"] or got["int8_dot"]:
+            raise AssertionError(f"model C sweep --resident {mode}: "
+                                 f"launches {got}")
+    # The CPU: the same weights on 32 windows spread over the record.
+    spec = get_model_spec("multi_classifier")
+    net = init_scaled(spec.build(), 0).eval()
+    idx = np.linspace(0, n - 1, 32).astype(int)
+    xs = np.stack([record[c:c + H, t:t + W] for c, t in
+                   (plan.origin(int(i)) for i in idx)])[..., None]
+    with torch.inference_mode():
+        lp = torch.log_softmax(net(torch.from_numpy(
+            xs.astype(np.float32)))[0], -1).numpy()
+    dec = _decisive(lp)
+    mixed = lp.argmax(1)
+    card = np.array([int(csvs["on"][i]["pred_distance_m"]) + 16 *
+                     EVENT_NAMES.index(csvs["on"][i]["pred_event"])
+                     for i in idx])
+    if not np.array_equal(card[dec], mixed[dec]):
+        raise AssertionError("model C sweep ints differ from the CPU")
+
+    # --sanitize on a slice: clean rows unchanged, the poisoned checkpoint
+    # trips SAN202 on both planes.
+    short = os.path.join(TRAIN_DIR, "fiber_short.mat")
+    matio.save_mat(short, np.ascontiguousarray(record[:, :SANITIZE_T]))
+    tripped = {}
+    for mode in ("on", "off"):
+        if sweep(short, ckpt, mode, "--sanitize") != sweep(short, ckpt,
+                                                            mode):
+            raise AssertionError(f"--sanitize changed model C's rows "
+                                 f"(--resident {mode})")
+        try:
+            sweep(short, bad, mode, "--sanitize")
+        except NonFiniteError as exc:
+            tripped[mode] = str(exc)
+        if "SAN202" not in tripped.get(mode, ""):
+            raise AssertionError(f"the poisoned --sanitize sweep "
+                                 f"(--resident {mode}) did not trip SAN202")
+    log(f"[stream] model C sweep (init_scaled, f32) of the {REC_SHAPE[0]}x"
+        f"{REC_SHAPE[1]} record: {n} rows on both planes, identical, "
+        f"distance and event from the mixed head; launches resident on "
+        f"{launches['on']}, off {launches['off']}; ints == CPU on "
+        f"{int(dec.sum())} decisive windows of 32; windows/s resident "
+        f"{rates['on']:.1f}, host {rates['off']:.1f}; --sanitize: clean rows "
+        f"unchanged, the poisoned checkpoint trips on both planes: "
+        f"{tripped['on'][:72]}...")
+    return {"rows": n, "launches": launches, "windows_per_s": rates,
+            "cpu_decisive_equal": int(dec.sum()), "sanitize": tripped}
+
+
 def _live_sources(n, channels):
     from dasmtl_torch.stream.feed import PlantedEvent, SyntheticSource
 
@@ -2249,9 +2522,16 @@ def _record_decodes(tenants):
     return seen
 
 
-def _live_run(executor, resident: str):
+def _live_run(executor, resident: str, cycles: int = None,
+              profile: bool = True):
+    """``cycles`` paced cycles (``LIVE_CYCLES``) of the live cell over
+    ``executor`` on one plane: the decodes, then the run's launches, serve
+    batches, rate, latencies and (``profile``) a profiled cycle's
+    kernels."""
     from dasmtl_torch.serve.server import ServeLoop
     from dasmtl_torch.stream.live import StreamLoop, StreamTenant
+
+    cycles = LIVE_CYCLES if cycles is None else cycles
 
     loop = ServeLoop(executor, buckets=BUCKETS, max_wait_s=0.005,
                      queue_depth=256, inflight=2).start()
@@ -2268,13 +2548,15 @@ def _live_run(executor, resident: str):
         seen = _record_decodes(tenants)
         torch.cuda.synchronize()
         _reset_launches()
+        batches0 = loop.stats()["batches"]["count"]
         t0 = time.perf_counter()
-        _paced(stream, tenants, LIVE_CYCLES)
+        _paced(stream, tenants, cycles)
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
         lat = sorted(x for t in tenants for x in t.latencies)
         out = {"launches": _launches(), "wall_s": wall,
-               "cycles": LIVE_CYCLES,
+               "serve_batches": loop.stats()["batches"]["count"] - batches0,
+               "cycles": cycles,
                "windows": sum(t.resolved for t in tenants),
                "shed": sum(t.shed for t in tenants),
                "p50_ms": 1e3 * lat[len(lat) // 2],
@@ -2288,10 +2570,12 @@ def _live_run(executor, resident: str):
                                      for t in tenants)
         # Where a paced cycle's time goes: more cycles under the profiler,
         # after the run's counts were read.
-        layers, _, cycle_ms, per_cycle = _kernel_ms(
-            lambda: _paced(stream, tenants, 1), PROFILED_CYCLES)
-        out.update(profiled_cycle_wall_ms=cycle_ms, kernel_ms_per_cycle=layers,
-                   kernel_launches_per_cycle=per_cycle)
+        if profile:
+            layers, _, cycle_ms, per_cycle = _kernel_ms(
+                lambda: _paced(stream, tenants, 1), PROFILED_CYCLES)
+            out.update(profiled_cycle_wall_ms=cycle_ms,
+                       kernel_ms_per_cycle=layers,
+                       kernel_launches_per_cycle=per_cycle)
         if not stream.drain(timeout=30.0):
             raise AssertionError("the live loop did not drain")
         # Zero post-warmup captures: the serve pool's members and every
@@ -2346,30 +2630,12 @@ def _live_model_a():
                              f"chunks and {on['dispatches']} dispatches")
     if off["launches"]["window_gather"] or off["launches"]["ring_append"]:
         raise AssertionError(f"host plane launched {off['launches']}")
-    differ = [k for k in seen["on"] if seen["on"][k] != seen["off"][k]]
     if any(seen["on"][k][3] != 1.0 for k in seen["on"] if seen["on"][k][0]):
         raise AssertionError("model A's resident confidence is not 1.0")
-    if differ:
-        # Ints may differ only where the window's top-2 margin is below
-        # DECISIVE: recompute those windows' log-probs from the source.
-        fwd = executor.raw_infer_fn
-        by_fiber = {}
-        for fiber, tile, t0 in differ:
-            by_fiber.setdefault(fiber, []).append((tile, t0))
-        for fiber, keys in by_fiber.items():
-            data = _replay(int(fiber[1:]), LIVE_CYCLES + PROFILED_CYCLES + 1)
-            xs = np.stack([data[100 * tile:100 * tile + H, t0:t0 + W]
-                           for tile, t0 in keys])[..., None]
-            out = fwd(torch.from_numpy(xs).to(DEV))
-            for i, task in enumerate(("distance", "event")):
-                dec = _decisive(out[f"log_probs_{i}"].cpu().numpy())
-                for j, key in enumerate(keys):
-                    a = seen["on"][(fiber, *key)]
-                    b = seen["off"][(fiber, *key)]
-                    if dec[j] and a[1 + (task == "distance")] != \
-                            b[1 + (task == "distance")]:
-                        raise AssertionError(f"{fiber} {key} {task}: "
-                                             f"resident {a}, host {b}")
+    differ = _planes_agree("live model A", seen, executor.raw_infer_fn,
+                           {"distance": "log_probs_0",
+                            "event": "log_probs_1"}, DECISIVE,
+                           LIVE_CYCLES + PROFILED_CYCLES + 1)
     for mode in ("on", "off"):
         r = runs[mode]
         r["windows_per_s"] = r["windows"] / r["wall_s"]
@@ -2393,6 +2659,150 @@ def _live_model_a():
         f"log_probs_event)")
     return {"windows": len(seen["on"]), "differing": len(differ),
             "resident": runs["on"], "host": runs["off"]}
+
+
+#: The live tier under a preset (7e): model A bf16 and model C int8 on
+#: ``init_scaled`` weights (seed 0) at the live cell's full width, both
+#: planes, fewer cycles than 7c; the heads whose top-2 margin decides each
+#: task, and the launches one forward replay makes.
+PRESET_LIVE = (("A bf16", "MTL", "bf16",
+                {"distance": "log_probs_0", "event": "log_probs_1"},
+                {"gate": 4, "decode": 1, "int8_dot": 0}),
+               ("C int8", "multi_classifier", "int8",
+                {"distance": "log_probs_0", "event": "log_probs_0"},
+                {"gate": 0, "decode": 1, "int8_dot": 1}))
+PRESET_CYCLES = 40
+#: Windows of each preset run held to a CPU run of the same preset.
+PRESET_CPU_WINDOWS = 32
+
+
+def _margins(lp: np.ndarray) -> np.ndarray:
+    top2 = np.sort(lp, axis=1)[:, -2:]
+    return top2[:, 1] - top2[:, 0]
+
+
+def _replayed_windows(keys, cycles: int) -> np.ndarray:
+    """The f32 windows of ``(fiber, tile, t_origin)`` keys of a live run
+    of ``cycles`` polls per fiber, in order."""
+    data = {}
+    xs = []
+    for fiber, tile, t0 in keys:
+        if fiber not in data:
+            data[fiber] = _replay(int(fiber[1:]), cycles)
+        xs.append(data[fiber][100 * tile:100 * tile + H, t0:t0 + W])
+    return np.stack(xs)[..., None]
+
+
+def _planes_agree(tag, seen, fwd, heads, margin, cycles) -> list:
+    """The ``(fiber, tile, t_origin)`` keys whose decodes differ between
+    the live run's planes (``seen["on"]``, ``seen["off"]``); raises where
+    a task's int differs on a window whose top-2 margin (its log-probs
+    recomputed on the card by ``fwd`` from the replayed source, the head
+    ``heads[task]``) exceeds ``margin``."""
+    differ = [k for k in sorted(seen["on"])
+              if seen["on"][k] != seen["off"][k]]
+    if not differ:
+        return differ
+    lp = fwd(torch.from_numpy(_replayed_windows(differ, cycles)).to(DEV))
+    for j, key in enumerate(differ):
+        a, b = seen["on"][key], seen["off"][key]
+        for i, task in enumerate(("event", "distance")):
+            m = _margins(lp[heads[task]][j:j + 1].float().cpu().numpy())[0]
+            if m > margin and a[1 + i] != b[1 + i]:
+                raise AssertionError(f"{tag} {key} {task}: resident {a}, "
+                                     f"host {b}, margin {m}")
+    return differ
+
+
+@_part
+def _live_presets():
+    """(e) the live tier under a preset: model A bf16 and model C int8 at
+    100x250, 4 fibers x 400 channels, chunk 500, ring 16384 (bf16 rings
+    and gathers on the resident plane), on both planes: ints equal between
+    the planes and to a CPU run of the preset wherever the top-2 margin
+    exceeds twice the preset's tolerance, launches per forward replay on
+    each plane, no capture after warmup, windows/s and sample-to-event
+    p50 / p99."""
+    from dasmtl_torch.export import make_precision_serve_fn
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_scaled
+    from dasmtl_torch.serve.executor import ExecutorPool
+    from dasmtl_torch.serve.parity import LOG_PROB_TOLERANCES
+
+    out = {}
+    for tag, family, prec, heads, per_forward in PRESET_LIVE:
+        spec = get_model_spec(family)
+        sd = init_scaled(spec.build(), 0).state_dict()
+        margin = 2 * LOG_PROB_TOLERANCES[prec]
+        runs, seen = {}, {}
+        for mode in ("on", "off"):
+            pool = ExecutorPool.from_state_dict(
+                family, sd, BUCKETS, (H, W), torch.device(DEV), prec,
+                devices=-1)
+            seen[mode], runs[mode] = _live_run(pool, mode, PRESET_CYCLES,
+                                               profile=False)
+            if mode == "on" and \
+                    pool.executors[0].input_dtype != torch.bfloat16:
+                raise AssertionError(f"{tag}: input dtype "
+                                     f"{pool.executors[0].input_dtype}")
+        on, off = runs["on"], runs["off"]
+        if set(seen["on"]) != set(seen["off"]) or on["shed"] or off["shed"]:
+            raise AssertionError(f"{tag}: the planes resolved different "
+                                 f"windows ({len(seen['on'])} vs "
+                                 f"{len(seen['off'])}, shed {on['shed']} / "
+                                 f"{off['shed']})")
+        lo, lh = on["launches"], off["launches"]
+        want_on = {"ring_append": on["chunks"],
+                   "window_gather": on["dispatches"], "event_prob_q": 0,
+                   **{k: v * on["dispatches"]
+                      for k, v in per_forward.items()}}
+        want_off = {"ring_append": 0, "window_gather": 0, "event_prob_q": 0,
+                    **{k: v * off["serve_batches"]
+                       for k, v in per_forward.items()}}
+        if {k: lo[k] for k in want_on} != want_on or \
+                {k: lh[k] for k in want_off} != want_off:
+            raise AssertionError(f"{tag}: launches resident {lo} (want "
+                                 f"{want_on}), host {lh} (want {want_off})")
+        # A rung and a bucket batch the windows differently: ints may
+        # differ only within twice the preset's tolerance of a tie.
+        keys = sorted(seen["on"])
+        differ = _planes_agree(f"live {tag}", seen,
+                               pool.executors[0].raw_infer_fn, heads, margin,
+                               PRESET_CYCLES + 1)
+        # A CPU run of the preset on windows spread over the run.
+        sample = [keys[i] for i in np.linspace(
+            0, len(keys) - 1, PRESET_CPU_WINDOWS).astype(int)]
+        net = init_scaled(spec.build(), 0)
+        cpu_fn, _ = make_precision_serve_fn(spec, net, prec)
+        ref = cpu_fn(torch.from_numpy(_replayed_windows(
+            sample, PRESET_CYCLES + 1)))
+        agree = {}
+        for i, task in enumerate(("event", "distance")):
+            dec = _margins(ref[heads[task]].numpy()) > margin
+            got = np.array([seen["on"][k][1 + i] for k in sample])
+            if not np.array_equal(got[dec], ref[task].numpy()[dec]):
+                raise AssertionError(f"{tag}: resident {task} ints differ "
+                                     f"from the CPU on decisive windows")
+            agree[task] = int(dec.sum())
+        for mode in ("on", "off"):
+            r = runs[mode]
+            r["windows_per_s"] = r["windows"] / r["wall_s"]
+            log(f"[stream] live {tag}, {LIVE_FIBERS} fibers x "
+                f"{LIVE_CHANNELS} channels, {PRESET_CYCLES} paced cycles, "
+                f"resident {mode}: {r['windows']} windows, "
+                f"{r['windows_per_s']:.1f} windows/s, sample-to-event p50 "
+                f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms; launches "
+                f"{r['launches']} over "
+                + (f"{r['dispatches']} forward replays, {r['chunks']} chunks"
+                   if mode == "on" else f"{r['serve_batches']} batches"))
+        log(f"[stream] live {tag}: {len(keys)} windows on both planes, "
+            f"{len(differ)} with an int differing (none beyond "
+            f"{margin} of margin); == CPU on {agree} decisive of "
+            f"{PRESET_CPU_WINDOWS}; no capture after warmup")
+        out[tag] = {"windows": len(keys), "differing": len(differ),
+                    "cpu_decisive_equal": agree, "resident": on,
+                    "host": off}
+    return out
 
 
 #: The soak's per-tenant (submitted, shed, rejected, track closes), as the
@@ -2507,15 +2917,19 @@ def _live_oracle():
 
 def phase_stream(peaks, ckpt: str):
     kernels = _stream_kernels(peaks)
+    kernels_bf16 = _stream_kernels_bf16(peaks)
     offline = _offline(ckpt)
+    model_c = _offline_model_c(offline["record_path"])
     live = _live_model_a()
+    presets = _live_presets()
     oracle = _live_oracle()
-    return {"kernels": kernels, "offline": offline, "live": live,
-            "oracle": oracle}
+    return {"kernels": kernels, "kernels_bf16": kernels_bf16,
+            "offline": offline, "offline_model_c": model_c, "live": live,
+            "live_presets": presets, "oracle": oracle}
 
 
 # -- phase 11: artifacts ------------------------------------------------------
-SWAP_REQUESTS = 256  # requests of the checkpoint and the registry runs
+SWAP_REQUESTS = 128  # requests of the checkpoint and the registry runs
 
 
 @_part
@@ -3832,9 +4246,11 @@ def _dp_alerts(run: str, ranks: list, beats: list) -> dict:
             "evaluations": stats["evaluations"], "heartbeats": len(beats)}
 
 
-def _dp_step_rank(world, sd, batch, bn_sync, device):
+def _dp_step_rank(world, sd, batch, bn_syncs, device):
     """One data-parallel step of model A from ``sd`` on this rank's shard
-    of the global numpy ``batch``: the new state dict and the metrics."""
+    of the global numpy ``batch`` for each of ``bn_syncs`` (a fresh state
+    each, in one process, so the ranks start once): ``[(the new state
+    dict, the metrics), ...]``."""
     from dasmtl_torch.device import set_f32_numerics
     from dasmtl_torch.models.registry import get_model_spec
     from dasmtl_torch.parallel.dist import shard_batch
@@ -3843,15 +4259,19 @@ def _dp_step_rank(world, sd, batch, bn_sync, device):
     if device == "cuda":
         set_f32_numerics()
     spec = get_model_spec("MTL")
-    net = spec.build()
-    net.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
-    state = _new_state(net.to(device))
     shard = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
              for k, v in shard_batch(batch, world).items()}
-    m = make_train_step(spec, world=world, bn_sync=bn_sync)(state, shard,
-                                                            1e-3)
-    return ({k: v.cpu().numpy() for k, v in state.model.state_dict().items()},
-            {k: float(v) for k, v in m.items()})
+    out = []
+    for bn_sync in bn_syncs:
+        net = spec.build()
+        net.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+        state = _new_state(net.to(device))
+        m = make_train_step(spec, world=world, bn_sync=bn_sync)(state, shard,
+                                                                1e-3)
+        out.append(({k: v.cpu().numpy()
+                     for k, v in state.model.state_dict().items()},
+                    {k: float(v) for k, v in m.items()}))
+    return out
 
 
 def _held(tag, got, want, loss_got, loss_want):
@@ -3920,18 +4340,16 @@ def _dp_parity():
                                     for k, v in batch.items()}, 1e-3)
     want = {k: v.cpu().numpy() for k, v in ref.model.state_dict().items()}
     out = {}
-    (g0, gm), (g1, _) = launch(_dp_step_rank, DP_RANKS,
-                               (sd, batch, "global", DEV), workdir=work,
-                               device=DEV, timeout=600)
+    # Both card steps from one start of the ranks.
+    [(g0, gm), (c0, cm)], [(g1, _), _] = launch(
+        _dp_step_rank, DP_RANKS, (sd, batch, ("global", "per_replica"), DEV),
+        workdir=work, device=DEV, timeout=600)
     out["global_vs_dp1"] = _held("dp2 global vs dp1", g0, want,
                                  gm["loss_sum"] / gm["count"],
                                  float(m["loss_sum"] / m["count"]))
-    (c0, cm), _ = launch(_dp_step_rank, DP_RANKS,
-                         (sd, batch, "per_replica", DEV), workdir=work,
-                         device=DEV, timeout=600)
-    (p0, pm), _ = launch(_dp_step_rank, DP_RANKS,
-                         (sd, batch, "per_replica", "cpu"), workdir=work,
-                         device="cpu", timeout=900)
+    [(p0, pm)], _ = launch(_dp_step_rank, DP_RANKS,
+                           (sd, batch, ("per_replica",), "cpu"),
+                           workdir=work, device="cpu", timeout=900)
     out["per_replica_card_vs_cpu"] = _held(
         "dp2 per_replica card vs CPU", c0, p0, cm["loss_sum"] / cm["count"],
         pm["loss_sum"] / pm["count"])
@@ -6705,6 +7123,31 @@ def _stats_until(url: str, what: str, done, seconds: float = 120):
         time.sleep(0.05)
 
 
+#: A quiet point's reads: this far apart, equal twice running, within
+#: QUIET_S seconds.
+QUIET_GAP_S, QUIET_S = 0.3, 15.0
+
+
+def _quiet(read, what: str):
+    """``read()`` again every QUIET_GAP_S until two readings agree.  A
+    released fiber can still put one window into the batcher: the cycle
+    that passed its ``draining`` check before the release cuts on (JAX's
+    ``StreamLoop`` does the same).  The batcher counts a batch when it
+    takes it, and the launches come after that, so a worker's counts are
+    read only once they stand still."""
+    deadline = time.monotonic() + QUIET_S
+    last = read()
+    while True:
+        time.sleep(QUIET_GAP_S)
+        now = read()
+        if now == last:
+            return now
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: still moving after "
+                                 f"{QUIET_S} s ({last} then {now})")
+        last = now
+
+
 def _served(url: str) -> tuple:
     """(batches served, post-warmup captures) off ``GET /metrics``."""
     from dasmtl_torch.obs.registry import parse_exposition
@@ -6760,8 +7203,9 @@ def worker_leg(device: str, window=(H, W), channels: int = 400,
                         for n in ("p", "b")]
         if device == "cuda":
             torch.cuda.synchronize()
-        out["launches"] = _launches()
-        batches, out["post_warmup"] = _served(url)
+        launches, (batches, out["post_warmup"]) = _quiet(
+            lambda: (_launches(), _served(url)), "[worker] the counts")
+        out["launches"] = launches
         out["batches"] = batches - batches0
         out["stats"] = json.loads(_http(url + "/stats")[2])
         return out
@@ -6920,11 +7364,11 @@ def _fleet_soak(device: str) -> dict:
 
 def _fleet_counts(fleet, address: str) -> dict:
     """A worker's launch counts off its ``/stats`` and its batches served
-    and post-warmup captures off its ``/metrics``."""
-    stats = fleet.transport.stats(address)
-    batches, post = _served("http://" + address)
-    return {"launches": stats["launches"], "batches": batches,
-            "post_warmup": post, "tenants": stats["tenants"]}
+    and post-warmup captures off its ``/metrics``, once they stand still."""
+    launches, (batches, post) = _quiet(
+        lambda: (fleet.transport.stats(address)["launches"],
+                 _served("http://" + address)), f"[fleet] {address}'s counts")
+    return {"launches": launches, "batches": batches, "post_warmup": post}
 
 
 def _fleet_per_batch(name: str, a: dict, b: dict) -> dict:
@@ -7213,6 +7657,18 @@ def main(argv=None) -> int:
          "replaces": "dasmtl/stream/resident.py:127",
          "launches": stream["live"]["resident"]["launches"]["ring_append"],
          **_timing(sk["ring_append"])},
+        {"name": "window_gather_bf16", "route": "cuda",
+         "source": "dasmtl_torch/csrc/window.cu",
+         "replaces": "dasmtl/export.py:137",
+         "launches": stream["live_presets"]["A bf16"]["resident"][
+             "launches"]["window_gather"],
+         **_timing(stream["kernels_bf16"]["window_gather"])},
+        {"name": "ring_append_bf16", "route": "cuda",
+         "source": "dasmtl_torch/csrc/ring.cu",
+         "replaces": "dasmtl/stream/resident.py:127",
+         "launches": stream["live_presets"]["A bf16"]["resident"][
+             "launches"]["ring_append"],
+         **_timing(stream["kernels_bf16"]["ring_append"])},
         {"name": "event_prob_q", "route": "cuda",
          "source": "dasmtl_torch/csrc/decode.cu",
          "replaces": "dasmtl/export.py:188",

@@ -64,22 +64,31 @@ def _float_leaves(tree: Any) -> List[Tuple[str, Any]]:
             or (isinstance(v, torch.Tensor) and v.is_floating_point())]
 
 
-def nonfinite_any(tree: Any) -> bool:
-    """Does ANY float leaf hold a NaN / Inf?  One reduction per device over
-    all its leaves (``x·0`` sums to NaN exactly when ``x`` is not finite)
-    and one host read per device: the per-step probe of SAN202."""
+def nonfinite_flags(tree: Any) -> List[Any]:
+    """The flags :func:`nonfinite_any` reads, not yet read: ``True`` for a
+    Python float leaf that is not finite, then one 0-d bool tensor per
+    device, True where any of its float leaves holds a NaN / Inf (one
+    reduction over all of them: ``x·0`` sums to NaN exactly when ``x`` is
+    not finite).  Nothing waits for the device, so a caller may copy a
+    flag back with its other outputs (the sweep's fused SAN202 probe)."""
+    flags: List[Any] = []
     groups: Dict[torch.device, List[torch.Tensor]] = {}
     for _, v in _float_leaves(tree):
         if isinstance(v, float):
             if not math.isfinite(v):
-                return True
+                flags.append(True)
             continue
         groups.setdefault(v.device, []).append(v.detach())
-    flags = []
     for tensors in groups.values():
         sums = torch._foreach_norm(torch._foreach_mul(tensors, 0.0), 1)
         flags.append(~torch.isfinite(torch.stack(sums)).all())
-    return any(bool(f) for f in flags)
+    return flags
+
+
+def nonfinite_any(tree: Any) -> bool:
+    """Does ANY float leaf hold a NaN / Inf?  :func:`nonfinite_flags`, and
+    one host read per device: the per-step probe of SAN202."""
+    return any(bool(f) for f in nonfinite_flags(tree))
 
 
 def nonfinite_leaves(tree: Any) -> List[str]:

@@ -161,11 +161,13 @@ def nonfinite_rows(out: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def make_resident_forward(body_fn: Callable, window) -> Callable:
     """``forward(rec, origins) -> body_fn(xs)``: ``rec`` a ``(C, T)`` f32
-    record or ring already on the device, ``origins`` ``(k, 2)`` int32
-    ``(channel, time)`` starts on the same device, ``xs`` the ``(k, h, w,
-    1)`` windows cut by ONE :func:`~dasmtl_torch.ops.window.window_gather`
-    launch.  The shared core of the offline resident sweep and the live
-    resident lanes, so the two stay int-exact twins."""
+    or bf16 record or ring already on the device, ``origins`` ``(k, 2)``
+    int32 ``(channel, time)`` starts on the same device, ``xs`` the ``(k,
+    h, w, 1)`` windows cut by ONE :func:`~dasmtl_torch.ops.window.
+    window_gather` launch, in the record's dtype: a reduced preset's bf16
+    windows reach its forward unchanged, as in JAX, and its first layer
+    takes them as they are.  The shared core of the offline resident
+    sweep and the live resident lanes, so the two stay int-exact twins."""
     hw = (int(window[0]), int(window[1]))
 
     def forward(rec: torch.Tensor, origins: torch.Tensor):

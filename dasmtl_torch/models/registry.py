@@ -6,8 +6,9 @@ to decode the heads into per-task predictions.  Model C
 (``multi_classifier``) decodes its 32-way head as ``registry.py:51-55``
 does: ``mixed = argmax``, ``distance = mixed % 16``, ``event = mixed //
 16``, all int32; it trains on the mixed label's cross-entropy with
-dropout (``uses_dropout``, ``:85-94``).  Its stream tier comes later
-(:data:`SERVE_ONLY` names the item).
+dropout (``uses_dropout``, ``:85-94``), and its stream tiers feed the
+derived distance and event to the track books and the sweep's rows, as
+JAX's ``_decode_mixed`` does.
 """
 
 from __future__ import annotations
@@ -91,24 +92,6 @@ _REGISTRY = {
                       ("event", NUM_EVENT_CLASSES)),
         head_tasks=("mixed",), derive=_derive_mixed, uses_dropout=True),
 }
-
-#: Model C serves and trains; where the port does not take it yet, the
-#: ROADMAP.md item that brings it.
-SERVE_ONLY = {
-    "stream": "ROADMAP.md queue 1 item 10, 'The stream tier's presets and "
-              "model C'",
-}
-SERVE_ONLY_MODELS = ("multi_classifier",)
-
-
-def refuse_serve_only(name: str, use: str) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP.md item when
-    ``name`` is a family the port serves but does not ``use``
-    (``stream``) yet."""
-    if name in SERVE_ONLY_MODELS:
-        raise NotImplementedError(
-            f"model {name!r} (model C) serves in dasmtl_torch but does not "
-            f"{use} yet: {SERVE_ONLY[use]}")
 
 
 def get_model_spec(name: str) -> ModelSpec:

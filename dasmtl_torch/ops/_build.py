@@ -51,8 +51,14 @@ SIGNATURES = {
     "dasmtl_window_gather": (ctypes.c_int, [
         _P, ctypes.c_int64, ctypes.c_int64, _P, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]),
+    "dasmtl_window_gather_bf16": (ctypes.c_int, [
+        _P, ctypes.c_int64, ctypes.c_int64, _P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]),
     "dasmtl_ring_append": (ctypes.c_int, [
         _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _P, _P]),
+    "dasmtl_ring_append_bf16": (ctypes.c_int, [
+        _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _P,
+        ctypes.c_int, _P]),
     "dasmtl_int8_dot": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_int64,
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int,

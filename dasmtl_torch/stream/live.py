@@ -101,8 +101,6 @@ ADAPT_MIN_WEIGHT_FRACTION = 0.25
 #: Options of ``dasmtl stream serve`` this slice does not port yet -> the
 #: ROADMAP.md item that brings each.
 NOT_YET_PORTED = {
-    "precision": "ROADMAP.md queue 1 item 10, 'The stream tier's presets "
-                 "and model C' (the resident gather and ring are f32)",
     "conc_lockdep": "ROADMAP.md queue 1 item 3 (the lint, audit, conc "
                     "and mem families analyse JAX code and are not ported)",
     "mem_track": "ROADMAP.md queue 1 item 3 (the lint, audit, conc and "
@@ -915,9 +913,7 @@ def make_stream_http_server(stream: StreamLoop, host: str = "127.0.0.1",
 def _not_ported(args) -> Optional[str]:
     """The first option given that this slice does not port yet."""
     for opt, item in NOT_YET_PORTED.items():
-        value = getattr(args, opt)
-        default = {"precision": "f32"}.get(opt)
-        if value and value != default:
+        if getattr(args, opt):
             return f"--{opt} is not yet ported: {item}"
     return None
 
@@ -980,7 +976,10 @@ def build_serve_parser() -> argparse.ArgumentParser:
                           "fibers round-robin over its members")
     srv.add_argument("--precision", type=str, default="f32",
                      choices=["f32", "bf16", "int8"],
-                     help="only f32 is ported")
+                     help="serving preset: the weights transformed once at "
+                          "load; bf16 and int8 stage bf16 windows and keep "
+                          "bf16 resident rings; an --exported artifact's "
+                          "own preset must match")
     st = p.add_argument_group("stream")
     st.add_argument("--stride_time", type=int, default=C.STREAM_STRIDE_TIME,
                     help="temporal stride in samples (0 = window width)")
@@ -1095,9 +1094,10 @@ def serve_executor(args, buckets, window, device):
     if args.model_path:
         return ExecutorPool.from_checkpoint(
             args.model, args.model_path, buckets, hw, device,
-            devices=args.devices)
+            precision=args.precision, devices=args.devices)
     return ExecutorPool.from_fresh_init(args.model, buckets, hw, C.SEED,
-                                        device, devices=args.devices)
+                                        device, precision=args.precision,
+                                        devices=args.devices)
 
 
 def _selftest(args) -> int:
@@ -1168,14 +1168,6 @@ def serve_main(argv=None) -> int:
     from dasmtl_torch.stream.feed import (FileTailSource, PlantedEvent,
                                           SocketSource, SyntheticSource)
 
-    if not args.oracle:
-        from dasmtl_torch.models.registry import refuse_serve_only
-
-        try:
-            refuse_serve_only(args.model, "stream")
-        except NotImplementedError as exc:
-            print(f"dasmtl_torch.stream serve: {exc}", file=sys.stderr)
-            return 2
     device = resolve_device(args.device)
     try:
         executor = serve_executor(args, buckets, window, device)

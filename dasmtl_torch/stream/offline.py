@@ -19,10 +19,20 @@ Two data paths, one forward (model + the decode-tail kernel):
   lanes share) feeds the forward directly.
 
 The model is a port checkpoint (``--model_path``) or a port artifact
-(``--exported``, :mod:`dasmtl_torch.export`), whose header gives the
-window; as in JAX (``offline.py:116-141``), an artifact streams on the
-host path only (``resident="on"`` is refused, ``auto`` takes the host)
-and not under ``dp``.
+(``--exported``, :mod:`dasmtl_torch.export`) of any preset, whose header
+gives the window; as in JAX (``offline.py:116-141``), an artifact streams
+on the host path only (``resident="on"`` is refused, ``auto`` takes the
+host) and not under ``dp``.  Every model family sweeps: model C's rows
+carry the distance and event its mixed head derives.
+
+``--sanitize`` arms the serving path's SAN202 probe (JAX
+``offline.py:92-98, 152-166, 218-232``): from a checkpoint, a non-finite
+flag fused over each batch's raw outputs
+(:func:`~dasmtl_torch.analysis.sanitize.fingerprint.nonfinite_flags`),
+copied back with its predictions; from an artifact, its ``bad_rows``
+(the decode kernel's non-finite rows).  A trip raises
+:class:`~dasmtl_torch.analysis.sanitize.common.NonFiniteError` with JAX's
+words, and the CLI exits as JAX's does, on the exception.
 
 The sweep keeps two batches in flight: batch ``i + 1`` is enqueued before
 batch ``i``'s predictions are read back (copied into pinned memory behind a
@@ -46,9 +56,10 @@ EVENT_NAMES = ("striking", "excavating")
 NOT_YET_PORTED = {
     "dp": "ROADMAP.md queue 1 item 8, 'Model C, multi-device training and "
           "CV' (multi-device)",
-    "sanitize": "ROADMAP.md queue 1 item 3, 'Guards, sanitizers and the "
-                "heartbeat'",
 }
+
+#: The key of a sanitized batch's non-finite flag among its outputs.
+_NONFINITE = "nonfinite"
 
 
 def _resolve_stride(stride, window):
@@ -89,14 +100,16 @@ def stream_predict(record: np.ndarray, model_path: Optional[str],
                    process_index: int = 0, process_count: int = 1,
                    resident: str = "auto", device: str = "cuda",
                    seed: Optional[int] = None,
-                   exported_path: Optional[str] = None) -> list:
+                   exported_path: Optional[str] = None,
+                   sanitize: bool = False) -> list:
     """Run ``model`` (the port checkpoint at ``model_path``, or a fresh
     init from ``seed`` when None) over every window of ``record`` on
     ``device``; returns the prediction rows and writes ``out_csv`` when
     given.  ``resident`` ("auto" | "on" | "off") picks the data path (see
     :func:`resolve_offline_resident`).  ``exported_path`` streams a port
     artifact instead (its window, its preset), on the host path; ``model``
-    still names the CSV columns, as in JAX."""
+    still names the CSV columns, as in JAX.  ``sanitize`` raises
+    ``NonFiniteError`` (SAN202) on a batch with non-finite outputs."""
     import torch
 
     from dasmtl_torch.config import INPUT_HEIGHT, INPUT_WIDTH, SEED, Config
@@ -105,20 +118,19 @@ def stream_predict(record: np.ndarray, model_path: Optional[str],
     from dasmtl_torch.device import resolve_device, set_f32_numerics
     from dasmtl_torch.export import make_resident_forward
     from dasmtl_torch.main import build_state
-    from dasmtl_torch.models.registry import (get_model_spec,
-                                              refuse_serve_only)
+    from dasmtl_torch.models.registry import get_model_spec
     from dasmtl_torch.ops.decode import decode_heads
     from dasmtl_torch.train.checkpoint import restore_weights
 
     if resident not in ("auto", "on", "off"):
         raise ValueError(f"unknown resident mode {resident!r}")
-    refuse_serve_only(model, "stream")
     spec = get_model_spec(model)
     dev = resolve_device(device)
     if exported_path is not None:
         return _stream_exported(record, exported_path, spec, batch_size,
                                 stride, out_csv, process_index,
-                                process_count, resident, dev, model_path)
+                                process_count, resident, dev, model_path,
+                                sanitize)
     window = tuple(window or (INPUT_HEIGHT, INPUT_WIDTH))
     cfg = Config(model=model, device=dev.type,
                  seed=SEED if seed is None else int(seed))
@@ -133,8 +145,15 @@ def stream_predict(record: np.ndarray, model_path: Optional[str],
 
     def body(xs):
         with torch.inference_mode():
-            _, preds, _ = decode_heads(net(xs))
-        return dict(zip(spec.head_tasks, preds))
+            heads = net(xs)
+            _, preds, _ = decode_heads(heads)
+            out = spec.decode_ints(preds)
+            if sanitize:
+                from dasmtl_torch.analysis.sanitize.fingerprint import \
+                    nonfinite_flags
+
+                (out[_NONFINITE],) = nonfinite_flags(list(heads))
+        return out
 
     def to_device(a: np.ndarray):
         t = torch.from_numpy(a)
@@ -160,16 +179,40 @@ def stream_predict(record: np.ndarray, model_path: Optional[str],
         def run(batch):
             return body(to_device(batch["x"]))
 
-    return _emit(spec, plan, batches, lambda b: _readback(run(b)), out_csv,
-                 process_index, process_count)
+    def start(batch):
+        wait = _readback(run(batch))
+        if not sanitize:
+            return wait
+        return lambda: _checked(wait(), batch)
+
+    return _emit(spec, plan, batches, start, out_csv, process_index,
+                 process_count)
+
+
+def _checked(out: Dict[str, np.ndarray], batch) -> Dict[str, np.ndarray]:
+    """A sanitized batch's predictions, once its fused non-finite flag
+    reads False; JAX's SAN202 ``NonFiniteError`` otherwise
+    (``dasmtl/stream/offline.py:218-232``)."""
+    if bool(out.pop(_NONFINITE)):
+        from dasmtl_torch.analysis.sanitize.common import NonFiniteError
+
+        idx = [int(i) for i in batch["index"] if int(i) >= 0]
+        raise NonFiniteError(
+            f"SAN202: non-finite model outputs while streaming "
+            f"windows {idx[:8]}{'…' if len(idx) > 8 else ''} — "
+            f"poisoned weights or input record; the decoded argmax "
+            f"would have been silently wrong")
+    return out
 
 
 def _stream_exported(record, path, spec, batch_size, stride, out_csv,
                      process_index, process_count, resident, dev,
-                     model_path) -> list:
+                     model_path, sanitize=False) -> list:
     """The ``exported_path`` sweep: host windows through the artifact's
     executor, two batches in flight (batch ``i + 1`` dispatched before
-    batch ``i`` is collected on the executor's stream)."""
+    batch ``i`` is collected on the executor's stream).  ``sanitize``
+    reads each batch's ``bad_rows``, as JAX reads the artifact's
+    ``nonfinite_rows`` (``dasmtl/stream/offline.py:152-166``)."""
     from dasmtl_torch.data.windowing import plan_windows, window_batches
     from dasmtl_torch.serve.executor import InferExecutor
 
@@ -190,13 +233,26 @@ def _stream_exported(record, path, spec, batch_size, stride, out_csv,
 
     def start(batch):
         handle = executor.dispatch(batch["x"])
-        return lambda: executor.collect(handle)[0]
+        return lambda: _checked_rows(*executor.collect(handle)[:2],
+                                     sanitize)
 
     try:
         return _emit(spec, plan, batches, start, out_csv, process_index,
                      process_count)
     finally:
         executor.close()
+
+
+def _checked_rows(preds: Dict[str, np.ndarray], bad: np.ndarray,
+                  sanitize: bool) -> Dict[str, np.ndarray]:
+    if sanitize and bad.any():
+        from dasmtl_torch.analysis.sanitize.common import NonFiniteError
+
+        raise NonFiniteError(
+            f"SAN202: non-finite artifact outputs in {int(bad.sum())} "
+            f"row(s) of this batch — the exported weights or the input "
+            f"record are poisoned")
+    return preds
 
 
 def _readback(out: Dict) -> Callable[[], Dict[str, np.ndarray]]:
@@ -293,25 +349,19 @@ def main(argv=None) -> int:
                    choices=["cuda", "cpu"])
     p.add_argument("--dp", type=int, default=1, help="not yet ported")
     p.add_argument("--sanitize", action=argparse.BooleanOptionalAction,
-                   default=False, help="not yet ported")
+                   default=False,
+                   help="finite-check every batch's raw model outputs and "
+                        "fail naming the affected windows (SAN202) instead "
+                        "of silently emitting the argmax of NaN logits")
     args = p.parse_args(argv)
     if bool(args.model_path) == bool(args.exported):
         p.error("exactly one of --model_path / --exported is required")
     if args.dp != 1 and args.exported:
         p.error("--dp is unavailable with --exported (the artifact's "
                 "computation is fixed at export time)")
-    for opt, item in NOT_YET_PORTED.items():
-        value = getattr(args, opt)
-        if value and not (opt == "dp" and value == 1):
-            print(f"dasmtl_torch.stream: --{opt} is not yet ported: {item}",
-                  file=sys.stderr)
-            return 2
-    from dasmtl_torch.models.registry import refuse_serve_only
-
-    try:
-        refuse_serve_only(args.model, "stream")
-    except NotImplementedError as exc:
-        print(f"dasmtl_torch.stream: {exc}", file=sys.stderr)
+    if args.dp != 1:
+        print(f"dasmtl_torch.stream: --dp is not yet ported: "
+              f"{NOT_YET_PORTED['dp']}", file=sys.stderr)
         return 2
 
     from dasmtl_torch.data import matio
@@ -328,7 +378,8 @@ def main(argv=None) -> int:
                               model=args.model, batch_size=args.batch_size,
                               stride=stride, out_csv=out_csv,
                               resident=args.resident, device=args.device,
-                              exported_path=args.exported)
+                              exported_path=args.exported,
+                              sanitize=args.sanitize)
     except (ValueError, OSError) as exc:
         # An unreadable, foreign or mismatched artifact, or --resident on
         # with one: an operational error with a named fix.

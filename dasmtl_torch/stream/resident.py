@@ -11,7 +11,10 @@ here the steady state stays on the card:
   donation).  The ring stays *sliding-contiguous* — absolute sample ``t``
   lives at column ``ring_samples - (total - t)`` — and the host-side
   bookkeeping (``total``, ``oldest``, the ``IndexError`` overrun/underrun
-  contract) mirrors :class:`~dasmtl_torch.stream.feed.FiberFeed`.
+  contract) mirrors :class:`~dasmtl_torch.stream.feed.FiberFeed`.  The
+  ring holds the executor's input dtype (``dtype=ex.input_dtype``, as in
+  JAX): float32, or bfloat16 under a reduced preset, each chunk cast on
+  the host (round to nearest even) before it crosses.
 - :class:`ResidentExecutor` — the fused program
   (:func:`dasmtl_torch.export.make_resident_serve_fn`: window gather,
   forward, decode tail, and ``event_prob_q`` when the forward emits
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from dasmtl_torch.export import PROB_Q_SCALE, make_resident_serve_fn
+from dasmtl_torch.ops.ring import DTYPES as RING_DTYPES
 from dasmtl_torch.ops.ring import ring_append
 from dasmtl_torch.parallel.placement import fiber_placements
 from dasmtl_torch.serve.graphs import (GraphBook, OutputLayout, graph_mode,
@@ -86,10 +90,14 @@ class ResidentFeed:
     ``total - ring_samples + j`` (zeros left of the first real sample).
     Chunks are staged on the host to ``chunk_samples`` granularity, so the
     append always has one shape; ``total`` counts samples on the card, the
-    staged remainder is ``pending``."""
+    staged remainder is ``pending``.  ``dtype`` (``torch.float32`` or
+    ``torch.bfloat16``) is the ring's: the host stage keeps float32, and
+    each flushed chunk is cast to ``dtype`` before it crosses, as JAX's
+    bf16 staging rounds it (both round the float32 value to nearest
+    even); ``h2d_bytes`` counts the bytes that cross."""
 
     def __init__(self, channels: int, ring_samples: int, *,
-                 chunk_samples: int, device=None, dtype=np.float32,
+                 chunk_samples: int, device=None, dtype=torch.float32,
                  stream: Optional[torch.cuda.Stream] = None):
         if channels < 1 or ring_samples < 1:
             raise ValueError(f"channels {channels} and ring_samples "
@@ -98,23 +106,23 @@ class ResidentFeed:
         if not 1 <= chunk_samples <= int(ring_samples):
             raise ValueError(f"chunk_samples {chunk_samples} must be in "
                              f"[1, ring_samples={ring_samples}]")
-        if np.dtype(dtype) != np.float32:
-            raise ValueError(f"the ring kernel takes float32, not "
-                             f"{np.dtype(dtype)}")
         self.channels = int(channels)
         self.ring_samples = int(ring_samples)
         self.chunk_samples = chunk_samples
-        self.dtype = np.dtype(dtype)
+        if dtype not in RING_DTYPES:
+            raise ValueError(f"the ring kernels take torch.float32 or "
+                             f"torch.bfloat16, not {dtype}")
+        self.dtype = dtype
         self.device = torch.device(device if device is not None else "cpu")
         self.stream = stream
         self.total = 0
         self.h2d_bytes = 0
         self.h2d_chunks = 0
-        self._pending = np.zeros((self.channels, 0), self.dtype)
+        self._pending = np.zeros((self.channels, 0), np.float32)
         self._arrivals: list = []  # (total_after_append, clock) pairs
         with _stream_ctx(stream):
             shape = (self.channels, self.ring_samples)
-            self.ring = torch.zeros(shape, dtype=torch.float32,
+            self.ring = torch.zeros(shape, dtype=self.dtype,
                                     device=self.device)
             self._spare = torch.zeros_like(self.ring)
 
@@ -128,15 +136,17 @@ class ResidentFeed:
         """Host-staged samples not yet a full chunk."""
         return self._pending.shape[1]
 
-    def _append_chunk(self, piece: np.ndarray) -> None:
-        """One chunk onto the card and into the ring (on the lane's
-        stream)."""
+    def _append_chunk(self, piece: np.ndarray) -> int:
+        """One float32 chunk, cast to the ring's dtype on the host, onto
+        the card and into the ring (on the lane's stream); returns the
+        bytes that crossed."""
         with _stream_ctx(self.stream):
-            chunk = torch.from_numpy(piece)
+            chunk = torch.from_numpy(piece).to(self.dtype)
             if self.device.type == "cuda":
                 chunk = chunk.pin_memory().to(self.device, non_blocking=True)
             ring_append(self.ring, chunk, out=self._spare)
             self.ring, self._spare = self._spare, self.ring
+        return chunk.numel() * chunk.element_size()
 
     @property
     def buffers(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -146,7 +156,7 @@ class ResidentFeed:
     def warmup(self) -> None:
         """Run the append once on zeros, then leave an all-zero ring."""
         self._append_chunk(np.zeros((self.channels, self.chunk_samples),
-                                    self.dtype))
+                                    np.float32))
         with _stream_ctx(self.stream):
             self.ring.zero_()
             self._spare.zero_()
@@ -177,14 +187,13 @@ class ResidentFeed:
         if n == 0:
             return 0
         self._pending = np.concatenate(
-            [self._pending, chunk.astype(self.dtype, copy=False)], axis=1)
+            [self._pending, chunk.astype(np.float32, copy=False)], axis=1)
         w_c = self.chunk_samples
         while self._pending.shape[1] >= w_c:
             piece = np.ascontiguousarray(self._pending[:, :w_c])
             self._pending = self._pending[:, w_c:]
-            self._append_chunk(piece)
+            self.h2d_bytes += self._append_chunk(piece)
             self.total += w_c
-            self.h2d_bytes += piece.nbytes
             self.h2d_chunks += 1
             self._arrivals.append((self.total, now))
         while (len(self._arrivals) > 1
@@ -201,11 +210,12 @@ class ResidentFeed:
 
     def view(self, t0: int, n: int) -> np.ndarray:
         """Host copy of absolute samples ``[t0, t0 + n)`` — a parity
-        helper, never the steady state."""
+        helper, never the steady state; a bf16 ring's values come back
+        as float32 (numpy has no bf16)."""
         self.check_window(t0, n)
         s = self.slot(t0)
         with _stream_ctx(self.stream):
-            return self.ring[:, s:s + int(n)].cpu().numpy()
+            return self.ring[:, s:s + int(n)].float().cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -538,17 +548,14 @@ def build_lanes(pool, tenants, *, max_windows: int = 0) -> List[ResidentLane]:
     ``max_windows`` caps the rung ladder (0 = the tenant's per-cycle
     quota)."""
     members = _pool_members(pool)
-    if any(ex.input_dtype != torch.float32 for ex in members):
-        raise ValueError("the resident lanes take f32 executors only: "
-                         "ROADMAP.md queue 1 item 10, 'The stream tier's "
-                         "presets and model C'")
     lanes = []
     for t, (i, ex) in zip(tenants,
                           fiber_placements(len(tenants), members)):
         stream = getattr(ex, "stream", None)
         feed = ResidentFeed(t.feed.channels, t.feed.ring_samples,
                             chunk_samples=t.chunk_samples,
-                            device=ex.placement, stream=stream)
+                            device=ex.placement, dtype=ex.input_dtype,
+                            stream=stream)
         executor = ResidentExecutor(
             ex.raw_infer_fn, ex.input_hw, int(max_windows) or int(t.quota),
             device=ex.placement, name=f"{t.name}@{i}", stream=stream,

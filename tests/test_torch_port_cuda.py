@@ -1,6 +1,8 @@
 """The port on the card: each hand-written kernel against its plain
 version (the paired gate bit for bit against its T = 1 launches, the
-window gather's bulk and scalar branches bit for bit, the decode tail in
+window gather's bulk and scalar branches bit for bit, on f32 and on bf16
+records, the bf16 ring append in each copy unit and a bf16 ResidentFeed
+on the card against the CPU's, the decode tail in
 every lane layout of ``decode_plan`` with NaN / Inf in lanes 0, 15, 16 and
 31, event_prob_q on aligned and offset views, both bit-equal with
 and without programmatic dependent launch), the serve forward and one train step against the CPU, the
@@ -477,6 +479,112 @@ def test_ring_append_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="second buffer"):
         ring.ring_append(r, c, out=r)
     assert ring.launches.value == 0
+
+
+@pytest.mark.parametrize("case", ["bulk_16", "bulk_256", "rows", "odd_T",
+                                  "T_mod_8_is_4", "offset_base",
+                                  "odd_window"])
+def test_bf16_window_gather_every_branch_bit_exact(cuda, case):
+    """The bf16 gather (a reduced preset's ring) bit for bit against the
+    plain version in each branch: bulk at k = 16 and 256, rows at k = 3,
+    scalar on records whose T is not a multiple of 8 (1003, and 1004,
+    which f32 takes in bulk) and on a view 2 bytes off, and a window whose
+    runs do not start on 16 bytes (one-element stores)."""
+    g = torch.Generator().manual_seed(13)
+    shape, hw, k, branch = {
+        "bulk_16": ((300, 2000), (100, 250), 16, "bulk"),
+        "bulk_256": ((1000, 6000), (100, 250), 256, "bulk"),
+        "rows": ((300, 1003), (100, 250), 3, "rows"),
+        "odd_T": ((300, 1003), (100, 250), 16, "scalar"),
+        "T_mod_8_is_4": ((300, 1004), (100, 250), 16, "scalar"),
+        "offset_base": ((301, 1000), (100, 250), 16, "scalar"),
+        "odd_window": ((64, 400), (7, 13), 80, "bulk"),
+    }[case]
+    rec = torch.randn(*shape, generator=g).to(torch.bfloat16).to(cuda)
+    if case == "offset_base":
+        rec = rec.view(-1)[1:1 + 300 * 1000].view(300, 1000)
+        assert rec.is_contiguous() and rec.data_ptr() % 16
+    C, T = rec.shape
+    h, w = hw
+    origins = torch.stack([torch.randint(-C, C + 50, (k,), generator=g),
+                           torch.randint(-T, T + 50, (k,), generator=g)], 1)
+    origins[0] = torch.tensor([C - h, T - w])
+    origins[1] = torch.tensor([-1, -1])
+    origins = origins.to(torch.int32).to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert window.gather_plan(T, rec.data_ptr(), h, w, k, sms,
+                              2).branch == branch
+    got = window.window_gather(rec, origins, hw)
+    assert got.dtype == torch.bfloat16 and got.shape == (k, h, w, 1)
+    assert torch.equal(got.view(torch.int16), window.window_gather_plain(
+        rec, origins, hw).view(torch.int16))
+    assert torch.equal(got[0, :, :, 0], rec[C - h:, T - w:])
+    assert window.launches.value == 1
+
+
+@pytest.mark.parametrize("channels,w_c,vec", [(400, 500, 4), (400, 1000, 8),
+                                              (100, 125, 1), (8, 250, 2)])
+def test_bf16_ring_append_kernel_matches_plain(cuda, channels, w_c, vec):
+    """200 appends of bf16 chunks: bit for bit against the plain version,
+    in the copy unit ``ring_plan`` picks from the shift's bytes."""
+    g = torch.Generator().manual_seed(channels + w_c)
+    ring_k = torch.randn(channels, 16384, generator=g).to(
+        torch.bfloat16).to(cuda)
+    ring_p = ring_k.clone()
+    spare = torch.empty_like(ring_k)
+    for _ in range(200):
+        chunk = torch.randn(channels, w_c, generator=g).to(
+            torch.bfloat16).to(cuda)
+        assert ring.ring_plan(16384, w_c, ring_k.data_ptr(),
+                              chunk.data_ptr(), spare.data_ptr()) == vec
+        spare = ring.ring_append(ring_k, chunk, out=spare)
+        ring_k, spare = spare, ring_k
+        ring_p = ring.ring_append_plain(ring_p, chunk)
+    assert torch.equal(ring_k.view(torch.int16), ring_p.view(torch.int16))
+    assert ring.launches.value == 200
+
+
+def test_bf16_ring_append_on_misaligned_views_and_refusals(cuda):
+    """A chunk view 2 bytes off takes 2-byte units and stays exact; mixed
+    or foreign dtypes raise, nothing launches for them."""
+    g = torch.Generator().manual_seed(3)
+    r = torch.randn(16, 4096, generator=g).to(torch.bfloat16).to(cuda)
+    flat = torch.randn(16 * 1000 + 1, generator=g).to(torch.bfloat16).to(
+        cuda)
+    chunk = flat[1:].view(16, 1000)
+    out = torch.empty_like(r)
+    assert ring.ring_plan(4096, 1000, r.data_ptr(), chunk.data_ptr(),
+                          out.data_ptr()) == 1
+    ring.ring_append(r, chunk, out=out)
+    assert torch.equal(out.view(torch.int16), ring.ring_append_plain(
+        r, chunk).view(torch.int16))
+    with pytest.raises(TypeError, match="one dtype"):
+        ring.ring_append(r, chunk.float())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ring.ring_append(r.half(), chunk.half())
+    assert ring.launches.value == 1
+
+
+def test_bf16_resident_feed_on_the_card_equals_the_cpu_s(cuda):
+    """Ragged appends through a bf16 ResidentFeed on the card and on the
+    CPU: the same ring bits and H2D byte counts (the host cast, then the
+    kernel on the card, the plain version on the CPU)."""
+    from dasmtl_torch.stream.resident import ResidentFeed
+
+    rng = np.random.default_rng(4)
+    card = ResidentFeed(400, 16384, chunk_samples=500, device=cuda,
+                        dtype=torch.bfloat16)
+    cpu = ResidentFeed(400, 16384, chunk_samples=500, dtype=torch.bfloat16)
+    for _ in range(12):
+        piece = rng.normal(size=(400, int(rng.integers(1, 1400)))).astype(
+            np.float32)
+        card.append(piece)
+        cpu.append(piece)
+    torch.cuda.synchronize()
+    assert card.h2d_bytes == cpu.h2d_bytes == 400 * 500 * 2 * card.h2d_chunks
+    assert torch.equal(card.ring.cpu().view(torch.int16),
+                       cpu.ring.view(torch.int16))
+    assert ring.launches.value == card.h2d_chunks
 
 
 @pytest.mark.parametrize("k", [1, 16, 256])

@@ -157,6 +157,46 @@ def test_dynamic_tenancy_handoff_matches_jax(serves):
     assert closes.count(("p", 0)) == 1 and closes.count(("p", 1)) == 1
 
 
+def _late_release(pkg, serve):
+    """A release that lands while ``run_cycle`` is between ``p``'s
+    ``draining`` check and its cut: the fiber's source releases it from
+    inside ``poll``, as an HTTP thread's ``POST /fibers/release`` can."""
+    stream = _dynamic_loop(pkg, serve)
+    try:
+        stream.assign_fiber("p", PLANTED, chunk_samples=32)
+        c = _cycles(stream, 10, 0)
+        tenant = stream.tenants[0]
+        poll, released = tenant.source.poll, []
+
+        def poll_then_release(n):
+            chunk = poll(n)
+            released.append(stream.release_fiber("p", timeout_s=0.0))
+            return chunk
+
+        tenant.source.poll = poll_then_release
+        stream.run_cycle(now=float(c))
+        deadline = time.monotonic() + 30.0
+        while tenant.outstanding:
+            assert time.monotonic() < deadline
+            time.sleep(0.0005)
+        return (released[0], tenant.submitted, tenant.windower.next_origin,
+                len(stream.tenants))
+    finally:
+        stream.close()
+
+
+def test_a_late_release_still_cuts_one_window_as_jax_s(serves):
+    """A fact of the reference (ROADMAP queue 3): ``release_fiber``
+    reports the fiber drained at an offset while the cycle that passed its
+    ``draining`` check cuts and submits one more window of it."""
+    got = _late_release("port", serves["port"])
+    assert got == _late_release("jax", serves["jax"])
+    reply, submitted, next_origin, left = got
+    assert reply["drained"] and reply["resume_offset"] == 10 * 32
+    assert submitted == 11 and next_origin == reply["resume_offset"] + 32
+    assert left == 0
+
+
 def test_a_dynamic_loop_refuses_the_resident_plane(serves):
     for pkg in ("port", "jax"):
         with pytest.raises(ValueError, match="host data plane only"):

@@ -18,8 +18,8 @@
   ``... serve`` answers ``/events``, ``/stats``, ``/metrics`` and drains
   clean on SIGTERM, runs JAX's default alerts unless ``--no-alerts``,
   parses the ``--alerts_*``, ``--selftest*`` and ``--fleet_worker`` flags
-  to JAX's values, and what is not ported (the fleet controller among
-  it) exits 2 naming its ROADMAP item.
+  to JAX's values, streams under ``--precision`` and for model C, and
+  what is not ported exits 2 naming its ROADMAP item.
 """
 
 import csv
@@ -161,11 +161,17 @@ def test_stream_cli_writes_the_rows_and_refuses_what_is_not_ported(
                           device="cpu")
     assert [{k: str(v) for k, v in r.items()} for r in want] == rows
     assert len(rows) == 4  # origins 0, 125, 250 and the clamped 350
-    for extra, item in ((["--dp", "2"], "item 8"),
-                        (["--sanitize"], "item 3")):
-        assert stream_main(["--record", path, "--model_path", ckpt,
-                            *extra]) == 2
-        assert item in capsys.readouterr().err
+    assert stream_main(["--record", path, "--model_path", ckpt, "--dp",
+                        "2"]) == 2
+    assert "item 8" in capsys.readouterr().err
+    # --sanitize is ported: a clean checkpoint sweeps to the same rows.
+    sanitized = str(tmp_path / "pred_sanitized.csv")
+    assert stream_main(["--record", path, "--model_path", ckpt,
+                        "--stride_time", "125", "--batch_size", "4",
+                        "--device", "cpu", "--sanitize", "--out",
+                        sanitized]) == 0
+    with open(sanitized, newline="") as f:
+        assert list(csv.DictReader(f)) == rows
     # --exported is ported; beside --model_path it is refused as JAX
     # refuses it.
     with pytest.raises(SystemExit) as exc:
@@ -510,9 +516,12 @@ def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys,
     drains clean; the alert engine's flags (item 6's remainder), the
     soak's ``--selftest*`` and ``--fleet_worker`` (item 1 but the fleet
     controller) are ported: each parses to the value JAX's ``stream
-    serve`` parses it to."""
+    serve`` parses it to; ``--precision`` (item 10) parses to JAX's value
+    and streams on the resident plane, bf16 rings and all, draining
+    clean."""
     argv = ["stream", "serve", "--synthetic", "1", "--fresh_init", *extra]
-    if extra[0].startswith(("--alerts", "--selftest", "--fleet_worker")):
+    if extra[0].startswith(("--alerts", "--selftest", "--fleet_worker",
+                            "--precision")):
         want = _jax_stream_serve_args(argv[2:], monkeypatch)
         got = build_serve_parser().parse_args(argv[2:])
         for name in ("alerts", "alerts_interval_s", "alerts_path",
@@ -520,9 +529,16 @@ def test_stream_serve_cli_refuses_what_is_not_ported(extra, item, capsys,
                      "alerts_webhook_backoff_s", "selftest",
                      "selftest_fibers", "selftest_cycles",
                      "selftest_devices", "selftest_resident",
-                     "fleet_worker"):
+                     "fleet_worker", "precision"):
             assert (getattr(got, name), type(getattr(got, name))) == \
                 (getattr(want, name), type(getattr(want, name))), name
+        if extra[0] != "--precision":
+            return
+        assert _stream_until_sigterm(argv + ["--resident", "on"],
+                                     tmp_path) == 0
+        err = capsys.readouterr().err
+        assert "not yet ported" not in err and "drained=clean" in err
+        assert "(resident data plane)" in err
         return
     if extra[0] == "--devices":
         assert _stream_until_sigterm(argv, tmp_path) == 0
@@ -609,8 +625,9 @@ class _ReadyzMissed(Exception):
     pass
 
 
-def _stream_until_sigterm(argv, tmp_path) -> int:
-    """Run the stream CLI in this process on one intra-op thread at 52x64;
+def _stream_until_sigterm(argv, tmp_path, window: str = "52x64") -> int:
+    """Run the stream CLI in this process on one intra-op thread at
+    ``window`` (52x64);
     once ``/readyz`` answers 200 and the CLI has installed its SIGTERM
     handler, SIGTERM the process (the CLI drains); its exit code.  Until
     the CLI's handler is in place this helper's own stands: if ``/readyz``
@@ -646,7 +663,7 @@ def _stream_until_sigterm(argv, tmp_path) -> int:
     stopper = threading.Thread(target=stop_when_ready, daemon=True)
     stopper.start()
     try:
-        code = cli.main(argv + ["--window", "52x64", "--buckets", "1,2",
+        code = cli.main(argv + ["--window", window, "--buckets", "1,2",
                                 "--device", "cpu", "--port", "0",
                                 "--port_file", str(port_file)])
     except _ReadyzMissed:
@@ -689,13 +706,37 @@ def test_stream_serve_sources_are_refused_as_jax_refuses_them(
 @pytest.mark.parametrize("argv", [
     ["stream", "serve", "--synthetic", "1", "--fresh_init"],
     ["stream", "--record", "r.mat", "--model_path", "ckpt"]])
-def test_stream_refuses_model_c(argv, capsys):
-    """Model C serves, but its stream tier is a later slice: both stream
-    entry points exit 2 naming the item."""
-    assert cli.main(argv + ["--model", "multi_classifier", "--device",
-                            "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "model C" in err and "item 10" in err
+def test_stream_refuses_model_c(argv, capsys, tmp_path, monkeypatch):
+    """Model C streams (it was refused before its slice; the name is
+    kept): ``stream serve`` at 75x75 answers and drains clean; the offline
+    sweep writes the distance and event its mixed head derives, both
+    columns, from a port checkpoint of model C."""
+    import shutil
+
+    argv = argv + ["--model", "multi_classifier"]
+    if argv[1] == "serve":
+        assert _stream_until_sigterm(argv, tmp_path, window="75x75") == 0
+        err = capsys.readouterr().err
+        assert "drained=clean" in err and "75x75 windows" in err
+        return
+    monkeypatch.chdir(tmp_path)
+    net = get_model_spec("multi_classifier").build()
+    saved = CheckpointManager(str(tmp_path / "run")).save(
+        TrainState(model=net, optimizer=coupled_adam(net.parameters())))
+    shutil.copytree(saved, "ckpt")
+    matio.save_mat("r.mat", _record(seed=2, shape=(100, 300)))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert cli.main(argv + ["--device", "cpu", "--batch_size", "2",
+                                "--out", "rows.csv"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    with open("rows.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert [int(r["time_origin"]) for r in rows] == [0, 50]
+    assert all(0 <= int(r["pred_distance_m"]) < 16 and r["pred_event"] in
+               ("striking", "excavating") for r in rows)
 
 
 def test_stream_fleet_and_cuda_without_a_card(capsys):

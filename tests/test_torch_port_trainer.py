@@ -14,6 +14,7 @@
   ROADMAP item.
 """
 
+import csv
 import json
 import os
 
@@ -401,8 +402,9 @@ def test_flags_at_their_defaults_are_accepted_and_spelled_as_jax():
 
 def test_unported_model_family_exits_2(tmp_path, capsys):
     """Every family now trains, model C included (its train and test
-    entry points run to the end); what model C still lacks, its stream
-    tier, exits 2 naming ROADMAP.md item 10, as unknown commands do."""
+    entry points run to the end), and its stream tier takes the trained
+    checkpoint: the offline sweep writes the distance and event its mixed
+    head derives.  Unknown commands exit 2."""
     striking, excavating = make_synthetic_dataset(
         str(tmp_path / "data"), files_per_category=2, num_categories=2,
         shape=(75, 75), seed=4)
@@ -418,8 +420,22 @@ def test_unported_model_family_exits_2(tmp_path, capsys):
     finally:
         torch.set_num_threads(threads)
     assert "[val epoch 1] task=mixed acc=" in capsys.readouterr().out
-    assert cli.main(["stream", "--record", "r.mat", "--model_path", "ckpt",
-                     "--model", "multi_classifier", "--device",
-                     "cpu"]) == 2
-    assert "item 10" in capsys.readouterr().err
+    from dasmtl_torch.data import matio
+
+    ckpt = sorted(os.path.join(d, n) for d, ns, _ in os.walk(runs)
+                  for n in ns if n.startswith("step_"))[-1]
+    record = str(tmp_path / "r.mat")
+    matio.save_mat(record, np.random.default_rng(0).normal(size=(100, 250)))
+    out = str(tmp_path / "rows.csv")
+    torch.set_num_threads(1)
+    try:
+        assert cli.main(["stream", "--record", record, "--model_path", ckpt,
+                         "--model", "multi_classifier", "--device", "cpu",
+                         "--batch_size", "1", "--out", out]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    with open(out, newline="") as f:
+        (row,) = list(csv.DictReader(f))
+    assert 0 <= int(row["pred_distance_m"]) < 16 and \
+        row["pred_event"] in ("striking", "excavating")
     assert cli.main(["nope"]) == 2 and cli.main([]) == 2
