@@ -133,9 +133,9 @@ Phases, each fatal on failure (no phase catches its own error):
              at the one-step tolerances; (c) ``python -m
              dasmtl_torch.sanitize --self-test``: the NaN blamed on the
              poisoned convolution, grad_desync and the forked seed caught
-             by SAN201; (d) MTL-f32-dp1 and MTL-f32-dp2 twice each with
-             identical chains and tree digests, held to the committed
-             determinism baseline; (e) what sanitizing costs a
+             by SAN201; (d) MTL-f32-dp1, MTL-f32-dp2 and MTL-bf16-dp2
+             twice each with identical chains and tree digests, held to
+             the committed determinism baseline; (e) what sanitizing costs a
              batch-32 step: a SAN201 check, the snapshot, the sanitized
              against the plain step wall, the heartbeat, and a dp 2 step
              under the default ``--bn_sync global``;
@@ -156,7 +156,17 @@ Phases, each fatal on failure (no phase catches its own error):
              each run's checkpoint resumed for a 4th epoch on the other
              path; (d) 1,024 in-memory windows, 2 epochs at batch 32, K = 8,
              on both paths: examples/s, wall and device ms per step,
-             launches per step, device idle share, peak memory;
+             launches per step, device idle share, peak memory; (e)
+             ``train --compute_dtype bfloat16`` (model A, batch 32, the
+             resident path, K = 3 steps a replay, 2 epochs on (b)'s tree):
+             params and Adam moments f32 at the end, the epoch loss finite
+             and falling, 8 + 8 gate launches and 1 gather per step, 0
+             post-warmup compiles; ``test --compute_dtype bfloat16`` on its
+             checkpoint; a bf16-compute artifact exported from it and
+             served through ``from_exported`` (graphs), ints equal to the
+             test run's on decisive rows; one card step against the CPU
+             port's bf16 step from the same weights and batch; (d)'s cell
+             under bf16 on the resident path beside the f32 one;
 11. artifacts — run right after phase 7, on phase 6e's checkpoint: (a)
              ``python -m dasmtl_torch.export`` in process writes model A's
              f32 and bf16 artifacts and publishes them as registry v1 and
@@ -207,9 +217,9 @@ Phases, each fatal on failure (no phase catches its own error):
              algorithms: every fold's final state within the one-step
              tolerances of its ``--fold_index`` resident run, 2
              fold_select launches a step, the counters zeroed just before
-             the run; (d) the CV epoch timed (5 folds x 800 in-memory
+             the run; (d) the CV epoch timed (5 folds x 400 in-memory
              windows, batch 32) against one fold's resident run, and
-             model C's host and resident train steps (512 windows);
+             model C's host and resident train steps (256 windows);
 13. graphs — the executor pool's CUDA graphs: zero post-warmup captures
              on every member after phase 5's HTTP run, 11c's swap and 7c's
              live run; (a) model A f32, model A bf16 and model C int8 at
@@ -4387,18 +4397,18 @@ def _self_test():
 
 @_part
 def _determinism():
-    """(d) MTL-f32-dp1 and MTL-f32-dp2 twice each: identical chains and
-    tree digests, held to the committed baseline (SAN203; the digests when
-    its card / torch / CUDA stamp is this run's, the float metrics
-    always)."""
+    """(d) MTL-f32-dp1, MTL-f32-dp2 and MTL-bf16-dp2 twice each: identical
+    chains and tree digests, held to the committed baseline (SAN203; the
+    digests when its card / torch / CUDA stamp is this run's, the float
+    metrics always)."""
     from dasmtl_torch.analysis.sanitize.determinism import (
         SanitizeCell, check_reports, generated_with, load_baseline, run_cell,
         versions_match)
 
     out = {}
     reports = []
-    for dp in (1, 2):
-        cell = SanitizeCell("MTL", dp=dp, hw=(H, W))
+    for dtype, dp in (("float32", 1), ("float32", 2), ("bfloat16", 2)):
+        cell = SanitizeCell("MTL", compute_dtype=dtype, dp=dp, hw=(H, W))
         runs = [run_cell(cell, device=DEV) for _ in range(2)]
         for report, findings in runs:
             if findings:
@@ -4886,6 +4896,7 @@ def _both_paths():
                                  f"{counts['batch_gather']} gathers")
         resumed[mode] = _final_state(run, n_steps + 6)
     report["resume_diff"] = _state_diff(resumed["on"], resumed["off"])
+    report["data"] = (striking, excavating)
     log(f"[resident] resume across paths: the resident run's step_18 "
         f"trained epoch 3 under device_data off and the host run's under "
         f"on; the two step_24 states max |delta| params "
@@ -4895,11 +4906,11 @@ def _both_paths():
 
 
 @_part
-def _timing_cell(family: str = "MTL", n: int = None, tag: str = "resident"
-                 ):
+def _timing_cell(family: str = "MTL", n: int = None, tag: str = "resident",
+                 compute_dtype: str = "float32", modes=("on", "off")):
     """(d) ``n`` in-memory windows (1,024 by default), 2 epochs at batch
-    32, K = 8, on both paths: examples/s, wall and device ms per step,
-    launches per step, device idle share, peak memory."""
+    32, K = 8, on both paths (or ``modes``): examples/s, wall and device
+    ms per step, launches per step, device idle share, peak memory."""
     from dasmtl_torch.config import Config
     from dasmtl_torch.data.pipeline import BatchIterator
     from dasmtl_torch.data.sources import ArraySource
@@ -4917,12 +4928,14 @@ def _timing_cell(family: str = "MTL", n: int = None, tag: str = "resident"
     spec = get_model_spec(family)
     steps = -(-n // 32)
     out = {}
-    for mode in ("on", "off"):
+    for mode in modes:
         cfg = Config(device="cuda", model=family, batch_size=32,
                      epoch_num=TIMING_EPOCHS, log_every_steps=steps,
                      val_every=100, ckpt_every_epochs=0,
-                     steps_per_dispatch=TIMING_K, device_data=mode)
-        run_dir = os.path.join(RESIDENT_DIR, f"timing_{family}_{mode}")
+                     steps_per_dispatch=TIMING_K, device_data=mode,
+                     compute_dtype=compute_dtype)
+        run_dir = os.path.join(RESIDENT_DIR,
+                               f"timing_{family}_{compute_dtype}_{mode}")
         os.makedirs(run_dir, exist_ok=True)
         tr = Trainer(cfg, spec, build_state(cfg, spec, torch.device("cuda")),
                      BatchIterator(train, 32, seed=cfg.seed), val, run_dir)
@@ -4993,6 +5006,175 @@ def _timing_cell(family: str = "MTL", n: int = None, tag: str = "resident"
     return out
 
 
+#: Phase 10e: epochs and steps per replay of the bf16 train run; the
+#: card step's largest mean-loss distance from the CPU port's bf16 step.
+BF16_EPOCHS, BF16_K, BF16_STEP_LOSS_TOL = 2, 3, 1e-3
+
+
+def _f32_checkpoint(ckpt: str) -> int:
+    """Every floating tensor of a checkpoint's model and Adam state is
+    f32; how many were checked."""
+    payload = torch.load(os.path.join(ckpt, "state.pt"), map_location="cpu",
+                         weights_only=True)
+    seen = 0
+    tensors = list(payload["model"].items())
+    for i, st in payload["optimizer"]["state"].items():
+        tensors += [(f"adam {i} {k}", v) for k, v in st.items()
+                    if k in ("exp_avg", "exp_avg_sq")]
+    for name, t in tensors:
+        if t.is_floating_point():
+            if t.dtype != torch.float32:
+                raise AssertionError(f"{ckpt}: {name} is {t.dtype}")
+            seen += 1
+    return seen
+
+
+def _bf16_step_vs_cpu() -> dict:
+    """One bf16 train step on the card and on the CPU from the same fresh
+    weights (seed 0) and batch: their mean losses."""
+    from dasmtl_torch.models.registry import get_model_spec
+    from dasmtl_torch.models.weights import init_fresh
+    from dasmtl_torch.train.steps import make_train_step
+
+    spec = get_model_spec("MTL")
+    sd = init_fresh(spec.build(), seed=0).state_dict()
+    batch = _train_batch(32)
+    loss = {}
+    for dev in ("cpu", "cuda"):
+        net = spec.build(torch.bfloat16)
+        net.load_state_dict(sd)
+        state = _new_state(net.to(dev))
+        m = make_train_step(spec)(state, {k: v.to(dev) for k, v in
+                                          batch.items()}, 1e-3)
+        loss[dev] = float(m["loss_sum"]) / float(m["count"])
+    diff = abs(loss["cuda"] - loss["cpu"])
+    if not diff <= BF16_STEP_LOSS_TOL:
+        raise AssertionError(f"bf16 step: card loss {loss['cuda']} vs CPU "
+                             f"{loss['cpu']} (|delta| {diff:.3g})")
+    return {"card_loss": loss["cuda"], "cpu_loss": loss["cpu"],
+            "abs_diff": diff}
+
+
+@_part
+def _bf16_train(data, f32_timing: dict) -> dict:
+    """(e) training, test and serving under ``--compute_dtype bfloat16``
+    (see the module docstring)."""
+    from dasmtl_torch import export
+    from dasmtl_torch.data.pipeline import eval_batches
+    from dasmtl_torch.data.sources import RamSource
+    from dasmtl_torch.data.splits import build_splits
+    from dasmtl_torch.ops import launch_counters
+    from dasmtl_torch.serve.executor import InferExecutor
+
+    striking, excavating = data
+    savedir = os.path.join(RESIDENT_DIR, "bf16")
+    common = ["--device", "cuda", "--model", "MTL", "--batch_size", "32",
+              "--compute_dtype", "bfloat16"]
+    result, run, counts, summary, console, train_s = _cli_train(
+        common + ["--epoch_num", str(BF16_EPOCHS), "--device_data", "on",
+                  "--steps_per_dispatch", str(BF16_K), "--val_every", "1",
+                  "--log_every_steps", "6", "--tracing_guards",
+                  "--trainVal_set_striking", striking,
+                  "--trainVal_set_excavating", excavating], savedir)
+    # 192 train / 64 val windows: 6 steps an epoch; validation after
+    # every epoch and after the last, 2 batches each, gathered on the card.
+    n_steps, n_eval = 6 * BF16_EPOCHS, 2 * (BF16_EPOCHS + 1)
+    got = (counts["gate_apply"], counts["gate_apply_backward"],
+           counts["batch_gather"])
+    want = (8 * n_steps + 4 * n_eval, 8 * n_steps, n_steps + n_eval)
+    if got != want:
+        raise AssertionError(f"bf16 train: (gate, gate backward, "
+                             f"batch_gather) launches {got}, not {want}")
+    guards = summary["ranks"][0]["guards"]
+    if guards["post_warmup_compiles"] != 0 or \
+            "compute dtype: bfloat16 convolutions" not in console or \
+            "[device-data] training set resident" not in console:
+        raise AssertionError(f"bf16 train: {guards} / console {console}")
+    with open(os.path.join(run, "metrics", "metrics.jsonl")) as f:
+        losses = [r["loss"] for r in map(json.loads, f)
+                  if r["kind"] == "train"]
+    if len(losses) != BF16_EPOCHS or not np.isfinite(losses).all() or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 train: epoch losses {losses}")
+    ckpt = os.path.join(run, "ckpts", f"step_{n_steps}")
+    n_f32 = _f32_checkpoint(ckpt)
+
+    tested, _, test_counts, _, _, test_s = _cli_train(
+        common + ["--model_path", ckpt, "--test_set_striking", striking,
+                  "--test_set_excavating", excavating], savedir,
+        entry="test", det=False)
+    if (test_counts["gate_apply"], test_counts["gate_apply_backward"]) != \
+            (4 * 8, 0):
+        raise AssertionError(f"bf16 test: launches {test_counts}")
+
+    # The artifact: a bf16-compute f32 preset, served from CUDA graphs.
+    path = os.path.join(savedir, "mtl_bf16.torch")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if export.main(["--model", "MTL", "--model_path", ckpt, "--out",
+                        path, "--compute_dtype", "bfloat16"]) != 0:
+            raise AssertionError("export --compute_dtype bfloat16 failed")
+    header = export.artifact_header(path)
+    if header.get("compute_dtype") != "bfloat16" or \
+            header["precision"] != "f32":
+        raise AssertionError(f"bf16 artifact header {header}")
+    source = RamSource(build_splits(striking, excavating, is_test=True).val)
+    xs = np.concatenate([b["x"][b["weight"] > 0][..., 0]
+                         for b in eval_batches(source, 32)])
+    ex = InferExecutor.from_exported(path, (32,), (H, W),
+                                     torch.device("cuda"))
+    try:
+        ex.warmup()
+        for c in launch_counters().values():
+            c.reset()
+        preds, bad, decisive, _ = _direct(ex, xs, DECISIVE)
+        torch.cuda.synchronize()
+        served = {n: c.value for n, c in launch_counters().items()}
+        captures = ex.post_warmup_compiles
+    finally:
+        ex.close()
+    n_batches = -(-len(xs) // 32)
+    if (served["gate_apply"], served["decode_heads"], captures) != \
+            (4 * n_batches, n_batches, 0) or bad.any():
+        raise AssertionError(f"bf16 artifact: launches {served}, "
+                             f"captures {captures}, bad rows {bad.sum()}")
+    agree = {}
+    for task, dec in decisive.items():
+        want_ints = np.asarray(tested.predictions[task])
+        if not np.array_equal(preds[task][dec], want_ints[dec]):
+            raise AssertionError(f"bf16 artifact {task} ints differ from "
+                                 f"the test run's on decisive rows")
+        agree[task] = int(dec.sum())
+
+    step = _bf16_step_vs_cpu()
+    timing = _timing_cell("MTL", tag="resident-bf16",
+                          compute_dtype="bfloat16", modes=("on",))["on"]
+    f32 = f32_timing["on"]
+    log(f"[resident] bf16 train (model A, {BF16_EPOCHS} epochs, 192 / 64 "
+        f"at batch 32, K = {BF16_K}) {train_s:.1f} s: epoch losses "
+        f"{[round(v, 4) for v in losses]}, launches (gate, backward, "
+        f"gather) {got}, 0 post-warmup compiles, {n_f32} f32 tensors in "
+        f"the checkpoint; test {test_s:.1f} s; the bf16-compute artifact "
+        f"from_exported: ints == test on {agree} decisive rows of "
+        f"{len(xs)}, {served['decode_heads']} decode launches; one step "
+        f"card {step['card_loss']:.6f} vs CPU {step['cpu_loss']:.6f} "
+        f"(|delta| {step['abs_diff']:.3g} <= {BF16_STEP_LOSS_TOL})")
+    log(f"[resident] bf16 vs f32 resident step, batch 32 at {H}x{W}: "
+        f"device {timing['device_ms_per_step']:.3f} vs "
+        f"{f32['device_ms_per_step']:.3f} ms, wall "
+        f"{timing['wall_ms_per_step']:.3f} vs {f32['wall_ms_per_step']:.3f}"
+        f" ms, launches {timing['launches_per_step']:.0f} vs "
+        f"{f32['launches_per_step']:.0f}, peak memory "
+        f"{timing['peak_memory_bytes'] / 2**20:.1f} vs "
+        f"{f32['peak_memory_bytes'] / 2**20:.1f} MiB")
+    return {"launches": dict(zip(("gate_apply", "gate_apply_backward",
+                                  "batch_gather"), got)),
+            "steps": n_steps, "epoch_losses": losses, "guards": guards,
+            "f32_tensors": n_f32, "train_s": train_s, "test_s": test_s,
+            "test_launches": test_counts, "artifact": header,
+            "served_launches": served, "decisive_rows_equal": agree,
+            "step_vs_cpu": step, "timing": timing}
+
+
 def phase_resident(peaks):
     from dasmtl_torch.device import set_f32_numerics
 
@@ -5000,17 +5182,19 @@ def phase_resident(peaks):
     kernel = _gather_kernel(peaks)
     both = _both_paths()
     timing = _timing_cell()
+    bf16 = _bf16_train(both["data"], timing)
     shutil.rmtree(RESIDENT_DIR, ignore_errors=True)
-    return {"batch_gather": kernel, "both": both, "timing": timing}
+    return {"batch_gather": kernel, "both": both, "timing": timing,
+            "bf16": bf16}
 
 
 # -- phase 12 ------------------------------------------------------------------
 CV_DIR = os.path.join(TRAIN_DIR, "cv")
 #: Folds of the reference protocol, and the step's batch.
 CV_FOLDS, CV_BATCH = 5, 32
-#: The CV timing cell: 1,000 in-memory windows, 5 folds of 800 training
-#: windows, 2 epochs at batch 32, K = 8; model C's timing cell: 512.
-CV_TIMING_N, CV_TIMING_EPOCHS, MODEL_C_TIMING_N = 1000, 2, 512
+#: The CV timing cell: 500 in-memory windows, 5 folds of 400 training
+#: windows, 2 epochs at batch 32, K = 8; model C's timing cell: 256.
+CV_TIMING_N, CV_TIMING_EPOCHS, MODEL_C_TIMING_N = 500, 2, 256
 
 
 def _leaf_bits(t: torch.Tensor) -> torch.Tensor:
@@ -5537,8 +5721,8 @@ def _cv_run():
 
 @_part
 def _cv_timing():
-    """(d) the CV epoch: 5 folds of 800 in-memory windows, 2 epochs at
-    batch 32, K = 8, against one fold's resident run of the same 800 in
+    """(d) the CV epoch: 5 folds of 400 in-memory windows, 2 epochs at
+    batch 32, K = 8, against one fold's resident run of the same 400 in
     the same call: wall s and examples/s per epoch, device ms per dispatch
     from events, device idle share."""
     from dasmtl_torch.config import Config

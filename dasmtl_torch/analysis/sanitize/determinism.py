@@ -18,10 +18,12 @@ non-finite probe (SAN202).  On the card a cell runs with
 ``CUBLAS_WORKSPACE_CONFIG``: without them cuDNN's backward convolutions
 break bit-exact chains.
 
-The cell names are JAX's.  bf16 cells (ROADMAP.md queue 1 item 11) are
-not ported.  A ``multi_classifier`` cell trains with dropout on, each
-rank's masks from its own stream (:func:`~dasmtl_torch.train.state.
-dropout_generator`), so its chain is reproducible from the seed.
+The cell names are JAX's.  A bf16 cell trains under ``--compute_dtype
+bfloat16`` (bf16 convolutions, f32 BatchNorm, f32 params and optimizer
+state), under the same deterministic settings.  A ``multi_classifier``
+cell trains with dropout on, each rank's masks from its own stream
+(:func:`~dasmtl_torch.train.state.dropout_generator`), so its chain is
+reproducible from the seed.
 
 The committed baseline (``--check-baseline`` / ``--update-baseline``,
 ``dasmtl/analysis/sanitize/determinism.py:246-310``) is the port's own,
@@ -49,11 +51,6 @@ MATRIX_MODELS = ("MTL", "single_event", "multi_classifier")
 MATRIX_DTYPES = ("float32", "bfloat16")
 MATRIX_DP = (1, 2)
 
-#: Cell kinds the port does not run yet -> the ROADMAP.md item.
-NOT_PORTED = {
-    "bfloat16": "ROADMAP.md queue 1 item 11, 'Training under "
-                "--compute_dtype bfloat16'",
-}
 #: The port's committed baseline.
 DEFAULT_BASELINE_PATH = os.path.join(os.path.dirname(os.path.abspath(
     __file__)), "determinism_baseline.json")
@@ -86,13 +83,6 @@ class SanitizeCell:
     @property
     def n_devices(self) -> int:
         return self.dp
-
-    @property
-    def not_ported(self) -> Optional[str]:
-        """The ROADMAP.md item this cell waits for, or None."""
-        if self.compute_dtype == "bfloat16":
-            return NOT_PORTED["bfloat16"]
-        return None
 
 
 def full_matrix() -> List[SanitizeCell]:
@@ -205,7 +195,8 @@ def _cell_body(world, cell: SanitizeCell, device: str
     if dev.type == "cuda":
         set_f32_numerics()
     cfg = Config(model=cell.model, batch_size=cell.batch_size,
-                 seed=cell.seed, device=device)
+                 compute_dtype=cell.compute_dtype, seed=cell.seed,
+                 device=device)
     spec = get_model_spec(cell.model)
     state = build_state(cfg, spec, dev,
                         rank=world.rank if world is not None else 0)
@@ -266,8 +257,6 @@ def run_cell(cell: SanitizeCell, device: str = "cuda", timeout: float = 900.0
     """Run one seeded cell through the production train step and
     fingerprint its trajectory: in this process for ``dp == 1``, in
     ``dp`` ranks otherwise (rank 0's report and findings)."""
-    if cell.not_ported:
-        raise NotImplementedError(f"cell {cell.name}: {cell.not_ported}")
     if cell.dp == 1:
         return _cell_body(None, cell, device)
     from dasmtl_torch.parallel.dist import launch

@@ -18,9 +18,7 @@
 The JAX runner pins a CPU backend with virtual devices; the port runs on
 ``--device cuda`` (the default, raising without a card) or ``--device
 cpu``, and its ``dp`` cells run as ``dp`` ranks, which share the card when
-there is one.  bf16 cells named with ``--cells`` exit 2 naming their
-ROADMAP.md item; in a preset those cells are skipped with a note naming
-it.
+there is one.  Every cell of the matrix runs, the bf16 ones too.
 """
 
 from __future__ import annotations
@@ -245,8 +243,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                                                 full_matrix)
 
         for c in full_matrix():
-            print(c.name + (f"  (not ported: {c.not_ported})"
-                            if c.not_ported else ""))
+            print(c.name)
         for name, cells in sorted(PRESETS.items()):
             print(f"preset {name}: {', '.join(c.name for c in cells)}")
         return 0
@@ -273,13 +270,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cells = resolve_cells(args.preset, args.cells)
     except ValueError as exc:
         ap.error(str(exc))
-    waiting = [c for c in cells if c.not_ported]
-    for c in waiting:
-        print(f"dasmtl_torch.sanitize: cell {c.name} is not ported: "
-              f"{c.not_ported}", file=sys.stderr)
-    if waiting and args.cells:
-        return 2  # asked for by name
-    cells = [c for c in cells if not c.not_ported]
     reports, findings = run_cells(cells, device=args.device)
     if args.update_baseline:
         update_baseline(reports, args.baseline,

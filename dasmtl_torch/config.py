@@ -205,6 +205,10 @@ class Config:
     # visible card), and the BatchNorm semantics across them.
     dp: int = -1
     bn_sync: str = "global"  # global | per_replica
+    # The convolutions' dtype (``dasmtl/config.py:102``): bfloat16 runs
+    # every conv in bf16 and every BatchNorm in f32; params, BatchNorm
+    # stats and Adam's state stay f32.
+    compute_dtype: str = "float32"  # float32 | bfloat16
     # Every CV fold at once on one card (``dasmtl/config.py:126``).
     cv_parallel: bool = False
     # The device-resident training set (``:112-121``): ``auto`` keeps a RAM
@@ -317,6 +321,8 @@ class Config:
                              f"got {self.dp}")
         if self.bn_sync not in ("global", "per_replica"):
             raise ValueError(f"unknown bn_sync {self.bn_sync!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         if self.guard_transfer not in ("off", "log", "disallow"):
             raise ValueError(
                 f"unknown guard_transfer {self.guard_transfer!r}")
@@ -503,8 +509,6 @@ _MULTI = ("ROADMAP.md queue 1 item 8, 'Model C, multi-device training and "
 #: default and the ROADMAP.md item that brings them.
 NOT_YET_PORTED = {
     "sp": (1, _MULTI),
-    "compute_dtype": ("float32", "ROADMAP.md queue 1 item 11, 'Training "
-                                 "under --compute_dtype bfloat16'"),
     "loader_native": ("auto", "ROADMAP.md queue 1 item 15, 'The native "
                               "MAT reader'"),
 }
@@ -651,6 +655,10 @@ def _add_args(p: argparse.ArgumentParser) -> None:
                    choices=["global", "per_replica"],
                    help="BatchNorm under dp: global batch statistics, or "
                         "each replica its own (the reference's per-GPU BN)")
+    p.add_argument("--compute_dtype", type=str, default=d.compute_dtype,
+                   choices=["float32", "bfloat16"],
+                   help="the convolutions' dtype (BatchNorm, params and "
+                        "optimizer state stay float32)")
     p.add_argument("--tracing_guards", action=argparse.BooleanOptionalAction,
                    default=d.tracing_guards,
                    help="after a warmup, flag synchronizing calls in the "

@@ -16,7 +16,13 @@ payload is ``torch.save`` bytes of the preset's weights as the
 transformed model holds them (:func:`~dasmtl_torch.models.precision.
 stored_state_dict`): the f32 state dict, the bf16 leaves, or the int8
 kernels with their f32 scales, so an int8 artifact is the smallest and
-loading it quantizes nothing again.  A JAX artifact (a StableHLO payload,
+loading it quantizes nothing again.  An f32 artifact exported with
+``--compute_dtype bfloat16`` carries ``"compute_dtype": "bfloat16"`` in
+its header and payload (JAX bakes the dtype into its program; the port's
+payload is weights, so the loader builds the bf16-compute model from the
+header); an artifact without the key reads as float32, and a reduced
+preset builds its own program whatever the flag says, as JAX's
+``precision_forward`` does.  A JAX artifact (a StableHLO payload,
 no ``payload`` key) or a legacy headerless blob is refused with an
 operational ``ValueError`` before ``torch.load`` sees a byte of it.
 
@@ -49,6 +55,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from dasmtl_torch.models.layers import COMPUTE_DTYPES, compute_dtype_of
 from dasmtl_torch.models.precision import (PRECISIONS, PrecisionMeta,
                                            apply_precision, check_precision,
                                            compute_dtype_for, precision_meta,
@@ -202,7 +209,8 @@ def make_resident_serve_fn(infer_fn: Callable, window) -> Callable:
 # -- the exported artifact -----------------------------------------------------
 
 def export_infer(spec: ModelSpec, model: nn.Module, *,
-                 input_hw=(100, 250), precision: str = "f32") -> bytes:
+                 input_hw=(100, 250), precision: str = "f32",
+                 compute_dtype: str = "float32") -> bytes:
     """Versioned artifact bytes of ``model`` (f32 weights of ``spec``'s
     family, on any device; left unchanged) under ``precision``
     (``dasmtl/export.py:198-248``).  The preset's transform runs here,
@@ -210,8 +218,12 @@ def export_infer(spec: ModelSpec, model: nn.Module, *,
     InferExecutor.from_state_dict` runs it, so an executor loaded from
     the artifact gives the same bits as one built from the weights.
     ``input_hw`` is the window the artifact declares; consumers validate
-    their window against it."""
+    their window against it.  ``compute_dtype`` bfloat16 is recorded for
+    the f32 preset only (a reduced preset computes in bf16 already)."""
     check_precision(precision)
+    compute_dtype_of(compute_dtype)
+    if precision != "f32":
+        compute_dtype = "float32"
     net = spec.build()
     net.load_state_dict({k: v.detach().cpu()
                          for k, v in model.state_dict().items()},
@@ -221,9 +233,12 @@ def export_infer(spec: ModelSpec, model: nn.Module, *,
     header = {"artifact_version": ARTIFACT_VERSION, "precision": precision,
               "model": spec.name, "input_hw": [h, w],
               "payload": PAYLOAD_KIND}
+    payload = {"model": spec.name, "precision": precision,
+               "input_hw": [h, w], "weights": stored_state_dict(net)}
+    if compute_dtype != "float32":
+        header["compute_dtype"] = payload["compute_dtype"] = compute_dtype
     buf = io.BytesIO()
-    torch.save({"model": spec.name, "precision": precision,
-                "input_hw": [h, w], "weights": stored_state_dict(net)}, buf)
+    torch.save(payload, buf)
     return pack_artifact(buf.getvalue(), header)
 
 
@@ -274,6 +289,11 @@ def _validate_header(header: dict, path: str) -> None:
     if precision not in PRECISIONS:
         raise ValueError(f"artifact {path} declares unknown precision "
                          f"{precision!r}; known: {PRECISIONS}")
+    compute_dtype = header.get("compute_dtype", "float32")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"artifact {path} declares unknown compute_dtype "
+                         f"{compute_dtype!r}; known: "
+                         f"{tuple(COMPUTE_DTYPES)}")
 
 
 def require_port_payload(header: dict, origin: str) -> None:
@@ -310,13 +330,14 @@ def load_artifact(path: str) -> Tuple[dict, dict]:
         payload = torch.load(io.BytesIO(blob), map_location="cpu",
                              weights_only=True)
         recorded = (payload["model"], payload["precision"],
-                    list(payload["input_hw"]))
+                    list(payload["input_hw"]),
+                    payload.get("compute_dtype", "float32"))
     except Exception as exc:  # noqa: BLE001 — any unreadable payload
         raise ValueError(f"artifact {path} has a corrupt payload "
                          f"({type(exc).__name__}: {exc}); re-export") \
             from None
     said = (header.get("model"), header.get("precision", "f32"),
-            header.get("input_hw"))
+            header.get("input_hw"), header.get("compute_dtype", "float32"))
     if said != recorded:
         raise ValueError(f"artifact {path} header says {said} but its "
                          f"payload holds {tuple(recorded)} — the file is "
@@ -327,7 +348,8 @@ def load_artifact(path: str) -> Tuple[dict, dict]:
 def load_artifact_model(path: str
                         ) -> Tuple[dict, ModelSpec, nn.Module, PrecisionMeta]:
     """``(header, spec, model, meta)`` of the artifact at ``path``: the
-    family's model on the CPU in eval mode, transformed for the stored
+    family's model on the CPU in eval mode, computing in the header's
+    ``compute_dtype`` (float32 when absent), transformed for the stored
     preset, then loaded with the stored tensors and its derived buffers
     rebuilt from them (nothing quantized again), and the preset's
     :class:`PrecisionMeta`.  A payload whose keys differ from what the
@@ -335,7 +357,8 @@ def load_artifact_model(path: str
     header, payload = load_artifact(path)
     spec = get_model_spec(header["model"])
     precision = header.get("precision", "f32")
-    net = spec.build()
+    net = spec.build(compute_dtype_of(header.get("compute_dtype",
+                                                 "float32")))
     meta = precision_meta(net, precision)
     apply_precision(net, precision)
     weights = payload["weights"]
@@ -496,7 +519,10 @@ def main(argv=None) -> int:
                     help="where the checkpoint is read (the artifact is "
                          "device-free: it loads onto either)")
     ap.add_argument("--compute_dtype", type=str, default="float32",
-                    help="only float32 is ported")
+                    choices=list(COMPUTE_DTYPES),
+                    help="the convolutions' dtype the f32 preset serves "
+                         "in, recorded in the artifact header (a reduced "
+                         "--precision computes in bf16 whatever this says)")
     ap.add_argument("--precision", type=str, default="f32",
                     choices=list(PRECISIONS),
                     help="serving precision preset stored in the artifact "
@@ -505,11 +531,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not args.out and not args.registry:
         ap.error("nowhere to write: give --out PATH and/or --registry DIR")
-    if args.compute_dtype != "float32":
-        print("dasmtl_torch.export: --compute_dtype is not yet ported: "
-              "ROADMAP.md queue 1 item 11, 'Training under --compute_dtype "
-              "bfloat16'", file=sys.stderr)
-        return 2
     from dasmtl_torch.device import resolve_device
     from dasmtl_torch.train.checkpoint import checkpoint_weights
 
@@ -524,15 +545,18 @@ def main(argv=None) -> int:
     net.load_state_dict(weights, strict=True)
     print(f"restored weights from {args.model_path}", file=sys.stderr)
 
-    blob = export_infer(spec, net, precision=args.precision)
+    blob = export_infer(spec, net, precision=args.precision,
+                        compute_dtype=args.compute_dtype)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "wb") as f:
             f.write(blob)
+        dtype = artifact_header(args.out).get("compute_dtype", "float32")
         print(f"exported {args.model} inference ({len(blob)/1e6:.2f} MB, "
-              f"precision {args.precision}, artifact v{ARTIFACT_VERSION}, "
-              f"any batch size) -> {args.out}")
+              f"precision {args.precision}, compute dtype {dtype}, "
+              f"artifact v{ARTIFACT_VERSION}, any batch size) -> "
+              f"{args.out}")
     if args.registry:
         entry = ArtifactRegistry(args.registry).publish(blob)
         print(f"published {args.model} inference as registry "

@@ -32,6 +32,7 @@ from dasmtl_torch.data.pipeline import BatchIterator
 from dasmtl_torch.data.sources import DiskSource, RamSource, _SourceBase
 from dasmtl_torch.data.splits import build_splits, export_manifest_csv
 from dasmtl_torch.device import resolve_device, set_f32_numerics
+from dasmtl_torch.models.layers import compute_dtype_of
 from dasmtl_torch.models.registry import ModelSpec, get_model_spec
 from dasmtl_torch.models.weights import init_fresh
 from dasmtl_torch.parallel.dist import World, launch, resolve_dp
@@ -47,9 +48,11 @@ from dasmtl_torch.utils.rundir import make_run_dir
 def build_state(cfg: Config, spec: ModelSpec, device: torch.device,
                 rank: int = 0) -> TrainState:
     """A fresh init (``init_fresh`` from a ``torch.Generator`` seeded with
-    ``cfg.seed``) on ``device``, with coupled Adam over its parameters and,
-    for a family with dropout, ``rank``'s dropout generator."""
-    model = init_fresh(spec.build(), seed=cfg.seed).to(device)
+    ``cfg.seed``) on ``device``, computing in ``cfg.compute_dtype``, with
+    coupled Adam over its (f32) parameters and, for a family with dropout,
+    ``rank``'s dropout generator."""
+    model = init_fresh(spec.build(compute_dtype_of(cfg.compute_dtype)),
+                       seed=cfg.seed).to(device)
     optimizer = coupled_adam(model.parameters(), cfg.weight_decay, cfg.lr)
     generator = (dropout_generator(cfg.seed, device, rank)
                  if spec.uses_dropout else None)
@@ -196,6 +199,9 @@ def run(cfg: Config, is_test: bool, run_dir: str,
                             rank=world.rank if world is not None else 0)
         n_params = sum(p.numel() for p in state.model.parameters())
         print(f"model={cfg.model} params={n_params:,}")
+        if cfg.compute_dtype != "float32":
+            print(f"compute dtype: {cfg.compute_dtype} convolutions, "
+                  f"float32 BatchNorm, params and optimizer state")
         if cfg.model_path:
             state = restore_weights(state, cfg.model_path)
             print(f"restored weights from {cfg.model_path}")

@@ -25,6 +25,11 @@ Parity notes (pinned by ``tests/test_torch_port_inception.py``):
   returns raw logits, as the JAX module does (the serve forward's decode
   tail and the train loss take the log-softmax).
 
+``dtype`` is the compute dtype (``inception.py:205-245``): under bf16
+every :class:`BasicConv2d`'s conv computes in bf16 and its BatchNorm in
+f32 (:func:`~dasmtl_torch.models.layers.set_compute_dtype`), so the
+pools, concats, GAP, dropout and ``fc`` all run in f32.
+
 The public input is ``(b, h, w, 1)``, as for :class:`~dasmtl_torch.models.
 two_level.TwoLevelNet`; 75x75 is the smallest window the stem and the
 stride-2 blocks take.
@@ -39,7 +44,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from dasmtl_torch.config import NUM_MIXED_CLASSES
-from dasmtl_torch.models.layers import BN_MOMENTUM, BatchNorm2d, Dropout
+from dasmtl_torch.models.layers import (BN_MOMENTUM, BatchNorm2d, Conv2d,
+                                        Dropout, bn_input,
+                                        set_compute_dtype)
 
 BN_EPS = 1e-3
 
@@ -81,6 +88,7 @@ class FlaxEvalBatchNorm2d(BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return super().forward(x)
+        x = bn_input(x)
         shape = (1, -1, 1, 1)
         y = x - self.running_mean.view(shape)
         return y.mul_(self._eval_factor().view(shape)).add_(
@@ -93,8 +101,8 @@ class BasicConv2d(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel, stride=1,
                  padding=0):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
-                              padding=padding, bias=False)
+        self.conv = Conv2d(in_ch, out_ch, kernel, stride=stride,
+                           padding=padding, bias=False)
         self.bn = FlaxEvalBatchNorm2d(out_ch, eps=BN_EPS,
                                       momentum=BN_MOMENTUM)
 
@@ -229,7 +237,8 @@ class InceptionV3Classifier(nn.Module):
     """Model C: the 32-way single-level baseline."""
 
     def __init__(self, num_classes: int = NUM_MIXED_CLASSES,
-                 aux_logits: bool = False, dropout_rate: float = 0.5):
+                 aux_logits: bool = False, dropout_rate: float = 0.5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.Conv2d_1a_3x3 = BasicConv2d(1, 32, 3, stride=2)
         self.Conv2d_2a_3x3 = BasicConv2d(32, 32, 3)
@@ -251,6 +260,7 @@ class InceptionV3Classifier(nn.Module):
         self.Mixed_7c = InceptionE(2048)
         self.dropout = Dropout(dropout_rate)
         self.fc = nn.Linear(2048, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         b, h, w, c = x.shape

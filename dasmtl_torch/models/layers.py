@@ -19,6 +19,16 @@ Parity notes (pinned by ``tests/test_torch_port_model.py`` and
 - Only the two convolutions of :class:`AttentionGate` carry a bias.
 - :func:`max_pool_ceil` is ``ceil_mode=True``, which for a 2x2/2 window is
   exactly Flax's ``SAME`` pool with a -inf pad (33x83 -> 17x42).
+- Compute dtype (``--compute_dtype``, :func:`set_compute_dtype`): under
+  bf16 every :class:`Conv2d` computes as Flax's ``nn.Conv(dtype=bf16)``
+  (input, weight and bias cast to bf16, the bias added after the product,
+  a bf16 result) and every :class:`BatchNorm2d` as ``nn.BatchNorm(dtype=
+  float32)`` (``dasmtl/models/layers.py:45-52``): its input promoted to
+  f32, an f32 result.  So ReLUs, residual adds, concats, pools, the gates
+  and the heads all see f32; the parameters stay f32, and the bf16 copies
+  of the weights are made inside each forward (inside a CUDA graph on the
+  resident path, so they follow Adam's in-place updates).  Under f32 the
+  modules run exactly the ops they ran before, no cast added.
 """
 
 from __future__ import annotations
@@ -31,6 +41,58 @@ from torch import nn
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; Flax's running-stat decay 0.9
+
+#: ``--compute_dtype`` (``dasmtl/models/registry.py:37-38``) -> the dtype
+#: the convolutions compute in.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a ``--compute_dtype`` name; raises on another
+    name."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {name!r}; expected one of "
+                         f"{tuple(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def bn_input(x: torch.Tensor) -> torch.Tensor:
+    """A BatchNorm's operand: a bf16 conv output promoted to f32, as Flax's
+    ``BatchNorm(dtype=float32)`` promotes it; any other dtype as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and state-dict names) that computes
+    in :attr:`compute_dtype`: f32 is ``nn.Conv2d``'s own forward; bf16
+    casts the input and the weight, convolves, and adds the bias cast to
+    bf16 after the product (two roundings, as Flax's ``nn.Conv``), so the
+    result is bf16."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
+                     self.padding, self.dilation, self.groups)
+        if self.bias is not None:
+            y = y + self.bias.to(dt).view(1, -1, 1, 1)
+        return y
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make every :class:`Conv2d` of ``model`` compute in ``dtype``
+    (float32 or bfloat16); BatchNorms, pools, gates, heads and dense
+    layers stay f32."""
+    if dtype not in COMPUTE_DTYPES.values():
+        raise ValueError(f"compute dtype {dtype} is not one of "
+                         f"{tuple(COMPUTE_DTYPES.values())}")
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = dtype
+    return model
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -49,6 +111,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     sync = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = bn_input(x)
         if not self.training:
             return super().forward(x)
         if self.sync:
@@ -132,8 +195,8 @@ class ConvBN(nn.Sequential):
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  padding: int = 0, bias: bool = False):
         super().__init__(
-            nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding,
-                      bias=bias),
+            Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding,
+                   bias=bias),
             BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM))
 
 

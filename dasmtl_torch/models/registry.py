@@ -9,6 +9,11 @@ does: ``mixed = argmax``, ``distance = mixed % 16``, ``event = mixed //
 dropout (``uses_dropout``, ``:85-94``), and its stream tiers feed the
 derived distance and event to the track books and the sweep's rows, as
 JAX's ``_decode_mixed`` does.
+
+``build(dtype)`` takes the compute dtype (``registry.py:37-38, 62-87``;
+:func:`~dasmtl_torch.models.layers.compute_dtype_of` maps the config's
+name), float32 by default; the serving presets build f32 modules and
+transform them (:mod:`dasmtl_torch.models.precision`).
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from dasmtl_torch.train import losses
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     name: str
-    build: Callable[[], nn.Module]
+    # (compute dtype = torch.float32) -> module.
+    build: Callable[..., nn.Module]
     # (outputs, batch) -> (loss, {part: loss}), weighted means.
     loss_fn: Callable
     # Task heads reported during validation: (task_name, num_classes).
@@ -72,20 +78,23 @@ _REGISTRY = {
                       ("event", NUM_EVENT_CLASSES)),
         head_tasks=("distance", "event")),
     "single_distance": ModelSpec(
-        name="single_distance", build=lambda: SingleTaskNet("distance"),
+        name="single_distance",
+        build=lambda dtype=torch.float32: SingleTaskNet("distance", dtype),
         loss_fn=lambda outputs, batch: losses.single_task_loss(
             outputs, batch, "distance"),
         report_tasks=(("distance", NUM_DISTANCE_CLASSES),),
         head_tasks=("distance",)),
     "single_event": ModelSpec(
-        name="single_event", build=lambda: SingleTaskNet("event"),
+        name="single_event",
+        build=lambda dtype=torch.float32: SingleTaskNet("event", dtype),
         loss_fn=lambda outputs, batch: losses.single_task_loss(
             outputs, batch, "event"),
         report_tasks=(("event", NUM_EVENT_CLASSES),),
         head_tasks=("event",)),
     "multi_classifier": ModelSpec(
         name="multi_classifier",
-        build=lambda: InceptionV3Classifier(num_classes=NUM_MIXED_CLASSES),
+        build=lambda dtype=torch.float32: InceptionV3Classifier(
+            num_classes=NUM_MIXED_CLASSES, dtype=dtype),
         loss_fn=losses.multi_classifier_loss,
         report_tasks=(("mixed", NUM_MIXED_CLASSES),
                       ("distance", NUM_DISTANCE_CLASSES),

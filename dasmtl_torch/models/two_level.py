@@ -25,6 +25,10 @@ returns per-task log-probs and gates at the 8 places the JAX forward calls
   same operands as in task-major order, so the outputs are bit-identical.
 
 Model B (one task) takes the same orders with T = 1.
+
+``dtype`` is the compute dtype (``dasmtl/models/two_level.py:46-94``):
+bf16 convolutions, f32 BatchNorms, so the gate operands and the heads
+stay f32 (:func:`dasmtl_torch.models.layers.set_compute_dtype`).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from torch import nn
 from dasmtl_torch.config import NUM_DISTANCE_CLASSES, NUM_EVENT_CLASSES
 from dasmtl_torch.models.layers import (AttentionGate, ConvBN, OutputLayer,
                                         ResBlock, backbone_channels,
-                                        group_mean_head, max_pool_ceil)
+                                        group_mean_head, max_pool_ceil,
+                                        set_compute_dtype)
 from dasmtl_torch.ops.gating import gate_apply, gate_apply_multi
 
 TASK_NUM_CLASSES = {"distance": NUM_DISTANCE_CLASSES,
@@ -53,7 +58,8 @@ class TwoLevelNet(nn.Module):
     """Shared backbone + per-task cascaded attention branches."""
 
     def __init__(self, tasks: Sequence[str] = ("distance", "event"),
-                 first_ch: int = 16, res_num: int = 8):
+                 first_ch: int = 16, res_num: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         for task in tasks:
             if task not in TASK_NUM_CLASSES:
@@ -78,6 +84,7 @@ class TwoLevelNet(nn.Module):
         for k in range(1, 4):
             setattr(self, f"output_layer{k}", nn.ModuleList(
                 OutputLayer(ch[k], ch[k + 1]) for _ in tasks))
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         b, h, w, c = x.shape
@@ -134,13 +141,14 @@ class TwoLevelNet(nn.Module):
         return a
 
 
-def MTLNet() -> TwoLevelNet:
+def MTLNet(dtype: torch.dtype = torch.float32) -> TwoLevelNet:
     """Model A: both tasks."""
-    return TwoLevelNet(tasks=("distance", "event"))
+    return TwoLevelNet(tasks=("distance", "event"), dtype=dtype)
 
 
-def SingleTaskNet(task: str) -> TwoLevelNet:
+def SingleTaskNet(task: str, dtype: torch.dtype = torch.float32
+                  ) -> TwoLevelNet:
     """Model B: one task branch."""
     if task not in TASK_NUM_CLASSES:
         raise ValueError(f"unknown task {task!r}")
-    return TwoLevelNet(tasks=(task,))
+    return TwoLevelNet(tasks=(task,), dtype=dtype)

@@ -14,13 +14,16 @@ package's keys (:data:`HEARTBEAT_SCHEMA`):
 **MFU**: the FLOPs of one global train step, counted once by
 ``torch.utils.flop_counter.FlopCounterMode`` over a forward and backward
 (the matmul and convolution FLOPs, as JAX's analytic count has the MXU
-ones), over the card's published f32 non-tensor rate
-(:data:`dasmtl_torch.device.CARD_PEAKS`, looked up by its name) times the
-cards in use.  Without a published rate (the CPU, a card the table lacks)
-the peak is a dense-matmul rate measured on that device
+ones), over the card's published rate for the run's compute dtype
+(:data:`dasmtl_torch.device.CARD_PEAKS`, looked up by its name: the f32
+non-tensor rate, or under ``--compute_dtype bfloat16`` the dense bf16
+tensor-core rate, as JAX's heartbeat reads a bf16 peak) times the cards
+in use; ``peak_source`` says which (``spec-f32:<card>x<n>`` /
+``spec-bf16:<card>x<n>``).  Without a published rate (the CPU, a card
+the table lacks) the peak is a dense-matmul rate measured on that device
 (:func:`measured_peak_flops`), so MFU reads as a share of its achievable
-matmul rate.  ``mfu`` is clamped into ``(0, 1]``;
-``mfu_raw`` keeps the ratio.  ``loader_blocked_acquires`` is the staged
+matmul rate.  ``mfu`` is clamped into ``(0, 1]``; ``mfu_raw`` keeps the
+ratio.  ``loader_blocked_acquires`` is the staged
 loader's blocked staging acquires over the interval (``stall_fn``; 0 on
 the device-resident path, which stages nothing).
 """
@@ -97,20 +100,37 @@ def measured_peak_flops(device="cpu", n: int = 0, repeats: int = 3) -> float:
     return 2.0 * n ** 3 / max(best, 1e-9)
 
 
-def resolve_peak_flops(device, n_cards: int = 1) -> Tuple[float, str]:
-    """``(peak FLOP/s, source)`` for MFU: the published f32 rate of the
-    card times ``n_cards``, else the matmul rate measured on ``device``."""
-    import torch
-
+def published_peak(kind: str, n_cards: int = 1,
+                   compute_dtype: str = "float32"
+                   ) -> Optional[Tuple[float, str]]:
+    """``(peak FLOP/s, source)`` of ``n_cards`` cards named ``kind`` from
+    their data sheet: the f32 rate, or the dense bf16 rate under bf16
+    compute; None for a card the table lacks."""
     from dasmtl_torch.device import card_peaks
+
+    peaks = card_peaks(kind)
+    if peaks is None:
+        return None
+    if compute_dtype == "bfloat16":
+        return peaks[3] * n_cards, f"spec-bf16:{kind}x{n_cards}"
+    return peaks[1] * n_cards, f"spec-f32:{kind}x{n_cards}"
+
+
+def resolve_peak_flops(device, n_cards: int = 1,
+                       compute_dtype: str = "float32"
+                       ) -> Tuple[float, str]:
+    """``(peak FLOP/s, source)`` for MFU: the published rate of the card
+    for ``compute_dtype`` times ``n_cards`` (:func:`published_peak`),
+    else the f32 matmul rate measured on ``device``."""
+    import torch
 
     device = torch.device(device)
     kind = "cpu"
     if device.type == "cuda":
         kind = torch.cuda.get_device_name(device)
-        peaks = card_peaks(kind)
-        if peaks is not None:
-            return peaks[1] * n_cards, f"spec-f32:{kind}x{n_cards}"
+        published = published_peak(kind, n_cards, compute_dtype)
+        if published is not None:
+            return published
     return measured_peak_flops(device) * n_cards, \
         f"measured-matmul:{kind}x{n_cards}"
 

@@ -680,7 +680,8 @@ class Trainer:
         device = self.state.device
         cards = min(self.dp, torch.cuda.device_count()) \
             if device.type == "cuda" else 1
-        peak, peak_source = resolve_peak_flops(device, cards)
+        peak, peak_source = resolve_peak_flops(device, cards,
+                                               self.cfg.compute_dtype)
         self._heartbeat = Heartbeat(
             every_s=self.cfg.obs_heartbeat_s,
             out_path=os.path.join(self.metrics_dir, "heartbeat.jsonl"),

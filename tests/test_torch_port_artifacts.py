@@ -489,8 +489,14 @@ def test_export_cli_writes_and_publishes(model_a, tmp_path, capsys):
         assert a.read() == b.read()
     assert port_export.main(["--model_path", model_a.ckpt, "--out", out,
                              "--compute_dtype", "bfloat16",
-                             "--device", "cpu"]) == 2
-    assert "item 11" in capsys.readouterr().err
+                             "--device", "cpu"]) == 0
+    assert "compute dtype bfloat16" in capsys.readouterr().out
+    header = port_export.artifact_header(out)
+    assert header["compute_dtype"] == "bfloat16"
+    assert header["precision"] == "f32"
+    _, _, net, _ = port_export.load_artifact_model(out)
+    convs = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert convs and {m.compute_dtype for m in convs} == {torch.bfloat16}
     with pytest.raises(SystemExit):
         port_export.main(["--model_path", model_a.ckpt, "--device", "cpu"])
 

@@ -357,6 +357,76 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
                                        atol=2.5e-3, rtol=0)
 
 
+def _bf16_pair(spec, cuda):
+    """Model A computing in bf16 from the same fresh f32 weights (seed 0)
+    on the CPU and on the card."""
+    sd = init_fresh(spec.build(), seed=0).state_dict()
+    states = []
+    for device in ("cpu", cuda):
+        net = spec.build(torch.bfloat16)
+        net.load_state_dict(sd)
+        net = net.to(device)
+        states.append(TrainState(model=net,
+                                 optimizer=coupled_adam(net.parameters())))
+    return states
+
+
+def test_bf16_train_step_on_the_card_matches_the_cpu(cuda):
+    """One full-width MTL train step at 100x250, batch 8, under bf16
+    compute: the card against the CPU at the bf16 step's bounds
+    (tests/test_torch_port_bf16_train.py), the loss within 1e-3 (fresh
+    weights are well conditioned); params f32 on both."""
+    set_f32_numerics()
+    spec = get_model_spec("MTL")
+    g = torch.Generator().manual_seed(2)
+    batch = {"x": torch.randn(8, 100, 250, 1, generator=g),
+             "distance": torch.randint(0, 16, (8,), generator=g,
+                                       dtype=torch.int32),
+             "event": torch.randint(0, 2, (8,), generator=g,
+                                    dtype=torch.int32),
+             "weight": torch.ones(8)}
+    states = _bf16_pair(spec, cuda)
+    step = make_train_step(spec)
+    m_cpu = step(states[0], batch, 1e-3)
+    m_gpu = step(states[1], {k: v.to(cuda) for k, v in batch.items()}, 1e-3)
+    assert gating.launches.value == 8
+    assert gating.backward_launches.value == 8
+    loss = [float(m["loss_sum"] / m["count"]) for m in (m_cpu, m_gpu)]
+    assert abs(loss[0] - loss[1]) <= 1e-3, loss
+    cpu_sd = states[0].model.state_dict()
+    for k, v in states[1].model.state_dict().items():
+        want, got = cpu_sd[k], v.cpu()
+        if not v.is_floating_point():
+            assert torch.equal(got, want), k
+            continue
+        assert v.dtype == torch.float32, k
+        tol = 1e-2 if "running" in k else 2e-3 + 5e-5
+        assert (got - want).abs().max() <= tol, k
+
+
+def test_bf16_eval_forward_on_the_card_matches_the_cpu(cuda):
+    """The bf16-compute serve forward at 100x250, batch 8: within 5e-4 of
+    the CPU's and within half of the card's own bf16-vs-f32 gap; the ints
+    equal; 4 paired gate launches and 1 decode."""
+    set_f32_numerics()
+    spec = get_model_spec("MTL")
+    x = torch.randn(8, 100, 250, 1,
+                    generator=torch.Generator().manual_seed(1))
+    cpu, card = (s.model for s in _bf16_pair(spec, cuda))
+    f32 = init_fresh(spec.build(), seed=0).to(cuda)
+    ref = make_serve_infer_fn(spec, cpu)(x)
+    gating.launches.reset()
+    out = make_serve_infer_fn(spec, card)(x.to(cuda))
+    assert gating.launches.value == 4 and decode.launches.value == 1
+    full = make_serve_infer_fn(spec, f32)(x.to(cuda))
+    for i, task in enumerate(spec.head_tasks):
+        got = out[f"log_probs_{i}"].cpu()
+        err = (got - ref[f"log_probs_{i}"]).abs().max().item()
+        gap = (got - full[f"log_probs_{i}"].cpu()).abs().max().item()
+        assert err <= 5e-4 and err <= 0.5 * gap, (task, err, gap)
+        assert torch.equal(out[task].cpu(), ref[task])
+
+
 def _dead_bias(state_dict, key):
     """A conv bias that feeds a train-mode BatchNorm (the attention gates'
     two convs): BN removes any per-channel constant, so its true gradient
@@ -1182,6 +1252,16 @@ def test_scan_step_graph_replays_match_eager_steps(cuda):
     steps run eagerly on the card, both under deterministic algorithms
     (cuDNN's default backward convolutions sum with atomics), bit for bit;
     8 + 8 gate launches and 1 gather per step."""
+    _scan_graph_against_eager(cuda, torch.float32)
+
+
+def test_bf16_scan_step_graph_replays_match_eager_steps(cuda):
+    """The same under bf16 compute: the bf16 weight copies are made inside
+    the graph, so each replay reads the weights Adam updated in place."""
+    _scan_graph_against_eager(cuda, torch.bfloat16)
+
+
+def _scan_graph_against_eager(cuda, dtype):
     from dasmtl_torch.analysis.sanitize.determinism import deterministic
     from dasmtl_torch.data.device import DeviceDataset
     from dasmtl_torch.data.pipeline import BatchIterator
@@ -1198,7 +1278,7 @@ def test_scan_step_graph_replays_match_eager_steps(cuda):
     data = DeviceDataset(src, cuda)
     states = []
     for _ in range(2):
-        net = init_fresh(spec.build(), seed=0).to(cuda)
+        net = init_fresh(spec.build(dtype), seed=0).to(cuda)
         states.append(TrainState(model=net,
                                  optimizer=coupled_adam(net.parameters())))
     cuts, lrs = ((0, 2), (2, 4), (4, 5)), (1e-3, 1e-3 / 1.5, 1e-3 / 1.5)

@@ -247,7 +247,7 @@ def test_train_then_test_model_c_on_the_cpu(tmp_path, path, capsys):
 def test_model_c_determinism_cell_repeats_bit_for_bit():
     cell = determinism.SanitizeCell("multi_classifier", dp=1, batch_size=2,
                                     steps=2, hw=HW)
-    assert cell.not_ported is None
+    assert cell.compute_dtype == "float32"
     (a, fa), (b, fb) = [determinism.run_cell(cell, device="cpu")
                         for _ in range(2)]
     assert fa == fb == []

@@ -287,7 +287,6 @@ def test_device_cuda_without_a_card_names_device_cpu(tmp_path):
     (["--loader_native", "on"], "item 15, 'The native MAT reader'"),
     (["--cv_parallel", "--dp", "2"],
      "item 8, 'Model C, multi-device training and CV'"),
-    (["--compute_dtype", "bfloat16"], "item 11"),
     (["--serve_buckets", "1,2"], "item 1, 'The stream tier's remainder'"),
     (["--stream_stride_time", "5"],
      "item 1, 'The stream tier's remainder'"),

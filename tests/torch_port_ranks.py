@@ -9,6 +9,7 @@ import torch
 from dasmtl_torch.analysis.sanitize.common import ReplicaDivergenceError
 from dasmtl_torch.analysis.sanitize.divergence import DivergenceMonitor
 from dasmtl_torch.device import set_f32_numerics
+from dasmtl_torch.models.layers import compute_dtype_of
 from dasmtl_torch.models.registry import get_model_spec
 from dasmtl_torch.models.two_level import TwoLevelNet
 from dasmtl_torch.parallel.dist import shard_batch
@@ -17,8 +18,10 @@ from dasmtl_torch.train.state import TrainState
 from dasmtl_torch.train.steps import make_train_step
 
 
-def narrow_state(state_dict, tasks, first_ch=4, device="cpu"):
-    net = TwoLevelNet(tasks=tuple(tasks), first_ch=first_ch)
+def narrow_state(state_dict, tasks, first_ch=4, device="cpu",
+                 compute_dtype="float32"):
+    net = TwoLevelNet(tasks=tuple(tasks), first_ch=first_ch,
+                      dtype=compute_dtype_of(compute_dtype))
     net.load_state_dict({k: torch.as_tensor(v) for k, v in
                          state_dict.items()}, strict=True)
     net = net.to(device)
@@ -27,13 +30,14 @@ def narrow_state(state_dict, tasks, first_ch=4, device="cpu"):
 
 
 def steps(world, state_dict, batches, lrs, family, bn_sync, tasks,
-          first_ch=4, device="cpu"):
+          first_ch=4, device="cpu", compute_dtype="float32"):
     """Train steps of the data-parallel step on this rank's shards of
-    ``batches`` (global numpy batches); the rank's state dict and metrics
-    after each step."""
+    ``batches`` (global numpy batches), the model computing in
+    ``compute_dtype``; the rank's state dict and metrics after each
+    step."""
     if device == "cuda":
         set_f32_numerics()
-    state = narrow_state(state_dict, tasks, first_ch, device)
+    state = narrow_state(state_dict, tasks, first_ch, device, compute_dtype)
     step = make_train_step(get_model_spec(family), world=world,
                            bn_sync=bn_sync)
     metrics = []
