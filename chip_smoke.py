@@ -44,7 +44,9 @@ Phases, each fatal on failure (no phase catches its own error):
              20 steps on one fixed batch at least halve its loss; (e) ``python -m
              dasmtl_torch train`` then ``test`` in-process on a synthetic
              tree (256 files, 192 train / 64 val, batch 32, 3 epochs): the
-             run-dir artifacts, and the test run's ints equal to a direct
+             run-dir artifacts, its log's loader line resolving the
+             default ``--loader_native auto`` to the native reader, and
+             the test run's ints equal to a direct
              ``eval_step`` on decisive rows, the counters zeroed just
              before the train run and read after the test run; (f) device
              and host-paced ms per train step, examples/s, peak memory;
@@ -134,8 +136,10 @@ Phases, each fatal on failure (no phase catches its own error):
              dasmtl_torch.sanitize --self-test``: the NaN blamed on the
              poisoned convolution, grad_desync and the forked seed caught
              by SAN201; (d) MTL-f32-dp1, MTL-f32-dp2 and MTL-bf16-dp2
-             twice each with identical chains and tree digests, held to
-             the committed determinism baseline; (e) what sanitizing costs a
+             held to the committed determinism baseline: once each, its
+             digests bit for bit, under its own card / torch / CUDA
+             stamp; twice each with identical chains and tree digests,
+             and its float metrics, under another; (e) what sanitizing costs a
              batch-32 step: a SAN201 check, the snapshot, the sanitized
              against the plain step wall, the heartbeat, and a dp 2 step
              under the default ``--bn_sync global``;
@@ -190,7 +194,10 @@ Phases, each fatal on failure (no phase catches its own error):
              ``--exported`` (rows equal to the checkpoint sweep's), then
              50 paced live cycles of ``stream serve --model_path``'s
              executor on the resident plane, ints equal on decisive rows
-             to a direct forward;
+             to a direct forward; (f) ``python -m dasmtl_torch doctor``
+             on (a)'s f32 artifact: ``--exported`` compatible (exit 0),
+             with ``--precision bf16`` PRECISION-MISMATCH (exit 1), and
+             ``--registry`` listing the registry's versions;
 12. cv     — (a) the fold_select kernel on 5 folds of model A's full-width
              train state (Adam's state included, NaN payloads / -0.0 /
              +-Inf planted): save, the step's in-place writes, restore,
@@ -335,10 +342,23 @@ Phases, each fatal on failure (no phase catches its own error):
              replay margin and resolving 2 more windows on each; 4 gate +
              1 decode launches per batch on each worker (read off its
              ``/stats`` at quiet points), no capture after warmup, no
-             stitched record twice.
+             stitched record twice;
+19. tools  — the operator tools and the native MAT reader: (a) ``python
+             -m dasmtl_torch doctor --json`` as a subprocess reports
+             backend cuda, this card, the kernel library built for
+             sm_90a and the loader resolved to the native reader; (b)
+             ``obs capture`` in process (model A's train step, batch 32,
+             bf16 then f32, 3 warm-up steps and 5 traced) and ``obs
+             analyze`` on each trace: 8 gate_fwd and 8 gate_bwd kernels a
+             traced step in the trace, the wrappers' counts over all 8
+             steps, busy time above 0 and a conv share above 0.3; (c) 512
+             windows of 100x250 written as .mat files from a seed (half
+             compressed) and read through ``RamSource`` and
+             ``DiskSource`` under ``--loader_native on`` and ``off``:
+             bit-equal, files/s of both readers.
 
 Each phase's seconds are printed as one ``[timing] {"device": s, ...,
-"fleet": s, "total": s}`` line (and kept in the ``--out`` report with
+"tools": s, "total": s}`` line (and kept in the ``--out`` report with
 each part's seconds).  Then one JSON line lists every kernel of the port,
 the card's name and power limit follow on a line of their own, and the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1607,6 +1627,11 @@ def _entry_points():
                                   "--output_savedir", runs])
     train_s = time.perf_counter() - t0
     (run,) = [os.path.join(runs, n) for n in os.listdir(runs)]
+    with open(os.path.join(run, "console_output.log")) as f:
+        if "native=auto (resolved: native)" not in f.read():
+            raise AssertionError(f"{run}: the train run did not resolve "
+                                 f"--loader_native auto to the native "
+                                 f"reader")
     need = ["console_output.log", "config.json", "train_manifest.csv",
             "val_manifest.csv", "metrics/metrics.jsonl",
             "metrics/train_loss.npy", "metrics/val_loss.npy",
@@ -1765,20 +1790,6 @@ def phase_train(peaks, profile: bool):
 
 #: The name of a host range (``record_function``) on the device timeline.
 HOST_RANGE = re.compile(r"[\w.]+#[\w.]+")
-#: Kernel-name fragments -> layers of the train step and the stream path,
-#: first match wins.
-LAYERS = (("window gather", ("window_gather",)),
-          ("batch gather", ("batch_gather",)),
-          ("fold select", ("fold_select",)),
-          ("int8_dot", ("int8_dot",)),
-          ("ring append", ("ring_append",)),
-          ("decode tail", ("decode_heads", "event_prob_q")),
-          ("gate backward", ("gate_bwd",)),
-                ("gate forward", ("gate_fwd",)),
-                ("Adam", ("multi_tensor_apply",)),
-                ("BatchNorm", ("batch_norm", "bn_")),
-                ("conv", ("conv", "xmma", "gemm", "fft", "grad", "winograd",
-                          "cudnn")))
 
 
 def _kernel_ms(fn, n: int):
@@ -1789,6 +1800,8 @@ def _kernel_ms(fn, n: int):
     hold a ``#`` (``{lambda()#1}``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from dasmtl_torch.obs.profiler import kernel_layer
 
     fn()  # the profiler's own start-up stays out of the window
     torch.cuda.synchronize()
@@ -1807,9 +1820,7 @@ def _kernel_ms(fn, n: int):
             continue
         dev_ms = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0)) / 1e3 / n
-        name = ev.key.lower()
-        layer = next((lay for lay, keys in LAYERS
-                      if any(k in name for k in keys)), "other")
+        layer = kernel_layer(ev.key)
         layers[layer] = layers.get(layer, 0.0) + dev_ms
         launches += ev.count
         rows.append({"name": ev.key[:160], "calls": ev.count / n,
@@ -3442,9 +3453,45 @@ def phase_artifacts(entry: dict, stream: dict) -> dict:
            "swap": _swap_run(reg), "model_c_int8": _model_c_int8_artifact(),
            "stream": _stream_artifacts(stream, exported["paths"],
                                        entry["checkpoint"])}
+    out["doctor"] = _doctor_artifacts(exported["paths"]["f32"], reg)
     out["seconds"] = time.perf_counter() - t0
     log(f"[artifacts] phase done in {out['seconds']:.1f} s")
     return out
+
+
+@_part
+def _doctor_artifacts(path: str, reg: str) -> dict:
+    """(f) ``python -m dasmtl_torch doctor`` in process on (a)'s f32
+    artifact and the registry: ``--exported`` compatible (exit 0), with
+    ``--precision bf16`` a PRECISION-MISMATCH (exit 1); ``--registry``
+    lists the registry's versions."""
+    from dasmtl_torch.export import ArtifactRegistry
+    from dasmtl_torch.utils import doctor
+
+    def run(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = doctor.main(["--json", *argv])
+        return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    ok_rc, ok = run("--exported", path)
+    bad_rc, bad = run("--exported", path, "--precision", "bf16")
+    reg_rc, listed = run("--registry", reg)
+    want = [e["version"] for e in ArtifactRegistry(reg).versions()]
+    got = [e["version"] for e in
+           listed["artifact_registry"].get("versions", [])]
+    if (ok_rc, ok["exported_artifact"]["status"]) != (0, "compatible") or \
+            (bad_rc, bad["exported_artifact"]["status"]) != (
+                1, "PRECISION-MISMATCH") or reg_rc != 0 or got != want:
+        raise AssertionError(f"[artifacts] doctor: --exported {ok_rc} "
+                             f"{ok['exported_artifact']}, --precision bf16 "
+                             f"{bad_rc} {bad['exported_artifact']}, "
+                             f"--registry {reg_rc} {got} of {want}")
+    log(f"[artifacts] python -m dasmtl_torch doctor --exported (f32): "
+        f"compatible, exit 0; --precision bf16: PRECISION-MISMATCH, exit "
+        f"1; --registry lists v{', v'.join(map(str, got))}")
+    return {"exported": ok["exported_artifact"]["status"],
+            "precision_mismatch_rc": bad_rc, "registry_versions": got}
 
 
 # -- phase 8 ------------------------------------------------------------------
@@ -4397,31 +4444,35 @@ def _self_test():
 
 @_part
 def _determinism():
-    """(d) MTL-f32-dp1, MTL-f32-dp2 and MTL-bf16-dp2 twice each: identical
-    chains and tree digests, held to the committed baseline (SAN203; the
-    digests when its card / torch / CUDA stamp is this run's, the float
-    metrics always)."""
+    """(d) MTL-f32-dp1, MTL-f32-dp2 and MTL-bf16-dp2 held to the committed
+    baseline (SAN203): under its card / torch / CUDA stamp once each, its
+    digests bit for bit; under another stamp twice each, identical chains
+    and tree digests, and the float metrics."""
     from dasmtl_torch.analysis.sanitize.determinism import (
         SanitizeCell, check_reports, generated_with, load_baseline, run_cell,
         versions_match)
 
     out = {}
     reports = []
+    baseline = load_baseline()
+    same = versions_match(baseline, generated_with(DEV))
+    # Under the baseline's own stamp its digests, each taken from repeated
+    # runs, hold a cell's one run bit for bit; under another stamp only
+    # the float metrics compare, so every cell runs twice.
+    n_runs = 1 if same else 2
     for dtype, dp in (("float32", 1), ("float32", 2), ("bfloat16", 2)):
         cell = SanitizeCell("MTL", compute_dtype=dtype, dp=dp, hw=(H, W))
-        runs = [run_cell(cell, device=DEV) for _ in range(2)]
+        runs = [run_cell(cell, device=DEV) for _ in range(n_runs)]
         for report, findings in runs:
             if findings:
                 raise AssertionError(f"{cell.name}: {findings}")
-        a, b = runs[0][0], runs[1][0]
+        a, b = runs[0][0], runs[-1][0]
         if a.digests != b.digests:
             raise AssertionError(f"{cell.name} is not deterministic: "
                                  f"{a.digests} vs {b.digests}")
         out[cell.name] = {"chain": a.digests["metrics_chain"],
                           "final_loss": a.metrics["final_loss"]}
         reports.append(a)
-    baseline = load_baseline()
-    same = versions_match(baseline, generated_with(DEV))
     drift = check_reports(reports, baseline, compare_digests=same)
     if drift:
         raise AssertionError(f"the committed determinism baseline: {drift}")
@@ -4429,9 +4480,10 @@ def _determinism():
                        "digests_compared": same}
     held = "digests and metrics" if same else \
         f"float metrics only: stamp {baseline['generated_with']}"
-    log(f"[dp] determinism: {', '.join(c.name for c in reports)} twice "
-        f"each at {H}x{W}, batch 8, 4 steps: identical chains and tree "
-        f"digests; the committed baseline holds ({held})")
+    log(f"[dp] determinism: {', '.join(c.name for c in reports)} "
+        f"{'once' if n_runs == 1 else 'twice'} each at {H}x{W}, batch 8, "
+        f"4 steps: {'' if n_runs == 1 else 'identical chains and tree '
+                    'digests; '}the committed baseline holds ({held})")
     return out
 
 
@@ -7748,6 +7800,186 @@ def phase_fleet() -> dict:
     return out
 
 
+# -- phase 19 -----------------------------------------------------------------
+TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke", "tools")
+#: The traced train steps of a capture (``obs capture --steps``), its
+#: warm-up steps (``capture_main``'s 3, outside the trace) and its batch.
+CAPTURE_STEPS, CAPTURE_WARMUP, CAPTURE_BATCH = 5, 3, 32
+#: Windows written as .mat files for the native reader, half compressed.
+NATIVE_N = 512
+
+
+@_part
+def _tools_doctor() -> dict:
+    """(a) ``python -m dasmtl_torch doctor --json`` as a subprocess: the
+    card, the kernel library built for sm_90a, the reader resolved."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "dasmtl_torch", "doctor",
+                          "--json"], cwd=os.path.dirname(
+                              os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"[tools] doctor --json exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    info = json.loads(out.stdout.strip().splitlines()[-1])
+    lib, loader = info["kernel_library"], info["loader"]
+    want_kind = torch.cuda.get_device_name(0)
+    if info["backend"] != "cuda" or info["device_kind"] != want_kind or \
+            not lib["built"] or lib["arch"] != "sm_90a" or \
+            "arch=compute_90a,code=sm_90a" not in lib["nvcc_flags"] or \
+            loader["native_resolved"] != "native" or \
+            not info["native_loader"]["available"]:
+        raise AssertionError(f"[tools] doctor --json: backend "
+                             f"{info['backend']} {info.get('device_kind')}, "
+                             f"library {lib}, loader {loader}")
+    log(f"[tools] doctor --json ({seconds:.1f} s): backend cuda, "
+        f"{info['device_count']} x {info['device_kind']} capability "
+        f"{info['capability']}, power {info['power_limit']!r}; kernel "
+        f"library built for {lib['arch']} at {os.path.basename(lib['path'])}"
+        f"; loader native={loader['native_mode']} -> "
+        f"{loader['native_resolved']}; sanitize baseline "
+        f"{info['analysis']['baselines']['sanitize']['status']}")
+    return {"seconds": seconds, "backend": info["backend"],
+            "device_kind": info["device_kind"],
+            "power_limit": info["power_limit"],
+            "kernel_library": {k: lib[k] for k in ("built", "arch")},
+            "loader": loader}
+
+
+@_part
+def _tools_capture(dtype: str) -> dict:
+    """(b) ``obs capture`` in process on the card (model A's train step,
+    batch 32, ``dtype``), then ``obs analyze`` on its trace: 8 gate_fwd
+    and 8 gate_bwd kernels a traced step, the wrappers' counts over the
+    warm-up and traced steps, busy time, the conv share."""
+    from dasmtl_torch.obs.profiler import TRACE_FILE, analyze_main, \
+        capture_main
+    from dasmtl_torch.ops import gating
+
+    trace_dir = os.path.join(TOOLS_DIR, f"trace_{dtype}")
+    gating.launches.reset()
+    gating.backward_launches.reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = capture_main(["--batch", str(CAPTURE_BATCH), "--dtype", dtype,
+                           "--steps", str(CAPTURE_STEPS), "--out",
+                           trace_dir])
+    if rc != 0:
+        raise AssertionError(f"[tools] capture --dtype {dtype} gave {rc}")
+    traced = buf.getvalue().strip().splitlines()[-1]
+    wrappers = {"gate": gating.launches.value,
+                "gate_backward": gating.backward_launches.value}
+    k = _trace_kernels(os.path.join(trace_dir, TRACE_FILE))
+    got = {n: k["counts"][n] for n in ("gate", "gate_backward")}
+    n_all = CAPTURE_STEPS + CAPTURE_WARMUP
+    if got != {"gate": 8 * CAPTURE_STEPS,
+               "gate_backward": 8 * CAPTURE_STEPS} or \
+            wrappers != {"gate": 8 * n_all, "gate_backward": 8 * n_all}:
+        raise AssertionError(f"[tools] capture --dtype {dtype}: trace "
+                             f"{got}, wrappers {wrappers} over "
+                             f"{CAPTURE_WARMUP} + {CAPTURE_STEPS} steps")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analyze_main([trace_dir, "--steps", str(CAPTURE_STEPS),
+                           "--top", "5"])
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    planes = summary["devices"]
+    main = max(planes, key=lambda d: d["busy_ms"])
+    if rc != 0 or summary["metric"] != "trace_summary" or \
+            summary["trace"] != TRACE_FILE or main["busy_ms"] <= 0 or \
+            main["conv_dot_fraction_of_busy"] <= 0.3:
+        raise AssertionError(f"[tools] analyze --dtype {dtype}: rc {rc}, "
+                             f"{summary}")
+    log(f"[tools] obs capture --dtype {dtype} --batch {CAPTURE_BATCH} "
+        f"--steps {CAPTURE_STEPS}: {traced}; trace {k['bytes'] / 2**20:.1f} MB, "
+        f"{k['kernels']} kernels, gate_fwd {got['gate']} / gate_bwd "
+        f"{got['gate_backward']} (8 a step); wrappers {wrappers} over "
+        f"{n_all} steps")
+    log(f"[tools] obs analyze: {json.dumps(summary)}")
+    return {"traced": traced, "trace_kernels": got, "wrappers": wrappers,
+            "kernels": k["kernels"], "trace_bytes": k["bytes"],
+            "summary": summary}
+
+
+@_part
+def _tools_native() -> dict:
+    """(c) the native MAT reader on this host: NATIVE_N windows of H x W
+    (f64, half compressed) written from a seed, loaded through RamSource
+    and DiskSource under ``--loader_native on`` and ``off``: bit-equal,
+    and the files/s of each reader (warm page cache: just written)."""
+    import scipy.io
+
+    from dasmtl_torch.data import native
+    from dasmtl_torch.data.sources import DiskSource, RamSource
+    from dasmtl_torch.device import card_label
+    from dasmtl_torch.data.splits import Example
+
+    root = os.path.join(TOOLS_DIR, "mat")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(0)
+    examples = []
+    t0 = time.perf_counter()
+    for i in range(NATIVE_N):
+        path = os.path.join(root, f"w{i:03d}.mat")
+        scipy.io.savemat(path, {"data": rng.normal(size=(H, W))},
+                         do_compression=i % 2 == 0)
+        examples.append(Example(path=path, distance=i % 16,
+                                event=(i // 16) % 2))
+    write_s = time.perf_counter() - t0
+
+    def read(mode: str):
+        native.configure(mode)
+        t0 = time.perf_counter()
+        ram = RamSource(examples).x
+        ram_s = time.perf_counter() - t0
+        disk = DiskSource(examples)
+        out = np.empty((NATIVE_N, H, W, 1), np.float32)
+        t0 = time.perf_counter()
+        for start in range(0, NATIVE_N, 32):
+            disk.gather_into(np.arange(start, start + 32),
+                             out[start:start + 32])
+        return ram, out, NATIVE_N / ram_s, NATIVE_N / (
+            time.perf_counter() - t0)
+
+    try:
+        nat = read("on")
+        sci = read("off")
+    finally:
+        native.configure("auto")
+    if not (np.array_equal(nat[0], sci[0]) and np.array_equal(nat[1], sci[1])
+            and np.array_equal(nat[0], nat[1])):
+        raise AssertionError("[tools] the native reader differs from scipy")
+    rates = {"native": {"ram": nat[2], "disk": nat[3]},
+             "scipy": {"ram": sci[2], "disk": sci[3]}}
+    log(f"[tools] native MAT reader: {NATIVE_N} windows of {H}x{W} (f64, "
+        f"half compressed, written in {write_s:.1f} s) through RamSource "
+        f"and DiskSource (batches of 32) bit-equal to scipy; files/s "
+        f"(warm page cache) native {rates['native']['ram']:.1f} / "
+        f"{rates['native']['disk']:.1f}, scipy {rates['scipy']['ram']:.1f}"
+        f" / {rates['scipy']['disk']:.1f} (RamSource / DiskSource) on "
+        f"{card_label()}")
+    return {"files": NATIVE_N, "write_s": write_s, "files_per_s": rates}
+
+
+def phase_tools() -> dict:
+    """Phase 19: the operator tools and the native reader (run last)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    out = {"doctor": _tools_doctor(),
+           "capture": {d: _tools_capture(d) for d in ("bfloat16",
+                                                      "float32")},
+           "native": _tools_native()}
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[tools] phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     # CUPTI stays up between this process's profiler sessions, as the
     # port's captures keep it (dasmtl_torch/obs/profiler.py): re-initialized
@@ -7803,6 +8035,7 @@ def main(argv=None) -> int:
     alerts = _phase("alerts", phase_alerts, dp)
     worker = _phase("worker", phase_worker)
     fleet = _phase("fleet", phase_fleet)
+    tools = _phase("tools", phase_tools)
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 1)
     sk, offline = stream["kernels"], stream["offline"]
 
@@ -7887,7 +8120,7 @@ def main(argv=None) -> int:
                        "precision": precision, "dp": dp,
                        "resident": resident, "cv": cv, "graphs": graphs,
                        "obs": obs, "router": router, "alerts": alerts,
-                       "worker": worker, "fleet": fleet,
+                       "worker": worker, "fleet": fleet, "tools": tools,
                        "timing": PHASE_SECONDS, "parts": PART_SECONDS,
                        "seconds": time.perf_counter() - t_start},
                       f,

@@ -1,13 +1,15 @@
-"""``python -m dasmtl_torch train|test`` — the port's run entry points.
+"""``python -m dasmtl_torch <command>`` — the port's umbrella entry point.
 
 Counterparts of ``dasmtl/cli.py:19-34`` (``train_main`` / ``test_main``)
-and its ``main`` dispatcher (``:235-249``).  ``--device`` is ``cuda`` by
-default and raises without a card, naming ``--device cpu``.  The server
-stays at ``python -m dasmtl_torch.serve``.
+and its ``main`` dispatcher (``:208-249``): every command dispatches to
+the port's own entry point (``python -m dasmtl_torch.serve`` and the
+others stay as they are).  ``--device`` is ``cuda`` by default and raises
+without a card, naming ``--device cpu``.
 """
 
 from __future__ import annotations
 
+import importlib
 import sys
 from typing import Optional
 
@@ -16,6 +18,25 @@ _SUBCOMMANDS = {
     "test": "evaluate a checkpoint (--model_path)",
     "stream": "streaming inference: offline sweep, or 'stream serve' for "
               "live multi-fiber tracking",
+    "export": "export a serving artifact (python -m dasmtl_torch.export)",
+    "serve": "online inference server (python -m dasmtl_torch.serve)",
+    "router": "replica router tier: scale-out serving + blue/green "
+              "rollout (python -m dasmtl_torch.serve.router)",
+    "doctor": "environment diagnostics",
+    "obs": "telemetry: trace dump/join, exposition check, alert "
+           "selftest, profiler capture+analyze",
+    "sanitize": "run-time sanitizers: determinism cells, --self-test "
+                "(python -m dasmtl_torch.sanitize)",
+}
+
+#: The module whose ``main(argv) -> int`` each tool command runs.
+_TOOLS = {
+    "export": "dasmtl_torch.export",
+    "serve": "dasmtl_torch.serve.__main__",
+    "router": "dasmtl_torch.serve.router",
+    "doctor": "dasmtl_torch.utils.doctor",
+    "obs": "dasmtl_torch.obs.__main__",
+    "sanitize": "dasmtl_torch.analysis.sanitize.runner",
 }
 
 
@@ -50,15 +71,13 @@ def stream_main(argv=None) -> int:
 
 
 def main(argv=None) -> int:
-    """Dispatch ``train`` / ``test`` / ``stream`` to the entry points
-    above."""
+    """Dispatch a command to its entry point."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m dasmtl_torch <command> [args...]\n\n"
               "commands:")
         for name, help_text in _SUBCOMMANDS.items():
-            print(f"  {name:<6} {help_text}")
-        print("  (the server: python -m dasmtl_torch.serve)")
+            print(f"  {name:<8} {help_text}")
         return 0 if argv else 2
     cmd = argv.pop(0)
     if cmd not in _SUBCOMMANDS:
@@ -67,5 +86,8 @@ def main(argv=None) -> int:
         return 2
     if cmd == "stream":
         return stream_main(argv)
+    if cmd in _TOOLS:
+        result = importlib.import_module(_TOOLS[cmd]).main(argv)
+        return 0 if result is None else int(result)
     result = train_main(argv) if cmd == "train" else test_main(argv)
     return 2 if result is None else 0

@@ -193,6 +193,9 @@ class Config:
     # worker count; 0 assembles inline.
     loader_workers: int = 2
     loader_queue_depth: int = 4
+    # The .mat reader (``dasmtl/config.py:88-93``): auto (the native C++
+    # reader when it builds, scipy otherwise), on (require it), off (scipy).
+    loader_native: str = "auto"  # auto | on | off
     noise_snr_db: Optional[float] = None
     # Device and run outputs.
     device: str = "cuda"  # cuda | cpu
@@ -365,6 +368,10 @@ class Config:
                              "inline assembly)")
         if self.loader_queue_depth < 1:
             raise ValueError("loader_queue_depth must be >= 1")
+        if self.loader_native not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unknown loader_native {self.loader_native!r}; expected "
+                "auto | on | off")
 
     def _check_serve_and_stream(self) -> None:
         """``dasmtl/config.py:386-450``, with its messages."""
@@ -509,8 +516,6 @@ _MULTI = ("ROADMAP.md queue 1 item 8, 'Model C, multi-device training and "
 #: default and the ROADMAP.md item that brings them.
 NOT_YET_PORTED = {
     "sp": (1, _MULTI),
-    "loader_native": ("auto", "ROADMAP.md queue 1 item 15, 'The native "
-                              "MAT reader'"),
 }
 _ANALYSIS = ("ROADMAP.md queue 1 item 3 (the lint, audit, conc and mem "
              "families analyse JAX code and are not ported)")
@@ -628,6 +633,10 @@ def _add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--loader_queue_depth", type=int,
                    default=d.loader_queue_depth,
                    help="assembled training batches kept ready")
+    p.add_argument("--loader_native", type=str, default=d.loader_native,
+                   choices=["auto", "on", "off"],
+                   help=".mat reader: native C++ when it builds (auto), "
+                        "required (on), or forced scipy fallback (off)")
     p.add_argument("--device_data", type=str, default=d.device_data,
                    choices=["auto", "on", "off"],
                    help="keep the training set on the card and replay "

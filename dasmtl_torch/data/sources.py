@@ -7,20 +7,29 @@ arrays already in memory.  A source hands out whole batches,
 ``gather(indices) -> [N, H, W, 1]`` float32, or writes them into a
 preallocated buffer, ``gather_into(indices, out)`` (the staged loader's
 allocation-free path, ``sources.py:44-54, 122-126, 151-157, 171-176``),
-and keeps its labels in ``distance`` / ``event`` (int32).  Files are read
-with scipy; the JAX package's optional native reader is ROADMAP.md queue 1
-item 15.
+and keeps its labels in ``distance`` / ``event`` (int32).  A batch of
+files is read by the native MAT reader (:mod:`dasmtl_torch.data.native`)
+when it is available, else file by file with scipy.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
 
-from dasmtl_torch.data import matio
+from dasmtl_torch.data import matio, native
 from dasmtl_torch.data.splits import Example
 from dasmtl_torch.data.transforms import add_gaussian_snr, to_sample
+
+
+@functools.lru_cache(maxsize=65536)
+def _mat_dims_cached(path: str, key: str):
+    """Per-file (rows, cols) from the native header parse, memoized (the
+    batch loader probes the first file of every batch); a failure is not
+    cached."""
+    return native.mat_dims(path, key)
 
 
 class _SourceBase:
@@ -48,8 +57,31 @@ def _load_batch(paths: Sequence[str], key: str,
                 out: Optional[np.ndarray] = None) -> np.ndarray:
     """Same-shaped ``.mat`` files as [N, H, W, 1] float32, with optional
     SNR noise drawn from ``rng`` file by file; decoded straight into
-    ``out[:N]`` when given."""
-    rows = []
+    ``out[:N]`` when given.  The native reader loads the whole batch when
+    it is available (noise is then drawn row by row after the load, in
+    the same order); a :class:`~dasmtl_torch.data.native.NativeMatError`
+    (mixed shapes, a MAT feature outside its subset) falls back to scipy
+    file by file."""
+    paths = list(paths)
+    n = len(paths)
+    if not paths:
+        return out if out is not None else np.zeros((0, 0, 0, 1),
+                                                    np.float32)
+    if native.available():
+        try:
+            rows, cols = _mat_dims_cached(paths[0], key)
+            # Into the [n, H, W] view of the NHWC buffer (contiguous: the
+            # trailing channel axis is 1 element; load_many_f32 checks).
+            batch = native.load_many_f32(
+                paths, key, rows, cols,
+                out=None if out is None else out[:n, :, :, 0])
+            if noise_snr_db is not None:
+                for i in range(n):
+                    batch[i] = add_gaussian_snr(batch[i], noise_snr_db, rng)
+            return out if out is not None else batch[..., None]
+        except native.NativeMatError:
+            pass
+    samples = []
     for i, path in enumerate(paths):
         mat = matio.load_mat(path, (key,))
         if noise_snr_db is not None:
@@ -57,12 +89,10 @@ def _load_batch(paths: Sequence[str], key: str,
         if out is not None:
             out[i] = to_sample(mat)
         else:
-            rows.append(to_sample(mat))
+            samples.append(to_sample(mat))
     if out is not None:
         return out
-    if not rows:
-        return np.zeros((0, 0, 0, 1), np.float32)
-    return np.stack(rows)
+    return np.stack(samples)
 
 
 def _take_into(x: np.ndarray, indices: np.ndarray, out: np.ndarray) -> None:
@@ -77,13 +107,17 @@ def _labels(examples: Sequence[Example]):
 
 class RamSource(_SourceBase):
     """Eagerly loads every example into one [N, H, W, 1] array; noise, if
-    any, is drawn once here from ``default_rng(noise_seed)``."""
+    any, is drawn once here from ``default_rng(noise_seed)``.  With
+    ``show_progress`` it prints the count and the reader it loads with."""
 
     def __init__(self, examples: Sequence[Example], key: str = "data",
                  noise_snr_db: Optional[float] = None,
-                 noise_seed: int = 0):
+                 noise_seed: int = 0, show_progress: bool = False):
         self.examples = list(examples)
         self.noise_seed = noise_seed
+        if show_progress:
+            print(f"preloading {len(self.examples)} .mat files "
+                  f"({'native' if native.available() else 'scipy'} loader)")
         self.x = _load_batch([ex.path for ex in self.examples], key,
                              noise_snr_db, np.random.default_rng(noise_seed))
         self.distance, self.event = _labels(self.examples)

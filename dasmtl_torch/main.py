@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from dasmtl_torch.config import Config
+from dasmtl_torch.data import native
 from dasmtl_torch.data.pipeline import BatchIterator
 from dasmtl_torch.data.sources import DiskSource, RamSource, _SourceBase
 from dasmtl_torch.data.splits import build_splits, export_manifest_csv
@@ -84,8 +85,7 @@ def build_sources(cfg: Config, is_test: bool,
                   noise_seed=cfg.seed)
     src_cls = RamSource if cfg.dataset_ram else DiskSource
     if cfg.dataset_ram:
-        n = len(splits.val) + (0 if is_test else len(splits.train))
-        print(f"preloading {n} .mat files (scipy loader)")
+        kwargs["show_progress"] = True
     val_source = src_cls(splits.val, **kwargs)
     if is_test:
         return val_source, val_source
@@ -112,11 +112,9 @@ def _run_cv_parallel(cfg: Config, spec: ModelSpec, run_dir: str,
             "the fold axis is not sharded over cards yet"
         print(f"[cv] note: running on 1 of {torch.cuda.device_count()} "
               f"visible devices ({reason})")
-    if cfg.dataset_ram:
-        print(f"preloading {len(cv.examples)} .mat files (scipy loader)")
     full_source = RamSource(cv.examples, key=cfg.mat_key,
                             noise_snr_db=cfg.noise_snr_db,
-                            noise_seed=cfg.seed)
+                            noise_seed=cfg.seed, show_progress=True)
     print(f"cv examples: {len(full_source)} files, {n_folds} folds")
     trainer = CVTrainer(cfg, spec, full_source, cv.train_idx, cv.val_idx,
                         run_dir, device=device)
@@ -133,9 +131,19 @@ def _run_cv_parallel(cfg: Config, spec: ModelSpec, run_dir: str,
     return reports[-1][0].result
 
 
+def _print_loader(cfg: Config) -> None:
+    print(f"loader: workers={cfg.loader_workers} "
+          f"queue_depth={cfg.loader_queue_depth} "
+          f"native={cfg.loader_native} (resolved: "
+          f"{'native' if native.available() else 'scipy'})")
+
+
 def main_process(cfg: Config, is_test: bool = False) -> ValidationResult:
     """End-to-end run (train or eval); the final validation result."""
     device = resolve_device(cfg.device)  # raises, naming --device cpu
+    # The reader is chosen before any source loads: --loader_native on
+    # fails here, off forces scipy for every later gather.
+    native.configure(cfg.loader_native)
     if cfg.cv_parallel:
         if is_test:
             raise ValueError("cv_parallel is a training mode; evaluate "
@@ -150,6 +158,7 @@ def main_process(cfg: Config, is_test: bool = False) -> ValidationResult:
             name = (torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu")
             print(f"device: {device} ({name})")
+            _print_loader(cfg)
             with open(os.path.join(run_dir, "config.json"), "w") as f:
                 f.write(cfg.to_json())
             return _run_cv_parallel(cfg, spec, run_dir, device)
@@ -170,6 +179,7 @@ def main_process(cfg: Config, is_test: bool = False) -> ValidationResult:
 
 def _rank_run(world: World, cfg: Config, is_test: bool,
               run_dir: str) -> ValidationResult:
+    native.configure(cfg.loader_native)  # a rank is a process of its own
     return run(cfg, is_test, run_dir, world)
 
 
@@ -188,6 +198,7 @@ def run(cfg: Config, is_test: bool, run_dir: str,
         name = (torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "cpu")
         print(f"device: {device} ({name})")
+        _print_loader(cfg)
         if world is not None:
             print(f"data parallel: {world.size} ranks (gloo), bn_sync="
                   f"{cfg.bn_sync}, global batch "

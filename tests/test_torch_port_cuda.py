@@ -38,7 +38,11 @@ clock equal its CPU run's; the stream soak (``run_selftest``) on both
 planes on the synthetic clock with JAX's per-tenant counts, ``stream serve
 --selftest --selftest_resident`` on the wall clock, the fleet worker's handoff
 (``chip_smoke.py`` phase 17's leg at 52x64), and the fleet soak at JAX's
-defaults with ``run_fleet_bench`` at 1 and 2 oracle workers.
+defaults with ``run_fleet_bench`` at 1 and 2 oracle workers; the operator
+tools: ``obs capture`` of model A's train step on the card and ``obs
+analyze`` of its trace (8 gate_fwd and 8 gate_bwd kernels a traced step),
+``doctor --json``, and the native MAT reader on the card's host, bit-equal
+to scipy through both sources.
 
 Every test is marked ``cuda`` and skips without a CUDA card (decided in a
 fixture, never at import).  The file imports neither JAX nor the JAX
@@ -2283,3 +2287,74 @@ def test_fleet_selftest_on_the_card(cuda):
             "migrations", "failovers", "reassignments",
             "reassign_latency_s_max", "events_stitched", "elapsed_s")},
          "bench": rows}))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_obs_capture_and_analyze_on_the_card(cuda, tmp_path, dtype, capsys):
+    """``obs capture`` traces 8 gate_fwd + 8 gate_bwd kernels a traced
+    step of model A's train step; ``obs analyze`` summarizes the stream's
+    kernels, most of their time in cuDNN's convolutions."""
+    from dasmtl_torch.obs.profiler import (TRACE_FILE, analyze_main,
+                                           capture_main, trace_planes)
+
+    steps = 2
+    assert capture_main(["--batch", "8", "--dtype", dtype, "--steps",
+                         str(steps), "--out", str(tmp_path)]) == 0
+    assert capsys.readouterr().out.startswith(f"traced {steps} steps in ")
+    with open(tmp_path / TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e[2] for plane in trace_planes(events).values()
+             for e in plane]
+    assert sum("gate_fwd" in n for n in names) == 8 * steps
+    assert sum("gate_bwd" in n for n in names) == 8 * steps
+    assert gating.launches.value == 8 * (steps + 3)
+    assert analyze_main([str(tmp_path), "--steps", str(steps)]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    main = max(summary["devices"], key=lambda d: d["busy_ms"])
+    assert main["plane"].startswith("/device:cuda:")
+    assert main["busy_ms"] > 0 and main["conv_dot_fraction_of_busy"] > 0.3
+
+
+def test_doctor_reports_the_card_and_the_native_reader(cuda, capsys):
+    from dasmtl_torch.utils import doctor
+
+    assert doctor.main(["--json"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert info["backend"] == "cuda"
+    assert info["device_kind"] == torch.cuda.get_device_name(0)
+    assert info["capability"] == [9, 0]
+    assert info["kernel_library"]["arch"] == "sm_90a"
+    assert info["loader"]["native_resolved"] == "native"
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_native_reader_bit_equal_to_scipy_on_the_card_host(cuda, tmp_path,
+                                                           compress):
+    """The card's host builds the native MAT reader; RamSource and
+    DiskSource read through it bit-equal to scipy."""
+    import scipy.io
+
+    from dasmtl_torch.data import native
+    from dasmtl_torch.data.sources import DiskSource, RamSource
+    from dasmtl_torch.data.splits import Example
+
+    rng = np.random.default_rng(3)
+    examples = []
+    for i in range(16):
+        path = str(tmp_path / f"w{i}.mat")
+        scipy.io.savemat(path, {"data": rng.normal(size=(100, 250))},
+                         do_compression=compress)
+        examples.append(Example(path=path, distance=i, event=i % 2))
+
+    def read(mode):
+        native.configure(mode)
+        out = np.empty((16, 100, 250, 1), np.float32)
+        DiskSource(examples).gather_into(np.arange(16), out)
+        return RamSource(examples).x, out
+
+    try:
+        nat, sci = read("on"), read("off")
+    finally:
+        native.configure("auto")
+    np.testing.assert_array_equal(nat[0], sci[0])
+    np.testing.assert_array_equal(nat[1], sci[1])

@@ -24,6 +24,7 @@ from dasmtl.data.splits import build_splits as jax_build_splits
 from dasmtl.data.synthetic import make_synthetic_dataset as jax_make_synth
 from dasmtl.data.transforms import add_gaussian_snr as jax_add_noise
 from dasmtl.train import metrics as jax_metrics
+from dasmtl_torch.data import native as port_native
 from dasmtl_torch.data import pipeline, sources
 from dasmtl_torch.data.collector import DataCollector
 from dasmtl_torch.data.splits import (build_splits, kfold_split,
@@ -45,10 +46,14 @@ def tree(tmp_path_factory):
 
 @pytest.fixture
 def scipy_reader():
-    """The JAX package's scipy reader, the one the port has."""
+    """Both packages on their scipy reader (``--loader_native off``): the
+    native readers, whose noise draws on f32 rows, are held to each other
+    in tests/test_torch_port_native.py."""
     jax_native.configure("off")
+    port_native.configure("off")
     yield
     jax_native.configure("auto")
+    port_native.configure("auto")
 
 
 @pytest.mark.parametrize("fold_index", [None, 0, 1, 2, 3, 4])

@@ -284,7 +284,7 @@ def test_device_cuda_without_a_card_names_device_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv, item", [
     (["--sp", "2"], "item 8, 'Model C, multi-device training and CV'"),
-    (["--loader_native", "on"], "item 15, 'The native MAT reader'"),
+    (["--loader_native", "on"], "ported: parses to JAX's value"),
     (["--cv_parallel", "--dp", "2"],
      "item 8, 'Model C, multi-device training and CV'"),
     (["--serve_buckets", "1,2"], "item 1, 'The stream tier's remainder'"),
@@ -299,9 +299,9 @@ def test_device_cuda_without_a_card_names_device_cpu(tmp_path):
 def test_flags_not_yet_ported_exit_2_naming_their_item(argv, item, capsys):
     """What the port does not carry exits 2 naming its item; the serve and
     stream recording blocks (item 1, the fleet controller's
-    ``--stream_fleet_*`` included) are ported: each parses to JAX's
-    value."""
-    if argv[0].startswith(("--serve_", "--stream_")):
+    ``--stream_fleet_*`` included) and ``--loader_native`` are ported:
+    each parses to JAX's value."""
+    if argv[0].startswith(("--serve_", "--stream_", "--loader_native")):
         ours = parse_train_args(argv + ["--device", "cpu"])
         want = jax_parse_train_args(argv + ["--device", "cpu"])
         field = argv[0][2:].split("=")[0]
