@@ -48,7 +48,11 @@ Phases, each fatal on failure (no phase catches its own error):
              default ``--loader_native auto`` to the native reader, and
              the test run's ints equal to a direct
              ``eval_step`` on decisive rows, the counters zeroed just
-             before the train run and read after the test run; (f) device
+             before the train run and read after the test run; each run's
+             plots (``dasmtl_torch/utils/plots.py``): one 720 x 480 PNG
+             a 1-D metric line, one SVG a confusion matrix whose count
+             texts equal its ``.npy``, and the render re-timed ("[plots]"
+             lines); (f) device
              and host-paced ms per train step, examples/s, peak memory;
 7. stream  — (a) the window-gather, ring-append and event_prob_q kernels
              against their plain versions at the stream path's shapes
@@ -224,9 +228,10 @@ Phases, each fatal on failure (no phase catches its own error):
              algorithms: every fold's final state within the one-step
              tolerances of its ``--fold_index`` resident run, 2
              fold_select launches a step, the counters zeroed just before
-             the run; (d) the CV epoch timed (5 folds x 400 in-memory
-             windows, batch 32) against one fold's resident run, and
-             model C's host and resident train steps (256 windows);
+             the run, a 720 x 480 PNG of every metric line and no SVG;
+             (d) the CV epoch timed (5 folds x 400 in-memory windows,
+             batch 32) against one fold's resident run, and model C's
+             host and resident train steps (256 windows);
 13. graphs — the executor pool's CUDA graphs: zero post-warmup captures
              on every member after phase 5's HTTP run, 11c's swap and 7c's
              live run; (a) model A f32, model A bf16 and model C int8 at
@@ -386,6 +391,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import sys
 import threading
 import time
@@ -1593,6 +1599,69 @@ def _compare_step(spec, step, batch):
                        "bn_max_abs_err": worst_bn}
 
 
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _plots(tag: str, run: str, matrices: bool = True) -> dict:
+    """A run's plots, as ``dasmtl_torch.main`` renders them after its fit
+    or test: one ``<stem>.png`` for every 1-D metric ``.npy`` (its
+    signature right, its ``IHDR`` 720 x 480) and, with ``matrices``, one
+    ``<stem>.svg`` for every ``confusion_matrix*.npy`` (parsed, its n^2
+    count texts the matrix), without them none; then the render of the
+    same ``.npy`` files re-timed into a scratch dir."""
+    import xml.etree.ElementTree as ET
+
+    from dasmtl_torch.utils import plots
+
+    metrics = os.path.join(run, "metrics")
+    lines, mats = [], {}
+    for name in sorted(os.listdir(metrics)):
+        if not name.endswith(".npy"):
+            continue
+        a = np.load(os.path.join(metrics, name))
+        if name.startswith("confusion_matrix"):
+            mats[name[:-4]] = a
+        elif "confusion" not in name and a.ndim == 1 and a.size:
+            lines.append(name[:-4])
+    want = {f"{s}.png" for s in lines} | (
+        {f"{s}.svg" for s in mats} if matrices else set())
+    got = {n for n in os.listdir(metrics) if n.endswith((".png", ".svg"))}
+    if got != want or not lines or (matrices and not mats):
+        raise AssertionError(f"{tag}: {metrics} holds plots {sorted(got)}, "
+                             f"not {sorted(want)}")
+    for stem in lines:
+        with open(os.path.join(metrics, f"{stem}.png"), "rb") as f:
+            head = f.read(24)
+        if head[:8] != PNG_SIGNATURE or head[12:16] != b"IHDR" or \
+                struct.unpack(">II", head[16:24]) != (720, 480):
+            raise AssertionError(f"{tag}: {stem}.png is not a 720 x 480 "
+                                 f"PNG ({head!r})")
+    for stem, cm in (mats.items() if matrices else ()):
+        root = ET.parse(os.path.join(metrics, f"{stem}.svg")).getroot()
+        counts = {(int(el.get("data-row")), int(el.get("data-col"))):
+                  el.text for el in root.iter("{http://www.w3.org/2000/svg}"
+                                              "text")
+                  if el.get("class") == "count"}
+        n = cm.shape[0]
+        if counts != {(i, j): str(int(cm[i, j])) for i in range(n)
+                      for j in range(n)}:
+            raise AssertionError(f"{tag}: {stem}.svg's counts are not the "
+                                 f"matrix's")
+    scratch = os.path.join(run, "plots_retimed")
+    os.makedirs(scratch)
+    t0 = time.perf_counter()
+    plots.plot_metric_lines(metrics, scratch)
+    if matrices:
+        plots.render_confusion_matrices(metrics, scratch)
+    render_ms = (time.perf_counter() - t0) * 1e3
+    shutil.rmtree(scratch)
+    out = {"png": len(lines), "svg": len(mats) if matrices else 0,
+           "render_ms": render_ms}
+    log(f"[plots] {tag} png {out['png']} svg {out['svg']} render_ms "
+        f"{render_ms:.1f}")
+    return out
+
+
 @_part
 def _entry_points():
     """(e) the train then test entry points on a synthetic tree; the
@@ -1643,6 +1712,7 @@ def _entry_points():
                     if n.startswith("step_")))
     if missing or not steps:
         raise AssertionError(f"run dir {run} lacks {missing or 'ckpts'}")
+    plots = {"train": _plots("train run", run)}
     ckpt = os.path.join(run, "ckpts", f"step_{steps[-1]}")
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -1654,6 +1724,9 @@ def _entry_points():
     test_s = time.perf_counter() - t0
     if trained is None or tested is None:
         raise AssertionError("the train or test entry point gave no result")
+    (test_run,) = [os.path.join(runs, n) for n in os.listdir(runs)
+                   if n.endswith("is_test=True")]
+    plots["test"] = _plots("test run", test_run)
     launches = {"gate": gating.launches.value,
                 "gate_backward": gating.backward_launches.value}
     peak = torch.cuda.max_memory_allocated()
@@ -1707,6 +1780,7 @@ def _entry_points():
             "launches": launches, "train_s": train_s,
             "test_s": test_s,
             "examples_per_s": rates, "peak_memory_bytes": peak,
+            "plots": plots,
             "val_acc": {t: r["accuracy"]
                         for t, r in trained.reports.items()},
             "decisive_rows_equal": agree}
@@ -3078,7 +3152,10 @@ def _swap_run(reg: str) -> dict:
     times, flip = {}, {}
     answered = threading.Semaphore(0)
     lock = threading.Lock()
-    next_i = iter(range(8 * SWAP_REQUESTS))  # the cap, never reached here
+    # The cap: reached only if the incoming executor warms for longer than
+    # the clients take to send it (a fast host sent 8 x SWAP_REQUESTS
+    # before a slow bf16 warm-up flipped).
+    next_i = iter(range(64 * SWAP_REQUESTS))
 
     def client():
         """Send until SWAP_REQUESTS are out and, after the flip, another
@@ -5742,6 +5819,7 @@ def _cv_run():
             "--trainVal_set_excavating", excavating]
     result, run, counts, _, console, seconds = _cli_train(
         base + ["--cv_parallel"], os.path.join(CV_DIR, "cv"))
+    plots = _plots("cv run", run, matrices=False)
     s = max(steps)
     val_batches = sum(-(-len(ix) // CV_BATCH) for ix in cv.val_idx)
     want = {"fold_select": 2 * s, "batch_gather": s + 2 * val_batches}
@@ -5760,7 +5838,7 @@ def _cv_run():
             raise AssertionError("a single-fold run launched fold_select")
         diffs.append(_state_diff(cv_sd, _final_state(one, steps[f])))
     report = {"seconds": seconds, "launches": got, "steps": steps,
-              "train_sizes": sizes, "state_diff": diffs,
+              "train_sizes": sizes, "state_diff": diffs, "plots": plots,
               "fold0_acc": result.primary_accuracy}
     log(f"[cv] python -m dasmtl_torch train --cv_parallel: 5 folds of "
         f"{sizes} windows, {steps} steps, 1 epoch in {seconds:.1f} s; "

@@ -84,9 +84,11 @@ ARTIFACT_VERSION = 1
 PAYLOAD_KIND = "torch"
 
 #: Where a refusal of a JAX artifact points.
-_CONVERTER = ("a converter is ROADMAP.md queue 1 item 5, 'Artifacts and "
-              "registry' (the Orbax->port converter); until then re-export "
-              "a port checkpoint with python -m dasmtl_torch.export")
+_CONVERTER = ("a JAX artifact holds a StableHLO program, not weights: "
+              "convert the JAX run's checkpoints with python "
+              "scripts/convert_jax_checkpoint.py --run <JAX run dir> --out "
+              "<runs dir>, then export one with python -m "
+              "dasmtl_torch.export")
 
 
 def make_serve_infer_fn(spec: ModelSpec, model: nn.Module) -> Callable:

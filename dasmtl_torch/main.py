@@ -2,8 +2,12 @@
 
     Config -> (model spec, device, data sources, TrainState) -> Trainer
 
-without the JAX package's spatial axis or plots (ROADMAP.md names the
-items that bring them).  ``--profile_dir`` records a ``torch.profiler``
+without the JAX package's spatial axis (ROADMAP.md names the item that
+brings it).  After ``fit()`` or ``test()`` the run renders its metric
+lines as PNGs and its confusion matrices as SVGs into ``metrics/``
+(:mod:`dasmtl_torch.utils.plots`, as ``dasmtl/main.py:275-277``; a CV run
+its lines only, ``:183``), outside the profiled block, in the main rank
+only.  ``--profile_dir`` records a ``torch.profiler``
 Chrome trace of the whole fit / test (the CPU, and the card's kernels
 when one is used) into ``<profile_dir>/trace.json``, as JAX records a
 ``jax.profiler`` trace there (``dasmtl/main.py:263-273``); under ``--dp``
@@ -43,6 +47,8 @@ from dasmtl_torch.train.loop import Trainer, ValidationResult
 from dasmtl_torch.train.optim import coupled_adam
 from dasmtl_torch.train.state import TrainState, dropout_generator
 from dasmtl_torch.utils.logger import Logger
+from dasmtl_torch.utils.plots import (plot_metric_lines,
+                                      render_confusion_matrices)
 from dasmtl_torch.utils.rundir import make_run_dir
 
 
@@ -127,6 +133,7 @@ def _run_cv_parallel(cfg: Config, spec: ModelSpec, run_dir: str,
             print(f"--resume: no complete CV checkpoint set under "
                   f"{cfg.output_savedir}; starting fresh")
     reports = trainer.fit()
+    plot_metric_lines(trainer.metrics_dir)
     print(f"run dir: {run_dir}")
     return reports[-1][0].result
 
@@ -239,6 +246,9 @@ def run(cfg: Config, is_test: bool, run_dir: str,
                       f"starting fresh")
         with _profiled(cfg.profile_dir if main else None):
             result = trainer.test() if is_test else trainer.fit()[-1]
+        if main:  # post-run artifacts (reference utils.py:180-221)
+            plot_metric_lines(trainer.metrics_dir)
+            render_confusion_matrices(trainer.metrics_dir)
         print(f"run dir: {run_dir}")
         return result
 

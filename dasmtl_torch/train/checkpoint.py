@@ -51,11 +51,13 @@ def state_payload(state: TrainState) -> Dict[str, Any]:
     return payload
 
 
-def _write(path: str, payload: Dict[str, Any]) -> None:
+def write_state(path: str, state: TrainState) -> None:
+    """The whole ``state`` as a checkpoint at ``path``: written into a
+    temporary directory, then renamed into place."""
     tmp = f"{path}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save(payload, os.path.join(tmp, PAYLOAD))
+    torch.save(state_payload(state), os.path.join(tmp, PAYLOAD))
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
 
@@ -128,7 +130,7 @@ class CheckpointManager:
         """Full-state save as ``step_<state.step>``; prunes to the newest
         ``max_keep``."""
         path = os.path.join(self.root, f"step_{int(state.step)}")
-        _write(path, state_payload(state))
+        write_state(path, state)
         self._prune()
         return path
 
@@ -156,7 +158,7 @@ class CheckpointManager:
             return None
         self._best_metric = metric
         path = os.path.join(self.root, "best")
-        _write(path, state_payload(state))
+        write_state(path, state)
         with open(os.path.join(self.root, "best_metric.txt"), "w") as f:
             f.write(f"{metric:.6f}\n")
         return path

@@ -5,8 +5,8 @@ the CPU, held to the JAX package.
   port's header unchanged, the port's reads JAX's ``pack_artifact`` bytes,
   and a corrupt header fails with JAX's own message.
 - **Refusals**: a JAX StableHLO artifact or a legacy headerless blob is
-  refused before ``torch.load`` is called, naming ROADMAP.md queue 1
-  item 5.
+  refused before ``torch.load`` is called, naming
+  ``scripts/convert_jax_checkpoint.py``.
 - **The registry**: ``tests/test_export.py``'s registry tests on the port's
   artifacts, and a JAX ``.stablehlo`` entry in a shared directory.
 - **Served answers**: model A's weights from Flax, exported by both
@@ -207,7 +207,7 @@ def test_a_jax_artifact_is_refused_before_torch_load(
         with pytest.raises(ValueError) as exc:
             call()
         assert what in str(exc.value)
-        assert "ROADMAP.md queue 1 item 5" in str(exc.value)
+        assert "scripts/convert_jax_checkpoint.py" in str(exc.value)
     reg = port_export.ArtifactRegistry(str(tmp_path / "reg"))
     with open(path, "rb") as f, pytest.raises(ValueError, match=what):
         reg.publish(f.read())
@@ -297,7 +297,7 @@ def test_a_shared_directory_keeps_jax_entries_visible_and_apart(
     entries = port_reg.versions()
     assert [e["version"] for e in entries] == [1]
     assert "JAX StableHLO artifact" in entries[0]["corrupt"]
-    assert "ROADMAP.md queue 1 item 5" in entries[0]["corrupt"]
+    assert "scripts/convert_jax_checkpoint.py" in entries[0]["corrupt"]
     with pytest.raises(ValueError, match="no readable versions"):
         port_reg.resolve("latest")
     entry = port_reg.publish(_port_blob())

@@ -14,7 +14,8 @@
   tests/test_cv.py:58).
 - ``tests/test_cv.py``'s cases that apply: preempt and resume, the
   split-config mismatch, a renamed run dir, periodic checkpoints,
-  contradictory flags; plus ``test`` on a fold's checkpoint, the CLI run,
+  contradictory flags; plus ``test`` on a fold's checkpoint, the CLI run
+  (its metric lines rendered as PNGs),
   and the flags it refuses.
 """
 
@@ -54,6 +55,7 @@ from dasmtl_torch.train.optim import coupled_adam
 from dasmtl_torch.train.state import TrainState
 from dasmtl_torch.train.steps import (CVScanTrainStep, ScanTrainStep,
                                       state_leaves)
+from tests.test_torch_port_plots import jax_artifact_names, rendered_names
 from tests.test_torch_port_weights import random_flax_variables
 
 HW = (52, 64)
@@ -433,6 +435,13 @@ def test_train_cv_parallel_then_test_a_fold_on_the_cpu(tmp_path, cv_tree,
         (name,) = [n for n in names if n.startswith("step_")]
         steps.append(int(name[len("step_"):]))
     assert steps == [4, 5, 5, 5, 5]  # the padded step moved no counter
+    # A CV run renders its metric lines only (dasmtl/main.py:183).
+    metrics = os.path.join(run, "metrics")
+    names = rendered_names(metrics)
+    assert "fold0_train_loss.png" in names
+    assert names == [n for n in jax_artifact_names(metrics)
+                     if n.endswith(".png")]
+    assert not any(n.endswith(".svg") for n in names)
     ckpt = os.path.join(run, "fold0", "ckpts", f"step_{steps[0]}")
     assert cli.main(["test", "--device", "cpu", "--batch_size", "8",
                      "--model_path", ckpt, "--test_set_striking", striking,

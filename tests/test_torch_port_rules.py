@@ -1,7 +1,9 @@
 """Rules the port's tree keeps: it imports nothing of JAX or of the JAX
 package (and no sklearn or matplotlib, which the card's machine lacks),
-builds nothing at import, and ``chip_smoke.py`` refuses to report a result
-without a CUDA card or without the package beside it."""
+nor the JAX-side checkpoint converter, its plots draw with numpy and the
+standard library alone, it builds nothing at import, and
+``chip_smoke.py`` refuses to report a result without a CUDA card or
+without the package beside it."""
 
 import ast
 import shutil
@@ -46,9 +48,9 @@ def test_serve_entry_point_loads_no_jax_and_builds_nothing():
                            "dasmtl_torch.models.inception"])
 
 
-#: The run entry points and every module of training and data.
+#: The run entry points, the plots and every module of training and data.
 RUN_MODULES = ["dasmtl_torch.cli", "dasmtl_torch.__main__",
-               "dasmtl_torch.main"] + sorted(
+               "dasmtl_torch.main", "dasmtl_torch.utils.plots"] + sorted(
     f"dasmtl_torch.{p.parent.name}.{p.stem}"
     for sub in ("train", "data") for p in (ROOT / "dasmtl_torch" / sub)
     .glob("*.py") if p.stem != "__init__")
@@ -110,6 +112,52 @@ def test_fleet_controller_imports_no_torch():
     roots = set(_imported_roots(path))
     assert "torch" not in roots and "numpy" not in roots
     assert {"dasmtl_torch"} <= roots
+
+
+def test_plots_draw_with_numpy_and_the_standard_library():
+    path = ROOT / "dasmtl_torch" / "utils" / "plots.py"
+    assert path in _port_files()
+    assert set(_imported_roots(path)) == {
+        "__future__", "dataclasses", "math", "os", "struct", "zlib",
+        "typing", "xml", "numpy"}
+
+
+#: Calls that import a module or run a file by name.
+_IMPORTING_CALLS = ("__import__", "import_module", "run_path", "run_module",
+                    "spec_from_file_location")
+
+
+def _imports_converter(path: Path) -> bool:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] + [a.name for a in node.names]
+        elif isinstance(node, ast.Call):
+            func = node.func
+            name = getattr(func, "attr", getattr(func, "id", ""))
+            if name not in _IMPORTING_CALLS:
+                continue
+            names = [a.value for a in node.args
+                     if isinstance(a, ast.Constant)
+                     and isinstance(a.value, str)]
+        else:
+            continue
+        if any("convert_jax_checkpoint" in n or n.split(".")[0] == "scripts"
+               for n in names):
+            return True
+    return False
+
+
+def test_nothing_of_the_port_imports_the_jax_checkpoint_converter():
+    """The converter imports JAX and runs where JAX is installed; no module
+    of ``dasmtl_torch/`` and not ``chip_smoke.py`` imports it."""
+    converter = ROOT / "scripts" / "convert_jax_checkpoint.py"
+    assert {"dasmtl", "dasmtl_torch"} <= set(_imported_roots(converter))
+    bad = [str(p.relative_to(ROOT)) for p in _port_files()
+           if _imports_converter(p)]
+    assert not bad, f"{bad} import scripts/convert_jax_checkpoint.py"
 
 
 def _assert_imports_clean(modules):

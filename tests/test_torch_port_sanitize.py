@@ -13,7 +13,8 @@ counterpart, on the CPU.
 - (h) the train CLI takes the guard, sanitizer, heartbeat and dp flags as
   JAX parses them, and still exits 2 on ``--sp``, ``--cv_parallel`` with
   ``--dp 2`` and ``--compute_dtype bfloat16``.
-- ``python -m dasmtl_torch.sanitize``: the self-test catches all three
+- ``python -m dasmtl_torch.sanitize`` (also spelled ``python -m
+  dasmtl_torch.analysis.sanitize``): the self-test catches all three
   faults (two gloo ranks); determinism cells repeat bit for bit, dp1 and
   dp2; JAX's cell names, presets and synthetic draws; unported cells exit
   2.  The port's baseline (``--update-baseline`` / ``--check-baseline``):
@@ -27,6 +28,8 @@ counterpart, on the CPU.
 
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -277,6 +280,21 @@ def test_cells_presets_and_batches_are_jax_s(capsys, monkeypatch):
     assert [(c.name, c.compute_dtype) for c in ran] == [
         ("MTL-bf16-dp2", "bfloat16"),
         ("multi_classifier-bf16-dp1", "bfloat16")]
+
+
+def test_both_module_spellings_run_the_same_cli():
+    """``python -m dasmtl_torch.analysis.sanitize`` is ``python -m
+    dasmtl_torch.sanitize`` (JAX's ``dasmtl/analysis/sanitize/__main__.py``
+    alias)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = [subprocess.run([sys.executable, "-m", module, "--list-cells"],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=120)
+            for module in ("dasmtl_torch.sanitize",
+                           "dasmtl_torch.analysis.sanitize")]
+    assert [o.returncode for o in outs] == [0, 0], [o.stderr for o in outs]
+    assert "preset quick: MTL-f32-dp2" in outs[0].stdout
+    assert outs[0].stdout == outs[1].stdout
 
 
 # -- the determinism baseline (SAN203's gate) ----------------------------------

@@ -278,7 +278,7 @@ def _exit_code(main, argv) -> int:
 
 @pytest.mark.parametrize("argv, said", [
     (["--model_path", "ckpt"], "no port checkpoint at ckpt"),
-    (["--exported", "jax.stablehlo"], "ROADMAP.md queue 1 item 5"),
+    (["--exported", "jax.stablehlo"], "scripts/convert_jax_checkpoint.py"),
     (["--registry", "reg"], "holds no readable versions"),
     (["--parity-check", "--model_path", "ckpt"],
      "no port checkpoint at ckpt"),
@@ -288,7 +288,7 @@ def test_cli_refuses_what_is_not_ported(argv, said, tmp_path, monkeypatch,
                                         capsys):
     """Each model source now serves; what it cannot serve exits 2 with an
     operational message, as the JAX server refuses it: a missing
-    checkpoint, a JAX StableHLO artifact (naming the converter's item),
+    checkpoint, a JAX StableHLO artifact (naming the converter),
     an empty registry, two sources at once."""
     from dasmtl.export import ARTIFACT_VERSION, pack_artifact
 

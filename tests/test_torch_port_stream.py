@@ -683,7 +683,7 @@ def _stream_until_sigterm(argv, tmp_path, window: str = "52x64") -> int:
 @pytest.mark.parametrize("argv,said", [
     (["--fresh_init", "--model_path", "ckpt"],
      "exactly one of --exported / --model_path / --fresh_init / --oracle"),
-    (["--exported", "jax.stablehlo"], "ROADMAP.md queue 1 item 5")])
+    (["--exported", "jax.stablehlo"], "scripts/convert_jax_checkpoint.py")])
 def test_stream_serve_sources_are_refused_as_jax_refuses_them(
         argv, said, tmp_path, monkeypatch, capsys):
     """``--model_path`` and ``--exported`` are ported: two sources at once,

@@ -431,7 +431,8 @@ def test_doctor_exported(artifacts, name, extra, status, rc, capsys):
     ea = json.loads(out)["exported_artifact"]
     assert got_rc == rc and ea["status"].split(" ")[0] == status
     if status == "unreadable":
-        assert "item 5" in ea["status"] and "JAX StableHLO" in ea["status"]
+        assert "convert_jax_checkpoint.py" in ea["status"] and \
+            "JAX StableHLO" in ea["status"]
     else:
         assert ea["precision"] == "f32" and ea["artifact_version"] == 1
     got_rc, text, _ = _run(doctor.main, ["--exported", str(artifacts[name]),

@@ -7,7 +7,9 @@
 - A JAX Orbax checkpoint, restored with JAX and carried across with
   ``state_dict_from_flax``, decodes to the same ints in the port.
 - ``python -m dasmtl_torch train`` then ``test`` on ``--device cpu`` over
-  a synthetic tree write the run-dir artifacts and checkpoints, and the
+  a synthetic tree write the run-dir artifacts, the plots the JAX
+  package's renderer would name for the same ``.npy`` files, and the
+  checkpoints, and the
   test run's predictions equal a direct ``eval_step``; the flag spellings
   are the JAX CLI's; ``--device cuda`` without a card raises naming
   ``--device cpu``; a flag the port does not carry exits 2 naming its
@@ -53,6 +55,7 @@ from dasmtl_torch.train.loop import Trainer
 from dasmtl_torch.train.optim import coupled_adam
 from dasmtl_torch.train.state import TrainState
 from dasmtl_torch.train.steps import make_eval_step
+from tests.test_torch_port_plots import jax_artifact_names, rendered_names
 from tests.test_torch_port_weights import random_flax_variables
 
 HW = (52, 64)
@@ -245,6 +248,11 @@ def test_train_then_test_entry_points_on_the_cpu(tmp_path):
     assert ckpts == ["step_2"]  # 32 training windows in batches of 16
     with open(os.path.join(run, "config.json")) as f:
         assert json.load(f)["model"] == "MTL"
+    # The run renders its lines and matrices as dasmtl/main.py does.
+    metrics = os.path.join(run, "metrics")
+    assert {"train_loss.png", "val_acc_event.png",
+            "confusion_matrix_distance.svg"} <= set(rendered_names(metrics))
+    assert rendered_names(metrics) == jax_artifact_names(metrics)
     ckpt = os.path.join(run, "ckpts", "step_2")
 
     assert cli.main(["test", "--device", "cpu", "--batch_size", "16",
@@ -256,6 +264,10 @@ def test_train_then_test_entry_points_on_the_cpu(tmp_path):
                    if n.endswith("is_test=True")]
     cm = np.load(os.path.join(test_run, "metrics",
                               "confusion_matrix_event.npy"))
+    metrics = os.path.join(test_run, "metrics")
+    assert {"confusion_matrix_distance.svg", "confusion_matrix_event.svg",
+            "val_acc_event.png"} <= set(rendered_names(metrics))
+    assert rendered_names(metrics) == jax_artifact_names(metrics)
     # A direct eval_step over the same windows gives the same predictions.
     cfg = Config(device="cpu")
     net = get_model_spec("MTL").build()
